@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU; hold each kernel
+against its plain version.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing falls back to the CPU):
+
+  0. the card's ``nvidia-smi`` name and power limit;
+  1. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+     each, in parallel) into ``build/kernels``;
+  2. B1, the forest kernel, against ``run_device`` and the exact integer
+     GEMM at smollm-135m's four linear shapes x M in {1, 4, 8, 64, 512}
+     plus a grouped case: exact int32 equality, with kernel / plain /
+     library (``torch._int_mm``, M padded to 32) / bound times;
+  3. B2, the paged-attention kernel, against the gather + attend_cached
+     path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
+     ragged steps, within the tolerance stated in ``check_attention``;
+  4. a reduced float32 smollm served through ``ServeEngine`` on the card
+     with the forest kernel and with its plain version: tokens equal;
+  5. the main path: full-width smollm-135m (30 layers, d_model 576,
+     vocab 49152, bf16, random weights from a seed) with W4A8 forest
+     linears (``engine_cuda``) and the paged-attention kernel, 4 slots,
+     page_size 16, max_len 256, 8 requests of 128-token prompts sharing
+     prefixes, 32 tokens each; launch counts of both kernels over that run
+     must be > 0; then the same requests on the plain path
+     (``engine_torch`` + gather decode) and the share of tokens that agree.
+
+The line before the last is a JSON object of per-kernel numbers; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
+SCALAR_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor
+                                   # cores, the table's closest row to
+                                   # the forest's scalar int32 adds
+SHAPES = ((576, 576), (192, 576), (1536, 576), (576, 1536))
+MS = (1, 4, 8, 64, 512)
+
+
+def cuda_ms(fn, flush, iters=20, warmup=3):
+    """Mean device time of ``fn`` per call (CUDA events around each call),
+    with the 50 MB L2 flushed before every call as the serving loop, which
+    streams ~0.5 GB of plans per step, would find it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def bound_ms(n_bytes, n_ops, ops_rate):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_forest(flush):
+    """B1 vs its plain version and the exact GEMM; returns the JSON entry
+    (timed at the decode shape N=1536, K=576, M=4)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    from repro_torch.kernels.transitive_forest import (forest_plain,
+                                                       transitive_forest)
+    rng = np.random.default_rng(0)
+    cases = [(n, k, m, 1) for n, k in SHAPES for m in MS]
+    cases.append((576, 576, 64, 4))            # grouped: 4 groups of 144
+    plans, entry = {}, None
+    worst = 0
+    for n, k, m, g in cases:
+        if (n, k, g) not in plans:
+            w = rng.integers(-8, 8, size=(n, k))
+            plan = BatchedTransitiveEngine(4, 8).plan(w, groups=g)
+            plans[(n, k, g)] = (torch.from_numpy(w).cuda(),
+                                compile_plan(plan, device="cuda"))
+        w, dplan = plans[(n, k, g)]
+        x = torch.randint(-128, 128, (k, m), dtype=torch.int32,
+                          device="cuda")
+        got = transitive_forest(dplan, x)
+        want = forest_plain(dplan, x)
+        if g == 1:
+            gemm = int_matmul(w, x)
+        else:
+            kg = k // g
+            gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
+                                           x[i * kg:(i + 1) * kg])
+                                for i in range(g)], dim=1)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((got.long() - gemm.long()).abs().max()))
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"forest kernel != plain at N={n} K={k} "
+                                 f"M={m} G={g}: max |diff| {err}")
+        k_ms = cuda_ms(lambda: transitive_forest(dplan, x), flush)
+        p_ms = cuda_ms(lambda: forest_plain(dplan, x), flush)
+        if g == 1:
+            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                             device="cuda")
+            xm[:m] = x.T.to(torch.int8)
+            w8t = w.to(torch.int8).T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, w8t), flush)
+        else:
+            lib_ms = None
+        s = dplan.signs.shape[0]
+        j = k // 8
+        n_bytes = dplan.nbytes() + x.numel() * 4 + n * g * m * 4
+        n_ops = (8 * j * 256 + dplan.direct_idx.numel() * 8
+                 + s * n * j) * m
+        b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+        lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"[B1] N={n} K={k} M={m} G={g}: exact | kernel_ms="
+              f"{k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_txt} "
+              f"bound_ms={b_ms:.5f} ({b_by}; plan {dplan.nbytes()} B)")
+        if (n, k, m, g) == (1536, 576, 4, 1):
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "shape": "N=1536 K=576 M=4 (decode, MLP up/gate)"}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_attention(flush):
+    """B2 vs the gather + attend_cached path; returns the JSON entry (timed
+    at max_len 256, the main path's extent).
+
+    Tolerance: scores are exact int32 dot products times the same f32
+    factors in the same order, but the kernel's softmax sums and maxima
+    run in another order than torch's, so p * vs may differ by ulps and a
+    P code can move by one step where x / scale sits at a rounding
+    boundary; one step changes an output by at most sps * 128 <=
+    max(vs) * 128 / 127. The check allows two such steps per output."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.launch.specs import serve_config
+    cfg = serve_config(get_config("smollm_135m"))
+    b, kv, g, hd, ps = 4, 3, 3, 64, 16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entry, worst = None, 0.0
+    for max_len in (256, 2048):
+        pps = max_len // ps
+        n_pages = b * pps + 1
+        shp = (n_pages, ps, kv, hd)
+        pool = {
+            "k": torch.randint(-128, 128, shp, generator=gen,
+                               device="cuda", dtype=torch.int8),
+            "v": torch.randint(-128, 128, shp, generator=gen,
+                               device="cuda", dtype=torch.int8),
+            "ks": torch.rand(shp[:-1] + (1,), generator=gen,
+                             device="cuda") * 0.02 + 1e-3,
+            "vs": torch.rand(shp[:-1] + (1,), generator=gen,
+                             device="cuda") * 0.02 + 1e-3}
+        steps = torch.tensor([0, 17, max_len // 2, max_len - 1],
+                             dtype=torch.int32, device="cuda")
+        table = torch.zeros((b, pps), dtype=torch.int32, device="cuda")
+        nxt = 1
+        for s in range(b):
+            live = int(steps[s]) // ps + 1
+            table[s, :live] = torch.arange(nxt, nxt + live)
+            nxt += live
+        q = torch.randn((b, 1, kv * g, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        scale = hd ** -0.5
+        got = paged_attention(q, pool, table, steps, cfg, scale)
+        want = paged_attention_plain(q, pool, table, steps, cfg, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 2 * float(pool["vs"].max()) * 128 / 127
+        worst = max(worst, err)
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"paged attention kernel vs plain at "
+                                 f"max_len={max_len}: max |diff| {err} > "
+                                 f"tolerance {tol}")
+        k_ms = cuda_ms(lambda: paged_attention(q, pool, table, steps, cfg,
+                                               scale), flush)
+        p_ms = cuda_ms(lambda: paged_attention_plain(q, pool, table, steps,
+                                                     cfg, scale), flush)
+        live = int((torch.clamp(steps + 1, max=max_len)).sum())
+        n_bytes = (live * kv * (2 * hd + 2 * 4) + q.numel() * 2
+                   + table.numel() * 4 + b * 4 + b * kv * g * hd * 4)
+        n_ops = live * kv * g * hd * 4
+        b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        print(f"[B2] B={b} KV={kv} G={g} hd={hd} page_size={ps} "
+              f"max_len={max_len} steps={steps.tolist()}: max_abs_err="
+              f"{err:.3e} (tolerance {tol:.3e}, max|out| "
+              f"{float(want.abs().max()):.3e}) | kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} "
+              f"({b_by})")
+        if max_len == 256:
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": "B=4 KV=3 G=3 hd=64 ps=16 max_len=256"}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def _prompts(vocab, n, length):
+    """Even requests repeat a base prompt, odd ones share its first half
+    (the launcher's workload, seed 1)."""
+    from repro_torch.launch.serve import prefix_sharing_prompts
+    return prefix_sharing_prompts(vocab, n, length, seed=1)
+
+
+def _serve(model, params, prompts, gen, **kw):
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, params, device=model.device, **kw)
+    for p in prompts:
+        eng.submit(p, gen)
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def check_reduced_serve():
+    """The forest kernel inside the serve path is exact: a reduced f32
+    smollm served with engine_cuda and with engine_torch (plain forest),
+    both on the gather decode, gives the same tokens."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    toks = {}
+    for backend in ("engine_cuda", "engine_torch"):
+        cfg = serve_config(get_reduced("smollm_135m"),
+                           backend=backend).replace(dtype=torch.float32)
+        model = Model(cfg, device="cuda")
+        params = model.attach_device_plans(model.init(0))
+        eng, _ = _serve(model, params, _prompts(cfg.vocab, 6, 12), 6,
+                        n_slots=3, max_len=32, page_size=4)
+        toks[backend] = {r.rid: r.tokens for r in eng.finished}
+    if toks["engine_cuda"] != toks["engine_torch"]:
+        raise AssertionError(f"reduced serve: forest kernel tokens "
+                             f"{toks['engine_cuda']} != plain "
+                             f"{toks['engine_torch']}")
+    print(f"[serve reduced f32] engine_cuda tokens == engine_torch tokens "
+          f"({sum(map(len, toks['engine_cuda'].values()))} tokens)")
+
+
+def main_path():
+    """Full-width smollm-135m through ServeEngine with both kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import DevicePlan
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    cfg = serve_config(get_config("smollm_135m"),
+                       backend="engine_cuda").replace(paged_kernel=True)
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = model.precompile_plans(params)
+    params = model.attach_device_plans(params)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    plan_bytes = 0
+    for blk in params["blocks"].values():
+        for layer in blk.values():
+            if isinstance(layer, dict) and isinstance(layer.get("dplan"),
+                                                      DevicePlan):
+                plan_bytes += layer["dplan"].nbytes()
+    print(f"[main] {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} | init {t_init:.2f}s | "
+          f"planned {stats['plans']} linears in {t_plan:.2f}s "
+          f"(plan + lower + upload), device plans {plan_bytes} B")
+    if stats["plans"] != 7 * cfg.n_layers:
+        raise AssertionError(f"expected {7 * cfg.n_layers} plans, got "
+                             f"{stats['plans']}")
+    prompts = _prompts(cfg.vocab, 8, 128)
+    kw = dict(n_slots=4, max_len=256, page_size=16)
+    transitive_forest.launches = 0
+    paged_attention.launches = 0
+    eng, dt = _serve(model, params, prompts, 32, paged_kernel=True, **kw)
+    launches = {"transitive_forest": transitive_forest.launches,
+                "paged_attention": paged_attention.launches}
+    rep = eng.report()
+    c = rep["counters"]
+    ttft = sum(r["ttft_s"] for r in rep["requests"]) / len(rep["requests"])
+    toks = {r.rid: r.tokens for r in eng.finished}
+    if sorted(len(t) for t in toks.values()) != [32] * 8 or not all(
+            0 <= t < cfg.vocab for ts in toks.values() for t in ts):
+        raise AssertionError(f"main path output malformed: {toks}")
+    print(f"[main] 8 requests x 32 tokens in {dt:.3f}s -> "
+          f"{rep['total_tokens'] / dt:.1f} tokens/s | mean TTFT "
+          f"{ttft * 1e3:.1f} ms | decode steps {c['decode_steps']} | "
+          f"prefix hits={c['prefix_hits']} pages_shared="
+          f"{c['pages_shared']} prefill_skipped={c['prefill_skipped']} "
+          f"prefill_computed={c['prefill_computed']} batched_prefills="
+          f"{c['prefill_batched_calls']}")
+    print(f"[main] launches: transitive_forest={launches['transitive_forest']}"
+          f" paged_attention={launches['paged_attention']} "
+          f"(per decode step: {cfg.n_layers} attention, "
+          f"{7 * cfg.n_layers} forest)")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: "
+                             f"{launches}")
+    # the same requests on the plain path: engine_torch + gather decode
+    pcfg = cfg.replace(quant=cfg.quant.with_(backend="engine_torch"),
+                       paged_kernel=False)
+    pmodel = Model(pcfg, device="cuda")
+    before = (transitive_forest.launches, paged_attention.launches)
+    peng, pdt = _serve(pmodel, params, prompts, 32, paged_kernel=False, **kw)
+    if (transitive_forest.launches, paged_attention.launches) != before:
+        raise AssertionError("the plain path launched a kernel")
+    ptoks = {r.rid: r.tokens for r in peng.finished}
+    same = sum(a == b for rid in toks for a, b in zip(toks[rid], ptoks[rid]))
+    first = sum(toks[rid][0] == ptoks[rid][0] for rid in toks)
+    print(f"[main] plain path (engine_torch + gather): {pdt:.3f}s -> "
+          f"{peng.report()['total_tokens'] / pdt:.1f} tokens/s | tokens "
+          f"agreeing with the kernel path: {same}/{rep['total_tokens']} "
+          f"({same / rep['total_tokens']:.3f}); first tokens {first}/8")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[build] {', '.join(build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for name in build.SOURCES:
+        print(f"[ptxas {name}] {build.ptxas_report(name)}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    forest = check_forest(flush)
+    attention = check_attention(flush)
+    del flush
+    check_reduced_serve()
+    launches = main_path()
+    kernels = [
+        {"name": "transitive_forest", "route": "cuda",
+         "source": "src/repro_torch/csrc/transitive_forest.cu",
+         "replaces": "src/repro/kernels/transitive_forest.py:47",
+         "launches": launches["transitive_forest"], **forest},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:219",
+         "launches": launches["paged_attention"], **attention},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

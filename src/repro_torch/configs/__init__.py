@@ -1,0 +1,34 @@
+"""Architecture config registry (the port's slice: the main-path model).
+
+``get_config(name)`` returns the full-size ModelConfig;
+``get_reduced(name)`` the smoke-test-sized variant of the same family.
+The reference registers eleven architectures; the port registers the ones
+its serving slice runs.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+
+ARCHS = ["smollm_135m"]
+
+_ALIAS = {a.replace("_", "-"): a for a in ARCHS}
+
+
+def canonical(name: str) -> str:
+    key = name.replace("-", "_").replace(".", "_")
+    if key in ARCHS:
+        return key
+    if name in _ALIAS:
+        return _ALIAS[name]
+    raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+
+
+def get_config(name: str) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
+    return mod.config()
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return reduced(get_config(name))

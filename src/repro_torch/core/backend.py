@@ -1,0 +1,220 @@
+"""Execution backends for the integer GEMM: a registry with capability flags
+(port of ``repro.core.backend``).
+
+Three backends serve the port's slice; each maps to a reference backend:
+
+  ==================  ==================  ==================================
+  port                reference           what runs
+  ==================  ==================  ==================================
+  ``int_dot``         ``int_dot``         dense integer GEMM (float64
+                                          matmul, exact: every partial sum
+                                          of int8 x int8 products over
+                                          K <= 2^20 stays below 2^53)
+  ``engine_torch``    ``engine_jit``      the planned forest, ``run_device``
+                                          in plain torch gathers
+  ``engine_cuda``     ``engine_pallas``   the planned forest as the CUDA
+                                          kernel (plain ``run_device`` on
+                                          CPU tensors)
+  ==================  ==================  ==================================
+
+The reference's ``lut``, host ``engine`` and ``pallas`` backends are not
+part of this slice. ``execute`` contract (all integer, bit-exact with the
+``int_dot`` int32 accumulator):
+
+  * ungrouped (``cfg.groups == 1``): ``x (..., K) x w (N, K) -> (..., N)``
+  * grouped   (``cfg.groups == G``): ``x (..., G, g) x w (N, G, g) ->
+    (..., G, N)`` per-group partial sums.
+
+CUDA has no int8/int32 ``torch.matmul``; float64 is exact here and is the
+one path on both devices (``torch._int_mm`` is kept out of the port).
+
+Run ``python -m repro_torch.core.backend`` to print the registry.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.core.engine import (DevicePlan, ExecutionPlan, compile_plan,
+                                     compile_plans, run_device)
+
+__all__ = ["EngineConfig", "TransitiveBackend", "register_backend",
+           "get_backend", "list_backends", "int_matmul"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The engine-side execution signature ``(w_bits, t, groups)``."""
+    w_bits: int = 8
+    t: int = 8                 # TransRow width
+    groups: int = 1
+
+    @classmethod
+    def from_quant(cls, qcfg: Any, groups: int = 1) -> "EngineConfig":
+        return cls(w_bits=qcfg.w_bits, t=qcfg.transrow_t, groups=groups)
+
+    def key(self) -> tuple[int, int, int]:
+        return (int(self.w_bits), int(self.t), int(self.groups))
+
+
+CAPABILITY_FLAGS = ("device_resident", "supports_groups", "needs_plan",
+                    "cpu_ok")
+
+
+class TransitiveBackend:
+    """Base class for one online execution strategy.
+
+    ``device_resident``: ``execute`` runs on the tensors' device and, with
+    ``needs_plan``, from a :class:`DevicePlan`. ``supports_groups``:
+    grouped inputs are accepted. ``needs_plan``: there is an offline
+    weight-only half (the plan cache builds it; :meth:`compile` lowers
+    it). ``cpu_ok``: runs on CPU tensors (the CUDA backend does, through
+    its kernel's plain version).
+    """
+    name: str = ""
+    device_resident: bool = False
+    supports_groups: bool = True
+    needs_plan: bool = False
+    cpu_ok: bool = True
+
+    def compile(self, plan, device=None) -> DevicePlan | None:
+        """Lower one plan (or a sequence of same-signature plans -> one
+        stacked plan) to device tensors; None if there is no lowering."""
+        return None
+
+    def execute(self, x: torch.Tensor, w: torch.Tensor,
+                plan: ExecutionPlan | None, dplan: DevicePlan | None,
+                cfg: EngineConfig) -> torch.Tensor:
+        raise NotImplementedError
+
+    def capabilities(self) -> dict[str, bool]:
+        return {f: bool(getattr(self, f)) for f in CAPABILITY_FLAGS}
+
+    def __repr__(self) -> str:
+        caps = ", ".join(f for f in CAPABILITY_FLAGS if getattr(self, f))
+        return f"{type(self).__name__}(name={self.name!r}, {caps})"
+
+
+_REGISTRY: dict[str, TransitiveBackend] = {}
+
+
+def register_backend(backend: TransitiveBackend, *,
+                     replace: bool = False) -> TransitiveBackend:
+    """Register ``backend`` under ``backend.name`` (duplicates raise unless
+    ``replace=True``)."""
+    name = getattr(backend, "name", "")
+    if not name or not isinstance(name, str):
+        raise ValueError(f"backend must declare a non-empty string name, "
+                         f"got {name!r}")
+    if name in _REGISTRY and not replace:
+        raise ValueError(
+            f"backend '{name}' is already registered "
+            f"({_REGISTRY[name]!r}); pass replace=True to override")
+    _REGISTRY[name] = backend
+    return backend
+
+
+def list_backends() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def _unknown_msg(name) -> str:
+    return (f"unknown backend {name!r}; registered backends: "
+            f"{', '.join(sorted(_REGISTRY))}")
+
+
+def get_backend(name) -> TransitiveBackend:
+    """Resolve a registry name, a backend instance (returned as is), or a
+    ``QuantConfig``-shaped object with a ``backend`` name."""
+    if isinstance(name, TransitiveBackend):
+        return name
+    if not isinstance(name, str) and isinstance(
+            getattr(name, "backend", None), str):
+        name = name.backend
+    try:
+        return _REGISTRY[name]
+    except (KeyError, TypeError):
+        raise KeyError(_unknown_msg(name)) from None
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer ``a @ b`` for int8-range operands -> int32.
+
+    float64 holds every partial sum exactly while it stays below 2^53,
+    which int8 x int8 products reach only past K = 2^39; the result is the
+    int32 accumulator the reference's ``preferred_element_type=int32``
+    dots give."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)) \
+        .to(torch.int32)
+
+
+class IntDotBackend(TransitiveBackend):
+    """Dense integer GEMM — the bit-exactness reference for the others."""
+    name = "int_dot"
+    device_resident = True
+
+    def execute(self, x, w, plan, dplan, cfg):
+        if cfg.groups > 1:
+            # (..., G, g) x (N, G, g) -> (..., G, N), batched over G
+            xg = x.movedim(-2, 0)                         # (G, ..., g)
+            out = int_matmul(xg.reshape(xg.shape[0], -1, xg.shape[-1]),
+                             w.permute(1, 2, 0))          # (G, B, N)
+            out = out.reshape(xg.shape[:-1] + (w.shape[0],))
+            return out.movedim(0, -2)
+        return int_matmul(x, w.transpose(0, 1))
+
+
+class EngineTorchBackend(TransitiveBackend):
+    """The planned forest from a DevicePlan in plain torch (``run_device``);
+    the counterpart of the reference's ``engine_jit``."""
+    name = "engine_torch"
+    needs_plan = True
+    device_resident = True
+
+    def compile(self, plan, device=None):
+        if isinstance(plan, ExecutionPlan):
+            return compile_plan(plan, device=device)
+        if isinstance(plan, Sequence):
+            return compile_plans(list(plan), device=device)
+        raise TypeError(f"plan must be an ExecutionPlan or a sequence "
+                        f"of them, got {type(plan).__name__}")
+
+    def _forest(self, dplan, flat):
+        """flat int32 (K, B) activations -> (N, B) / (N, G, B)."""
+        return run_device(dplan, flat)
+
+    def execute(self, x, w, plan, dplan, cfg):
+        if dplan is None:
+            raise ValueError(
+                f"backend '{self.name}' executes from a DevicePlan: pass "
+                f"one, or serve through plancache.attach_device_plans")
+        if cfg.groups > 1:
+            n_groups, g = x.shape[-2], x.shape[-1]
+            flat = x.reshape(-1, n_groups * g).to(torch.int32).T
+            y = self._forest(dplan, flat)                  # (N, G, B)
+            return y.permute(2, 1, 0).reshape(x.shape[:-1] + (dplan.n,))
+        flat = x.reshape(-1, x.shape[-1]).to(torch.int32).T      # (K, B)
+        y = self._forest(dplan, flat)                            # (N, B)
+        return y.T.reshape(x.shape[:-1] + (dplan.n,))
+
+
+class EngineCudaBackend(EngineTorchBackend):
+    """The same DevicePlan forest through the hand-written CUDA kernel
+    (kernels/transitive_forest.py); the counterpart of ``engine_pallas``."""
+    name = "engine_cuda"
+
+    def _forest(self, dplan, flat):
+        from repro_torch.kernels.transitive_forest import transitive_forest
+        return transitive_forest(dplan, flat)
+
+
+for _b in (IntDotBackend(), EngineTorchBackend(), EngineCudaBackend()):
+    register_backend(_b)
+del _b
+
+
+if __name__ == "__main__":
+    for n in list_backends():
+        print(f"{n:16s} {get_backend(n).capabilities()}")

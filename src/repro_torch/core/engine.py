@@ -1,0 +1,436 @@
+"""Batched multi-tile transitive execution engine and device plans (port of
+``repro.core.engine``).
+
+The host half is a numpy copy of the reference: :class:`BatchedTransitiveEngine`
+builds an :class:`ExecutionPlan` from a weight (bit-slice into TransRows,
+one batched Scoreboard over all ``K//T`` tiles, level-synchronous forest
+schedule) and :meth:`BatchedTransitiveEngine.run` executes it in int64.
+
+The device half holds the plan as int32 tensors. :func:`compile_plan`
+lowers an :class:`ExecutionPlan` to a :class:`DevicePlan` with the
+reference's leaf names and values: gather-only per-level source maps over
+the flat ``(J * 2^T, M)`` psum table, the direct-dispatch arrays, and the
+APE gather table. :func:`run_device` executes it with plain torch gathers;
+it is the plain version of the CUDA forest kernel
+(:mod:`repro_torch.kernels.transitive_forest`). Plan persistence
+(``save``/``load``/bundles) is not part of this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitslice, hasse
+from repro_torch.core.scoreboard import (MAX_DISTANCE, ScoreboardInfo,
+                                         dynamic_scoreboard)
+
+__all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
+           "DevicePlan", "DEVICE_DATA_FIELDS", "compile_plan",
+           "compile_plans", "pad_device_plan", "check_tile_local",
+           "forest_body", "run_device"]
+
+
+# DevicePlan's array leaves, in the reference's order.
+DEVICE_DATA_FIELDS = ("level_src", "level_xsrc", "direct_idx",
+                      "direct_x_idx", "direct_bits", "gather_idx", "signs")
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelStep:
+    """All forest edges of one Hamming level, across every tile."""
+    tile: np.ndarray      # (E,) int64 — tile index of each executed node
+    node: np.ndarray      # (E,) int64 — the node being computed
+    prefix: np.ndarray    # (E,) int64 — its covering prefix (level - 1)
+    bit: np.ndarray       # (E,) int64 — the single differing bit index
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """Weight-only execution schedule — reusable across activations."""
+    t: int                     # TransRow width
+    bits: int                  # weight bit width S
+    n: int                     # output rows
+    k: int                     # reduction length (all groups concatenated)
+    rows: np.ndarray           # (S, N, J) int64 TransRow values (APE gather)
+    si: ScoreboardInfo         # batched scoreboard over all J tiles
+    steps: tuple[LevelStep, ...]   # level-synchronous schedule, level 1..T
+    direct_tile: np.ndarray    # (D,) int64 — outlier / prefix-less nodes
+    direct_node: np.ndarray    # (D,) int64
+    direct_bits: np.ndarray    # (D, T) int64 {0,1} — their bit patterns
+    signs: np.ndarray          # (S,) int64 2's-complement plane weights
+    groups: int = 1            # G quantization groups along K (1 = ungrouped)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.k // self.t
+
+
+class BatchedTransitiveEngine:
+    """Plan/run split over the whole (N, K) weight at once.
+
+    ``plan`` is the offline half (scoreboards + schedule from weights);
+    ``run`` is the online half (psums + shift-accumulate from activations).
+    ``__call__`` chains both for one-shot use.
+    """
+
+    def __init__(self, bits: int, t: int, max_distance: int = MAX_DISTANCE):
+        self.bits = bits
+        self.t = t
+        self.max_distance = max_distance
+
+    # -- offline: weights -> reusable schedule ---------------------------
+    def plan(self, w: np.ndarray, groups: int = 1) -> ExecutionPlan:
+        """Build the weight-only schedule.
+
+        With ``groups=G`` the columns of ``w`` are G concatenated
+        quantization groups of ``K//G`` each; the scoreboard/forest build is
+        identical (it is already batched over k-tiles), only :meth:`run`'s
+        final reduction changes to keep one partial sum per group. This is
+        how all G groups of a group-quantized layer plan as a *single*
+        batched tile axis instead of G separate engine invocations.
+        """
+        w = np.asarray(w)
+        n, k = w.shape
+        t = self.t
+        if k % t:
+            raise ValueError(f"K={k} not divisible by T={t}")
+        if groups < 1 or k % groups or (k // groups) % t:
+            raise ValueError(
+                f"K={k} not divisible into {groups} T={t}-aligned groups")
+        rows = bitslice.transrow_matrix(w, self.bits, t).astype(np.int64)
+        n_tiles = k // t
+        tile_rows = rows.transpose(2, 0, 1).reshape(n_tiles, -1)  # (J, S*N)
+        si = dynamic_scoreboard(tile_rows, t, self.max_distance)
+
+        executed = si.executed                       # (J, 2^T) bool
+        # Nodes executed without a relay prefix (shouldn't occur for a
+        # healthy scoreboard beyond level 1 roots, which use node 0) plus
+        # outliers are dispatched directly as subset sums of their bits.
+        prefixless = executed & (si.prefix < 0)
+        direct = si.outlier | prefixless
+        chained = executed & ~prefixless
+
+        node_levels = hasse.levels(t)[None, :]       # (1, 2^T)
+        lsb_of = np.full(1 << t, -1, dtype=np.int64)
+        lsb_of[1 << np.arange(t)] = np.arange(t)
+
+        steps = []
+        for lv in range(1, t + 1):
+            tl, nd = np.nonzero(chained & (node_levels == lv))
+            if tl.size == 0:
+                continue
+            pre = si.prefix[tl, nd]
+            diff = nd ^ pre
+            bit = lsb_of[diff]
+            # the balanced forest only emits covering (distance-1) edges;
+            # a -1 here would silently gather the wrong activation row, so
+            # fail loudly even under python -O
+            if not (bit >= 0).all():
+                raise ValueError("non-covering edge in scoreboard forest")
+            steps.append(LevelStep(tile=tl, node=nd.astype(np.int64),
+                                   prefix=pre.astype(np.int64), bit=bit))
+
+        d_tile, d_node = np.nonzero(direct)
+        d_bits = ((d_node[:, None] >> np.arange(t)) & 1).astype(np.int64)
+        return ExecutionPlan(t=t, bits=self.bits, n=n, k=k, rows=rows, si=si,
+                             steps=tuple(steps),
+                             direct_tile=d_tile.astype(np.int64),
+                             direct_node=d_node.astype(np.int64),
+                             direct_bits=d_bits,
+                             signs=bitslice.plane_signs(self.bits),
+                             groups=groups)
+
+    # -- online: activations through the planned forest ------------------
+    def run(self, plan: ExecutionPlan, x: np.ndarray) -> np.ndarray:
+        """Execute the planned forest against activations ``x`` (K, M).
+
+        Returns (N, M) for an ungrouped plan; (N, G, M) per-group partial
+        sums for a grouped one (epilogue rescaling happens in the caller).
+        """
+        x = np.asarray(x)
+        if x.ndim != 2 or x.shape[0] != plan.k:
+            raise ValueError(f"x must be (K={plan.k}, M), got {x.shape}")
+        m = x.shape[1]
+        t, n_tiles = plan.t, plan.n_tiles
+        size = 1 << t
+        xt = x.reshape(n_tiles, t, m).astype(np.int64)     # (J, T, M)
+
+        psum = np.zeros((n_tiles, size, m), dtype=np.int64)
+        if plan.direct_tile.size:
+            psum[plan.direct_tile, plan.direct_node] = np.einsum(
+                "dt,dtm->dm", plan.direct_bits, xt[plan.direct_tile])
+        for step in plan.steps:        # level-synchronous forest execution
+            psum[step.tile, step.node] = (psum[step.tile, step.prefix]
+                                          + xt[step.tile, step.bit])
+
+        # APE shift-accumulate: gather every TransRow's psum and reduce
+        # over each group's tiles, one vectorised pass per bit plane.
+        flat = psum.reshape(n_tiles * size, m)
+        gather_idx = np.arange(n_tiles, dtype=np.int64)[None, None, :] * size \
+            + plan.rows                                     # (S, N, J)
+        g, jg = plan.groups, n_tiles // plan.groups
+        out = np.zeros((plan.n, g, m), dtype=np.int64)
+        for s in range(plan.bits):
+            gathered = flat[gather_idx[s]].reshape(plan.n, g, jg, m)
+            out += plan.signs[s] * gathered.sum(axis=2)
+        return out[:, 0] if g == 1 else out
+
+    def __call__(self, w: np.ndarray, x: np.ndarray) -> np.ndarray:
+        return self.run(self.plan(w), x)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident plans: the level-synchronous forest as torch tensors
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DevicePlan:
+    """A compiled execution schedule: int32 tensors, reference leaf names.
+
+    All index arrays are flat: node ``v`` of tile ``j`` lives at row
+    ``j * 2^T + v`` of the ``(J * 2^T, M)`` psum table and activation row
+    ``b`` of tile ``j`` at row ``j * T + b`` of the ``(K, M)`` input. Each
+    level holds a complete source map over all rows (executed rows gather
+    their covering prefix plus one activation row, the rest gather
+    themselves plus the pinned zero row ``K``). Direct-dispatch pad lanes
+    target row ``J * 2^T``, one past the table.
+
+    Leaves may carry leading stacked axes (one plan per stacked block
+    weight); :meth:`index` slices them. ``tile_local`` records the CUDA
+    kernel's precondition, checked once when the plan is built
+    (:func:`check_tile_local`).
+    """
+    t: int
+    bits: int
+    n: int
+    k: int
+    groups: int
+    level_src: torch.Tensor     # (T, R) int32
+    level_xsrc: torch.Tensor    # (T, R) int32
+    direct_idx: torch.Tensor    # (D,) int32 (pad: J*2^T)
+    direct_x_idx: torch.Tensor  # (D, T) int32 (pad: 0)
+    direct_bits: torch.Tensor   # (D, T) int32 {0,1} (pad: 0)
+    gather_idx: torch.Tensor    # (S, N, J) int32
+    signs: torch.Tensor         # (S,) int32
+    tile_local: bool = False
+
+    @property
+    def n_tiles(self) -> int:
+        return self.k // self.t
+
+    @property
+    def lead(self) -> tuple[int, ...]:
+        """Leading stacked axes (``()`` for a single plan)."""
+        return tuple(self.signs.shape[:-1])
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {f: getattr(self, f) for f in DEVICE_DATA_FIELDS}
+
+    def index(self, i) -> "DevicePlan":
+        """The plan of stacked entry ``i`` (views, no copies)."""
+        return dataclasses.replace(
+            self, **{f: a[i] for f, a in self.leaves().items()})
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in self.leaves().values())
+
+
+def check_tile_local(t: int, k: int, level_src, level_xsrc, direct_idx,
+                     direct_x_idx, gather_idx) -> bool:
+    """Whether every forest edge stays inside its own T-tile.
+
+    This is what lets one CUDA block own one tile's psum table in shared
+    memory (kernels/transitive_forest.py): level sources and activation
+    rows of a row in tile ``j`` lie in tile ``j`` (or are the pinned zero
+    row ``K``); direct entries are sorted by target, real ones read their
+    own tile's ``T`` activation rows in order, pads target ``J * 2^T``; and
+    APE gathers index inside the table. ``compile_plan`` always emits such
+    plans; the check runs once per plan on the host (numpy, any leading
+    stacked axes).
+    """
+    size = 1 << t
+    j = k // t
+    r = j * size
+    src = np.asarray(level_src, np.int64)
+    xsrc = np.asarray(level_xsrc, np.int64)
+    rows = np.arange(r, dtype=np.int64)
+    if src.shape[-1] != r or xsrc.shape[-1] != r:
+        return False
+    if not ((src >= 0) & (src < r)).all():
+        return False
+    if not (src // size == rows // size).all():
+        return False
+    x_ok = (xsrc == k) | ((xsrc >= 0) & (xsrc < k)
+                          & (xsrc // t == rows // size))
+    if not x_ok.all():
+        return False
+    didx = np.asarray(direct_idx, np.int64)
+    if didx.shape[-1] and (np.diff(didx, axis=-1) < 0).any():
+        return False
+    if not ((didx >= 0) & (didx <= r)).all():
+        return False
+    real = didx < r
+    want_x = (didx // size)[..., None] * t + np.arange(t)
+    dx = np.asarray(direct_x_idx, np.int64)
+    if not (~real[..., None] | (dx == want_x)).all():
+        return False
+    g = np.asarray(gather_idx, np.int64)
+    return bool(((g >= 0) & (g < r)).all())
+
+
+def compile_plan(plan: ExecutionPlan, *, direct_pad: int | None = None,
+                 device=None) -> DevicePlan:
+    """Lower an :class:`ExecutionPlan` to int32 index tensors.
+
+    Leaf for leaf the reference's ``compile_plan``. ``direct_pad`` widens
+    the direct-dispatch axis so plans of one layer signature share leaf
+    shapes (the precondition for stacking them, :func:`compile_plans`).
+    ``device`` places the tensors (default: CPU).
+    """
+    t, size, j = plan.t, 1 << plan.t, plan.n_tiles
+    invalid = j * size                       # one-past-end: dropped lanes
+    r = j * size
+    level_src = np.tile(np.arange(r, dtype=np.int32), (t, 1))
+    level_xsrc = np.full((t, r), plan.k, np.int32)   # K = pinned zero row
+    lvl_of = hasse.levels(t)
+    for s in plan.steps:
+        lv = int(lvl_of[int(s.node[0])])     # all nodes of a step share it
+        rows = (s.tile * size + s.node).astype(np.int64)
+        level_src[lv - 1, rows] = s.tile * size + s.prefix
+        level_xsrc[lv - 1, rows] = s.tile * t + s.bit
+
+    d_need = plan.direct_tile.size
+    d = d_need if direct_pad is None else int(direct_pad)
+    if d < d_need:
+        raise ValueError(f"direct_pad={d} < direct nodes {d_need}")
+    d = max(d, 1)
+    direct_idx = np.full((d,), invalid, np.int32)
+    direct_x_idx = np.zeros((d, t), np.int32)
+    direct_bits = np.zeros((d, t), np.int32)
+    if d_need:
+        direct_idx[:d_need] = plan.direct_tile * size + plan.direct_node
+        direct_x_idx[:d_need] = (plan.direct_tile[:, None] * t
+                                 + np.arange(t, dtype=np.int64))
+        direct_bits[:d_need] = plan.direct_bits
+
+    gather_idx = (np.arange(j, dtype=np.int64)[None, None, :] * size
+                  + plan.rows).astype(np.int32)
+    local = check_tile_local(t, plan.k, level_src, level_xsrc, direct_idx,
+                             direct_x_idx, gather_idx)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return DevicePlan(
+        t=t, bits=plan.bits, n=plan.n, k=plan.k, groups=plan.groups,
+        level_src=as_t(level_src), level_xsrc=as_t(level_xsrc),
+        direct_idx=as_t(direct_idx), direct_x_idx=as_t(direct_x_idx),
+        direct_bits=as_t(direct_bits), gather_idx=as_t(gather_idx),
+        signs=as_t(plan.signs.astype(np.int32)), tile_local=local)
+
+
+def compile_plans(plans, *, device=None) -> DevicePlan:
+    """Compile same-signature plans into ONE stacked DevicePlan.
+
+    Pads every plan to the shared direct-dispatch bound, then stacks each
+    leaf along a new leading axis (the stacked-block layout). Raises if
+    signatures differ.
+    """
+    plans = list(plans)
+    if not plans:
+        raise ValueError("compile_plans needs at least one plan")
+    sig = {(p.t, p.bits, p.n, p.k, p.groups) for p in plans}
+    if len(sig) != 1:
+        raise ValueError(f"cannot stack plans of differing signatures {sig}")
+    d = max(p.direct_tile.size for p in plans)
+    dps = [compile_plan(p, direct_pad=d) for p in plans]
+    stacked = {f: torch.stack([getattr(dp, f) for dp in dps]).to(device)
+               for f in DEVICE_DATA_FIELDS}
+    return dataclasses.replace(
+        dps[0], **stacked, tile_local=all(dp.tile_local for dp in dps))
+
+
+def pad_device_plan(dplan: DevicePlan, direct_pad: int) -> DevicePlan:
+    """Widen a compiled plan's direct-dispatch axis to ``direct_pad``.
+
+    Pad lanes are the no-ops :func:`compile_plan` emits (target
+    ``J * 2^T``, activation row 0, empty bit mask), so the padded plan
+    computes identical results and stays tile-local. Works on stacked
+    plans too (leading axes are preserved)."""
+    d = int(dplan.direct_idx.shape[-1])
+    pad = int(direct_pad)
+    if pad < d:
+        raise ValueError(f"direct_pad={pad} < current width {d}")
+    if pad == d:
+        return dplan
+    lead = tuple(dplan.direct_idx.shape[:-1])
+    invalid = dplan.n_tiles * (1 << dplan.t)
+    kw = dict(dtype=dplan.direct_idx.dtype, device=dplan.direct_idx.device)
+    pad_idx = torch.full(lead + (pad - d,), invalid, **kw)
+    pad_2d = torch.zeros(lead + (pad - d, dplan.t), **kw)
+    return dataclasses.replace(
+        dplan,
+        direct_idx=torch.cat([dplan.direct_idx, pad_idx], dim=-1),
+        direct_x_idx=torch.cat([dplan.direct_x_idx, pad_2d], dim=-2),
+        direct_bits=torch.cat([dplan.direct_bits, pad_2d], dim=-2))
+
+
+def forest_body(xt, level_src, level_xsrc, direct_idx, direct_x_idx,
+                direct_bits, gather_idx, signs, *, t: int, groups: int,
+                n: int, k: int) -> torch.Tensor:
+    """The forest schedule on plain tensors: int32 xt (K, M) -> (N, G, M).
+
+    The reference's ``forest_body`` in torch. Two differences of idiom:
+    torch has no dropping scatter, so the direct-dispatch table has one
+    spare row at ``J * 2^T`` that the pad lanes land in and that is then
+    sliced off; and torch sums integers in int64, so the APE sums are cast
+    back to int32, which is congruent mod 2^32 with the reference's
+    wrapping int32 accumulation.
+    """
+    size = 1 << t
+    j = k // t
+    r = j * size
+    m = xt.shape[1]
+    # pinned zero row at index K: identity lanes add nothing
+    xt_ext = torch.cat([xt, xt.new_zeros((1, m))])
+
+    # direct dispatch: subset sums of each outlier/root pattern's bits
+    contrib = (direct_bits[:, :, None] * xt[direct_x_idx.long()]).sum(1)
+    psum = xt.new_zeros((r + 1, m))
+    psum[direct_idx.long()] = contrib.to(torch.int32)
+    psum = psum[:r]
+
+    # level-synchronous forest, gather-only: every row advances as
+    # psum[src] + x[xsrc]; non-executed rows gather themselves + zero
+    for lv in range(level_src.shape[0]):
+        psum = (psum.index_select(0, level_src[lv])
+                + xt_ext.index_select(0, level_xsrc[lv]))
+
+    # APE shift-accumulate: gather every TransRow's psum, reduce per group
+    s = signs.shape[0]
+    jg = j // groups
+    gathered = (psum.index_select(0, gather_idx.reshape(-1))
+                .reshape(s, n, groups, jg, m).sum(3))        # int64
+    out = (signs.long()[:, None, None, None] * gathered).sum(0)
+    return out.to(torch.int32)
+
+
+def run_device(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
+    """Execute a compiled forest against activations ``x`` (K, M).
+
+    Returns int32 (N, M) for an ungrouped plan, (N, G, M) per-group
+    partials for a grouped one — bit-exact with the ``int_dot`` int32
+    accumulator. The plain version of the CUDA forest kernel: it runs on
+    whatever device ``x`` and the plan live on.
+    """
+    if x.ndim != 2 or x.shape[0] != dplan.k:
+        raise ValueError(f"x must be (K={dplan.k}, M), got {tuple(x.shape)}")
+    if dplan.lead:
+        raise ValueError(f"run_device takes one plan, got stacked leading "
+                         f"axes {dplan.lead}; slice with DevicePlan.index")
+    out = forest_body(
+        x.to(torch.int32), dplan.level_src, dplan.level_xsrc,
+        dplan.direct_idx, dplan.direct_x_idx, dplan.direct_bits,
+        dplan.gather_idx, dplan.signs, t=dplan.t, groups=dplan.groups,
+        n=dplan.n, k=dplan.k)
+    return out[:, 0] if dplan.groups == 1 else out

@@ -1,0 +1,300 @@
+"""Process-level ExecutionPlan cache for the serving path (port of
+``repro.core.plancache``).
+
+The offline half (TransRow packing + Scoreboard build) must run once per
+weight, not once per forward call. :class:`PlanCache` is an LRU map from
+``(weight fingerprint, EngineConfig)`` to an :class:`ExecutionPlan` and
+its lazily compiled :class:`DevicePlan`, with hit / miss / eviction
+counters (per backend too) so a serve run can show each plan was built
+once. :func:`precompile` warms it from a params tree and
+:func:`attach_device_plans` embeds compiled plans next to every PTQ
+weight, stacked along the stacked-block leading axes.
+
+Not in this slice: the reference's build coalescing for concurrent misses
+(``_Pending``), invalidation (and its tombstone), version-keyed lookups,
+the offline host ``run`` and the plan-IR verifier gates.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.core.backend import (EngineConfig, TransitiveBackend,
+                                      get_backend)
+from repro_torch.core.engine import (BatchedTransitiveEngine, DevicePlan,
+                                     ExecutionPlan)
+
+__all__ = ["PlanCache", "weight_fingerprint", "default_cache",
+           "set_default_cache", "precompile", "attach_device_plans"]
+
+
+@dataclasses.dataclass
+class _Entry:
+    """One cached weight: host plan + device lowerings keyed by (compile
+    hook, device)."""
+    plan: ExecutionPlan
+    device: dict = dataclasses.field(default_factory=dict)
+
+
+def _as_numpy(qw) -> np.ndarray:
+    if isinstance(qw, torch.Tensor):
+        return qw.detach().cpu().numpy()
+    return np.asarray(qw)
+
+
+def weight_fingerprint(qw) -> str:
+    """Content hash of a quantized weight (shape + dtype + bytes)."""
+    a = np.ascontiguousarray(_as_numpy(qw))
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((a.shape, a.dtype.str)).encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _canonical(qw) -> np.ndarray:
+    """Canonical int8 values of a quantized weight for cache keying (the
+    same weight as int8 or int64 must hit one key)."""
+    qw = _as_numpy(qw)
+    if not np.issubdtype(qw.dtype, np.integer):
+        raise TypeError(f"quantized weights must be integer, got {qw.dtype}")
+    if qw.dtype != np.int8:
+        if qw.size and (qw.min() < -128 or qw.max() > 127):
+            raise ValueError(
+                "weight values outside int8 range — PlanCache covers "
+                "int8-range quantized weights (w_bits <= 8)")
+        qw = qw.astype(np.int8)
+    return qw
+
+
+def _backend_tag(backend) -> str | None:
+    if backend is None:
+        return None
+    return backend if isinstance(backend, str) else backend.name
+
+
+class PlanCache:
+    """LRU cache of weight-only execution plans keyed by
+    ``(weight fingerprint, w_bits, T, groups)``."""
+
+    def __init__(self, capacity: int = 256):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._plans: OrderedDict[tuple, _Entry] = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self._backend_stats: dict[str, dict[str, int]] = {}
+
+    def _count(self, backend: str | None, field: str) -> None:
+        setattr(self, field, getattr(self, field) + 1)
+        if backend is not None:
+            per = self._backend_stats.setdefault(
+                backend, {"hits": 0, "misses": 0})
+            per[field] += 1
+
+    def _entry(self, qw, cfg: EngineConfig, backend: str | None) -> _Entry:
+        qw = _canonical(qw)
+        if qw.ndim != 2:
+            raise ValueError(f"qw must be 2-D (N, K), got {qw.shape}")
+        fp = weight_fingerprint(qw)
+        key = (fp,) + cfg.key()
+        with self._lock:
+            entry = self._plans.get(key)
+            if entry is not None:
+                self._count(backend, "hits")
+                self._plans.move_to_end(key)
+                return entry
+            self._count(backend, "misses")
+        plan = BatchedTransitiveEngine(bits=cfg.w_bits, t=cfg.t).plan(
+            qw.astype(np.int64), groups=cfg.groups)
+        entry = _Entry(plan=plan)
+        with self._lock:
+            entry = self._plans.setdefault(key, entry)
+            while len(self._plans) > self.capacity:
+                self._plans.popitem(last=False)
+                self.evictions += 1
+        return entry
+
+    def get_or_build(self, qw, cfg: EngineConfig, *,
+                     backend=None) -> ExecutionPlan:
+        """The cached plan for ``qw`` (N, K), built on a miss."""
+        return self._entry(qw, cfg, _backend_tag(backend)).plan
+
+    def get_or_build_device(self, qw, cfg: EngineConfig, *, backend=None,
+                            device=None) -> DevicePlan:
+        """The cached plan's device lowering, compiled once per (entry,
+        compile hook, device) through the requesting backend's hook
+        (``engine_torch``'s when the tag names no device lowering)."""
+        tag = _backend_tag(backend)
+        entry = self._entry(qw, cfg, tag)
+        if isinstance(backend, TransitiveBackend):
+            bk = backend
+        else:
+            bk = get_backend(tag) if tag is not None else None
+        if bk is None or not (bk.device_resident and bk.needs_plan):
+            bk = get_backend("engine_torch")
+        memo = (type(bk).compile, str(torch.device(device or "cpu")))
+        if memo not in entry.device:
+            entry.device[memo] = bk.compile(entry.plan, device=device)
+        return entry.device[memo]
+
+    def reserve(self, n_plans: int) -> None:
+        """Grow capacity to hold at least ``n_plans`` entries."""
+        with self._lock:
+            self.capacity = max(self.capacity, int(n_plans))
+
+    def stats(self) -> dict[str, Any]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions, "size": len(self._plans),
+                    "capacity": self.capacity,
+                    "backends": {b: dict(s)
+                                 for b, s in self._backend_stats.items()}}
+
+    def __repr__(self) -> str:
+        s = self.stats()
+        return (f"PlanCache(size={s['size']}/{s['capacity']} "
+                f"hits={s['hits']} misses={s['misses']} "
+                f"evictions={s['evictions']})")
+
+
+class _Default:
+    """Holder of the process-level cache (swappable for tests)."""
+    cache = PlanCache()
+
+
+def default_cache() -> PlanCache:
+    return _Default.cache
+
+
+def set_default_cache(cache: PlanCache) -> PlanCache:
+    """Swap the process-level cache; returns the previous one."""
+    prev, _Default.cache = _Default.cache, cache
+    return prev
+
+
+def _is_ptq_layer(tree: Any) -> bool:
+    return isinstance(tree, dict) and "qw" in tree and "sg" in tree
+
+
+def _layer_groups(sg) -> int:
+    """sg's trailing axis is the per-group scale count: 1 = per-channel."""
+    return int(sg.shape[-1]) if sg.ndim else 1
+
+
+def _iter_ptq_layers(tree: Any) -> Iterator[dict]:
+    if _is_ptq_layer(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _iter_ptq_layers(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _iter_ptq_layers(v)
+
+
+def _plan_knobs(cfg) -> tuple[int, int]:
+    """(w_bits, t) from a QuantConfig (transrow_t) or EngineConfig (t)."""
+    t = getattr(cfg, "transrow_t", None)
+    if t is None:
+        t = cfg.t
+    return int(cfg.w_bits), int(t)
+
+
+def _cfg_backend(cfg, backend):
+    if backend is not None:
+        return get_backend(backend)
+    if isinstance(getattr(cfg, "backend", None), str):
+        return get_backend(cfg.backend)
+    return None
+
+
+def _n_plans(layers) -> int:
+    return sum(int(np.prod(layer["qw"].shape[:-2], dtype=np.int64))
+               for layer in layers)
+
+
+def precompile(params: Any, cfg: Any, cache: PlanCache | None = None, *,
+               backend=None) -> dict[str, int]:
+    """Build every PTQ layer's ExecutionPlan once, ahead of serving.
+
+    Walks ``params`` for ``{"qw", "sg"}`` layer dicts (including weights
+    stacked along leading axes) and warms ``cache``. Returns
+    ``{"layers", "plans", "built"}`` like the reference."""
+    cache = default_cache() if cache is None else cache
+    b = _cfg_backend(cfg, backend)
+    tag = b.name if b is not None else None
+    w_bits, t = _plan_knobs(cfg)
+    misses0 = cache.stats()["misses"]
+    layers = list(_iter_ptq_layers(params))
+    cache.reserve(_n_plans(layers))
+    n_plans = 0
+    for layer in layers:
+        qw = _as_numpy(layer["qw"])
+        ecfg = EngineConfig(w_bits=w_bits, t=t,
+                            groups=_layer_groups(layer["sg"]))
+        for idx in np.ndindex(*qw.shape[:-2]):
+            cache.get_or_build(qw[idx], ecfg, backend=tag)
+            n_plans += 1
+    return {"layers": len(layers), "plans": n_plans,
+            "built": cache.stats()["misses"] - misses0}
+
+
+def attach_device_plans(params: Any, cfg: Any,
+                        cache: PlanCache | None = None, *,
+                        backend=None) -> Any:
+    """Return a copy of ``params`` with a compiled ``"dplan"`` per PTQ layer.
+
+    Stacked weights get one plan per slice, padded to shared bounds and
+    stacked along the same leading axes; plans are placed on the weight's
+    device. The tensors themselves are shared with ``params``, not copied.
+    An embedded plan is only as fresh as this call: re-attach after any
+    weight update."""
+    cache = default_cache() if cache is None else cache
+    b = _cfg_backend(cfg, backend)
+    if b is None:
+        b = get_backend("engine_torch")
+    if not (b.needs_plan and b.device_resident):
+        raise ValueError(
+            f"backend '{b.name}' does not execute from device plans; "
+            f"attach_device_plans serves device-resident planned backends "
+            f"(engine_torch, engine_cuda)")
+    w_bits, t = _plan_knobs(cfg)
+    cache.reserve(_n_plans(_iter_ptq_layers(params)))
+
+    def walk(tree: Any) -> Any:
+        if isinstance(tree, dict):
+            if _is_ptq_layer(tree):
+                qw = _as_numpy(tree["qw"])
+                device = tree["qw"].device
+                ecfg = EngineConfig(w_bits=w_bits, t=t,
+                                    groups=_layer_groups(tree["sg"]))
+                lead = qw.shape[:-2]
+                if lead:
+                    plans = [cache.get_or_build(qw[idx], ecfg,
+                                                backend=b.name)
+                             for idx in np.ndindex(*lead)]
+                    flat = b.compile(plans, device=device)
+                    dplan = dataclasses.replace(flat, **{
+                        f: a.reshape(lead + a.shape[1:])
+                        for f, a in flat.leaves().items()})
+                else:
+                    dplan = cache.get_or_build_device(
+                        qw, ecfg, backend=b.name, device=device)
+                return {**tree, "dplan": dplan}
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if isinstance(tree, tuple):
+            return tuple(walk(v) for v in tree)
+        return tree
+
+    return walk(params)

@@ -1,0 +1,142 @@
+"""Where the time of the port's main serving path goes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
+
+Builds the main path (smollm-135m at full width unless ``--reduced``, W4A8
+forest linears through ``engine_cuda``, the paged-attention kernel, bf16,
+random weights from ``--seed``), admits ``--slots`` requests of
+``--prompt-len`` tokens, then:
+
+  * times ``--steps`` packed decode steps with the host clock around
+    ``step()`` + ``torch.cuda.synchronize()`` (ms per step);
+  * runs the same number of further steps under ``torch.profiler`` and
+    reports device time per step by kernel (the two CUDA kernels of the
+    port by their entry names, everything else grouped), and the device
+    busy share = summed kernel time / wall time of the window (one
+    stream, so kernels do not overlap).
+
+If the profiler records no device events, the device columns read "not
+measured". CUDA only: a host without a card raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.launch.specs import serve_config
+from repro_torch.models.model import Model
+from repro_torch.serve import ServeEngine
+
+# kernel entry names of the port (as the profiler shows them) -> label
+PORT_KERNELS = {"forest_tiles": "B1 forest pass 1 (tiles)",
+                "forest_ape": "B1 forest pass 2 (APE)",
+                "paged_decode": "B2 paged attention"}
+
+
+def _label(name: str) -> str:
+    for key, label in PORT_KERNELS.items():
+        if key in name:
+            return label
+    return name
+
+
+def _device_events(prof):
+    """(name, total device us, count) of every device-side event."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out.append((e.key, e.self_device_time_total, e.count))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+
+    base = get_reduced("smollm_135m") if args.reduced else \
+        get_config("smollm_135m")
+    cfg = serve_config(base, backend="engine_cuda").replace(
+        paged_kernel=True)
+    model = Model(cfg, device="cuda")
+    params = model.attach_device_plans(model.init(args.seed))
+    max_len = 256
+    eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
+                      page_size=16, paged_kernel=True, device="cuda")
+    rng = np.random.default_rng(args.seed + 1)
+    gen = 1 + 3 * args.steps                    # never finishes in-window
+    for _ in range(args.slots):
+        eng.submit(rng.integers(0, cfg.vocab, size=args.prompt_len).tolist(),
+                   gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()                                  # admission + 1st decode
+    torch.cuda.synchronize()
+    t_admit = time.perf_counter() - t0
+    eng.step()                                  # warm-up decode
+    torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    step_ms = 1e3 * sum(walls) / len(walls)
+    print(f"[profile] {cfg.name} ({cfg.n_layers} layers, "
+          f"{torch.cuda.get_device_name(0)}) | {args.slots} slots x "
+          f"{args.prompt_len}-token prompts | admission + first decode "
+          f"{t_admit * 1e3:.1f} ms | decode step {step_ms:.2f} ms "
+          f"(host clock, mean of {args.steps}, min "
+          f"{1e3 * min(walls):.2f}) -> {args.slots / step_ms * 1e3:.1f} "
+          f"tokens/s")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng.step()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy_us = sum(t for _, t, _ in events)
+    per_step = window * 1e3 / args.steps
+    if busy_us <= 0:
+        print(f"[profile] window {per_step:.2f} ms/step under the profiler;"
+              f" device time: not measured (no device events recorded)")
+        return
+    print(f"[profile] window {per_step:.2f} ms/step under the profiler | "
+          f"device busy {busy_us / 1e3 / args.steps:.3f} ms/step = "
+          f"{busy_us / 1e6 / window:.3f} of wall (idle "
+          f"{1 - busy_us / 1e6 / window:.3f})")
+    grouped: dict[str, list] = {}
+    for name, t, n in events:
+        g = grouped.setdefault(_label(name), [0.0, 0])
+        g[0] += t
+        g[1] += n
+    rows = sorted(grouped.items(), key=lambda kv: -kv[1][0])
+    port_labels = set(PORT_KERNELS.values())
+    other = [(t, n) for label, (t, n) in rows if label not in port_labels]
+    print(f"[profile] {sum(n for _, _, n in events) // args.steps} device "
+          f"launches/step; outside the port's kernels: "
+          f"{sum(t for t, _ in other) / 1e3 / args.steps:.4f} ms/step over "
+          f"{sum(n for _, n in other) // args.steps} launches/step")
+    for label, (t, n) in rows[:args.top]:
+        print(f"  {t / 1e3 / args.steps:9.4f} ms/step {t / busy_us:6.3f} "
+              f"of device | {n // args.steps:5d} launches/step | "
+              f"{label[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,141 @@
+"""Serving launcher of the port: continuous batching through the paged-KV
+serve engine, W4A8 TransitiveLinear + dynamic int8 attention + KV8 cache.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --continuous --backend engine_cuda --paged-kernel
+
+Runs on ``cuda`` unless ``--device cpu`` is given. Requests arrive
+staggered (``--requests`` of them, one every ``--arrive-every`` host
+steps) into ``--slots`` packed decode slots over a paged KV pool of
+``--page-size``-token pages; even requests repeat a base prompt and odd
+ones share its first half, so the prefix trie shares pages. Planned
+backends (``engine_torch``, ``engine_cuda``) build every linear's plan
+once before serving and serve from plans attached to the params. The
+report prints per-request TTFT and latency, tokens/s, the prefix-reuse
+counters and the kernel launch counts.
+
+Only the ``--continuous`` mode is ported; the one-shot batched generate,
+meshes, plan bundles, hot swap and the lint preflight of the reference
+launcher are not.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.backend import get_backend, list_backends
+from repro_torch.launch.specs import serve_config
+from repro_torch.models.model import Model
+
+
+def prefix_sharing_prompts(vocab: int, n: int, length: int,
+                           seed: int) -> list[list[int]]:
+    """``n`` prompts of ``length`` tokens: even ones repeat a base prompt,
+    odd ones share its first half (the launcher's arrival workload)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, size=length).tolist()
+    half = length // 2
+    return [list(base) if i % 2 == 0 else
+            base[:half] + rng.integers(0, vocab, size=length - half).tolist()
+            for i in range(n)]
+
+
+def serve_continuous(model, params, args):
+    """Staggered arrivals through ServeEngine; returns the engine."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    ps = args.page_size
+    max_len = -(-(args.prompt_len + args.gen) // ps) * ps
+    eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
+                      page_size=ps, paged_kernel=args.paged_kernel,
+                      device=model.device)
+    prompts = prefix_sharing_prompts(cfg.vocab, args.requests,
+                                     args.prompt_len, args.seed + 1)
+    launches0 = (transitive_forest.launches, paged_attention.launches)
+    submitted = host_step = 0
+    t0 = time.perf_counter()
+    while submitted < args.requests or eng.queue or eng.active:
+        if (submitted < args.requests
+                and host_step >= submitted * args.arrive_every):
+            eng.submit(prompts[submitted], args.gen)
+            submitted += 1
+        eng.step()
+        host_step += 1
+    dt = time.perf_counter() - t0
+    rep = eng.report()
+    print(f"[{cfg.name} | W{cfg.quant.w_bits}A8+KV8/{cfg.quant.backend} | "
+          f"continuous | {model.device}] {rep['n_requests']} requests x "
+          f"{args.gen} tokens ({args.slots} slots, page_size={ps}) in "
+          f"{dt:.2f}s -> {rep['tokens_per_s']:.1f} tok/s")
+    for r in rep["requests"]:
+        print(f"  req {r['rid']}: prompt={r['prompt_len']} "
+              f"tokens={r['n_tokens']} shared_pages={r['shared_pages']} "
+              f"prefill_computed={r['prefill_computed']} "
+              f"ttft={r['ttft_s'] * 1e3:.1f}ms "
+              f"latency={r['latency_s'] * 1e3:.1f}ms")
+    c = rep["counters"]
+    print(f"[prefix reuse] hits={c['prefix_hits']} "
+          f"pages_shared={c['pages_shared']} "
+          f"prefill_skipped={c['prefill_skipped']} "
+          f"prefill_computed={c['prefill_computed']} | "
+          f"pages={c['pages']} trie={c['trie']}")
+    print(f"[kernels] transitive_forest launches="
+          f"{transitive_forest.launches - launches0[0]} paged_attention "
+          f"launches={paged_attention.launches - launches0[1]} | decode="
+          f"{'paged-kernel' if args.paged_kernel else 'gather'}")
+    for r in eng.finished:
+        print(f"  req {r.rid}: {r.tokens}")
+    return eng
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching through the paged-KV serve "
+                    "engine (the only mode ported)")
+    ap.add_argument("--backend", default="int_dot", choices=list_backends(),
+                    help="integer-GEMM backend for the PTQ linears")
+    ap.add_argument("--w-bits", type=int, default=4, choices=(4, 8))
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="decode attention through the live-page CUDA "
+                    "kernel instead of the full-extent gather")
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--arrive-every", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; pass cpu to run the "
+                    "plain PyTorch path on the CPU)")
+    args = ap.parse_args(argv)
+    if not args.continuous:
+        ap.error("only --continuous serving is ported")
+
+    base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    cfg = serve_config(base, w_bits=args.w_bits, backend=args.backend)
+    model = Model(cfg, device=args.device)
+    params = model.init(args.seed)
+    if get_backend(args.backend).needs_plan:
+        from repro_torch.core import plancache
+        cache = plancache.default_cache()
+        t0 = time.perf_counter()
+        stats = model.precompile_plans(params)
+        params = model.attach_device_plans(params)
+        print(f"[plan cache] {stats['plans']} plans over {stats['layers']} "
+              f"stacked layer weights in {time.perf_counter() - t0:.2f}s | "
+              f"{cache!r}")
+    return serve_continuous(model, params, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,455 @@
+"""Attention (port of ``repro.models.attention``, self-attention serving
+slice): RMSNorm, RoPE, GQA attention with the paper's dynamic int8
+quantized attention GEMMs, the dense KV cache, and the paged KV pool of
+the continuous-batching serve engine.
+
+Integer products that the reference leaves to XLA (``_scores``/``_pv``,
+``attend_cached``) go through :func:`repro_torch.core.backend.int_matmul`
+semantics: float64 einsums, exact for int8 operands, cast to int32.
+Pools and caches are updated in place where the reference donates its
+buffers. ``attend_chunked`` (sequences above ``CHUNK_THRESHOLD``),
+cross-attention and local-window caches are not part of this slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.quant import linear_apply, linear_init, quantize_per_token
+
+NEG_INF = -1e30
+CHUNK_THRESHOLD = 2048        # direct softmax below, chunked above
+
+
+def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 einsum with an int32 result (float64 inside)."""
+    return torch.einsum(spec, a.to(torch.float64), b.to(torch.float64)) \
+        .to(torch.int32)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    var = torch.mean(torch.square(x.to(torch.float32)), -1, keepdim=True)
+    out = (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+    return out.to(x.dtype)          # keep activations in the working dtype
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         partial: bool = False) -> torch.Tensor:
+    """x (B, S, H, D), positions (B, S). partial=True rotates only the first
+    half of head_dim."""
+    d = x.shape[-1]
+    rot_d = d // 2 if partial else d
+    exps = -torch.arange(0, rot_d, 2, dtype=torch.float32,
+                         device=x.device) / rot_d
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs      # (B, S, rd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot_d].to(torch.float32)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    out = out.reshape(xr.shape).to(x.dtype)
+    if partial:
+        out = torch.cat([out, x[..., rot_d:]], -1)
+    return out
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV*groups, D)."""
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def _quantize_kv(t: torch.Tensor):
+    """KV8 cache quantization, always from float32: the stored (int8, scale)
+    pair is then a function of the row values alone."""
+    return quantize_per_token(t.to(torch.float32))
+
+
+def _scores(q, k, scale, quant: bool):
+    """einsum('bqhd,bkhd->bhqk'), optionally with dynamic-int8 operands."""
+    if quant:
+        qq, sq = quantize_per_token(q)                    # (B,Sq,H,1)
+        kk, sk = quantize_per_token(k)                    # (B,Sk,H,1)
+        s32 = _int_einsum("bqhd,bkhd->bhqk", qq, kk)
+        sq_b = sq.movedim(2, 1)                           # (B,H,Sq,1)
+        sk_b = sk.movedim(2, 1)[..., 0][:, :, None, :]    # (B,H,1,Sk)
+        return s32.to(torch.float32) * sq_b * sk_b * scale
+    return torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+
+
+def _pv(p, v, quant: bool):
+    """P (B,H,Sq,Sk) @ V (B,Sk,H,D) -> (B,Sq,H,D), optionally int8."""
+    if quant:
+        qp, sp = quantize_per_token(p)                    # rows over Sk
+        sv = v.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-8
+        qv = torch.clamp(torch.round(v / sv), -128, 127).to(torch.int8)
+        o32 = _int_einsum("bhqk,bkhd->bqhd", qp, qv)
+        return o32.to(torch.float32) * sp.movedim(1, 2) * sv
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def attend_full(q, k, v, mask, scale, quant: bool = False):
+    """Direct softmax attention. q (B,Sq,H,D), k/v (B,Sk,H,D) repeated."""
+    s = _scores(q, k, scale, quant)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return _pv(p, v, quant)
+
+
+def attend_cached(q, ck, cv, cks, cvs, valid, cfg: ModelConfig, scale):
+    """Decode-step attention against a contiguous (B, S, KV, D) cache view.
+
+    q (B, Sq, H, D); ck/cv the cached keys/values — int8 with cks/cvs
+    per-position scales for the KV8 layout, else the working dtype; valid
+    (B', S) bool with B' in {1, B}. The one implementation of cached
+    decode attention: the dense cache and the paged gather path both call
+    it, and it is the plain version of the paged-attention kernel.
+    """
+    b, sq, h, hd = q.shape
+    kv = ck.shape[2]
+    groups = h // kv
+    int8_cache = ck.dtype == torch.int8
+    qg = q.reshape(b, sq, kv, groups, hd)
+    if cfg.quant_attention:
+        qq, sqs = quantize_per_token(qg)             # (B,1,KV,G,1)
+        if int8_cache:
+            kk, sks = ck, cks
+        else:
+            kk, sks = quantize_per_token(ck)         # (B,S,KV,1)
+        s32 = _int_einsum("bqkgd,bskd->bkgqs", qq, kk)
+        sk_b = sks[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+        s = (s32.to(torch.float32) * scale
+             * sqs.movedim(1, 3)                      # (B,KV,G,1,1)
+             * sk_b)                                  # (B,KV,1,1,S)
+    elif int8_cache:
+        kf = ck.to(torch.float32) * cks
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                         kf) * scale
+    else:
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck) \
+            .to(torch.float32) * scale
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if cfg.quant_attention:
+        if int8_cache:
+            # fold the per-position V scales into P before quantizing
+            vs_b = cvs[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+            qp, sps = quantize_per_token(p * vs_b)
+            qv = cv
+            sv_out = 1.0
+        else:
+            qp, sps = quantize_per_token(p)
+            sv = cv.abs().amax(dim=1, keepdim=True) / 127. + 1e-8
+            qv = torch.clamp(torch.round(cv / sv), -128, 127) \
+                .to(torch.int8)
+            sv_out = sv[:, :, :, None, :]
+        o32 = _int_einsum("bkgqs,bskd->bqkgd", qp, qv)
+        out = (o32.to(torch.float32) * sps.movedim(-1, 1) * sv_out)
+    elif int8_cache:
+        vf = cv.to(torch.float32) * cvs
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    else:
+        out = torch.einsum("bkgqs,bskd->bqkgd", p.to(cv.dtype), cv)
+    return out.reshape(b, sq, h, hd)
+
+
+# --------------------------------------------------------------------------
+# Block-level self-attention with a dense cache
+# --------------------------------------------------------------------------
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig):
+    hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    qcfg = cfg.quant
+    ones = lambda n: torch.ones((n,), dtype=torch.float32, device=gen.device)
+    p = {
+        "norm": ones(cfg.d_model),
+        "wq": linear_init(gen, cfg.d_model, h * hd, qcfg, cfg.dtype),
+        "wk": linear_init(gen, cfg.d_model, kv * hd, qcfg, cfg.dtype),
+        "wv": linear_init(gen, cfg.d_model, kv * hd, qcfg, cfg.dtype),
+        "wo": linear_init(gen, h * hd, cfg.d_model, qcfg, cfg.dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ones(hd)
+        p["k_norm"] = ones(hd)
+    return p
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if cfg.kv_cache_bits == 8:
+        return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
+                "ks": z(shape[:-1] + (1,), torch.float32),
+                "vs": z(shape[:-1] + (1,), torch.float32)}
+    return {"k": z(shape, cfg.dtype), "v": z(shape, cfg.dtype)}
+
+
+def _qkv(params, x, cfg: ModelConfig, positions):
+    """Pre-norm q/k/v projections with optional qk-norm and RoPE."""
+    qcfg = cfg.quant
+    b, sq, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = rms_norm(x, params["norm"], cfg.norm_eps)
+    q = linear_apply(params["wq"], xn, qcfg).reshape(b, sq, h, hd)
+    k = linear_apply(params["wk"], xn, qcfg).reshape(b, sq, kv, hd)
+    v = linear_apply(params["wv"], xn, qcfg).reshape(b, sq, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_2d)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_2d)
+    return q, k, v
+
+
+def _out_proj(params, out, x, cfg: ModelConfig):
+    b, sq = out.shape[:2]
+    out = out.reshape(b, sq, -1)
+    y = linear_apply(params["wo"], out.to(x.dtype), cfg.quant)
+    return y.to(x.dtype)
+
+
+def _kv_stores(k, v, int8: bool) -> dict:
+    if int8:
+        qk, ks = _quantize_kv(k)
+        qv, vs = _quantize_kv(v)
+        return {"k": qk, "v": qv, "ks": ks, "vs": vs}
+    return {"k": k, "v": v}
+
+
+def apply_attn(params, x, cfg: ModelConfig, *, positions, cache=None,
+               step=None, prefill=False):
+    """Causal self-attention block body (pre-norm, residual outside).
+
+    Modes: train (cache=None), prefill (cache given, filled in place with
+    the prompt's K/V), decode (cache given, position ``step`` written in
+    place). Returns (out, cache)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, sq, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, positions)
+    scale = hd ** -0.5
+    groups = h // kv
+
+    if cache is None or prefill:
+        if cache is not None:
+            size = cache["k"].shape[1]
+            if sq > size:
+                raise ValueError(f"prompt of {sq} exceeds the cache ({size})")
+            int8 = cache["k"].dtype == torch.int8
+            for name, val in _kv_stores(k, v, int8).items():
+                cache[name][:, :sq] = val.to(cache[name].dtype)
+        if sq > CHUNK_THRESHOLD:
+            raise NotImplementedError(
+                f"attention over {sq} > CHUNK_THRESHOLD={CHUNK_THRESHOLD} "
+                f"positions needs attend_chunked, not yet ported")
+        qp = positions[:, :, None]
+        kp = positions[:, None, :]
+        mask = qp >= kp
+        out = attend_full(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                          mask[:, None], scale, cfg.quant_attention)
+    else:
+        size = cache["k"].shape[1]
+        int8 = cache["k"].dtype == torch.int8
+        for name, val in _kv_stores(k, v, int8).items():
+            cache[name][:, step] = val[:, 0].to(cache[name].dtype)
+        lanes = torch.arange(size, device=x.device)
+        valid = (lanes < min(step + 1, size))[None, :]
+        out = attend_cached(q, cache["k"], cache["v"], cache.get("ks"),
+                            cache.get("vs"), valid, cfg, scale)
+    return _out_proj(params, out, x, cfg), cache
+
+
+# --------------------------------------------------------------------------
+# Paged KV cache (the continuous-batching serve path, repro_torch.serve)
+# --------------------------------------------------------------------------
+#
+# One layer's pool: (n_pages, page_size, KV, D) K/V buffers (+ per-position
+# scales under KV8) shared by every slot, addressed through an int32 page
+# table. Logical position p of a slot lives at (page_indices[slot, p //
+# page_size], p % page_size); page 0 is the null page (never allocated —
+# inactive slots point at it and their writes land in it).
+
+def init_attn_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
+                        device=None):
+    """One attention layer's page pool (unstacked; Model stacks layers)."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if cfg.kv_cache_bits == 8:
+        return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
+                "ks": z(shape[:-1] + (1,), torch.float32),
+                "vs": z(shape[:-1] + (1,), torch.float32)}
+    return {"k": z(shape, cfg.dtype), "v": z(shape, cfg.dtype)}
+
+
+def _gather_pages(buf, page_indices):
+    """(n_pages, ps, ...) gathered to a contiguous (B, P*ps, ...) view in
+    logical-position order."""
+    g = buf[page_indices.long()]                # (B, P, ps, ...)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def attend_paged_gather(q, pool, page_indices, steps, cfg: ModelConfig,
+                        scale):
+    """Decode attention over a page pool by gathering every slot's full
+    page extent and masking lanes past its step (:func:`attend_cached`):
+    the oracle, and the plain version of the paged-attention kernel."""
+    int8_pool = pool["k"].dtype == torch.int8
+    ck = _gather_pages(pool["k"], page_indices)
+    cv = _gather_pages(pool["v"], page_indices)
+    cks = _gather_pages(pool["ks"], page_indices) if int8_pool else None
+    cvs = _gather_pages(pool["vs"], page_indices) if int8_pool else None
+    size = ck.shape[1]
+    lanes = torch.arange(size, device=q.device)
+    valid = lanes[None, :] < torch.clamp(steps.long() + 1, max=size)[:, None]
+    return attend_cached(q, ck, cv, cks, cvs, valid, cfg, scale)
+
+
+def apply_attn_paged_prefill(params, x, cfg: ModelConfig, *, pool,
+                             prefix_page_ids, write_page_ids, write_offs,
+                             write_from: int):
+    """Suffix prefill for ONE request (B=1) against a page pool.
+
+    ``x`` (1, Ls, d) embeds the prompt suffix at positions start..L-1,
+    ``start = len(prefix_page_ids) * page_size`` (the trie-shared range,
+    gathered from the pool). Suffix K/V rows ``write_from..`` are written
+    in place to ``(write_page_ids[i], write_offs[i])``. Returns (out, pool).
+    """
+    b, ls, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ps = pool["k"].shape[1]
+    n_pre = len(prefix_page_ids)
+    start = n_pre * ps
+    total = start + ls
+    qpos = (start + torch.arange(ls, device=x.device)).expand(b, ls)
+    q, k, v = _qkv(params, x, cfg, qpos)
+    scale = hd ** -0.5
+
+    int8_pool = pool["k"].dtype == torch.int8
+    wp, wo = write_page_ids.long(), write_offs.long()
+    for name, val in _kv_stores(k, v, int8_pool).items():
+        pool[name][wp, wo] = val[0, write_from:].to(pool[name].dtype)
+
+    if n_pre:
+        pre = prefix_page_ids.long()
+        k_pre = pool["k"][pre].reshape(1, start, kvh, hd)
+        v_pre = pool["v"][pre].reshape(1, start, kvh, hd)
+        k_full = torch.cat([k_pre.to(k.dtype), k], dim=1)
+        v_full = torch.cat([v_pre.to(v.dtype), v], dim=1)
+    else:
+        k_full, v_full = k, v
+    if total > CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            f"prefill over {total} > CHUNK_THRESHOLD={CHUNK_THRESHOLD} "
+            f"positions needs attend_chunked, not yet ported")
+    groups = h // kvh
+    kpos = torch.arange(total, device=x.device)
+    mask = qpos[:, :, None] >= kpos[None, None, :]
+    out = attend_full(q, _repeat_kv(k_full, groups),
+                      _repeat_kv(v_full, groups), mask[:, None], scale,
+                      cfg.quant_attention)
+    return _out_proj(params, out, x, cfg), pool
+
+
+def apply_attn_paged_prefill_batched(params, x, cfg: ModelConfig, *, pool,
+                                     prefix_page_ids, prefix_lens,
+                                     suffix_lens, write_page_ids, write_offs,
+                                     write_pos):
+    """Bucket-padded batched prefill: N requests' suffixes in ONE call.
+
+    ``x`` (B, Lb, d) holds each row's suffix left-aligned and zero-padded;
+    ``prefix_page_ids`` (B, PPb) the shared prefix pages padded with the
+    null page, ``prefix_lens``/``suffix_lens`` (B,) the real extents. Write
+    lane i of row b stores suffix row ``write_pos[b, i]`` at
+    ``(write_page_ids[b, i], write_offs[b, i])`` in place (dead lanes hit
+    the null page). Padded K/V lanes are zeroed before attention so the
+    int8 P.V absmax sees the unpadded extent. Returns (out, pool).
+    """
+    b, ls, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ps = pool["k"].shape[1]
+    n_pre = prefix_page_ids.shape[1]
+    start = n_pre * ps
+    total = start + ls
+    if total > CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            "bucketed prefill is full-extent only; the engine falls back "
+            "to per-request prefill above CHUNK_THRESHOLD")
+    dev = x.device
+    qpos = prefix_lens[:, None].long() + torch.arange(ls, device=dev)[None]
+    q, k, v = _qkv(params, x, cfg, qpos)
+    scale = hd ** -0.5
+
+    int8_pool = pool["k"].dtype == torch.int8
+    wp, wo = write_page_ids.long(), write_offs.long()
+    gather = write_pos.long()[:, :, None, None]
+    for name, val in _kv_stores(k, v, int8_pool).items():
+        rows = torch.take_along_dim(val, gather, dim=1)       # (B, Lb, ...)
+        pool[name][wp, wo] = rows.to(pool[name].dtype)
+
+    suf_idx = torch.arange(ls, device=dev)
+    suf_valid = suf_idx[None, :] < suffix_lens[:, None]        # (B, Lb)
+    if n_pre:
+        pre_valid = (torch.arange(start, device=dev)[None, :]
+                     < prefix_lens[:, None])
+        pre = prefix_page_ids.long()
+        k_pre = pool["k"][pre].reshape(b, start, kvh, hd)
+        v_pre = pool["v"][pre].reshape(b, start, kvh, hd)
+        k_full = torch.cat([k_pre.to(k.dtype), k], dim=1)
+        v_full = torch.cat([v_pre.to(v.dtype), v], dim=1)
+        key_valid = torch.cat([pre_valid, suf_valid], dim=1)
+    else:
+        k_full, v_full = k, v
+        key_valid = suf_valid
+    kv_mask = key_valid[:, :, None, None]
+    k_full = torch.where(kv_mask, k_full, torch.zeros_like(k_full))
+    v_full = torch.where(kv_mask, v_full, torch.zeros_like(v_full))
+    groups = h // kvh
+    causal = suf_idx[None, :, None] >= suf_idx[None, None, :]  # (1, Lb, Lb)
+    mask_suf = causal & suf_valid[:, None, :]
+    if n_pre:
+        mask_pre = pre_valid[:, None, :].expand(b, ls, start)
+        mask = torch.cat([mask_pre, mask_suf], dim=2)
+    else:
+        mask = mask_suf
+    out = attend_full(q, _repeat_kv(k_full, groups),
+                      _repeat_kv(v_full, groups), mask[:, None], scale,
+                      cfg.quant_attention)
+    return _out_proj(params, out, x, cfg), pool
+
+
+def apply_attn_paged_decode(params, x, cfg: ModelConfig, *, pool,
+                            page_indices, steps, kernel: bool | None = None):
+    """One paged decode step over all slots. x (B, 1, d); page_indices
+    (B, P) int32; steps (B,) int32 — the position each slot writes. The new
+    K/V row is written into the pool in place. Returns (out, pool).
+
+    ``kernel`` (default ``cfg.paged_kernel``) routes attention through the
+    live-page CUDA kernel (:mod:`repro_torch.kernels.paged_attention`); the
+    gather path (:func:`attend_paged_gather`) is its plain version and the
+    oracle.
+    """
+    hd = cfg.hd
+    ps = pool["k"].shape[1]
+    pos = steps[:, None].long()
+    q, k, v = _qkv(params, x, cfg, pos)
+    scale = hd ** -0.5
+
+    st = steps.long()
+    page = torch.take_along_dim(page_indices.long(), (st // ps)[:, None],
+                                dim=1)[:, 0]
+    off = st % ps
+    int8_pool = pool["k"].dtype == torch.int8
+    for name, val in _kv_stores(k, v, int8_pool).items():
+        pool[name][page, off] = val[:, 0].to(pool[name].dtype)
+
+    if kernel is None:
+        kernel = cfg.paged_kernel
+    if kernel:
+        from repro_torch.kernels.paged_attention import paged_attention
+        out = paged_attention(q, pool, page_indices, steps, cfg, scale)
+    else:
+        out = attend_paged_gather(q, pool, page_indices, steps, cfg, scale)
+    return _out_proj(params, out, x, cfg), pool

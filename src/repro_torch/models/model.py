@@ -1,0 +1,260 @@
+"""Model assembly (port of ``repro.models.model``) for attention-only
+decoders: embedding, a stack of pre-norm attention + SwiGLU blocks, tied
+or untied unembedding, with dense-cache and paged-pool serve entry points.
+
+A config's ``block_pattern`` defines one super-block, repeated
+``n_repeats`` times. Parameters keep the reference's stacked layout:
+every leaf under ``params["blocks"]`` has a leading ``n_repeats`` axis
+(that is what ``repro_torch.convert`` carries over), and the forward pass
+is a Python loop over that axis where the reference scans. Caches and
+page pools are stacked the same way and updated in place.
+
+Recurrent, MoE, cross-attention, encoder-decoder and local-window configs
+are not part of this slice: :class:`Model` refuses them.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import DevicePlan
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import blocks as B
+
+Params = dict[str, Any]
+
+
+def _index(tree, i):
+    """Stacked entry ``i`` of every leaf (views; DevicePlans sliced)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, DevicePlan):
+        return tree.index(i)
+    return tree[i]
+
+
+def _stack(trees):
+    """Stack same-structured trees of tensors along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+class Model:
+    """Functional decoder: init / prefill / decode_step and the paged serve
+    entry points. Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        reason = self._unsupported(cfg)
+        if reason is not None:
+            raise NotImplementedError(f"{cfg.name}: {reason}")
+        self.cfg = cfg
+        self.pattern = cfg.block_pattern
+        self.device = resolve_device(device)
+
+    @staticmethod
+    def _unsupported(cfg: ModelConfig) -> str | None:
+        if any(k != "attn" for k in cfg.block_pattern):
+            return (f"block pattern {cfg.block_pattern} has non-attention "
+                    f"blocks (not ported yet)")
+        if cfg.block_tail:
+            return f"block_tail {cfg.block_tail} is not ported yet"
+        if cfg.local_window:
+            return "local-window (rolling) caches are not ported yet"
+        if cfg.n_context_tokens or cfg.is_encdec:
+            return "cross-attention context is not ported yet"
+        if cfg.family == "moe":
+            return "MoE blocks are not ported yet"
+        return None
+
+    # ---- init --------------------------------------------------------------
+    def _wants_mlp(self, i: int) -> bool:
+        cfg = self.cfg
+        return bool(cfg.d_ff) and (cfg.mlp_after is None
+                                   or i in cfg.mlp_after)
+
+    def _init_superblock(self, gen) -> Params:
+        p = {}
+        for i, _ in enumerate(self.pattern):
+            p[f"b{i}"] = A.init_attn(gen, self.cfg)
+            if self._wants_mlp(i):
+                p[f"m{i}"] = B.init_mlp(gen, self.cfg)
+        return p
+
+    def init(self, seed: int = 0) -> Params:
+        """Random params from a CPU ``torch.Generator`` seeded with
+        ``seed`` (the same weights on every device), moved to the model's
+        device."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(seed)
+        embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
+                 * 0.02).to(cfg.dtype)
+        blocks = _stack([self._init_superblock(gen)
+                         for _ in range(cfg.n_repeats)])
+        params: Params = {
+            "embed": embed, "blocks": blocks,
+            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = (torch.randn(
+                (cfg.vocab, cfg.d_model), generator=gen) * 0.02
+            ).to(cfg.dtype)
+        return _to(params, self.device)
+
+    # ---- serve-path plan warmup -------------------------------------------
+    def precompile_plans(self, params: Params) -> dict:
+        """Build every PTQ linear's ExecutionPlan ahead of serving (the
+        offline half), warming the process plan cache. No-op unless the
+        configured backend plans."""
+        q = self.cfg.quant
+        from repro_torch.core.backend import get_backend
+        if q.mode != "ptq" or not get_backend(q).needs_plan:
+            return {"layers": 0, "plans": 0, "built": 0}
+        from repro_torch.core import plancache
+        return plancache.precompile(params, q)
+
+    def attach_device_plans(self, params: Params) -> Params:
+        """Embed compiled DevicePlans (stacked like the weights, on the
+        weights' device) next to every PTQ weight. No-op unless the backend
+        executes from device plans."""
+        q = self.cfg.quant
+        from repro_torch.core.backend import get_backend
+        b = get_backend(q)
+        if q.mode != "ptq" or not (b.needs_plan and b.device_resident):
+            return params
+        from repro_torch.core import plancache
+        return plancache.attach_device_plans(params, q)
+
+    # ---- shared ------------------------------------------------------------
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).to(torch.int64)
+
+    def _embed_tokens(self, params, tokens):
+        return params["embed"][self._tokens(tokens)].to(self.cfg.dtype)
+
+    def _logits(self, params, x):
+        x = A.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        table = params.get("unembed", params["embed"])
+        return torch.matmul(x, table.to(x.dtype).T).to(torch.float32)
+
+    def _blocks(self, params, x, layer_fn):
+        """Run every stacked super-block; ``layer_fn(bp_attn, x, r, i)``
+        applies attention block ``i`` of repeat ``r``."""
+        for r in range(self.cfg.n_repeats):
+            bp = _index(params["blocks"], r)
+            for i, _ in enumerate(self.pattern):
+                x = x + layer_fn(bp[f"b{i}"], x, r, i)
+                if f"m{i}" in bp:
+                    x = x + B.apply_mlp(bp[f"m{i}"], x, self.cfg)
+        return x
+
+    # ---- dense cache serve -------------------------------------------------
+    def _stacked(self, one):
+        """One layer's cache/pool leaves (shapes only, on the meta device)
+        as zeros with a leading layer axis on the model's device."""
+        return {"body": {f"c{i}": {k: torch.zeros(
+            (self.cfg.n_repeats,) + v.shape, dtype=v.dtype,
+            device=self.device) for k, v in one.items()}
+            for i in range(len(self.pattern))}}
+
+    def init_cache(self, batch: int, max_len: int):
+        return self._stacked(A.init_attn_cache(self.cfg, batch, max_len,
+                                               device="meta"))
+
+    def prefill(self, params: Params, batch: dict, max_len: int):
+        """Process the prompt and fill fresh caches; returns (last-position
+        logits (B, 1, V), caches)."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        b, s = tokens.shape
+        caches = self.init_cache(b, max_len)
+        pos = torch.arange(s, device=self.device).expand(b, s)
+
+        def layer(bp, x, r, i):
+            c = _index(caches["body"][f"c{i}"], r)
+            return A.apply_attn(bp, x, cfg, positions=pos, cache=c,
+                                prefill=True)[0]
+        x = self._blocks(params, self._embed_tokens(params, tokens), layer)
+        return self._logits(params, x[:, -1:]), caches
+
+    def decode_step(self, params: Params, caches, token, step: int):
+        """One decode step. token (B, 1); step the position written."""
+        cfg = self.cfg
+        token = self._tokens(token)
+        b = token.shape[0]
+        pos = torch.full((b, 1), int(step), device=self.device)
+
+        def layer(bp, x, r, i):
+            c = _index(caches["body"][f"c{i}"], r)
+            return A.apply_attn(bp, x, cfg, positions=pos, cache=c,
+                                step=int(step))[0]
+        x = self._blocks(params, self._embed_tokens(params, token), layer)
+        return self._logits(params, x), caches
+
+    # ---- paged serve (continuous batching, repro_torch.serve) --------------
+    def supports_paged(self) -> str | None:
+        """None when the paged serve path covers this config, else why not
+        (every config :class:`Model` accepts is covered)."""
+        return None
+
+    def init_page_pool(self, n_pages: int, page_size: int):
+        """Layer-stacked paged KV pool: leaves (n_repeats, n_pages,
+        page_size, KV, D) (+ scale leaves under KV8)."""
+        return self._stacked(A.init_attn_page_pool(self.cfg, n_pages,
+                                                   page_size, device="meta"))
+
+    def _paged(self, params, tokens, pool, fn, **kw):
+        cfg = self.cfg
+
+        def layer(bp, x, r, i):
+            pl = _index(pool["body"][f"c{i}"], r)
+            return fn(bp, x, cfg, pool=pl, **kw)[0]
+        return self._blocks(params, self._embed_tokens(params, tokens),
+                            layer)
+
+    def prefill_paged(self, params: Params, tokens, pool, *,
+                      prefix_page_ids, write_page_ids, write_offs,
+                      write_from: int = 0):
+        """Suffix prefill for one request through the page pool; returns
+        (last-position logits, pool) — the pool is written in place."""
+        x = self._paged(params, tokens, pool, A.apply_attn_paged_prefill,
+                        prefix_page_ids=prefix_page_ids,
+                        write_page_ids=write_page_ids,
+                        write_offs=write_offs, write_from=write_from)
+        return self._logits(params, x[:, -1:]), pool
+
+    def prefill_paged_batched(self, params: Params, tokens, pool, *,
+                              prefix_page_ids, prefix_lens, suffix_lens,
+                              write_page_ids, write_offs, write_pos):
+        """Bucket-padded batched prefill of several requests' suffixes;
+        returns (per-row last-real-position logits (B, 1, V), pool)."""
+        x = self._paged(params, tokens, pool,
+                        A.apply_attn_paged_prefill_batched,
+                        prefix_page_ids=prefix_page_ids,
+                        prefix_lens=prefix_lens, suffix_lens=suffix_lens,
+                        write_page_ids=write_page_ids,
+                        write_offs=write_offs, write_pos=write_pos)
+        idx = (suffix_lens.long() - 1)[:, None, None].expand(
+            -1, 1, x.shape[-1])
+        last = torch.take_along_dim(x, idx, dim=1)
+        return self._logits(params, last), pool
+
+    def decode_step_paged(self, params: Params, pool, tokens, page_indices,
+                          steps, kernel: bool | None = None):
+        """One packed decode step over every slot. tokens (B, 1);
+        page_indices (B, P) int32; steps (B,) int32. Returns (logits
+        (B, 1, V), pool). ``kernel`` selects the live-page CUDA attention
+        kernel; None defers to ``cfg.paged_kernel``."""
+        x = self._paged(params, tokens, pool, A.apply_attn_paged_decode,
+                        page_indices=page_indices, steps=steps,
+                        kernel=kernel)
+        return self._logits(params, x), pool
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,0 +1,36 @@
+"""Greedy generation loop (port of ``repro.train.serve_step``): one
+prefill, then one decode step per generated token, eagerly."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model import Model
+
+__all__ = ["greedy_generate"]
+
+
+def greedy_generate(model: Model, params, batch, max_len: int,
+                    n_steps: int) -> torch.Tensor:
+    """Prefill then greedy-decode; returns exactly ``n_steps`` tokens.
+
+    The result is ``(B, n_steps)`` int32 on the model's device. Token 0 is
+    the argmax over the prefill logits at the last prompt position; tokens
+    1..n_steps-1 come from ``n_steps - 1`` decode steps. ``n_steps=0``
+    returns an empty ``(B, 0)`` tensor without running the model; negative
+    ``n_steps`` raises.
+    """
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    b, prompt_len = tokens.shape
+    if n_steps == 0:
+        return torch.zeros((b, 0), dtype=torch.int32, device=model.device)
+    logits, caches = model.prefill(params, {"tokens": tokens}, max_len)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    toks = [tok]
+    for i in range(n_steps - 1):
+        logits, caches = model.decode_step(params, caches, tok,
+                                           prompt_len + i)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1)

@@ -1,0 +1,148 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU.
+
+* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or ``repro`` (an AST scan, so lazy imports inside functions
+  count too).
+* The entry points (``Model``, ``ServeEngine``, ``launch.serve``) refuse
+  to run when no CUDA device is present unless asked for the CPU.
+* The kernel wrappers raise, rather than fall back to their plain
+  versions, when given a non-CPU tensor and the kernel cannot be built
+  (a stubbed loader stands in for the missing ``nvcc``).
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _port_files()
+    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    bad = {str(p.relative_to(ROOT)): sorted(r & {"jax", "jaxlib", "repro"})
+           for p in files if _imported_roots(p) & {"jax", "jaxlib", "repro"}}
+    assert not bad, f"port modules importing JAX or the reference: {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_cfg():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.specs import serve_config
+    return serve_config(get_reduced("smollm_135m").replace(n_layers=1),
+                        backend="engine_torch")
+
+
+def test_entry_points_refuse_cpu_fallback(no_cuda):
+    from repro_torch import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+    cfg = _tiny_cfg()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, max_len=16, page_size=4)
+    ServeEngine(model, params, max_len=16, page_size=4, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "smollm-135m", "--reduced", "--continuous"])
+
+
+def test_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "smollm-135m", "--reduced", "--continuous",
+                      "--device", "cpu", "--backend", "engine_cuda",
+                      "--paged-kernel", "--prompt-len", "8", "--gen", "3",
+                      "--page-size", "4", "--requests", "3"])
+    assert [len(r.tokens) for r in eng.finished] == [3, 3, 3]
+    assert eng.counters["pages_shared"] > 0
+    out = capsys.readouterr().out
+    assert "[prefix reuse]" in out and "transitive_forest launches=0" in out
+
+
+def _failing_build(name):
+    raise RuntimeError(f"nvcc not found: cannot build {name}")
+
+
+def test_forest_wrapper_raises_instead_of_falling_back(monkeypatch, rng):
+    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    from repro_torch.kernels import build, transitive_forest as tf
+    monkeypatch.setattr(build, "load", _failing_build)
+    d = compile_plan(BatchedTransitiveEngine(4, 8).plan(
+        rng.integers(-8, 8, size=(4, 16))))
+    x = torch.from_numpy(rng.integers(-128, 128, size=(16, 3)))
+    before = tf.transitive_forest.launches
+    cpu = tf.transitive_forest(d, x)           # CPU: the plain version
+    np.testing.assert_array_equal(cpu.numpy(),
+                                  tf.forest_plain(d, x).numpy())
+    with pytest.raises(RuntimeError, match="cannot build transitive_forest"):
+        tf.transitive_forest(d, x.to("meta"))
+    assert tf.transitive_forest.launches == before
+
+
+def test_attention_wrapper_raises_instead_of_falling_back(monkeypatch):
+    from repro_torch.kernels import build, paged_attention as pa
+    monkeypatch.setattr(build, "load", _failing_build)
+    cfg = _tiny_cfg()
+    n_pages, ps, kv, hd = 3, 4, cfg.n_kv_heads, cfg.hd
+    pool = {"k": torch.zeros((n_pages, ps, kv, hd), dtype=torch.int8),
+            "v": torch.zeros((n_pages, ps, kv, hd), dtype=torch.int8),
+            "ks": torch.ones((n_pages, ps, kv, 1)),
+            "vs": torch.ones((n_pages, ps, kv, 1))}
+    q = torch.ones((1, 1, cfg.n_heads, hd))
+    table = torch.tensor([[1, 2]], dtype=torch.int32)
+    steps = torch.tensor([5], dtype=torch.int32)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    meta = {n: a.to("meta") for n, a in pool.items()}
+    with pytest.raises(RuntimeError, match="cannot build paged_attention"):
+        pa.paged_attention(q.to("meta"), meta, table, steps, cfg,
+                           hd ** -0.5)
+    assert pa.paged_attention.launches == before
+
+
+def test_build_needs_nvcc_and_nothing_runs_at_import(monkeypatch, tmp_path):
+    """Importing the kernels builds nothing; a build without nvcc raises
+    with the reason instead of producing a library."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "isfile",
+                        lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.start("transitive_forest")
+    assert not (tmp_path / "kernels").exists()
