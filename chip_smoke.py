@@ -7,8 +7,8 @@ against its plain version.
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
   0. the card's ``nvidia-smi`` name and power limit;
-  1. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-     each, in parallel) into ``build/kernels``;
+  1. build all five CUDA kernels from ``src/repro_torch/csrc`` (one
+     ``nvcc`` each, in parallel) into ``build/kernels``;
   2. B1, the forest kernel, against ``run_device`` and the exact integer
      GEMM at smollm-135m's four linear shapes x M in {1, 4, 8, 64, 512}
      plus a grouped case: exact int32 equality, with kernel / plain /
@@ -16,18 +16,43 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   3. B2, the paged-attention kernel, against the gather + attend_cached
      path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
      ragged steps, within the tolerance stated in ``check_attention``;
+  B3. the doubling-LUT transitive GEMM against its plain version and the
+     exact integer GEMM at smollm-135m's four linear shapes x M in {1, 4,
+     8, 64, 512} at w_bits 4, one shape at w_bits 8, at w_bits 2 and at
+     T=4, a ragged (M, N, K) = (130, 70, 512) case and the grouped
+     down-projection (N=576, K=1536, 12 groups of 128): exact int32
+     equality, with kernel / plain / library (``torch._int_mm``, M padded
+     to 32) / bound times;
+  B4. the group-dequant GEMM against its plain version at (N, K, group) =
+     (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, within the
+     reference's tolerance (``check_w4a8``);
+  B5. the linear recurrence against its plain version at
+     recurrentgemma-9b's width D=4096, B=4, S=2048, in float32 and
+     bfloat16, within the reference's tolerance (``check_rg_lru``);
   4. a reduced float32 smollm served through ``ServeEngine`` on the card
      with the forest kernel and with its plain version: tokens equal;
-  5. the main path: full-width smollm-135m (30 layers, d_model 576,
+  5. the forest serving path: full-width smollm-135m (30 layers, d_model 576,
      vocab 49152, bf16, random weights from a seed) with W4A8 forest
      linears (``engine_cuda``) and the paged-attention kernel, 4 slots,
      page_size 16, max_len 256, 8 requests of 128-token prompts sharing
      prefixes, 32 tokens each; launch counts of both kernels over that run
      must be > 0; then the same requests on the plain path
-     (``engine_torch`` + gather decode) and the share of tokens that agree.
+     (``engine_torch`` + gather decode) and the share of tokens that agree;
+  6. the LUT serving path: the same model, weights and requests served on
+     ``lut_cuda`` (the doubling-LUT kernel) with the paged-attention
+     kernel and no plan: over that run B3 and B2 launch, B1 does not, the
+     plan cache sees no lookup, and all 256 tokens equal phase 5's;
+  7. the public kernel API (``repro_torch.kernels.ops``): each of its
+     five functions once on the card at a serving shape, every kernel
+     launched, each result equal to (or, B4, within tolerance of) its
+     plain version.
 
-The line before the last is a JSON object of per-kernel numbers; the last
-line is ``{"ok": true, "device": {...}}``.
+Every launch count in the JSON line is read from the run of the path
+that drives the kernel (B1: phase 5; B2, B3: phase 6; B4, B5: phase 7),
+with the counts set to 0 just before it; launches made to compare a
+kernel with its plain version are not counted. The line before the last
+is that JSON object of per-kernel numbers; the last line is ``{"ok":
+true, "device": {...}}``.
 """
 import json
 import os
@@ -215,6 +240,166 @@ def check_attention(flush):
     return entry
 
 
+def _tgemm_bound(m, n, k, w_bits, t, groups):
+    """Bytes: x and w int8 read once, the int32 output written once.
+    Operations (data-independent): the doubling LUT build, (2^4 - 1) adds
+    per nibble LUT, and per (m, n, subtile, plane) T/4 gathers + T/4 adds
+    (nibble combine and shift-accumulate), against the scalar rate."""
+    nl, j = t // 4, k // t
+    n_bytes = m * k + n * k + m * groups * n * 4
+    n_ops = m * j * nl * 15 + m * n * j * w_bits * 2 * nl
+    return bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+
+
+def check_tgemm(flush):
+    """B3 vs its plain version and the exact GEMM; returns the JSON entry
+    (timed at the decode shape N=1536, K=576, M=4, w_bits 4, T=8)."""
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+                                                     transitive_gemm_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(n, k, m, 4, 8, 1) for n, k in SHAPES for m in MS]
+    cases += [(1536, 576, 64, 8, 8, 1), (1536, 576, 64, 2, 8, 1),
+              (1536, 576, 64, 4, 4, 1), (70, 512, 130, 4, 8, 1),
+              (576, 1536, 64, 4, 8, 12)]
+    entry, worst = None, 0
+    for n, k, m, w_bits, t, groups in cases:
+        lim = 1 << (w_bits - 1)
+        w = torch.randint(-lim, lim, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        kw = dict(w_bits=w_bits, t=t, groups=groups)
+        got = transitive_gemm_cuda(x, w, **kw)
+        want = transitive_gemm_plain(x, w, **kw)
+        kg = k // groups
+        gemm = torch.stack([int_matmul(x[:, i * kg:(i + 1) * kg],
+                                       w[:, i * kg:(i + 1) * kg].T)
+                            for i in range(groups)], dim=1)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((got.long() - gemm.long()).abs().max()))
+        worst = max(worst, err)
+        tag = (f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}")
+        if err:
+            raise AssertionError(f"transitive_gemm kernel != plain at {tag}:"
+                                 f" max |diff| {err}")
+        k_ms = cuda_ms(lambda: transitive_gemm_cuda(x, w, **kw), flush)
+        p_ms = cuda_ms(lambda: transitive_gemm_plain(x, w, **kw), flush)
+        if groups == 1 and n % 8 == 0 and k % 8 == 0:
+            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                             device="cuda")
+            xm[:m] = x
+            wt = w.T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+        else:
+            lib_ms = None
+        b_ms, b_by = _tgemm_bound(m, n, k, w_bits, t, groups)
+        lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"[B3] {tag}: exact | kernel_ms={k_ms:.4f} plain_ms="
+              f"{p_ms:.4f} library_ms={lib_txt} bound_ms={b_ms:.6f} "
+              f"({b_by})")
+        if (n, k, m, w_bits, t, groups) == (1536, 576, 4, 4, 8, 1):
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "shape": "N=1536 K=576 M=4 w_bits=4 T=8 (decode, "
+                              "MLP up/gate)"}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_w4a8(flush):
+    """B4 vs its plain version; returns the JSON entry (timed at N=1536,
+    K=576, group 64, M=4).
+
+    Tolerance: the reference's own, rtol 2e-3 and atol 1e-2
+    (tests/test_kernels.py): the group dots are exact int32 in both, but
+    the kernel sums the f32 group terms in another order."""
+    import torch
+    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda, w4a8_gemm_plain
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    entry, worst = None, 0.0
+    for n, k, g in ((576, 1536, 128), (1536, 576, 64)):
+        for m in (4, 512):
+            x = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            sx = torch.rand((m, 1), generator=gen, device="cuda") * 1.5 + 0.5
+            sg = torch.rand((n, k // g), generator=gen,
+                            device="cuda") * 1.5 + 0.5
+            got = w4a8_gemm_cuda(x, sx, w, sg, group=g)
+            want = w4a8_gemm_plain(x, sx, w, sg, group=g)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            tag = f"N={n} K={k} group={g} M={m}"
+            if not torch.allclose(got, want, rtol=2e-3, atol=1e-2):
+                raise AssertionError(f"w4a8_gemm kernel vs plain at {tag}: "
+                                     f"max |diff| {err} beyond rtol 2e-3, "
+                                     f"atol 1e-2")
+            k_ms = cuda_ms(lambda: w4a8_gemm_cuda(x, sx, w, sg, group=g),
+                           flush)
+            p_ms = cuda_ms(lambda: w4a8_gemm_plain(x, sx, w, sg, group=g),
+                           flush)
+            n_bytes = m * k + n * k + m * 4 + sg.numel() * 4 + m * n * 4
+            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS_PER_S)
+            print(f"[B4] {tag}: max_abs_err={err:.3e} (max|out| "
+                  f"{float(want.abs().max()):.3e}) | kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} library_ms=null bound_ms="
+                  f"{b_ms:.6f} ({b_by})")
+            if (n, k, g, m) == (1536, 576, 64, 4):
+                entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None,
+                         "shape": "N=1536 K=576 group=64 M=4"}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_rg_lru(flush):
+    """B5 vs its plain version; returns the JSON entry (float32).
+
+    Tolerance: the reference's own, 3e-4 in float32 and 3e-2 in bfloat16
+    (tests/test_kernels.py). Kernel and plain version round the same
+    operations in the same order, so they are expected to agree exactly;
+    the tolerance is what the reference's doubling scan needs."""
+    import torch
+    from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_plain
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, d = 4, 2048, 4096
+    entry, worst = None, 0.0
+    for dtype, tol in ((torch.float32, 3e-4), (torch.bfloat16, 3e-2)):
+        x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+        a = (torch.rand((b, s, d), generator=gen, device="cuda") * 0.199
+             + 0.8).to(dtype)
+        h0 = torch.randn((b, d), generator=gen, device="cuda").to(dtype)
+        got = rg_lru_cuda(x, a, h0)
+        want = rg_lru_plain(x, a, h0)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        if got.dtype != dtype or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"rg_lru kernel vs plain in {dtype}: max "
+                                 f"|diff| {err} beyond {tol}")
+        k_ms = cuda_ms(lambda: rg_lru_cuda(x, a, h0), flush)
+        p_ms = cuda_ms(lambda: rg_lru_plain(x, a, h0), flush, iters=5,
+                       warmup=1)
+        esz = x.element_size()
+        n_bytes = 3 * b * s * d * esz + b * d * esz
+        b_ms, b_by = bound_ms(n_bytes, 2 * b * s * d, SCALAR_OPS_PER_S)
+        print(f"[B5] B={b} S={s} D={d} {dtype}: max_abs_err={err:.3e} "
+              f"(tolerance {tol}) | kernel_ms={k_ms:.4f} plain_ms="
+              f"{p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} ({b_by})")
+        if dtype == torch.float32:
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None,
+                     "shape": f"B={b} S={s} D={d} float32"}
+    entry["max_abs_err"] = worst
+    return entry
+
+
 def _prompts(vocab, n, length):
     """Even requests repeat a base prompt, odd ones share its first half
     (the launcher's workload, seed 1)."""
@@ -272,11 +457,11 @@ def main_path():
                        backend="engine_cuda").replace(paged_kernel=True)
     model = Model(cfg, device="cuda")
     t0 = time.perf_counter()
-    params = model.init(0)
+    raw = model.init(0)
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    stats = model.precompile_plans(params)
-    params = model.attach_device_plans(params)
+    stats = model.precompile_plans(raw)
+    params = model.attach_device_plans(raw)
     torch.cuda.synchronize()
     t_plan = time.perf_counter() - t0
     plan_bytes = 0
@@ -336,6 +521,129 @@ def main_path():
           f"{peng.report()['total_tokens'] / pdt:.1f} tokens/s | tokens "
           f"agreeing with the kernel path: {same}/{rep['total_tokens']} "
           f"({same / rep['total_tokens']:.3f}); first tokens {first}/8")
+    return launches, toks, raw, cfg
+
+
+def lut_path(toks_engine, raw, cfg):
+    """The LUT serving path: the same model and requests served on lut_cuda
+    (the doubling-LUT kernel B3, no plan) with the paged-attention kernel.
+    Over the run B3 and B2 launch, B1 does not, the plan cache sees no
+    lookup, and every token equals the engine_cuda run's: both backends
+    give the same int32 accumulators."""
+    from repro_torch.core import plancache
+    from repro_torch.core.engine import DevicePlan
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.models.model import Model
+    lcfg = cfg.replace(quant=cfg.quant.with_(backend="lut_cuda"))
+    model = Model(lcfg, device="cuda")
+    for blk in raw["blocks"].values():
+        for layer in blk.values():
+            if isinstance(layer, dict) and isinstance(layer.get("dplan"),
+                                                      DevicePlan):
+                raise AssertionError("lut_cuda params carry a plan")
+    cache = plancache.default_cache().stats()
+    prompts = _prompts(lcfg.vocab, 8, 128)
+    kw = dict(n_slots=4, max_len=256, page_size=16)
+    kernels = (transitive_forest, transitive_gemm_cuda, paged_attention)
+    for k in kernels:
+        k.launches = 0
+    eng, dt = _serve(model, raw, prompts, 32, paged_kernel=True, **kw)
+    launches = {k.__name__: k.launches for k in kernels}
+    after = plancache.default_cache().stats()
+    rep = eng.report()
+    c = rep["counters"]
+    ttft = sum(r["ttft_s"] for r in rep["requests"]) / len(rep["requests"])
+    toks = {r.rid: r.tokens for r in eng.finished}
+    print(f"[lut] {lcfg.name} on lut_cuda + paged kernel: 8 requests x 32 "
+          f"tokens in {dt:.3f}s -> {rep['total_tokens'] / dt:.1f} "
+          f"tokens/s | mean TTFT {ttft * 1e3:.1f} ms | decode steps "
+          f"{c['decode_steps']} | launches: transitive_gemm="
+          f"{launches['transitive_gemm_cuda']} paged_attention="
+          f"{launches['paged_attention']} transitive_forest="
+          f"{launches['transitive_forest']} | plan cache hits+misses "
+          f"{cache['hits'] + cache['misses']} -> "
+          f"{after['hits'] + after['misses']}")
+    if not (launches["transitive_gemm_cuda"] and launches["paged_attention"]
+            and launches["transitive_forest"] == 0):
+        raise AssertionError(f"lut_cuda path launches wrong: {launches}")
+    if (after["hits"], after["misses"]) != (cache["hits"], cache["misses"]):
+        raise AssertionError(f"lut_cuda path touched the plan cache: "
+                             f"{cache} -> {after}")
+    same = sum(a == b for rid in toks
+               for a, b in zip(toks[rid], toks_engine[rid]))
+    total = sum(map(len, toks_engine.values()))
+    print(f"[lut] tokens equal to the engine_cuda run: {same}/{total}")
+    if toks != toks_engine:
+        raise AssertionError(f"lut_cuda tokens differ from engine_cuda's: "
+                             f"{same}/{total} equal")
+    return launches
+
+
+def ops_path():
+    """The public kernel API on the card: each function of
+    repro_torch.kernels.ops once at a serving shape, with the launch
+    counts set to 0 just before and read just after; then each result
+    against its kernel's plain version (exact for the integer kernels,
+    the reference's tolerances for B4 and B5)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rg_lru import rg_lru_cuda
+    from repro_torch.kernels.transitive_forest import (forest_plain,
+                                                       transitive_forest)
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    x, w = ints((4, 576), 128), ints((1536, 576), 8)
+    xg, wg = ints((4, 12, 128), 128), ints((576, 12, 128), 8)
+    xq, wq = ints((4, 576), 128), ints((1536, 576), 8)
+    sx = torch.rand((4, 1), generator=gen, device="cuda") + 0.5
+    sg = torch.rand((1536, 9), generator=gen, device="cuda") + 0.5
+    hx = torch.randn((4, 2048, 4096), generator=gen, device="cuda")
+    ha = torch.rand((4, 2048, 4096), generator=gen, device="cuda") * 0.2 + 0.8
+    h0 = torch.randn((4, 4096), generator=gen, device="cuda")
+    wf = np.random.default_rng(7).integers(-8, 8, size=(192, 576))
+    dplan = compile_plan(BatchedTransitiveEngine(4, 8).plan(wf),
+                         device="cuda")
+    xf = torch.randint(-128, 128, (576, 4), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    kernels = (transitive_forest, transitive_gemm_cuda, w4a8_gemm_cuda,
+               rg_lru_cuda)
+    for k in kernels:
+        k.launches = 0
+    outs = (ops.transitive_gemm(x, w, w_bits=4),
+            ops.transitive_gemm_grouped(xg, wg, w_bits=4),
+            ops.w4a8_gemm(xq, sx, wq, sg, group=64),
+            ops.rg_lru(hx, ha, h0),
+            ops.transitive_forest(dplan, xf))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"[ops] launches: {launches}")
+    if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 2,
+                    "w4a8_gemm_cuda": 1, "rg_lru_cuda": 1}:
+        raise AssertionError(f"ops API launches wrong: {launches}")
+    exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
+             (outs[1], ref.transitive_matmul_grouped_ref(xg, wg, 4)),
+             (outs[4], forest_plain(dplan, xf)))
+    for got, want in exact:
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError("ops API integer result != plain version")
+    if not torch.allclose(outs[2], ref.w4a8_matmul_ref(xq, sx, wq, sg),
+                          rtol=2e-3, atol=1e-2):
+        raise AssertionError("ops.w4a8_gemm beyond rtol 2e-3, atol 1e-2")
+    if not torch.allclose(outs[3], ref.rg_lru_ref(hx, ha, h0), rtol=3e-4,
+                          atol=3e-4):
+        raise AssertionError("ops.rg_lru beyond 3e-4")
+    print("[ops] transitive_gemm, transitive_gemm_grouped, "
+          "transitive_forest exact; w4a8_gemm and rg_lru within tolerance")
     return launches
 
 
@@ -363,18 +671,41 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     forest = check_forest(flush)
     attention = check_attention(flush)
+    tgemm = check_tgemm(flush)
+    w4a8 = check_w4a8(flush)
+    rglru = check_rg_lru(flush)
     del flush
     check_reduced_serve()
-    launches = main_path()
+    launches, toks, raw, cfg = main_path()
+    lut = lut_path(toks, raw, cfg)
+    del raw
+    ops = ops_path()
     kernels = [
         {"name": "transitive_forest", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
-         "launches": launches["transitive_forest"], **forest},
+         "launches": launches["transitive_forest"],
+         "launches_from": "phase 5 (engine_cuda serve)", **forest},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:219",
-         "launches": launches["paged_attention"], **attention},
+         "launches": lut["paged_attention"],
+         "launches_from": "phase 6 (lut_cuda serve)", **attention},
+        {"name": "transitive_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/transitive_gemm.cu",
+         "replaces": "src/repro/kernels/transitive_gemm.py:84",
+         "launches": lut["transitive_gemm_cuda"],
+         "launches_from": "phase 6 (lut_cuda serve)", **tgemm},
+        {"name": "w4a8_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/w4a8_gemm.cu",
+         "replaces": "src/repro/kernels/w4a8_gemm.py:51",
+         "launches": ops["w4a8_gemm_cuda"],
+         "launches_from": "phase 7 (kernels.ops)", **w4a8},
+        {"name": "rg_lru", "route": "cuda",
+         "source": "src/repro_torch/csrc/rg_lru.cu",
+         "replaces": "src/repro/kernels/rg_lru.py:51",
+         "launches": ops["rg_lru_cuda"],
+         "launches_from": "phase 7 (kernels.ops)", **rglru},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

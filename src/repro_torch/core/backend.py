@@ -1,7 +1,7 @@
 """Execution backends for the integer GEMM: a registry with capability flags
 (port of ``repro.core.backend``).
 
-Three backends serve the port's slice; each maps to a reference backend:
+Five backends; each maps to a reference backend:
 
   ==================  ==================  ==================================
   port                reference           what runs
@@ -10,6 +10,12 @@ Three backends serve the port's slice; each maps to a reference backend:
                                           matmul, exact: every partial sum
                                           of int8 x int8 products over
                                           K <= 2^20 stays below 2^53)
+  ``lut``             ``lut``             the doubling-LUT transitive GEMM
+                                          in plain torch (kernels/ref.py),
+                                          on either device
+  ``lut_cuda``        ``pallas``          the doubling-LUT GEMM as the CUDA
+                                          kernel (its plain version on CPU
+                                          tensors); no plan
   ``engine_torch``    ``engine_jit``      the planned forest, ``run_device``
                                           in plain torch gathers
   ``engine_cuda``     ``engine_pallas``   the planned forest as the CUDA
@@ -17,8 +23,8 @@ Three backends serve the port's slice; each maps to a reference backend:
                                           CPU tensors)
   ==================  ==================  ==================================
 
-The reference's ``lut``, host ``engine`` and ``pallas`` backends are not
-part of this slice. ``execute`` contract (all integer, bit-exact with the
+The reference's host ``engine`` (a ``pure_callback`` oracle) is not
+ported. ``execute`` contract (all integer, bit-exact with the
 ``int_dot`` int32 accumulator):
 
   * ungrouped (``cfg.groups == 1``): ``x (..., K) x w (N, K) -> (..., N)``
@@ -166,6 +172,35 @@ class IntDotBackend(TransitiveBackend):
         return int_matmul(x, w.transpose(0, 1))
 
 
+class LutBackend(TransitiveBackend):
+    """The dense doubling-LUT transitive GEMM in plain torch
+    (``kernels/ref.py``) on the tensors' device — the paper's result-reuse
+    dataflow in software, data-independent; the counterpart of ``lut``."""
+    name = "lut"
+    device_resident = True
+
+    def execute(self, x, w, plan, dplan, cfg):
+        from repro_torch.kernels import ref
+        if cfg.groups > 1:
+            return ref.transitive_matmul_grouped_ref(x, w, cfg.w_bits, cfg.t)
+        return ref.transitive_matmul_ref(x, w, cfg.w_bits, cfg.t)
+
+
+class LutCudaBackend(TransitiveBackend):
+    """The doubling-LUT schedule through the hand-written CUDA kernel
+    (``kernels/transitive_gemm.py``; its plain version on CPU tensors);
+    the counterpart of ``pallas``. Needs no plan."""
+    name = "lut_cuda"
+    device_resident = True
+
+    def execute(self, x, w, plan, dplan, cfg):
+        from repro_torch.kernels import ops
+        if cfg.groups > 1:
+            return ops.transitive_gemm_grouped(x, w, w_bits=cfg.w_bits,
+                                               t=cfg.t)
+        return ops.transitive_gemm(x, w, w_bits=cfg.w_bits, t=cfg.t)
+
+
 class EngineTorchBackend(TransitiveBackend):
     """The planned forest from a DevicePlan in plain torch (``run_device``);
     the counterpart of the reference's ``engine_jit``."""
@@ -210,7 +245,8 @@ class EngineCudaBackend(EngineTorchBackend):
         return transitive_forest(dplan, flat)
 
 
-for _b in (IntDotBackend(), EngineTorchBackend(), EngineCudaBackend()):
+for _b in (IntDotBackend(), LutBackend(), LutCudaBackend(),
+           EngineTorchBackend(), EngineCudaBackend()):
     register_backend(_b)
 del _b
 

@@ -8,12 +8,17 @@ The paper (Sec. 2.1-2.2) decomposes an S-bit 2's-complement integer matrix
 Planes are then chunked along K into T-bit **TransRows** — unsigned integers
 in [0, 2^T) — which are the fundamental unit of transitive sparsity.
 
-Pure numpy, shape-static and bit-exact (the host half of the
-reference module; the port plans on the host only).
+The numpy half is the host planner's; the torch half
+(:func:`bit_planes_torch`, :func:`pack_transrows_torch`, the
+counterparts of the reference's ``*_jnp`` pair) runs on any device for
+the plain LUT GEMM in ``kernels/ref.py``. Both are shape-static and
+bit-exact. TransRows are ``uint32`` in numpy and ``int64`` in torch (CPU
+torch has little ``uint32`` arithmetic); the values are the same.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "bit_planes",
@@ -22,6 +27,8 @@ __all__ = [
     "pack_transrows",
     "unpack_transrows",
     "transrow_matrix",
+    "bit_planes_torch",
+    "pack_transrows_torch",
 ]
 
 
@@ -98,3 +105,25 @@ def transrow_matrix(w: np.ndarray, bits: int, t: int) -> np.ndarray:
     layout is a reshape of this.
     """
     return pack_transrows(bit_planes(w, bits), t)
+
+
+# --- torch variants (any device; used by the plain LUT GEMM) ---------------
+
+def bit_planes_torch(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 {0, 1} planes (bits,) + w.shape of the ``bits``-bit 2's
+    complement of integer ``w`` (no range check, like the reference's
+    ``bit_planes_jnp``: bits above ``bits`` are dropped)."""
+    w = w.to(torch.int64)
+    u = torch.where(w < 0, w + (1 << bits), w)
+    return torch.stack([(u >> s) & 1 for s in range(bits)]).to(torch.uint8)
+
+
+def pack_transrows_torch(planes: torch.Tensor, t: int) -> torch.Tensor:
+    """int64 TransRows (..., K // t) of uint8 planes (..., K): bit i of
+    element j is column j*t + i, as :func:`pack_transrows`."""
+    k = planes.shape[-1]
+    if k % t:
+        raise ValueError(f"K={k} not divisible by T={t}")
+    chunks = planes.reshape(planes.shape[:-1] + (k // t, t)).to(torch.int64)
+    weights = 1 << torch.arange(t, dtype=torch.int64, device=planes.device)
+    return (chunks * weights).sum(-1)

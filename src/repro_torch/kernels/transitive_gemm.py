@@ -1,0 +1,109 @@
+"""The doubling-LUT transitive GEMM kernel (CUDA C++,
+``csrc/transitive_gemm.cu``).
+
+Replaces the Pallas kernel ``repro/kernels/transitive_gemm.py``
+(``transitive_gemm_pallas``). :func:`transitive_gemm_cuda` computes the
+int32 ``qx (M, K) @ qw (N, K)^T`` of int8 operands (``qw`` holding
+``w_bits``-bit values) with transitive result reuse, in one launch for
+all ``groups`` equal slices of K: out (M, groups, N). On CPU tensors it
+runs the plain version (:mod:`repro_torch.kernels.ref`); on CUDA tensors
+it launches the kernel or raises. Each launch adds one to
+``transitive_gemm_cuda.launches``.
+
+The kernel reads the int8 weight directly (no packed TransRows), masks
+ragged M and N itself and splits K across blocks when there are few
+output tiles. Bound and design notes are in the CUDA source.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+__all__ = ["transitive_gemm_cuda", "transitive_gemm_plain"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("transitive_gemm")
+    if not getattr(lib, "_typed", False):
+        lib.transitive_gemm_launch.argtypes = [
+            _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+        lib.transitive_gemm_launch.restype = _I
+        lib.transitive_gemm_error.argtypes = [_I]
+        lib.transitive_gemm_error.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check(qx: torch.Tensor, qw: torch.Tensor, t: int, groups: int) -> None:
+    if qx.ndim != 2 or qw.ndim != 2 or qx.shape[1] != qw.shape[1]:
+        raise ValueError(f"need qx (M, K) and qw (N, K), got "
+                         f"{tuple(qx.shape)} and {tuple(qw.shape)}")
+    k = qx.shape[1]
+    if groups < 1 or k % groups or (k // groups) % t:
+        raise ValueError(f"K={k} must split into {groups} groups whose "
+                         f"length is divisible by T={t}")
+
+
+def transitive_gemm_plain(qx: torch.Tensor, qw: torch.Tensor, *,
+                          w_bits: int = 8, t: int = 8,
+                          groups: int = 1) -> torch.Tensor:
+    """The plain version (``kernels/ref.py``), on any device: int32
+    (M, groups, N)."""
+    _check(qx, qw, t, groups)
+    m, k = qx.shape
+    g = k // groups
+    return ref.transitive_matmul_grouped_ref(
+        qx.reshape(m, groups, g), qw.reshape(qw.shape[0], groups, g),
+        w_bits, t)
+
+
+def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
+                         w_bits: int = 8, t: int = 8,
+                         groups: int = 1) -> torch.Tensor:
+    """int32 (M, groups, N) = per group g: qx[:, g] @ qw[:, g]^T.
+
+    CPU tensors take the plain version. Anything else must be a CUDA
+    tensor; the kernel needs int8 operands, T in {4, 8} and w_bits in
+    2..8, is built at first use, and a build or launch failure raises."""
+    _check(qx, qw, t, groups)
+    if qx.device.type == "cpu":
+        return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
+                                     groups=groups)
+    lib = _library()
+    if qx.device.type != "cuda" or qw.device != qx.device:
+        raise ValueError(f"transitive_gemm runs on CUDA or CPU tensors on "
+                         f"one device, got {qx.device} and {qw.device}")
+    if qx.dtype != torch.int8 or qw.dtype != torch.int8:
+        raise ValueError(f"the kernel takes int8 operands, got {qx.dtype} "
+                         f"and {qw.dtype}")
+    if t not in (4, 8) or not 2 <= w_bits <= 8:
+        raise ValueError(f"the kernel covers T in (4, 8) and w_bits in "
+                         f"2..8, got T={t} w_bits={w_bits}")
+    m, k = qx.shape
+    n = qw.shape[0]
+    out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    xc = qx.contiguous()
+    wc = qw.contiguous()
+    if wc.data_ptr() % 8:                      # the kernel loads T bytes
+        wc = wc.clone()
+    sms = torch.cuda.get_device_properties(qx.device).multi_processor_count
+    stream = torch.cuda.current_stream(qx.device).cuda_stream
+    err = lib.transitive_gemm_launch(
+        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t, 2 * sms,
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"transitive_gemm launch failed: "
+                           f"{lib.transitive_gemm_error(err).decode()}")
+    transitive_gemm_cuda.launches += 1
+    return out
+
+
+transitive_gemm_cuda.launches = 0

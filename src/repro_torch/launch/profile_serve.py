@@ -1,17 +1,19 @@
 """Where the time of the port's main serving path goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--backend engine_cuda|lut_cuda] [--steps 8]
 
-Builds the main path (smollm-135m at full width unless ``--reduced``, W4A8
-forest linears through ``engine_cuda``, the paged-attention kernel, bf16,
-random weights from ``--seed``), admits ``--slots`` requests of
-``--prompt-len`` tokens, then:
+Builds the serving path (smollm-135m at full width unless ``--reduced``,
+W4A8 linears through ``--backend``: the forest kernel with ``engine_cuda``,
+the default, which first plans every linear, or the doubling-LUT kernel
+with ``lut_cuda``; the paged-attention kernel, bf16, random weights from
+``--seed``), admits ``--slots`` requests of ``--prompt-len`` tokens, then:
 
   * times ``--steps`` packed decode steps with the host clock around
     ``step()`` + ``torch.cuda.synchronize()`` (ms per step);
   * runs the same number of further steps under ``torch.profiler`` and
-    reports device time per step by kernel (the two CUDA kernels of the
-    port by their entry names, everything else grouped), and the device
+    reports device time per step by kernel (the port's CUDA kernels by
+    their entry names, everything else grouped), and the device
     busy share = summed kernel time / wall time of the window (one
     stream, so kernels do not overlap).
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.backend import list_backends
 from repro_torch.launch.specs import serve_config
 from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
@@ -34,7 +37,10 @@ from repro_torch.serve import ServeEngine
 # kernel entry names of the port (as the profiler shows them) -> label
 PORT_KERNELS = {"forest_tiles": "B1 forest pass 1 (tiles)",
                 "forest_ape": "B1 forest pass 2 (APE)",
-                "paged_decode": "B2 paged attention"}
+                "paged_decode": "B2 paged attention",
+                "tgemm_lut": "B3 doubling-LUT transitive GEMM",
+                "w4a8_dp4a": "B4 group-dequant GEMM",
+                "rg_lru_seq": "B5 linear recurrence"}
 
 
 def _label(name: str) -> str:
@@ -57,6 +63,9 @@ def _device_events(prof):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--backend", default="engine_cuda",
+                    choices=list_backends(),
+                    help="integer-GEMM backend of the PTQ linears")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
@@ -66,7 +75,7 @@ def main(argv=None):
 
     base = get_reduced("smollm_135m") if args.reduced else \
         get_config("smollm_135m")
-    cfg = serve_config(base, backend="engine_cuda").replace(
+    cfg = serve_config(base, backend=args.backend).replace(
         paged_kernel=True)
     model = Model(cfg, device="cuda")
     params = model.attach_device_plans(model.init(args.seed))
@@ -93,7 +102,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     step_ms = 1e3 * sum(walls) / len(walls)
-    print(f"[profile] {cfg.name} ({cfg.n_layers} layers, "
+    print(f"[profile] {cfg.name} ({cfg.n_layers} layers, backend "
+          f"{args.backend}, "
           f"{torch.cuda.get_device_name(0)}) | {args.slots} slots x "
           f"{args.prompt_len}-token prompts | admission + first decode "
           f"{t_admit * 1e3:.1f} ms | decode step {step_ms:.2f} ms "

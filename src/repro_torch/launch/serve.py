@@ -2,7 +2,7 @@
 serve engine, W4A8 TransitiveLinear + dynamic int8 attention + KV8 cache.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-      --continuous --backend engine_cuda --paged-kernel
+      --continuous --backend lut_cuda --paged-kernel
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Requests arrive
 staggered (``--requests`` of them, one every ``--arrive-every`` host
@@ -10,9 +10,10 @@ steps) into ``--slots`` packed decode slots over a paged KV pool of
 ``--page-size``-token pages; even requests repeat a base prompt and odd
 ones share its first half, so the prefix trie shares pages. Planned
 backends (``engine_torch``, ``engine_cuda``) build every linear's plan
-once before serving and serve from plans attached to the params. The
-report prints per-request TTFT and latency, tokens/s, the prefix-reuse
-counters and the kernel launch counts.
+once before serving and serve from plans attached to the params; the
+LUT backends (``lut``, ``lut_cuda``) and ``int_dot`` need no plan and
+build none. The report prints per-request TTFT and latency, tokens/s,
+the prefix-reuse counters and the kernel launch counts.
 
 Only the ``--continuous`` mode is ported; the one-shot batched generate,
 meshes, plan bundles, hot swap and the lint preflight of the reference
@@ -47,6 +48,7 @@ def serve_continuous(model, params, args):
     """Staggered arrivals through ServeEngine; returns the engine."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     from repro_torch.serve import ServeEngine
 
     cfg = model.cfg
@@ -57,7 +59,8 @@ def serve_continuous(model, params, args):
                       device=model.device)
     prompts = prefix_sharing_prompts(cfg.vocab, args.requests,
                                      args.prompt_len, args.seed + 1)
-    launches0 = (transitive_forest.launches, paged_attention.launches)
+    kernels = (transitive_forest, transitive_gemm_cuda, paged_attention)
+    launches0 = [k.launches for k in kernels]
     submitted = host_step = 0
     t0 = time.perf_counter()
     while submitted < args.requests or eng.queue or eng.active:
@@ -86,8 +89,10 @@ def serve_continuous(model, params, args):
           f"prefill_computed={c['prefill_computed']} | "
           f"pages={c['pages']} trie={c['trie']}")
     print(f"[kernels] transitive_forest launches="
-          f"{transitive_forest.launches - launches0[0]} paged_attention "
-          f"launches={paged_attention.launches - launches0[1]} | decode="
+          f"{transitive_forest.launches - launches0[0]} transitive_gemm "
+          f"launches={transitive_gemm_cuda.launches - launches0[1]} "
+          f"paged_attention launches="
+          f"{paged_attention.launches - launches0[2]} | decode="
           f"{'paged-kernel' if args.paged_kernel else 'gather'}")
     for r in eng.finished:
         print(f"  req {r.rid}: {r.tokens}")

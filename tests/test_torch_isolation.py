@@ -7,7 +7,9 @@
   to run when no CUDA device is present unless asked for the CPU.
 * The kernel wrappers raise, rather than fall back to their plain
   versions, when given a non-CPU tensor and the kernel cannot be built
-  (a stubbed loader stands in for the missing ``nvcc``).
+  (a stubbed loader stands in for the missing ``nvcc``); for the GEMM and
+  recurrence wrappers a plain version that raises when reached shows it
+  is never called for such a tensor.
 """
 import ast
 import pathlib
@@ -92,6 +94,18 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert "[prefix reuse]" in out and "transitive_forest launches=0" in out
 
 
+def test_launcher_serves_lut_cuda_on_cpu_without_plans(capsys):
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "smollm-135m", "--reduced", "--continuous",
+                      "--device", "cpu", "--backend", "lut_cuda",
+                      "--paged-kernel", "--prompt-len", "8", "--gen", "3",
+                      "--page-size", "4", "--requests", "3"])
+    assert [len(r.tokens) for r in eng.finished] == [3, 3, 3]
+    out = capsys.readouterr().out
+    assert "[plan cache]" not in out and "/lut_cuda" in out
+    assert "transitive_gemm launches=0" in out
+
+
 def _failing_build(name):
     raise RuntimeError(f"nvcc not found: cannot build {name}")
 
@@ -132,6 +146,35 @@ def test_attention_wrapper_raises_instead_of_falling_back(monkeypatch):
         pa.paged_attention(q.to("meta"), meta, table, steps, cfg,
                            hd ** -0.5)
     assert pa.paged_attention.launches == before
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("a non-CPU tensor reached the plain version")
+
+
+@pytest.mark.parametrize("name", ["transitive_gemm", "w4a8_gemm", "rg_lru"])
+def test_gemm_and_scan_wrappers_raise_instead_of_falling_back(
+        monkeypatch, rng, name):
+    import importlib
+    from repro_torch.kernels import build, ops
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    wrapper = getattr(mod, f"{name}_cuda")
+    q = torch.from_numpy(rng.integers(-8, 8, size=(4, 64)).astype(np.int8))
+    args = {"transitive_gemm": (q, q),
+            "w4a8_gemm": (q, torch.ones((4, 1)), q, torch.ones((4, 2))),
+            "rg_lru": (torch.ones((2, 3, 4)), torch.ones((2, 3, 4)),
+                       torch.ones((2, 4)))}[name]
+    kw = {"w4a8_gemm": {"group": 32}}.get(name, {})
+    op = getattr(ops, name)
+    monkeypatch.setattr(build, "load", _failing_build)
+    before = wrapper.launches
+    cpu = op(*args, **kw)                       # CPU: the plain version
+    assert cpu.device.type == "cpu" and torch.isfinite(cpu.float()).all()
+    monkeypatch.setattr(mod, f"{name}_plain", _never)
+    monkeypatch.setattr(mod, "ref", None)       # no route to kernels/ref
+    with pytest.raises(RuntimeError, match=f"cannot build {name}"):
+        op(*(a.to("meta") for a in args), **kw)
+    assert wrapper.launches == before
 
 
 def test_build_needs_nvcc_and_nothing_runs_at_import(monkeypatch, tmp_path):

@@ -69,3 +69,62 @@ def test_paged_attention_kernel_within_tolerance(cuda, page_size, max_len):
     want = paged_attention_plain(q, pool, table, steps, cfg, hd ** -0.5)
     tol = 2 * float(pool["vs"].max()) * 128 / 127
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("m,n,k,w_bits,t,groups", [
+    (4, 1536, 576, 4, 8, 1), (130, 70, 512, 4, 8, 1), (1, 8, 64, 8, 8, 1),
+    (33, 192, 576, 8, 4, 1), (17, 96, 256, 2, 8, 1), (512, 576, 1536, 4, 8, 1),
+    (4, 576, 1536, 4, 8, 12), (9, 40, 96, 4, 4, 3)])
+def test_transitive_gemm_kernel_equals_plain(cuda, m, n, k, w_bits, t,
+                                             groups):
+    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+                                                     transitive_gemm_plain)
+    rng = np.random.default_rng(m + n + k)
+    lim = 1 << (w_bits - 1)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-lim, lim, (n, k)).astype(np.int8))
+    kw = dict(w_bits=w_bits, t=t, groups=groups)
+    before = transitive_gemm_cuda.launches
+    got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw)
+    assert transitive_gemm_cuda.launches == before + 1
+    torch.testing.assert_close(got.cpu(), transitive_gemm_plain(x, w, **kw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,n,k,g", [(4, 576, 1536, 128), (512, 1536, 576, 64),
+                                     (130, 200, 384, 128), (3, 24, 96, 32)])
+def test_w4a8_gemm_kernel_within_tolerance(cuda, m, n, k, g):
+    """The reference's tolerance (rtol 2e-3, atol 1e-2): exact group dots,
+    f32 group terms summed in another order."""
+    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda, w4a8_gemm_plain
+    rng = np.random.default_rng(m + n + k + g)
+    args = [rng.integers(-128, 128, (m, k)).astype(np.int8),
+            rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32),
+            rng.integers(-8, 8, (n, k)).astype(np.int8),
+            rng.uniform(0.5, 2.0, (n, k // g)).astype(np.float32)]
+    args = [torch.from_numpy(a).to(cuda) for a in args]
+    before = w4a8_gemm_cuda.launches
+    got = w4a8_gemm_cuda(*args, group=g)
+    assert w4a8_gemm_cuda.launches == before + 1
+    torch.testing.assert_close(got, w4a8_gemm_plain(*args, group=g),
+                               rtol=2e-3, atol=1e-2)
+
+
+@pytest.mark.parametrize("b,s,d", [(4, 2048, 4096), (2, 13, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rg_lru_kernel_within_tolerance(cuda, b, s, d, dtype):
+    """The reference's tolerance: 3e-4 in float32, 3e-2 in bfloat16."""
+    from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_plain
+    rng = np.random.default_rng(b + s + d)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, d)).astype(
+        np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    x, a, h0 = (v.to(cuda, dt) for v in (x, a, h0))
+    before = rg_lru_cuda.launches
+    got = rg_lru_cuda(x, a, h0)
+    assert rg_lru_cuda.launches == before + 1 and got.dtype == dt
+    tol = 3e-2 if dtype == "bfloat16" else 3e-4
+    torch.testing.assert_close(got.float(), rg_lru_plain(x, a, h0).float(),
+                               rtol=tol, atol=tol)

@@ -3,10 +3,11 @@
 
 Codes and scales quantized from f32 inputs are equal exactly (same true
 division, same round-half-even). Every port backend's int32 accumulator
-(``int_dot``, ``engine_torch``, and ``engine_cuda`` through its plain
-version on CPU) equals the reference ``int_dot``'s exactly, per-channel
-and grouped; the f32 ``linear_apply`` output matches the reference within
-the tolerance stated at each check.
+(``int_dot``, ``lut``, ``engine_torch``, and ``lut_cuda`` and
+``engine_cuda`` through their plain versions on CPU) equals the reference
+``int_dot``'s and its counterpart's exactly, per-channel and grouped; the
+f32 ``linear_apply`` output matches the reference within the tolerance
+stated at each check.
 """
 import numpy as np
 import pytest
@@ -29,9 +30,9 @@ from repro_torch.core.engine import (BatchedTransitiveEngine,  # noqa: E402
 from repro_torch.quant import QuantConfig, linear_apply  # noqa: E402
 from repro_torch.quant import quantize as pt_q  # noqa: E402
 
-BACKENDS = ["int_dot", "engine_torch", "engine_cuda"]
-REF_OF = {"int_dot": "int_dot", "engine_torch": "engine_jit",
-          "engine_cuda": "engine_pallas"}
+BACKENDS = ["int_dot", "lut", "lut_cuda", "engine_torch", "engine_cuda"]
+REF_OF = {"int_dot": "int_dot", "lut": "lut", "lut_cuda": "pallas",
+          "engine_torch": "engine_jit", "engine_cuda": "engine_pallas"}
 
 
 def _inputs(rng, shape):
@@ -135,7 +136,7 @@ def test_linear_apply_matches_reference(backend, group, rng):
                         "sg": torch.from_numpy(sg), "dplan": dpt},
                        torch.from_numpy(x), pt_cfg)
     ref_params = {"qw": jnp.asarray(qw), "sg": jnp.asarray(sg)}
-    if REF_OF[backend] != "int_dot":
+    if get_backend(backend).needs_plan:
         ref_params["dplan"] = dref
     want = np.asarray(ref_linear_apply(ref_params, jnp.asarray(x), ref_cfg))
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -173,3 +174,36 @@ def test_linear_without_attached_plan_uses_the_cache(rng):
         plancache.set_default_cache(prev)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert (cache.misses, cache.hits) == (1, 1)
+
+
+@pytest.mark.parametrize("group", [64, 128, 0])
+@pytest.mark.parametrize("w_bits", [4, 8])
+def test_lut_linear_paths_agree_with_reference(group, w_bits, rng):
+    """The reference's ``test_linear_paths_agree`` across the packages:
+    ``lut`` and ``lut_cuda`` (plain version on CPU) against the
+    reference's ``lut`` and ``pallas`` (interpret mode), rtol and atol
+    1e-4 as there; the LUT backends build no plan."""
+    from repro_torch.core import plancache
+    n, k = 96, 256
+    qw, sg = _layer(rng, n, k, w_bits, group)
+    x = rng.standard_normal((3, 7, k)).astype(np.float32)
+    cache = plancache.PlanCache()
+    prev = plancache.set_default_cache(cache)
+    try:
+        for port in ("lut", "lut_cuda"):
+            got = linear_apply(
+                {"qw": torch.from_numpy(qw), "sg": torch.from_numpy(sg)},
+                torch.from_numpy(x),
+                QuantConfig(mode="ptq", w_bits=w_bits, group=group,
+                            backend=port))
+            want = ref_linear_apply(
+                {"qw": jnp.asarray(qw), "sg": jnp.asarray(sg)},
+                jnp.asarray(x),
+                RefQuantConfig(mode="ptq", w_bits=w_bits, group=group,
+                               backend=REF_OF[port]))
+            assert got.shape == (3, 7, n) and got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        plancache.set_default_cache(prev)
+    assert (cache.hits, cache.misses) == (0, 0)

@@ -188,3 +188,54 @@ def test_serve_engine_validation(cell):
     eng.submit([1, 2, 3], 1)                 # finishes at prefill
     assert [len(r.tokens) for r in eng.run()] == [1]
     assert eng.report()["n_requests"] == 1
+
+
+def _without_plans(tree):
+    if isinstance(tree, dict):
+        return {k: _without_plans(v) for k, v in tree.items()
+                if k != "dplan"}
+    return tree
+
+
+def test_serve_engine_on_lut_cuda_equals_reference_and_int_dot(cell):
+    """The LUT serving path on CPU: the doubling-LUT backend (``lut_cuda``, its
+    plain version on CPU tensors) with no plans. ServeEngine gives the
+    reference ServeEngine's tokens and the port's ``int_dot`` tokens, and
+    ``greedy_generate`` gives the reference's greedy tokens. (On these
+    prompts request 1's served tokens differ from its per-request greedy
+    tokens in the reference itself, and the port reproduces both.)"""
+    from repro_torch.core import plancache
+    ref_model, ref_params, model, params = cell
+    raw = _without_plans(params)
+    prompts = _prompts(model.cfg.vocab, seed=13)
+    ref_eng = RefServeEngine(ref_model, ref_params, n_slots=2,
+                             max_len=MAX_LEN, page_size=PAGE,
+                             paged_kernel=True)
+    want = _serve(ref_eng, prompts)
+    toks = {}
+    cache = plancache.PlanCache()
+    prev = plancache.set_default_cache(cache)
+    try:
+        for backend in ("lut_cuda", "int_dot"):
+            cfg = model.cfg.replace(
+                quant=model.cfg.quant.with_(backend=backend))
+            lut_model = Model(cfg, device="cpu")
+            eng = ServeEngine(lut_model, raw, n_slots=2, max_len=MAX_LEN,
+                              page_size=PAGE, paged_kernel=True,
+                              device="cpu")
+            toks[backend] = _serve(eng, prompts)
+            if backend == "lut_cuda":
+                batch = np.random.default_rng(2).integers(0, 512,
+                                                          size=(2, 6))
+                greedy = greedy_generate(
+                    lut_model, raw, {"tokens": torch.from_numpy(batch)},
+                    max_len=MAX_LEN, n_steps=GEN)
+    finally:
+        plancache.set_default_cache(prev)
+    assert (cache.hits, cache.misses) == (0, 0)
+    assert toks["lut_cuda"] == want
+    assert toks["int_dot"] == want
+    ref_greedy = ref_greedy_generate(
+        ref_model, ref_params, {"tokens": jnp.asarray(batch, jnp.int32)},
+        max_len=MAX_LEN, n_steps=GEN)
+    np.testing.assert_array_equal(greedy.numpy(), np.asarray(ref_greedy))
