@@ -9,10 +9,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   0. the card's ``nvidia-smi`` name and power limit;
   1. build all five CUDA kernels from ``src/repro_torch/csrc`` (one
      ``nvcc`` each, in parallel) into ``build/kernels``;
-  2. B1, the forest kernel, against ``run_device`` and the exact integer
-     GEMM at smollm-135m's four linear shapes x M in {1, 4, 8, 64, 512}
-     plus a grouped case: exact int32 equality, with kernel / plain /
-     library (``torch._int_mm``, M padded to 32) / bound times;
+  2. B1, the fused forest kernel from a compact ``ForestPlan``, through
+     both its entries ((K, M) int32 and the serving path's (M, K) int8
+     rows), against the dense plan's ``run_device``, the compact plan's
+     ``forest_plan_plain`` and the exact integer GEMM at smollm-135m's
+     four linear shapes x M in {1, 4, 8, 64, 512}, a grouped case, a
+     direct-heavy (outlier) plan and a sparse plan with mostly unused
+     nodes: exact int32 equality, with kernel / plain / library
+     (``torch._int_mm``, M padded to 32) / bound times (the bound from
+     the compact plan's bytes), the profiler's device time per call at
+     every ungrouped shape, beside B3's and ``torch._int_mm``'s, and the
+     (K, M) entry's cost from a DevicePlan;
   3. B2, the paged-attention kernel, against the gather + attend_cached
      path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
      ragged steps, within the tolerance stated in ``check_attention``;
@@ -33,11 +40,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      with the forest kernel and with its plain version: tokens equal;
   5. the forest serving path: full-width smollm-135m (30 layers, d_model 576,
      vocab 49152, bf16, random weights from a seed) with W4A8 forest
-     linears (``engine_cuda``) and the paged-attention kernel, 4 slots,
-     page_size 16, max_len 256, 8 requests of 128-token prompts sharing
-     prefixes, 32 tokens each; launch counts of both kernels over that run
-     must be > 0; then the same requests on the plain path
-     (``engine_torch`` + gather decode) and the share of tokens that agree;
+     linears (``engine_cuda``, compact ForestPlans attached: their bytes
+     on the card must be below the int8 weights') and the paged-attention
+     kernel, 4 slots, page_size 16, max_len 256, 8 requests of 128-token
+     prompts sharing prefixes, 32 tokens each; launch counts of both
+     kernels over that run must be > 0 and nothing may be packed during
+     it; then the same requests on the plain path (``engine_torch``
+     running its own dense DevicePlans through ``run_device``, + gather
+     decode) and the share of tokens that agree;
   6. the LUT serving path: the same model, weights and requests served on
      ``lut_cuda`` (the doubling-LUT kernel) with the paged-attention
      kernel and no plan: over that run B3 and B2 launch, B1 does not, the
@@ -75,7 +85,8 @@ MS = (1, 4, 8, 64, 512)
 def cuda_ms(fn, flush, iters=20, warmup=3):
     """Mean device time of ``fn`` per call (CUDA events around each call),
     with the 50 MB L2 flushed before every call as the serving loop, which
-    streams ~0.5 GB of plans per step, would find it."""
+    streams ~58 MB of compact plans and ~106 MB of weights per step, would
+    find it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -97,69 +108,172 @@ def bound_ms(n_bytes, n_ops, ops_rate):
                                        else "operations")
 
 
+def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
+    """Device time per call of ``fn`` from ``torch.profiler``: (every
+    device op of the call, the ops whose name holds one of ``kernels``
+    alone: no memset) in microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / iters
+    kernel = sum(e.self_device_time_total for e in events
+                 if any(name in e.key for name in kernels))
+    kernel /= iters
+    return total, kernel
+
+
+def _forest_weights(pattern, n, k, rng):
+    """int4 weights: random, or the planner tests' direct-heavy and sparse
+    patterns (tests/test_torch_planner.py::_weights)."""
+    import numpy as np
+    if pattern == "outlier_heavy":
+        return np.where(rng.random((n, k)) < 0.9, 7, -8)
+    if pattern == "single_row":
+        w = np.zeros((n, k), dtype=np.int64)
+        w[0] = rng.integers(-8, 8, size=k)
+        return w
+    return rng.integers(-8, 8, size=(n, k))
+
+
+def _forest_bound(fplan, m, x_bytes):
+    """Bytes: the compact plan, x and the int32 output, each once.
+    Operations (this plan's): one add per level node, popcount adds per
+    direct node, one add per APE gather, per column."""
+    import torch
+    from repro_torch.core.engine import FOREST_DIRECT
+    t = fplan.t
+    prod = fplan.producer.long()
+    steps = int((prod < t).sum())
+    direct = prod == FOREST_DIRECT
+    nodes = torch.arange(1 << t, device=prod.device)
+    pop = ((nodes[:, None] >> torch.arange(t, device=prod.device)) & 1).sum(1)
+    direct_adds = int((direct * pop[None]).sum())
+    n_ops = (steps + direct_adds + fplan.rows.numel()) * m
+    n_bytes = fplan.nbytes() + x_bytes + fplan.n * fplan.groups * m * 4
+    return bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+
+
 def check_forest(flush):
-    """B1 vs its plain version and the exact GEMM; returns the JSON entry
-    (timed at the decode shape N=1536, K=576, M=4)."""
+    """B1, the fused kernel from a compact ForestPlan, against the dense
+    plan's plain version (``run_device``), the compact plan's
+    (``forest_plan_plain``) and the exact GEMM, through both entries;
+    returns the JSON entry (the row entry the serving path calls, timed at
+    the decode shape N=1536, K=576, M=4). At every ungrouped shape it also
+    prints the profiler's device time per call of B1 beside B3's and
+    ``torch._int_mm``'s on the same inputs, and
+    at the decode shape what the (K, M) entry costs from a DevicePlan (the
+    route of ``kernels.ops``: packed at its first call)."""
     import numpy as np
     import torch
     from repro_torch.core.backend import int_matmul
-    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
-    from repro_torch.kernels.transitive_forest import (forest_plain,
-                                                       transitive_forest)
+    from repro_torch.core.engine import (FOREST_DIRECT, FOREST_UNUSED,
+                                         BatchedTransitiveEngine,
+                                         compile_plan, forest_plan_plain,
+                                         pack_forest_plan)
+    from repro_torch.kernels.transitive_forest import (
+        forest_plain, transitive_forest, transitive_forest_rows)
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     rng = np.random.default_rng(0)
-    cases = [(n, k, m, 1) for n, k in SHAPES for m in MS]
-    cases.append((576, 576, 64, 4))            # grouped: 4 groups of 144
-    plans, entry = {}, None
-    worst = 0
-    for n, k, m, g in cases:
-        if (n, k, g) not in plans:
-            w = rng.integers(-8, 8, size=(n, k))
+    cases = [(n, k, m, 1, "random") for n, k in SHAPES for m in MS]
+    cases += [(576, 576, 64, 4, "random"),     # grouped: 4 groups of 144
+              (48, 576, 4, 1, "outlier_heavy"),
+              (1536, 576, 64, 1, "single_row")]
+    plans, entry, worst = {}, None, 0
+    for n, k, m, g, pattern in cases:
+        if (n, k, g, pattern) not in plans:
+            w = _forest_weights(pattern, n, k, rng)
             plan = BatchedTransitiveEngine(4, 8).plan(w, groups=g)
-            plans[(n, k, g)] = (torch.from_numpy(w).cuda(),
-                                compile_plan(plan, device="cuda"))
-        w, dplan = plans[(n, k, g)]
+            dplan = compile_plan(plan, device="cuda")
+            plans[(n, k, g, pattern)] = (torch.from_numpy(w).cuda(), dplan,
+                                         pack_forest_plan(dplan))
+        w, dplan, fplan = plans[(n, k, g, pattern)]
         x = torch.randint(-128, 128, (k, m), dtype=torch.int32,
                           device="cuda")
-        got = transitive_forest(dplan, x)
+        qx = x.T.to(torch.int8).contiguous()
+        got = transitive_forest(fplan, x)
+        got_rows = transitive_forest_rows(fplan, qx)
         want = forest_plain(dplan, x)
+        want_compact = forest_plan_plain(fplan, x)
         if g == 1:
             gemm = int_matmul(w, x)
+            rows_as_km = got_rows.T
         else:
             kg = k // g
             gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
                                            x[i * kg:(i + 1) * kg])
                                 for i in range(g)], dim=1)
+            rows_as_km = got_rows.permute(2, 1, 0)
         torch.cuda.synchronize()
-        err = max(int((got.long() - want.long()).abs().max()),
-                  int((got.long() - gemm.long()).abs().max()))
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in ((got, want), (got, want_compact),
+                               (got, gemm), (rows_as_km, want)))
         worst = max(worst, err)
         if err:
             raise AssertionError(f"forest kernel != plain at N={n} K={k} "
-                                 f"M={m} G={g}: max |diff| {err}")
-        k_ms = cuda_ms(lambda: transitive_forest(dplan, x), flush)
-        p_ms = cuda_ms(lambda: forest_plain(dplan, x), flush)
+                                 f"M={m} G={g} {pattern}: max |diff| {err}")
+        r_ms = cuda_ms(lambda: transitive_forest_rows(fplan, qx), flush)
+        k_ms = cuda_ms(lambda: transitive_forest(fplan, x), flush)
+        p_ms = cuda_ms(lambda: forest_plan_plain(fplan, x), flush, iters=5,
+                       warmup=1)
         if g == 1:
             xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
                              device="cuda")
-            xm[:m] = x.T.to(torch.int8)
+            xm[:m] = qx
             w8t = w.to(torch.int8).T
             lib_ms = cuda_ms(lambda: torch._int_mm(xm, w8t), flush)
         else:
             lib_ms = None
-        s = dplan.signs.shape[0]
-        j = k // 8
-        n_bytes = dplan.nbytes() + x.numel() * 4 + n * g * m * 4
-        n_ops = (8 * j * 256 + dplan.direct_idx.numel() * 8
-                 + s * n * j) * m
-        b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+        b_ms, b_by = _forest_bound(fplan, m, qx.numel())
+        prod = fplan.producer
+        if pattern == "outlier_heavy" and not (prod == FOREST_DIRECT).any():
+            raise AssertionError("the outlier-heavy plan has no direct node")
+        if pattern == "single_row" and not (
+                prod == FOREST_UNUSED).float().mean() > 0.5:
+            raise AssertionError("the sparse plan is not mostly unused")
         lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"[B1] N={n} K={k} M={m} G={g}: exact | kernel_ms="
-              f"{k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_txt} "
-              f"bound_ms={b_ms:.5f} ({b_by}; plan {dplan.nbytes()} B)")
-        if (n, k, m, g) == (1536, 576, 4, 1):
-            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        extra = ""
+        if g == 1 and pattern == "random":
+            tot, ker = device_us(lambda: transitive_forest_rows(fplan, qx))
+            w8 = w.to(torch.int8)
+            b3, _ = device_us(lambda: transitive_gemm_cuda(qx, w8, w_bits=4),
+                              kernels=("tgemm_lut",))
+            mm, _ = device_us(lambda: torch._int_mm(xm, w8t), kernels=())
+            extra = (f" | profiler device us/call: {tot:.2f} "
+                     f"(kernel {ker:.2f}); B3 {b3:.2f}; _int_mm {mm:.2f}")
+        print(f"[B1] N={n} K={k} M={m} G={g} {pattern} (direct "
+              f"{int((prod == FOREST_DIRECT).sum())}, unused "
+              f"{int((prod == FOREST_UNUSED).sum())} of {prod.numel()} "
+              f"nodes): exact | kernel_ms={r_ms:.4f} (row entry; (K, M) "
+              f"entry {k_ms:.4f}) plain_ms={p_ms:.4f} library_ms={lib_txt} "
+              f"bound_ms={b_ms:.6f} ({b_by}; compact plan {fplan.nbytes()} "
+              f"B, dense {dplan.nbytes()} B){extra}")
+        if (n, k, m, g, pattern) == (1536, 576, 4, 1, "random"):
+            fresh = compile_plan(BatchedTransitiveEngine(4, 8).plan(
+                w.cpu().numpy()), device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = transitive_forest(fresh, x)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(first, got):
+                raise AssertionError("the (K, M) entry from a DevicePlan "
+                                     "differs from its ForestPlan's")
+            later_ms = cuda_ms(lambda: transitive_forest(fresh, x), flush)
+            print(f"[B1] N={n} K={k} M={m} (K, M) entry from a DevicePlan: "
+                  f"first call (packs) {first_ms:.2f} ms, later calls "
+                  f"{later_ms:.4f} ms")
+            entry = {"ms": r_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms,
-                     "shape": "N=1536 K=576 M=4 (decode, MLP up/gate)"}
+                     "shape": "N=1536 K=576 M=4 (decode, MLP up/gate), "
+                              "row entry"}
     entry["max_abs_err"] = worst
     return entry
 
@@ -448,7 +562,8 @@ def main_path():
     """Full-width smollm-135m through ServeEngine with both kernels."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import DevicePlan
+    from repro_torch.core.engine import ForestPlan, pack_forest_plan
+    from repro_torch.core.plancache import _iter_ptq_layers
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.transitive_forest import transitive_forest
     from repro_torch.launch.specs import serve_config
@@ -464,27 +579,35 @@ def main_path():
     params = model.attach_device_plans(raw)
     torch.cuda.synchronize()
     t_plan = time.perf_counter() - t0
-    plan_bytes = 0
-    for blk in params["blocks"].values():
-        for layer in blk.values():
-            if isinstance(layer, dict) and isinstance(layer.get("dplan"),
-                                                      DevicePlan):
-                plan_bytes += layer["dplan"].nbytes()
+    layers = list(_iter_ptq_layers(params))
+    if not all(isinstance(layer.get("dplan"), ForestPlan)
+               for layer in layers):
+        raise AssertionError("engine_cuda params must carry ForestPlans")
+    plan_bytes = sum(layer["dplan"].nbytes() for layer in layers)
+    weight_bytes = sum(layer["qw"].numel() * layer["qw"].element_size()
+                       for layer in layers)
     print(f"[main] {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} dtype={cfg.dtype} | init {t_init:.2f}s | "
           f"planned {stats['plans']} linears in {t_plan:.2f}s "
-          f"(plan + lower + upload), device plans {plan_bytes} B")
+          f"(plan + lower + pack + upload) | compact ForestPlans on the "
+          f"card {plan_bytes} B = {plan_bytes / weight_bytes:.3f} x the "
+          f"int8 weights ({weight_bytes} B)")
     if stats["plans"] != 7 * cfg.n_layers:
         raise AssertionError(f"expected {7 * cfg.n_layers} plans, got "
                              f"{stats['plans']}")
+    if plan_bytes >= weight_bytes:
+        raise AssertionError(f"plans ({plan_bytes} B) not below the int8 "
+                             f"weights ({weight_bytes} B)")
     prompts = _prompts(cfg.vocab, 8, 128)
     kw = dict(n_slots=4, max_len=256, page_size=16)
     transitive_forest.launches = 0
     paged_attention.launches = 0
+    packs = pack_forest_plan.calls
     eng, dt = _serve(model, params, prompts, 32, paged_kernel=True, **kw)
     launches = {"transitive_forest": transitive_forest.launches,
                 "paged_attention": paged_attention.launches}
+    packs = pack_forest_plan.calls - packs
     rep = eng.report()
     c = rep["counters"]
     ttft = sum(r["ttft_s"] for r in rep["requests"]) / len(rep["requests"])
@@ -502,16 +625,22 @@ def main_path():
     print(f"[main] launches: transitive_forest={launches['transitive_forest']}"
           f" paged_attention={launches['paged_attention']} "
           f"(per decode step: {cfg.n_layers} attention, "
-          f"{7 * cfg.n_layers} forest)")
+          f"{7 * cfg.n_layers} forest) | plans packed during the serve: "
+          f"{packs}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
-    # the same requests on the plain path: engine_torch + gather decode
+    if packs:
+        raise AssertionError(f"{packs} plans were packed while serving")
+    # the same requests on the plain path: engine_torch (its own dense
+    # DevicePlans through run_device) + gather decode
     pcfg = cfg.replace(quant=cfg.quant.with_(backend="engine_torch"),
                        paged_kernel=False)
     pmodel = Model(pcfg, device="cuda")
+    pparams = pmodel.attach_device_plans(raw)
     before = (transitive_forest.launches, paged_attention.launches)
-    peng, pdt = _serve(pmodel, params, prompts, 32, paged_kernel=False, **kw)
+    peng, pdt = _serve(pmodel, pparams, prompts, 32, paged_kernel=False,
+                       **kw)
     if (transitive_forest.launches, paged_attention.launches) != before:
         raise AssertionError("the plain path launched a kernel")
     ptoks = {r.rid: r.tokens for r in peng.finished}
@@ -531,7 +660,7 @@ def lut_path(toks_engine, raw, cfg):
     lookup, and every token equals the engine_cuda run's: both backends
     give the same int32 accumulators."""
     from repro_torch.core import plancache
-    from repro_torch.core.engine import DevicePlan
+    from repro_torch.core.engine import DevicePlan, ForestPlan
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.transitive_forest import transitive_forest
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
@@ -540,8 +669,8 @@ def lut_path(toks_engine, raw, cfg):
     model = Model(lcfg, device="cuda")
     for blk in raw["blocks"].values():
         for layer in blk.values():
-            if isinstance(layer, dict) and isinstance(layer.get("dplan"),
-                                                      DevicePlan):
+            if isinstance(layer, dict) and isinstance(
+                    layer.get("dplan"), (DevicePlan, ForestPlan)):
                 raise AssertionError("lut_cuda params carry a plan")
     cache = plancache.default_cache().stats()
     prompts = _prompts(lcfg.vocab, 8, 128)

@@ -7,11 +7,12 @@ numpy only. Entry points (:class:`~repro_torch.models.model.Model`,
 ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA device
 and no explicit CPU request they raise (:func:`resolve_device`).
 
-The two hand-written Hopper kernels live in ``kernels/`` (wrappers) and
-``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use):
+The hand-written Hopper kernels live in ``kernels/`` (wrappers) and
+``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use); the two
+of the forest serving path:
 
-  * ``transitive_forest`` — the Scoreboard forest from a ``DevicePlan``
-    (backend ``engine_cuda``);
+  * ``transitive_forest`` — the Scoreboard forest from a compact
+    ``ForestPlan`` (backend ``engine_cuda``);
   * ``paged_attention`` — live-page decode attention over the int8 pool.
 
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA

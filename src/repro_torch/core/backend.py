@@ -19,8 +19,9 @@ Five backends; each maps to a reference backend:
   ``engine_torch``    ``engine_jit``      the planned forest, ``run_device``
                                           in plain torch gathers
   ``engine_cuda``     ``engine_pallas``   the planned forest as the CUDA
-                                          kernel (plain ``run_device`` on
-                                          CPU tensors)
+                                          kernel, from compact
+                                          ``ForestPlan``s (its plain
+                                          version on CPU tensors)
   ==================  ==================  ==================================
 
 The reference's host ``engine`` (a ``pure_callback`` oracle) is not
@@ -43,8 +44,9 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core.engine import (DevicePlan, ExecutionPlan, compile_plan,
-                                     compile_plans, run_device)
+from repro_torch.core.engine import (DevicePlan, ExecutionPlan, ForestPlan,
+                                     compile_plan, compile_plans,
+                                     pack_forest_plan, run_device)
 
 __all__ = ["EngineConfig", "TransitiveBackend", "register_backend",
            "get_backend", "list_backends", "int_matmul"]
@@ -73,7 +75,8 @@ class TransitiveBackend:
     """Base class for one online execution strategy.
 
     ``device_resident``: ``execute`` runs on the tensors' device and, with
-    ``needs_plan``, from a :class:`DevicePlan`. ``supports_groups``:
+    ``needs_plan``, from a compiled plan (:class:`DevicePlan` or
+    :class:`ForestPlan`). ``supports_groups``:
     grouped inputs are accepted. ``needs_plan``: there is an offline
     weight-only half (the plan cache builds it; :meth:`compile` lowers
     it). ``cpu_ok``: runs on CPU tensors (the CUDA backend does, through
@@ -85,13 +88,14 @@ class TransitiveBackend:
     needs_plan: bool = False
     cpu_ok: bool = True
 
-    def compile(self, plan, device=None) -> DevicePlan | None:
+    def compile(self, plan, device=None) -> DevicePlan | ForestPlan | None:
         """Lower one plan (or a sequence of same-signature plans -> one
         stacked plan) to device tensors; None if there is no lowering."""
         return None
 
     def execute(self, x: torch.Tensor, w: torch.Tensor,
-                plan: ExecutionPlan | None, dplan: DevicePlan | None,
+                plan: ExecutionPlan | None,
+                dplan: DevicePlan | ForestPlan | None,
                 cfg: EngineConfig) -> torch.Tensor:
         raise NotImplementedError
 
@@ -216,10 +220,6 @@ class EngineTorchBackend(TransitiveBackend):
         raise TypeError(f"plan must be an ExecutionPlan or a sequence "
                         f"of them, got {type(plan).__name__}")
 
-    def _forest(self, dplan, flat):
-        """flat int32 (K, B) activations -> (N, B) / (N, G, B)."""
-        return run_device(dplan, flat)
-
     def execute(self, x, w, plan, dplan, cfg):
         if dplan is None:
             raise ValueError(
@@ -228,21 +228,37 @@ class EngineTorchBackend(TransitiveBackend):
         if cfg.groups > 1:
             n_groups, g = x.shape[-2], x.shape[-1]
             flat = x.reshape(-1, n_groups * g).to(torch.int32).T
-            y = self._forest(dplan, flat)                  # (N, G, B)
+            y = run_device(dplan, flat)                    # (N, G, B)
             return y.permute(2, 1, 0).reshape(x.shape[:-1] + (dplan.n,))
         flat = x.reshape(-1, x.shape[-1]).to(torch.int32).T      # (K, B)
-        y = self._forest(dplan, flat)                            # (N, B)
+        y = run_device(dplan, flat)                              # (N, B)
         return y.T.reshape(x.shape[:-1] + (dplan.n,))
 
 
 class EngineCudaBackend(EngineTorchBackend):
-    """The same DevicePlan forest through the hand-written CUDA kernel
-    (kernels/transitive_forest.py); the counterpart of ``engine_pallas``."""
+    """The same forest through the hand-written CUDA kernel
+    (kernels/transitive_forest.py); the counterpart of ``engine_pallas``.
+
+    Compiles to compact :class:`ForestPlan`s (the dense DevicePlan is
+    lowered on the host and packed; only the ForestPlan is placed on
+    ``device``). ``execute`` hands the int8 codes (..., K) to the kernel's
+    row entry as they are and gets (..., N) / (..., G, N) back: no cast,
+    transpose or copy. A DevicePlan passed in is packed at its first call
+    (``kernels/transitive_forest.py`` keeps the packing)."""
     name = "engine_cuda"
 
-    def _forest(self, dplan, flat):
-        from repro_torch.kernels.transitive_forest import transitive_forest
-        return transitive_forest(dplan, flat)
+    def compile(self, plan, device=None):
+        return pack_forest_plan(super().compile(plan), device=device)
+
+    def execute(self, x, w, plan, dplan, cfg):
+        from repro_torch.kernels.transitive_forest import (
+            transitive_forest_rows)
+        if dplan is None:
+            raise ValueError(
+                f"backend '{self.name}' executes from a device plan: pass "
+                f"one, or serve through plancache.attach_device_plans")
+        y = transitive_forest_rows(dplan, x.reshape(-1, dplan.k))
+        return y.reshape(x.shape[:-1] + (dplan.n,))
 
 
 for _b in (IntDotBackend(), LutBackend(), LutCudaBackend(),

@@ -10,10 +10,14 @@ The device half holds the plan as int32 tensors. :func:`compile_plan`
 lowers an :class:`ExecutionPlan` to a :class:`DevicePlan` with the
 reference's leaf names and values: gather-only per-level source maps over
 the flat ``(J * 2^T, M)`` psum table, the direct-dispatch arrays, and the
-APE gather table. :func:`run_device` executes it with plain torch gathers;
-it is the plain version of the CUDA forest kernel
-(:mod:`repro_torch.kernels.transitive_forest`). Plan persistence
-(``save``/``load``/bundles) is not part of this slice.
+APE gather table. :func:`run_device` executes it with plain torch gathers.
+
+:func:`pack_forest_plan` repacks a tile-local :class:`DevicePlan` into the
+compact :class:`ForestPlan` the CUDA forest kernel
+(:mod:`repro_torch.kernels.transitive_forest`) executes: one byte per
+node (which bit produces it, or direct, or unused) and one byte per APE
+gather. :func:`forest_plan_plain` is that kernel's plain version. Plan
+persistence (``save``/``load``/bundles) is not part of this slice.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ from repro_torch.core.scoreboard import (MAX_DISTANCE, ScoreboardInfo,
 __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "DevicePlan", "DEVICE_DATA_FIELDS", "compile_plan",
            "compile_plans", "pad_device_plan", "check_tile_local",
-           "forest_body", "run_device"]
+           "forest_body", "run_device", "ForestPlan", "FOREST_DATA_FIELDS",
+           "FOREST_DIRECT", "FOREST_UNUSED", "pack_forest_plan",
+           "forest_plan_plain"]
 
 
 # DevicePlan's array leaves, in the reference's order.
@@ -434,3 +440,214 @@ def run_device(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
         dplan.gather_idx, dplan.signs, t=dplan.t, groups=dplan.groups,
         n=dplan.n, k=dplan.k)
     return out[:, 0] if dplan.groups == 1 else out
+
+
+# ---------------------------------------------------------------------------
+# The compact forest plan of the CUDA kernel
+# ---------------------------------------------------------------------------
+
+# ForestPlan's array leaves.
+FOREST_DATA_FIELDS = ("producer", "rows", "signs")
+# producer codes besides a bit index b < T
+FOREST_DIRECT = 254     # subset sum of the tile's activations over v's bits
+FOREST_UNUSED = 255     # stays 0 in the plain version; never read
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ForestPlan:
+    """A tile-local forest schedule in one byte per node and per gather.
+
+    ``producer[j, v]`` says how node ``v`` of tile ``j`` is made: a bit
+    ``b < T`` means ``psum[v] = psum[v ^ (1 << b)] + x[j * T + b]`` at
+    level ``popcount(v)`` (so the prefix has one bit fewer, and one psum
+    table per tile suffices when levels run in order); ``FOREST_DIRECT``
+    means the subset sum of the tile's activations over ``v``'s bits;
+    ``FOREST_UNUSED`` leaves it 0 (and nothing reads it).
+    ``rows[j, s, n]`` is the node that output ``n`` gathers from tile
+    ``j`` in bit plane ``s`` (the DevicePlan's ``gather_idx - j * 2^T``),
+    laid out ``(J, S, N)`` with N fastest so neighbouring outputs read
+    neighbouring bytes.
+
+    Leaves may carry leading stacked axes like :class:`DevicePlan`'s;
+    :meth:`index` slices them. Built by :func:`pack_forest_plan`. The
+    kernel reads the leaves through raw pointers, so their dtype,
+    contiguity and device are checked here, once per plan, not per call.
+    """
+    t: int
+    bits: int
+    n: int
+    k: int
+    groups: int
+    producer: torch.Tensor      # (J, 2^T) uint8
+    rows: torch.Tensor          # (J, S, N) uint8
+    signs: torch.Tensor         # (S,) int32
+
+    def __post_init__(self):
+        for name, dtype in (("producer", torch.uint8), ("rows", torch.uint8),
+                            ("signs", torch.int32)):
+            a = getattr(self, name)
+            if a.dtype != dtype or not a.is_contiguous():
+                raise ValueError(f"ForestPlan.{name} must be contiguous "
+                                 f"{dtype}, got {a.dtype} (contiguous: "
+                                 f"{a.is_contiguous()})")
+        devices = {a.device for a in self.leaves().values()}
+        if len(devices) != 1:
+            raise ValueError(f"ForestPlan leaves must share one device, got "
+                             f"{sorted(map(str, devices))}")
+
+    @property
+    def n_tiles(self) -> int:
+        return self.k // self.t
+
+    @property
+    def lead(self) -> tuple[int, ...]:
+        """Leading stacked axes (``()`` for a single plan)."""
+        return tuple(self.signs.shape[:-1])
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {f: getattr(self, f) for f in FOREST_DATA_FIELDS}
+
+    def index(self, i) -> "ForestPlan":
+        """The plan of stacked entry ``i`` (views, no copies)."""
+        return dataclasses.replace(
+            self, **{f: a[i] for f, a in self.leaves().items()})
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in self.leaves().values())
+
+
+def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
+              direct_bits, gather_idx) -> tuple[np.ndarray, np.ndarray]:
+    """(producer (J, 2^T), rows (J, S, N)) uint8 of one unstacked plan."""
+    size = 1 << t
+    j = k // t
+    r = j * size
+    flat = np.arange(r, dtype=np.int64)
+    node, tile = flat % size, flat // size
+    level = hasse.levels(t)[node]
+    producer = np.full(r, FOREST_UNUSED, np.uint8)
+    prefixes = []
+    for lv in range(t):
+        src = level_src[lv].astype(np.int64)
+        xsrc = level_xsrc[lv].astype(np.int64)
+        step = xsrc != k
+        if (src[~step] != flat[~step]).any():
+            raise ValueError(f"level {lv + 1} copies a row it does not "
+                             f"produce: not a forest schedule")
+        bit = xsrc[step] - tile[step] * t
+        v, pre = node[step], src[step] % size
+        if not ((v ^ pre == 1 << bit) & ((v >> bit) & 1 == 1)
+                & (level[step] == lv + 1)).all():
+            raise ValueError(f"level {lv + 1} has an edge that does not add "
+                             f"one bit to a prefix one level down")
+        producer[step] = bit
+        prefixes.append(src[step])
+    didx = direct_idx.astype(np.int64)
+    real = didx < r
+    didx = didx[real]
+    if (producer[didx] != FOREST_UNUSED).any() or (np.diff(didx) <= 0).any():
+        raise ValueError("a direct node is also a level target or repeats")
+    own = (node[didx][:, None] >> np.arange(t)) & 1
+    if not (direct_bits[real] == own).all():
+        raise ValueError("direct_bits differ from the direct node's own bits")
+    producer[didx] = FOREST_DIRECT
+    rows = gather_idx.astype(np.int64) - np.arange(j)[None, None, :] * size
+    if rows.size and (rows.min() < 0 or rows.max() >= size):
+        raise ValueError("an APE gather leaves its own tile")
+    # the kernel leaves unused nodes unwritten: nothing may read one
+    read = np.concatenate(prefixes + [gather_idx.reshape(-1)]).astype(
+        np.int64)
+    if ((producer[read] == FOREST_UNUSED) & (read % size != 0)).any():
+        raise ValueError("the plan reads a node it never makes")
+    return (producer.reshape(j, size),
+            np.ascontiguousarray(rows.transpose(2, 0, 1)).astype(np.uint8))
+
+
+def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
+    """Repack a tile-local :class:`DevicePlan` as a :class:`ForestPlan`.
+
+    Raises unless the plan is tile-local and T <= 8 (a node must fit a
+    byte; the serving T is 8), and unless every level edge adds one bit to
+    a prefix one level down, no node is made twice, every direct node's
+    bits are its own, and every node that a level or the APE reads is
+    made (or is node 0, the empty sum): so an unused node's value is never
+    read, and the kernel need not write it. Works on stacked plans. The
+    leaves are made here, contiguous uint8 / int32 on ``device`` (default:
+    the plan's).
+    Counts its calls in ``pack_forest_plan.calls``.
+    """
+    pack_forest_plan.calls += 1
+    if not dplan.tile_local:
+        raise ValueError("pack_forest_plan needs a tile-local plan (compile "
+                         "it with compile_plan)")
+    if dplan.t > 8:
+        raise ValueError(f"a ForestPlan holds nodes in one byte: T <= 8, "
+                         f"got T={dplan.t}")
+    leaves = {f: a.detach().cpu().numpy() for f, a in dplan.leaves().items()}
+    for name, a in leaves.items():
+        if a.dtype != np.int32:
+            raise ValueError(f"plan leaf {name} must be int32, got "
+                             f"{a.dtype}")
+    lead = dplan.lead
+    packed = [_pack_one(dplan.t, dplan.k, *(leaves[f][idx] for f in (
+        "level_src", "level_xsrc", "direct_idx", "direct_bits",
+        "gather_idx"))) for idx in np.ndindex(*lead)]
+    producer = np.stack([p for p, _ in packed]).reshape(
+        lead + packed[0][0].shape)
+    rows = np.stack([r for _, r in packed]).reshape(lead + packed[0][1].shape)
+    device = dplan.signs.device if device is None else device
+    return ForestPlan(
+        t=dplan.t, bits=dplan.bits, n=dplan.n, k=dplan.k, groups=dplan.groups,
+        producer=torch.from_numpy(producer).to(device),
+        rows=torch.from_numpy(rows).to(device),
+        signs=torch.from_numpy(leaves["signs"].copy()).to(device))
+
+
+pack_forest_plan.calls = 0
+
+
+def forest_plan_plain(fplan: ForestPlan, x: torch.Tensor) -> torch.Tensor:
+    """Execute a :class:`ForestPlan` against activations ``x`` (K, M) in
+    plain torch, level by level (popcount classes), on any device.
+
+    Returns int32 (N, M) ungrouped, (N, G, M) grouped, bit-exact with
+    :func:`run_device` on the plan it was packed from. The plain version
+    of the CUDA forest kernel. The psum table is int32 (wrapping adds like
+    the reference's); the APE sums run in int64 and are cast back, which
+    is congruent mod 2^32.
+    """
+    if x.ndim != 2 or x.shape[0] != fplan.k:
+        raise ValueError(f"x must be (K={fplan.k}, M), got {tuple(x.shape)}")
+    if fplan.lead:
+        raise ValueError(f"forest_plan_plain takes one plan, got stacked "
+                         f"leading axes {fplan.lead}; slice with "
+                         f"ForestPlan.index")
+    t, size, j = fplan.t, 1 << fplan.t, fplan.n_tiles
+    m = x.shape[1]
+    dev = x.device
+    xt = x.to(torch.int32).reshape(j, t, m)
+    prod = fplan.producer.to(device=dev, dtype=torch.int64)      # (J, 2^T)
+    nodes = torch.arange(size, device=dev)
+    bits = (nodes[:, None] >> torch.arange(t, device=dev)) & 1   # (2^T, T)
+    table = xt.new_zeros((j, size, m))
+    dt, dv = torch.nonzero(prod == FOREST_DIRECT, as_tuple=True)
+    table[dt, dv] = (bits[dv].to(torch.int32)[:, :, None] * xt[dt]).sum(
+        1, dtype=torch.int32)
+    level = bits.sum(1)
+    for lv in range(1, t + 1):
+        jj, v = torch.nonzero((prod < t) & (level == lv)[None],
+                              as_tuple=True)
+        b = prod[jj, v]
+        table[jj, v] = table[jj, v ^ (1 << b)] + xt[jj, b]
+    flat = table.reshape(j * size, m)
+    rows = fplan.rows.to(device=dev, dtype=torch.int64)          # (J, S, N)
+    base = torch.arange(j, device=dev)[:, None] * size
+    g, n = fplan.groups, fplan.n
+    out = torch.zeros((g, n, m), dtype=torch.int64, device=dev)
+    for s in range(rows.shape[1]):
+        gathered = flat.index_select(0, (rows[:, s] + base).reshape(-1))
+        out += int(fplan.signs[s]) * gathered.reshape(g, j // g, n, m).sum(
+            1, dtype=torch.int64)
+    out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
+    return out[:, 0] if g == 1 else out.contiguous()

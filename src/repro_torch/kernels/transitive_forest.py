@@ -1,29 +1,40 @@
 """The Scoreboard forest kernel (CUDA C++, ``csrc/transitive_forest.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/transitive_forest.py``
-(``transitive_forest_pallas``). :func:`transitive_forest` has the contract
-of :func:`repro_torch.core.engine.run_device` — int32 (N, M) ungrouped,
-(N, G, M) grouped — and is the ``engine_cuda`` backend's forest. On CPU
-tensors it runs ``run_device``, the plain version; on CUDA tensors it
-launches the kernel (two passes on the current stream, scratch and output
-allocated here) or raises. Each launch adds one to
-``transitive_forest.launches``.
+(``transitive_forest_pallas``). The kernel executes a compact
+:class:`~repro_torch.core.engine.ForestPlan` (one byte per node and per
+APE gather, :func:`~repro_torch.core.engine.pack_forest_plan`) in one
+fused pass: each block keeps its tiles' psum tables in shared memory from
+the first level to the APE sum. Two entries, one kernel, one launch each:
 
-The kernel needs a tile-local plan (``DevicePlan.tile_local``, checked
-once when the plan is compiled): one CUDA block then owns one T-tile's
-``2^T x bm`` psum table in shared memory. Bound and design notes are in
-the CUDA source.
+  * :func:`transitive_forest` — the reference's contract: int32 x (K, M)
+    -> (N, M) ungrouped, (N, G, M) grouped, from a ``ForestPlan`` or a
+    ``DevicePlan`` (packed at its first call and kept: the route of
+    ``kernels.ops`` and of callers holding dense plans);
+  * :func:`transitive_forest_rows` — the serving layout: int8 codes
+    (B, K) as ``quantize_per_token`` makes them -> (B, N) or (B, G, N),
+    with no cast, transpose or copy around the call (backend
+    ``engine_cuda``).
+
+On CPU tensors both run the plain version :func:`forest_plan_plain`; on
+CUDA tensors they launch the kernel or raise. Each launch adds one to
+``transitive_forest.launches``. Bound and design notes are in the CUDA
+source.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
-from repro_torch.core.engine import DevicePlan, run_device
+from repro_torch.core.engine import (DevicePlan, ForestPlan,
+                                     forest_plan_plain, pack_forest_plan,
+                                     run_device)
 from repro_torch.kernels import build
 
-__all__ = ["transitive_forest", "forest_plain"]
+__all__ = ["transitive_forest", "transitive_forest_rows", "forest_plain",
+           "forest_plan_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,11 +44,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("transitive_forest")
     if not getattr(lib, "_typed", False):
         lib.transitive_forest_launch.argtypes = [
-            _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-            _P, _P, _P]
+            _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]
         lib.transitive_forest_launch.restype = _I
-        lib.transitive_forest_smem.argtypes = [_I, _I]
-        lib.transitive_forest_smem.restype = ctypes.c_size_t
         lib.transitive_forest_error.argtypes = [_I]
         lib.transitive_forest_error.restype = ctypes.c_char_p
         lib._typed = True
@@ -45,57 +53,92 @@ def _library() -> ctypes.CDLL:
 
 
 def forest_plain(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version (``run_device``), on any device."""
+    """The dense plan's plain version (``run_device``), on any device."""
     return run_device(dplan, x)
 
 
-def transitive_forest(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
-    """Forest execution of ``x`` (K, M) through the CUDA kernel.
+# The packing of each DevicePlan handed to an entry, per device, kept while
+# the DevicePlan lives: a dense plan is packed at its first call only.
+_PACKED: "weakref.WeakKeyDictionary[DevicePlan, dict]" = (
+    weakref.WeakKeyDictionary())
 
-    CPU tensors take the plain version. Anything else must be a CUDA
-    tensor, with the plan on the same device; the kernel is built at first
-    use and a build or launch failure raises."""
-    if x.device.type == "cpu":
-        return run_device(dplan, x)
+
+def _as_forest(plan, device) -> ForestPlan:
+    if isinstance(plan, ForestPlan):
+        return plan
+    if isinstance(plan, DevicePlan):
+        per_device = _PACKED.setdefault(plan, {})
+        if device not in per_device:
+            per_device[device] = pack_forest_plan(plan, device=device)
+        return per_device[device]
+    raise TypeError(f"plan must be a ForestPlan or a DevicePlan, got "
+                    f"{type(plan).__name__}")
+
+
+def _launch(fplan: ForestPlan, x: torch.Tensor, rows_layout: bool,
+            out: torch.Tensor) -> None:
     lib = _library()
-    if x.device.type != "cuda":
-        raise ValueError(f"transitive_forest runs on CUDA or CPU tensors, "
-                         f"got {x.device}")
-    if x.ndim != 2 or x.shape[0] != dplan.k:
-        raise ValueError(f"x must be (K={dplan.k}, M), got {tuple(x.shape)}")
-    if dplan.lead:
-        raise ValueError(f"one plan per call, got stacked axes {dplan.lead}")
-    if not dplan.tile_local:
-        raise ValueError("the CUDA forest needs a tile-local plan (compile "
-                         "it with core.engine.compile_plan)")
-    leaves = dplan.leaves()
-    for name, a in leaves.items():
-        if a.device != x.device or a.dtype != torch.int32 \
-                or not a.is_contiguous():
-            raise ValueError(f"plan leaf {name} must be contiguous int32 on "
-                             f"{x.device}, got {a.dtype} on {a.device}")
-    t, s = dplan.t, dplan.signs.shape[0]
-    n, g, k = dplan.n, dplan.groups, dplan.k
-    m = x.shape[1]
-    xt = x.to(torch.int32).contiguous()
-    out = torch.empty((n * g, m), dtype=torch.int32, device=x.device)
-    if m == 0:
-        return out.reshape(n, g, 0)[:, 0] if g == 1 else out.reshape(n, g, 0)
-    bm = min(16, m)                  # columns per pass-1 block
-    scratch = torch.empty(((k // t) << t, m), dtype=torch.int32,
-                          device=x.device)
+    if x.device.type != "cuda" or fplan.rows.device != x.device:
+        raise ValueError(f"transitive_forest runs on CUDA or CPU tensors on "
+                         f"one device, got x on {x.device} and the plan on "
+                         f"{fplan.rows.device}")
+    if fplan.lead:
+        raise ValueError(f"one plan per call, got stacked axes {fplan.lead}")
+    m = x.shape[0] if rows_layout else x.shape[1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.transitive_forest_launch(
-        xt.data_ptr(), k, m, leaves["level_src"].data_ptr(),
-        leaves["level_xsrc"].data_ptr(), leaves["direct_idx"].data_ptr(),
-        leaves["direct_bits"].data_ptr(), leaves["direct_idx"].shape[0],
-        leaves["gather_idx"].data_ptr(), leaves["signs"].data_ptr(),
-        t, s, n, g, bm, scratch.data_ptr(), out.data_ptr(), stream)
+        x.data_ptr(), int(rows_layout), fplan.k, m,
+        fplan.producer.data_ptr(), fplan.rows.data_ptr(),
+        fplan.signs.data_ptr(), fplan.t, fplan.signs.shape[0], fplan.n,
+        fplan.groups, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"transitive_forest launch failed: "
                            f"{lib.transitive_forest_error(err).decode()}")
     transitive_forest.launches += 1
-    out = out.reshape(n, g, m)
+
+
+def transitive_forest(plan, x: torch.Tensor) -> torch.Tensor:
+    """Forest execution of ``x`` (K, M) -> int32 (N, M) / (N, G, M).
+
+    ``plan`` is a :class:`ForestPlan`, used as it is, or a
+    :class:`DevicePlan`, packed at its first call on a device (the
+    packing is kept while the DevicePlan lives). CPU tensors take
+    the plain version. Anything else must be a CUDA tensor, with the plan
+    on the same device; the kernel is built at first use and a build or
+    launch failure raises."""
+    if x.ndim != 2 or x.shape[0] != plan.k:
+        raise ValueError(f"x must be (K={plan.k}, M), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return forest_plan_plain(_as_forest(plan, x.device), x)
+    fplan = _as_forest(plan, x.device)
+    n, g, m = fplan.n, fplan.groups, x.shape[1]
+    out = torch.empty((n, g, m), dtype=torch.int32, device=x.device)
+    if m:
+        xt = x if x.dtype == torch.int32 else x.to(torch.int32)
+        _launch(fplan, xt.contiguous(), False, out)
+    return out[:, 0] if g == 1 else out
+
+
+def transitive_forest_rows(plan, qx: torch.Tensor) -> torch.Tensor:
+    """Forest execution of token rows: int8 ``qx`` (B, K) -> int32 (B, N)
+    ungrouped, (B, G, N) grouped (``x @ W^T`` per group).
+
+    Same plan types and device rules as :func:`transitive_forest`; on a
+    CUDA tensor the codes must be int8 (the quantized linear's)."""
+    if qx.ndim != 2 or qx.shape[1] != plan.k:
+        raise ValueError(f"qx must be (B, K={plan.k}), got "
+                         f"{tuple(qx.shape)}")
+    if qx.device.type == "cpu":
+        y = forest_plan_plain(_as_forest(plan, qx.device), qx.T)
+        return y.T if y.ndim == 2 else y.permute(2, 1, 0)
+    fplan = _as_forest(plan, qx.device)
+    if qx.dtype != torch.int8:
+        raise ValueError(f"transitive_forest_rows takes int8 codes on "
+                         f"CUDA, got {qx.dtype}")
+    n, g, b = fplan.n, fplan.groups, qx.shape[0]
+    out = torch.empty((b, g, n), dtype=torch.int32, device=qx.device)
+    if b:
+        _launch(fplan, qx.contiguous(), True, out)
     return out[:, 0] if g == 1 else out
 
 

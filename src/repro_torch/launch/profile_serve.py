@@ -35,8 +35,8 @@ from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
 
 # kernel entry names of the port (as the profiler shows them) -> label
-PORT_KERNELS = {"forest_tiles": "B1 forest pass 1 (tiles)",
-                "forest_ape": "B1 forest pass 2 (APE)",
+PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
+                "forest_wide": "B1 forest, wide blocks (M > 8)",
                 "paged_decode": "B2 paged attention",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
                 "w4a8_dp4a": "B4 group-dequant GEMM",

@@ -19,7 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.engine import DevicePlan
+from repro_torch.core.engine import DevicePlan, ForestPlan
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -28,10 +28,10 @@ Params = dict[str, Any]
 
 
 def _index(tree, i):
-    """Stacked entry ``i`` of every leaf (views; DevicePlans sliced)."""
+    """Stacked entry ``i`` of every leaf (views; device plans sliced)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, DevicePlan):
+    if isinstance(tree, (DevicePlan, ForestPlan)):
         return tree.index(i)
     return tree[i]
 
@@ -117,9 +117,10 @@ class Model:
         return plancache.precompile(params, q)
 
     def attach_device_plans(self, params: Params) -> Params:
-        """Embed compiled DevicePlans (stacked like the weights, on the
-        weights' device) next to every PTQ weight. No-op unless the backend
-        executes from device plans."""
+        """Embed compiled device plans (stacked like the weights, on the
+        weights' device) next to every PTQ weight: DevicePlans for
+        ``engine_torch``, compact ForestPlans for ``engine_cuda``. No-op
+        unless the backend executes from device plans."""
         q = self.cfg.quant
         from repro_torch.core.backend import get_backend
         b = get_backend(q)

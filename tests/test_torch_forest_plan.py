@@ -1,0 +1,269 @@
+"""Port parity: the compact ``ForestPlan`` of the CUDA forest kernel
+against the JAX reference ``repro``.
+
+``pack_forest_plan`` repacks the port's ``DevicePlan`` into one byte per
+node and per APE gather; its plain version ``forest_plan_plain`` (what the
+kernel wrappers run on CPU tensors) must give the reference's
+``run_device`` int32 result exactly on the reference's own plan for the
+same weights, over the planner tests' weight patterns, T in {4, 8}, 4- and
+8-bit weights and 1 or 3 groups. Stacked ForestPlans slice per layer like
+DevicePlans; plans the kernel cannot take are refused; ``engine_cuda``
+serving from attached ForestPlans gives the reference ``engine_pallas``
+result and packs nothing while it serves. Reference plans are built with
+its engine directly (no plan cache, so nothing here routes through
+``repro.analysis``). Inputs are made with numpy from a seed; every
+comparison is exact.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import engine as ref_engine  # noqa: E402
+from repro.core.backend import EngineConfig as RefEngineConfig  # noqa: E402
+from repro.core.backend import get_backend as ref_backend  # noqa: E402
+from repro.quant import QuantConfig as RefQuantConfig  # noqa: E402
+from repro.quant import linear_apply as ref_linear_apply  # noqa: E402
+from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.core import engine as pt_engine  # noqa: E402
+from repro_torch.core import plancache  # noqa: E402
+from repro_torch.core.backend import EngineConfig, get_backend  # noqa: E402
+from repro_torch.kernels.transitive_forest import (  # noqa: E402
+    transitive_forest, transitive_forest_rows)
+from repro_torch.quant import QuantConfig, linear_apply  # noqa: E402
+
+from test_torch_planner import PATTERNS, _weights  # noqa: E402
+
+pack = pt_engine.pack_forest_plan
+
+
+def _assert_fplans_equal(a, b):
+    for f in ("t", "bits", "n", "k", "groups"):
+        assert getattr(a, f) == getattr(b, f), f
+    for f in pt_engine.FOREST_DATA_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.is_contiguous(), f
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("t", [4, 8])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_forest_plan_equals_reference_run_device(pattern, t, bits, groups,
+                                                 rng):
+    n, m = (3, 5) if pattern == "outlier_heavy" else (11, 7)
+    k = 6 * t                                  # 6 tiles: 1 or 3 groups
+    w = _weights(pattern, n, k, bits, rng)
+    x = rng.integers(-128, 128, size=(k, m))
+    plan = pt_engine.BatchedTransitiveEngine(bits, t).plan(w, groups=groups)
+    fplan = pack(pt_engine.compile_plan(plan))
+    assert fplan.producer.shape == (6, 1 << t)
+    assert fplan.rows.shape == (6, bits, n) and fplan.lead == ()
+    assert fplan.producer.dtype == fplan.rows.dtype == torch.uint8
+    got = pt_engine.forest_plan_plain(fplan, torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    dref = ref_engine.compile_plan(
+        ref_engine.BatchedTransitiveEngine(bits, t).plan(w, groups=groups))
+    want = np.asarray(ref_engine.run_device(dref, jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if groups == 1:
+        np.testing.assert_array_equal(want, w.astype(np.int64) @ x)
+    # both kernel entries take the plain version on CPU tensors
+    np.testing.assert_array_equal(
+        transitive_forest(fplan, torch.from_numpy(x)).numpy(), want)
+    rows = transitive_forest_rows(
+        fplan, torch.from_numpy(x.T.astype(np.int8).copy())).numpy()
+    np.testing.assert_array_equal(
+        rows, want.T if groups == 1 else want.transpose(2, 1, 0))
+
+
+def test_forest_plan_codes_cover_direct_and_unused_nodes(rng):
+    """The outlier-heavy plan has direct nodes, a zero weight only unused
+    ones; the codes say so, and node 0 is never made."""
+    t = 8
+    heavy = pack(pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(
+        4, t).plan(_weights("outlier_heavy", 3, 4 * t, 4, rng))))
+    prod = heavy.producer.numpy()
+    assert (prod == pt_engine.FOREST_DIRECT).any()
+    assert (prod == pt_engine.FOREST_UNUSED).any()
+    assert set(np.unique(prod)) <= set(range(t)) | {
+        pt_engine.FOREST_DIRECT, pt_engine.FOREST_UNUSED}
+    assert (prod[:, 0] == pt_engine.FOREST_UNUSED).all()
+    zeros = pack(pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(
+        4, t).plan(np.zeros((5, 2 * t), np.int64))))
+    assert (zeros.producer == pt_engine.FOREST_UNUSED).all()
+    assert (zeros.rows == 0).all()
+
+
+def test_stacked_forest_plans_index_like_device_plans(rng):
+    ws = [_weights(p, 3, 32, 8, rng)
+          for p in ("outlier_heavy", "random", "zeros")]
+    dplan = pt_engine.compile_plans(
+        [pt_engine.BatchedTransitiveEngine(8, 8).plan(w) for w in ws])
+    calls = pack.calls
+    fplan = pack(dplan)
+    assert pack.calls == calls + 1
+    assert fplan.lead == dplan.lead == (3,)
+    assert fplan.nbytes() == sum(pack(dplan.index(i)).nbytes()
+                                 for i in range(3))
+    x = torch.from_numpy(rng.integers(-128, 128, size=(32, 4)))
+    for i, w in enumerate(ws):
+        one = fplan.index(i)
+        _assert_fplans_equal(one, pack(dplan.index(i)))
+        np.testing.assert_array_equal(
+            pt_engine.forest_plan_plain(one, x).numpy(),
+            pt_engine.run_device(dplan.index(i), x).numpy())
+        np.testing.assert_array_equal(
+            pt_engine.forest_plan_plain(one, x).numpy(), w @ x.numpy())
+    with pytest.raises(ValueError, match="stacked"):
+        pt_engine.forest_plan_plain(fplan, x)
+
+
+def test_pack_refuses_plans_the_kernel_cannot_take(rng):
+    w = _weights("random", 5, 32, 4, rng)
+    d = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 8)
+                               .plan(w))
+    with pytest.raises(ValueError, match="tile-local"):
+        pack(dataclasses.replace(d, tile_local=False))
+    wide = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 9)
+                                  .plan(rng.integers(-8, 8, size=(3, 18))))
+    assert wide.tile_local
+    with pytest.raises(ValueError, match="T <= 8"):
+        pack(wide)
+    # an edge whose activation bit is not the one the node adds
+    src = d.level_xsrc.clone()
+    r = int(torch.nonzero(src[1] != d.k)[0, 0])
+    src[1, r] = (r // 256) * 8 + (int(src[1, r]) + 1) % 8
+    with pytest.raises(ValueError, match="one bit"):
+        pack(dataclasses.replace(d, level_xsrc=src))
+    heavy = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 8)
+                                   .plan(_weights("outlier_heavy", 3, 32, 4,
+                                                  rng)))
+    bits = heavy.direct_bits.clone()
+    bits[0] = 1 - bits[0]
+    with pytest.raises(ValueError, match="direct_bits"):
+        pack(dataclasses.replace(heavy, direct_bits=bits))
+    # an APE gather of a node the plan never makes (the kernel leaves
+    # unused nodes unwritten)
+    unused = torch.nonzero(pack(d).producer[0] == pt_engine.FOREST_UNUSED)
+    node = int(unused[unused > 0][0])
+    gather = d.gather_idx.clone()
+    gather[0, 0, 0] = node
+    with pytest.raises(ValueError, match="never makes"):
+        pack(dataclasses.replace(d, gather_idx=gather))
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_engine_cuda_forest_plan_equals_reference_engine_pallas(groups,
+                                                                rng):
+    """The ``test_torch_quant`` accumulator case, with the plan attached as
+    ``engine_cuda`` attaches it: a ForestPlan, executed by the kernel's
+    row entry (its plain version on CPU), no packing per call."""
+    n, k = 24, 128
+    qw = rng.integers(-8, 8, size=(n, k)).astype(np.int8)
+    qx = rng.integers(-128, 128, size=(2, 3, k)).astype(np.int8)
+    backend = get_backend("engine_cuda")
+    fplan = backend.compile(pt_engine.BatchedTransitiveEngine(4, 8).plan(
+        qw.astype(np.int64), groups=groups))
+    assert isinstance(fplan, pt_engine.ForestPlan)
+    dref = ref_engine.compile_plan(ref_engine.BatchedTransitiveEngine(
+        4, 8).plan(qw.astype(np.int64), groups=groups))
+    _assert_fplans_equal(fplan, pack(params_from_reference(dref)))
+    g = k // groups
+    xs = qx if groups == 1 else qx.reshape(2, 3, groups, g)
+    ws = qw if groups == 1 else qw.reshape(n, groups, g)
+    calls = pack.calls
+    got = backend.execute(torch.from_numpy(xs), torch.from_numpy(ws), None,
+                          fplan, EngineConfig(4, 8, groups))
+    assert pack.calls == calls
+    want = ref_backend("engine_pallas").execute(
+        jnp.asarray(xs), jnp.asarray(ws), None, dref,
+        RefEngineConfig(4, 8, groups))
+    assert got.dtype == torch.int32 and got.shape == tuple(want.shape)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("group", [0, 32])
+def test_linear_apply_from_attached_forest_plans(group, rng):
+    """Stacked PTQ weights with ForestPlans attached by the plan cache:
+    every slice's ``linear_apply`` equals the reference's ``engine_pallas``
+    output (per-channel to 1 ulp, grouped within the tolerance of
+    ``test_torch_quant``), and nothing is packed while applying."""
+    n, k, lead = 20, 128, 2
+    qw = rng.integers(-8, 8, size=(lead, n, k)).astype(np.int8)
+    g = k if group == 0 else group
+    sg = (rng.random((lead, n, k // g)) * 0.1 + 0.01).astype(np.float32)
+    cfg = QuantConfig(mode="ptq", w_bits=4, group=group,
+                      backend="engine_cuda")
+    params = {"w": {"qw": torch.from_numpy(qw), "sg": torch.from_numpy(sg)}}
+    out = plancache.attach_device_plans(params, cfg, plancache.PlanCache())
+    fplan = out["w"]["dplan"]
+    assert isinstance(fplan, pt_engine.ForestPlan) and fplan.lead == (lead,)
+    x = rng.standard_normal((2, 5, k)).astype(np.float32)
+    ref_cfg = RefQuantConfig(mode="ptq", w_bits=4, group=group,
+                             backend="engine_pallas")
+    calls = pack.calls
+    for i in range(lead):
+        got = linear_apply({"qw": torch.from_numpy(qw[i]),
+                            "sg": torch.from_numpy(sg[i]),
+                            "dplan": fplan.index(i)},
+                           torch.from_numpy(x), cfg)
+        dref = ref_engine.compile_plan(ref_engine.BatchedTransitiveEngine(
+            4, 8).plan(qw[i].astype(np.int64), groups=k // g))
+        want = np.asarray(ref_linear_apply(
+            {"qw": jnp.asarray(qw[i]), "sg": jnp.asarray(sg[i]),
+             "dplan": dref}, jnp.asarray(x), ref_cfg))
+        if group == 0:
+            np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=1)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max())
+    assert pack.calls == calls
+
+
+@pytest.mark.parametrize("fault", ["producer_int32", "rows_strided",
+                                   "signs_int64", "two_devices"])
+def test_forest_plan_refuses_leaves_the_kernel_cannot_read(fault, rng):
+    """The kernel reads the leaves through raw pointers: a ForestPlan
+    whose leaves are not contiguous uint8 / uint8 / int32 on one device is
+    refused when it is made (also through ``dataclasses.replace``)."""
+    fplan = pack(pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(
+        4, 8).plan(_weights("random", 6, 32, 4, rng))))
+    bad = {"producer_int32": {"producer": fplan.producer.to(torch.int32)},
+           "rows_strided": {"rows": fplan.rows.transpose(0, 2)},
+           "signs_int64": {"signs": fplan.signs.to(torch.int64)},
+           "two_devices": {"signs": fplan.signs.to("meta")}}[fault]
+    with pytest.raises(ValueError, match="ForestPlan"):
+        dataclasses.replace(fplan, **bad)
+
+
+def test_dense_plan_is_packed_once(rng):
+    """A DevicePlan handed to the kernel entries (the route of
+    ``kernels.ops``) or to ``engine_cuda`` is packed at its first call and
+    the packing kept: later calls pack nothing and give the same exact
+    result as the reference's ``run_device``."""
+    n, k = 10, 64
+    w = _weights("random", n, k, 4, rng)
+    x = rng.integers(-128, 128, size=(k, 3))
+    dplan = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 8)
+                                   .plan(w))
+    want = np.asarray(ref_engine.run_device(
+        ref_engine.compile_plan(ref_engine.BatchedTransitiveEngine(4, 8)
+                                .plan(w)), jnp.asarray(x)))
+    calls = pack.calls
+    first = transitive_forest(dplan, torch.from_numpy(x))
+    assert pack.calls == calls + 1
+    again = transitive_forest(dplan, torch.from_numpy(x))
+    rows = transitive_forest_rows(
+        dplan, torch.from_numpy(x.T.astype(np.int8).copy()))
+    backend = get_backend("engine_cuda").execute(
+        torch.from_numpy(x.T.astype(np.int8).copy()), torch.from_numpy(w),
+        None, dplan, EngineConfig(4, 8, 1))
+    assert pack.calls == calls + 1
+    for got in (first, again, rows.T, backend.T):
+        np.testing.assert_array_equal(got.numpy(), want)

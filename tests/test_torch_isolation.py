@@ -126,6 +126,33 @@ def test_forest_wrapper_raises_instead_of_falling_back(monkeypatch, rng):
     assert tf.transitive_forest.launches == before
 
 
+def test_forest_rows_entry_raises_instead_of_falling_back(monkeypatch,
+                                                         rng):
+    """The serving entry of the forest kernel: the plain version on CPU
+    tensors only; a failed build and a tensor on neither device raise."""
+    import types
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan, pack_forest_plan)
+    from repro_torch.kernels import build, transitive_forest as tf
+    fplan = pack_forest_plan(compile_plan(BatchedTransitiveEngine(4, 8).plan(
+        rng.integers(-8, 8, size=(4, 16)))))
+    qx = torch.from_numpy(rng.integers(-128, 128, size=(3, 16)).astype(
+        np.int8))
+    before = tf.transitive_forest.launches
+    cpu = tf.transitive_forest_rows(fplan, qx)      # CPU: the plain version
+    np.testing.assert_array_equal(
+        cpu.numpy(), tf.forest_plan_plain(fplan, qx.T).T.numpy())
+    monkeypatch.setattr(tf, "forest_plan_plain", _never)
+    monkeypatch.setattr(build, "load", _failing_build)
+    with pytest.raises(RuntimeError, match="cannot build transitive_forest"):
+        tf.transitive_forest_rows(fplan, qx.to("meta"))
+    monkeypatch.setattr(build, "load",
+                        lambda name: types.SimpleNamespace(_typed=True))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tf.transitive_forest_rows(fplan, qx.to("meta"))
+    assert tf.transitive_forest.launches == before
+
+
 def test_attention_wrapper_raises_instead_of_falling_back(monkeypatch):
     from repro_torch.kernels import build, paged_attention as pa
     monkeypatch.setattr(build, "load", _failing_build)

@@ -41,6 +41,59 @@ def test_forest_kernel_equals_plain(cuda, n, k, m, groups):
     torch.testing.assert_close(got, forest_plain(d, x), rtol=0, atol=0)
 
 
+def _pattern(name, n, k, rng):
+    """int4 weights: the planner tests' direct-heavy and sparse patterns."""
+    if name == "outlier_heavy":              # many direct nodes
+        return np.where(rng.random((n, k)) < 0.9, 7, -8)
+    if name == "single_row":                 # one live row: mostly unused
+        w = np.zeros((n, k), dtype=np.int64)
+        w[0] = rng.integers(-8, 8, size=k)
+        return w
+    return rng.integers(-8, 8, size=(n, k))
+
+
+@pytest.mark.parametrize("pattern,n,k,m,groups", [
+    ("outlier_heavy", 48, 576, 4, 1), ("single_row", 96, 576, 8, 1),
+    ("random", 576, 1536, 33, 1), ("random", 200, 576, 17, 4),
+    ("outlier_heavy", 40, 192, 2, 3), ("random", 1536, 576, 512, 1),
+    ("random", 300, 64, 3, 1), ("random", 100, 576, 4, 9),
+    ("random", 300, 8, 40, 1), ("random", 300, 576, 96, 1)])
+def test_fused_forest_kernel_cases(cuda, pattern, n, k, m, groups):
+    """The fused kernel from a compact ForestPlan against both plain
+    versions (dense ``run_device`` and ``forest_plan_plain``), and its row
+    entry (int8 (M, K) -> (M, G, N)) against its (K, M) entry: exact.
+
+    The shapes reach both stores of both blocks: narrow blocks (M <= 8)
+    store plainly where a group is one chunk of 8 tiles (K=64; 9 groups
+    of 8 tiles) and add atomically otherwise; wide blocks (M > 8) store
+    plainly where a group is one tile (K=8) and add atomically where the
+    grid is split over K."""
+    from repro_torch.core.engine import (FOREST_DIRECT, FOREST_UNUSED,
+                                         BatchedTransitiveEngine,
+                                         compile_plan, forest_plan_plain,
+                                         pack_forest_plan)
+    from repro_torch.kernels.transitive_forest import (
+        forest_plain, transitive_forest, transitive_forest_rows)
+    rng = np.random.default_rng(n + k + m + groups)
+    w = _pattern(pattern, n, k, rng)
+    d = compile_plan(BatchedTransitiveEngine(4, 8).plan(w, groups=groups),
+                     device=cuda)
+    f = pack_forest_plan(d)
+    if pattern == "outlier_heavy":
+        assert (f.producer == FOREST_DIRECT).any()
+    if pattern == "single_row":
+        assert (f.producer == FOREST_UNUSED).float().mean() > 0.5
+    x = torch.from_numpy(rng.integers(-128, 128, size=(k, m))).to(cuda)
+    before = transitive_forest.launches
+    got = transitive_forest(f, x)
+    rows = transitive_forest_rows(f, x.T.to(torch.int8).contiguous())
+    assert transitive_forest.launches == before + 2
+    torch.testing.assert_close(got, forest_plain(d, x), rtol=0, atol=0)
+    torch.testing.assert_close(got, forest_plan_plain(f, x), rtol=0, atol=0)
+    want_rows = got.T if groups == 1 else got.permute(2, 1, 0)
+    torch.testing.assert_close(rows, want_rows, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("page_size,max_len", [(4, 32), (16, 256)])
 def test_paged_attention_kernel_within_tolerance(cuda, page_size, max_len):
     """Tolerance: two P-code steps, 2 * max(vs) * 128 / 127 (the reason is

@@ -191,7 +191,8 @@ def test_tile_locality_check_rejects_cross_tile_edges(rng):
 @pytest.mark.parametrize("backend", ["engine_torch", "engine_cuda"])
 def test_attach_device_plans_stacked_equals_reference(backend, rng):
     """Stacked block weights: the port's attached plans equal the
-    reference's compile_plans over the same slices, and the plan cache
+    reference's compile_plans over the same slices (``engine_cuda``
+    attaches their compact packing, a ForestPlan), and the plan cache
     builds each distinct weight once."""
     from repro_torch.core import plancache
     from repro_torch.quant import QuantConfig
@@ -208,12 +209,22 @@ def test_attach_device_plans_stacked_equals_reference(backend, rng):
     dref = ref_engine.compile_plans(
         [ref_engine.BatchedTransitiveEngine(4, 8).plan(qw[i].astype(np.int64))
          for i in range(3)])
-    _assert_dplans_equal(out["blocks"]["w"]["dplan"], dref)
+    attached = out["blocks"]["w"]["dplan"]
+    if backend == "engine_cuda":
+        from repro_torch.convert import params_from_reference
+        want = pt_engine.pack_forest_plan(params_from_reference(dref))
+        assert isinstance(attached, pt_engine.ForestPlan)
+        assert attached.lead == (3,)
+        for f in pt_engine.FOREST_DATA_FIELDS:
+            np.testing.assert_array_equal(getattr(attached, f).numpy(),
+                                          getattr(want, f).numpy())
+    else:
+        _assert_dplans_equal(attached, dref)
     assert out["blocks"]["w"]["qw"] is params["blocks"]["w"]["qw"]
     b = get_backend(backend)
     x = rng.integers(-128, 128, size=(7, 64)).astype(np.int8)
     got = b.execute(torch.from_numpy(x), torch.from_numpy(qw[1]), None,
-                    out["blocks"]["w"]["dplan"].index(1), EngineConfig(4, 8))
+                    attached.index(1), EngineConfig(4, 8))
     np.testing.assert_array_equal(
         got.numpy(), x.astype(np.int64) @ qw[1].T.astype(np.int64))
 

@@ -78,6 +78,12 @@ def _prompts(vocab, seed=7):
 
 
 def test_converted_params_keep_layout(cell):
+    """Converted weights keep the reference's layout; the port's
+    DevicePlans (``engine_torch``'s lowering) equal the reference's leaf
+    for leaf, and ``engine_cuda`` attaches their compact packing."""
+    from repro_torch.core import plancache
+    from repro_torch.core.engine import (FOREST_DATA_FIELDS, ForestPlan,
+                                         pack_forest_plan)
     ref_model, ref_params, model, params = cell
     blocks = params["blocks"]
     assert blocks["b0"]["wq"]["qw"].dtype == torch.int8
@@ -85,11 +91,19 @@ def test_converted_params_keep_layout(cell):
     np.testing.assert_array_equal(
         blocks["m0"]["down"]["qw"].numpy(),
         np.asarray(ref_params["blocks"]["m0"]["down"]["qw"]))
+    ref_wo = ref_params["blocks"]["b0"]["wo"]["dplan"]
+    dense = plancache.attach_device_plans(
+        _without_plans(params), model.cfg.quant, backend="engine_torch")
     for name in ("level_src", "gather_idx", "direct_idx"):
         np.testing.assert_array_equal(
-            getattr(blocks["b0"]["wo"]["dplan"], name).numpy(),
-            np.asarray(getattr(ref_params["blocks"]["b0"]["wo"]["dplan"],
-                               name)))
+            getattr(dense["blocks"]["b0"]["wo"]["dplan"], name).numpy(),
+            np.asarray(getattr(ref_wo, name)))
+    compact = blocks["b0"]["wo"]["dplan"]
+    assert isinstance(compact, ForestPlan)
+    want = pack_forest_plan(params_from_reference(ref_wo))
+    for name in FOREST_DATA_FIELDS:
+        np.testing.assert_array_equal(getattr(compact, name).numpy(),
+                                      getattr(want, name).numpy())
 
 
 def test_prefill_logits_match(cell):
@@ -239,3 +253,25 @@ def test_serve_engine_on_lut_cuda_equals_reference_and_int_dot(cell):
         ref_model, ref_params, {"tokens": jnp.asarray(batch, jnp.int32)},
         max_len=MAX_LEN, n_steps=GEN)
     np.testing.assert_array_equal(greedy.numpy(), np.asarray(ref_greedy))
+
+
+def test_engine_cuda_serves_from_forest_plans_without_packing(cell):
+    """``engine_cuda`` serves from the attached compact ForestPlans: every
+    PTQ layer carries one, serving packs nothing, and the tokens equal the
+    reference ServeEngine's (``engine_pallas``, interpret mode)."""
+    from repro_torch.core.engine import ForestPlan, pack_forest_plan
+    from repro_torch.core.plancache import _iter_ptq_layers
+    ref_model, ref_params, model, params = cell
+    layers = list(_iter_ptq_layers(params))
+    assert layers and all(isinstance(layer["dplan"], ForestPlan)
+                          for layer in layers)
+    prompts = _prompts(model.cfg.vocab, seed=5)
+    want = _serve(RefServeEngine(ref_model, ref_params, n_slots=2,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 paged_kernel=True), prompts)
+    calls = pack_forest_plan.calls
+    got = _serve(ServeEngine(model, params, n_slots=2, max_len=MAX_LEN,
+                             page_size=PAGE, paged_kernel=True,
+                             device="cpu"), prompts)
+    assert pack_forest_plan.calls == calls
+    assert got == want
