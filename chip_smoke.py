@@ -26,10 +26,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   B3. the doubling-LUT transitive GEMM against its plain version and the
      exact integer GEMM at smollm-135m's four linear shapes x M in {1, 4,
      8, 64, 512} at w_bits 4, one shape at w_bits 8, at w_bits 2 and at
-     T=4, a ragged (M, N, K) = (130, 70, 512) case and the grouped
-     down-projection (N=576, K=1536, 12 groups of 128): exact int32
-     equality, with kernel / plain / library (``torch._int_mm``, M padded
-     to 32) / bound times;
+     T=4, a ragged (M, N, K) = (130, 70, 512) case, the grouped
+     down-projection (N=576, K=1536, 12 groups of 128) at M=64 and 4, and
+     40 extreme-value cases: exact int32 equality, with kernel / plain /
+     library (``torch._int_mm``, M padded to 32) / bound times, the
+     shared-memory floor of the gathers, the profiler's device time per
+     call (one device op per call, asserted) and the K split;
   B4. the group-dequant GEMM against its plain version at (N, K, group) =
      (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, within the
      reference's tolerance (``check_w4a8``);
@@ -76,8 +78,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
 SCALAR_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor
-                                   # cores, the table's closest row to
-                                   # the forest's scalar int32 adds
+                                   # cores (132 SMs x 128 lanes x 2 x
+                                   # 1.98 GHz: it counts an FMA as two
+                                   # operations), the table's closest row
+                                   # to the forest's and B3's scalar int32
+                                   # work; one int32 add or shared-memory
+                                   # gather is held to it as one operation,
+                                   # so the operations bound is optimistic
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9   # one 128-byte shared-memory
+                                        # wavefront per SM per clock
 SHAPES = ((576, 576), (192, 576), (1536, 576), (576, 1536))
 MS = (1, 4, 8, 64, 512)
 
@@ -111,23 +120,26 @@ def bound_ms(n_bytes, n_ops, ops_rate):
 def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
     """Device time per call of ``fn`` from ``torch.profiler``: (every
     device op of the call, the ops whose name holds one of ``kernels``
-    alone: no memset) in microseconds."""
+    alone: no memset) in microseconds, and the device ops per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    for _ in range(3):          # a profile now and then records no events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     total = sum(e.self_device_time_total for e in events) / iters
     kernel = sum(e.self_device_time_total for e in events
                  if any(name in e.key for name in kernels))
     kernel /= iters
-    return total, kernel
+    return total, kernel, sum(e.count for e in events) / iters
 
 
 def _forest_weights(pattern, n, k, rng):
@@ -241,11 +253,13 @@ def check_forest(flush):
         lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
         extra = ""
         if g == 1 and pattern == "random":
-            tot, ker = device_us(lambda: transitive_forest_rows(fplan, qx))
+            tot, ker, _ = device_us(
+                lambda: transitive_forest_rows(fplan, qx))
             w8 = w.to(torch.int8)
-            b3, _ = device_us(lambda: transitive_gemm_cuda(qx, w8, w_bits=4),
-                              kernels=("tgemm_lut",))
-            mm, _ = device_us(lambda: torch._int_mm(xm, w8t), kernels=())
+            b3, _, _ = device_us(
+                lambda: transitive_gemm_cuda(qx, w8, w_bits=4),
+                kernels=("tgemm_lut",))
+            mm, _, _ = device_us(lambda: torch._int_mm(xm, w8t), kernels=())
             extra = (f" | profiler device us/call: {tot:.2f} "
                      f"(kernel {ker:.2f}); B3 {b3:.2f}; _int_mm {mm:.2f}")
         print(f"[B1] N={n} K={k} M={m} G={g} {pattern} (direct "
@@ -358,32 +372,57 @@ def _tgemm_bound(m, n, k, w_bits, t, groups):
     """Bytes: x and w int8 read once, the int32 output written once.
     Operations (data-independent): the doubling LUT build, (2^4 - 1) adds
     per nibble LUT, and per (m, n, subtile, plane) T/4 gathers + T/4 adds
-    (nibble combine and shift-accumulate), against the scalar rate."""
+    (nibble combine and shift-accumulate), against the scalar rate.
+    Returns (bound ms, what bounds it) of those two, and the design's
+    shared-memory floors: the gathers' bytes over SMEM_BYTES_PER_S at 2 B
+    per (row, gather) (two rows per 32-bit LUT word) and at the previous
+    layout's 4 B."""
     nl, j = t // 4, k // t
     n_bytes = m * k + n * k + m * groups * n * 4
     n_ops = m * j * nl * 15 + m * n * j * w_bits * 2 * nl
-    return bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+    gathers = m * n * j * w_bits * nl
+    b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+    return (b_ms, b_by, gathers * 2 / SMEM_BYTES_PER_S * 1e3,
+            gathers * 4 / SMEM_BYTES_PER_S * 1e3)
 
 
 def check_tgemm(flush):
     """B3 vs its plain version and the exact GEMM; returns the JSON entry
-    (timed at the decode shape N=1536, K=576, M=4, w_bits 4, T=8)."""
+    (timed at the decode shape N=1536, K=576, M=4, w_bits 4, T=8).
+
+    Every timed case also prints the profiler's device time per call of
+    B3 (all device ops of the call, and the kernel alone) beside
+    ``torch._int_mm``'s, and asserts that the call is one device op (no
+    memset: the K split is reduced inside a thread block cluster), and
+    the split it ran. Extreme-value cases (activations -128 or 127
+    against weights -2^(S-1) or 2^(S-1) - 1, w_bits 2, 4, 5, 6, 8, T 4 and
+    8) push the kernel's packed 16-bit LUT halves to their limits (0 and
+    the flush schedule's bound); they are checked, not timed."""
     import torch
     from repro_torch.core.backend import int_matmul
-    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+    from repro_torch.kernels.transitive_gemm import (k_split,
+                                                     transitive_gemm_cuda,
                                                      transitive_gemm_plain)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(3)
-    cases = [(n, k, m, 4, 8, 1) for n, k in SHAPES for m in MS]
-    cases += [(1536, 576, 64, 8, 8, 1), (1536, 576, 64, 2, 8, 1),
-              (1536, 576, 64, 4, 4, 1), (70, 512, 130, 4, 8, 1),
-              (576, 1536, 64, 4, 8, 12)]
-    entry, worst = None, 0
-    for n, k, m, w_bits, t, groups in cases:
+    cases = [(n, k, m, 4, 8, 1, None) for n, k in SHAPES for m in MS]
+    cases += [(1536, 576, 64, 8, 8, 1, None), (1536, 576, 64, 2, 8, 1, None),
+              (1536, 576, 64, 4, 4, 1, None), (70, 512, 130, 4, 8, 1, None),
+              (576, 1536, 64, 4, 8, 12, None), (576, 1536, 4, 4, 8, 12, None)]
+    cases += [(1536, 576, 64, bits, t, 1, (a, b)) for bits in (2, 4, 5, 6, 8)
+              for t in (4, 8) for a in (-128, 127) for b in ("lo", "hi")]
+    entry, worst, extremes = None, 0, 0
+    for n, k, m, w_bits, t, groups, fill in cases:
         lim = 1 << (w_bits - 1)
-        w = torch.randint(-lim, lim, (n, k), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
-                          dtype=torch.int8)
+        if fill is None:
+            w = torch.randint(-lim, lim, (n, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            x = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            w = torch.full((n, k), -lim if fill[1] == "lo" else lim - 1,
+                           device="cuda", dtype=torch.int8)
+            x = torch.full((m, k), fill[0], device="cuda", dtype=torch.int8)
         kw = dict(w_bits=w_bits, t=t, groups=groups)
         got = transitive_gemm_cuda(x, w, **kw)
         want = transitive_gemm_plain(x, w, **kw)
@@ -395,30 +434,49 @@ def check_tgemm(flush):
         err = max(int((got.long() - want.long()).abs().max()),
                   int((got.long() - gemm.long()).abs().max()))
         worst = max(worst, err)
-        tag = (f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}")
+        split = k_split(m, n, k, groups, t, sms)
+        tag = (f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}"
+               f" ksplit={split}")
+        if fill is not None:
+            tag += f" x={fill[0]} w={fill[1]}"
         if err:
             raise AssertionError(f"transitive_gemm kernel != plain at {tag}:"
                                  f" max |diff| {err}")
+        if fill is not None:
+            extremes += 1
+            continue
         k_ms = cuda_ms(lambda: transitive_gemm_cuda(x, w, **kw), flush)
         p_ms = cuda_ms(lambda: transitive_gemm_plain(x, w, **kw), flush)
+        tot, ker, ops = device_us(lambda: transitive_gemm_cuda(x, w, **kw),
+                                  kernels=("tgemm_lut",))
+        if ops != 1:
+            raise AssertionError(f"B3 at {tag} ran {ops} device ops per "
+                                 f"call, not 1")
         if groups == 1 and n % 8 == 0 and k % 8 == 0:
             xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
                              device="cuda")
             xm[:m] = x
             wt = w.T
             lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+            mm, _, _ = device_us(lambda: torch._int_mm(xm, wt), kernels=())
+            lib_txt = f"{lib_ms:.4f} (device us {mm:.2f})"
         else:
-            lib_ms = None
-        b_ms, b_by = _tgemm_bound(m, n, k, w_bits, t, groups)
-        lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"[B3] {tag}: exact | kernel_ms={k_ms:.4f} plain_ms="
+            lib_ms, lib_txt = None, "null"
+        b_ms, b_by, smem_ms, smem_old_ms = _tgemm_bound(m, n, k, w_bits, t,
+                                                        groups)
+        floor = max((b_ms, b_by), (smem_ms, "shared-memory bytes"))
+        print(f"[B3] {tag}: exact | kernel_ms={k_ms:.4f} device us/call "
+              f"{tot:.2f} (kernel {ker:.2f}, {ops:.0f} op) plain_ms="
               f"{p_ms:.4f} library_ms={lib_txt} bound_ms={b_ms:.6f} "
-              f"({b_by})")
+              f"({b_by}) | shared-memory floor {smem_ms:.6f} ms (4 B "
+              f"layout {smem_old_ms:.6f}) -> bound by {floor[1]}")
         if (n, k, m, w_bits, t, groups) == (1536, 576, 4, 4, 8, 1):
             entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms,
+                     "device_us": tot,
                      "shape": "N=1536 K=576 M=4 w_bits=4 T=8 (decode, "
                               "MLP up/gate)"}
+    print(f"[B3] {extremes} extreme-value cases exact")
     entry["max_abs_err"] = worst
     return entry
 

@@ -10,9 +10,12 @@ runs the plain version (:mod:`repro_torch.kernels.ref`); on CUDA tensors
 it launches the kernel or raises. Each launch adds one to
 ``transitive_gemm_cuda.launches``.
 
-The kernel reads the int8 weight directly (no packed TransRows), masks
-ragged M and N itself and splits K across blocks when there are few
-output tiles. Bound and design notes are in the CUDA source.
+The kernel reads the int8 weight directly (no packed TransRows), keeps
+two activation rows per 32-bit LUT word, masks ragged M and N itself and,
+when there are few output tiles, splits K across the blocks of a thread
+block cluster (:func:`k_split` picks the split; the cluster adds its
+partial sums through distributed shared memory). Bound and design notes
+are in the CUDA source.
 """
 from __future__ import annotations
 
@@ -22,22 +25,57 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["transitive_gemm_cuda", "transitive_gemm_plain"]
+__all__ = ["transitive_gemm_cuda", "transitive_gemm_plain", "k_split"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# The kernel's tiling (csrc/transitive_gemm.cu): columns per block,
+# subtiles per chunk, blocks per cluster at most.
+_NT, _CH, _MAX_SPLIT = 128, 8, 8
+
+_LIB: list[ctypes.CDLL] = []
+_SMS: dict[int, int] = {}
+
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("transitive_gemm")
-    if not getattr(lib, "_typed", False):
+    if not _LIB:
+        lib = build.load("transitive_gemm")
         lib.transitive_gemm_launch.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.transitive_gemm_launch.restype = _I
         lib.transitive_gemm_error.argtypes = [_I]
         lib.transitive_gemm_error.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k_split(m: int, n: int, k: int, groups: int, t: int, sms: int) -> int:
+    """Blocks per output tile along K (one thread block cluster, <= 8).
+
+    Output tiles are 128 columns x 4 (M <= 4), 8 (M <= 8) or 16 rows per
+    group. With fewer tiles than two per SM, each group's chunks of 8
+    subtiles are split as far as a cluster allows: the fewest chunks per
+    block that keep the split at 8 or below."""
+    rows = 4 if m <= 4 else 8 if m <= 8 else 16
+    chunks = _cdiv(k // groups // t, _CH)
+    tiles = _cdiv(n, _NT) * _cdiv(m, rows) * groups
+    if tiles >= 2 * sms:
+        return 1
+    return _cdiv(chunks, _cdiv(chunks, _MAX_SPLIT))
 
 
 def _check(qx: torch.Tensor, qw: torch.Tensor, t: int, groups: int) -> None:
@@ -92,12 +130,14 @@ def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
         return out.zero_()
     xc = qx.contiguous()
     wc = qw.contiguous()
-    if wc.data_ptr() % 8:                      # the kernel loads T bytes
+    if xc.data_ptr() % 4:                      # the kernel loads 4 bytes
+        xc = xc.clone()
+    if wc.data_ptr() % 8:                      # and T weight bytes
         wc = wc.clone()
-    sms = torch.cuda.get_device_properties(qx.device).multi_processor_count
+    ksplit = k_split(m, n, k, groups, t, _sm_count(qx.device))
     stream = torch.cuda.current_stream(qx.device).cuda_stream
     err = lib.transitive_gemm_launch(
-        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t, 2 * sms,
+        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t, ksplit,
         out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"transitive_gemm launch failed: "

@@ -124,18 +124,46 @@ def test_paged_attention_kernel_within_tolerance(cuda, page_size, max_len):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("m,n,k,w_bits,t,groups", [
-    (4, 1536, 576, 4, 8, 1), (130, 70, 512, 4, 8, 1), (1, 8, 64, 8, 8, 1),
-    (33, 192, 576, 8, 4, 1), (17, 96, 256, 2, 8, 1), (512, 576, 1536, 4, 8, 1),
-    (4, 576, 1536, 4, 8, 12), (9, 40, 96, 4, 4, 3)])
+# (m, n, k, w_bits, t, groups, fill): fill None draws random codes; (a, b)
+# fills x with a and w with b ("lo" -2^(S-1), "hi" 2^(S-1) - 1), which
+# pushes the kernel's packed 16-bit halves to their limits (0 and the
+# flush schedule's bound). Split cases: K=1536 at M=1 runs 8 blocks per
+# cluster, K=576 at M=4 5, 12 groups of 128 at M=4 2, M=512 N=1536 none.
+_TGEMM_CASES = [
+    (4, 1536, 576, 4, 8, 1, None), (130, 70, 512, 4, 8, 1, None),
+    (1, 8, 64, 8, 8, 1, None), (33, 192, 576, 8, 4, 1, None),
+    (17, 96, 256, 2, 8, 1, None), (512, 576, 1536, 4, 8, 1, None),
+    (4, 576, 1536, 4, 8, 12, None), (9, 40, 96, 4, 4, 3, None),
+    (1, 576, 1536, 4, 8, 1, None), (4, 576, 576, 4, 8, 1, None),
+    (1, 192, 1536, 4, 8, 12, None), (512, 1536, 576, 4, 8, 1, None)]
+_TGEMM_CASES += [(20, 136, 640, bits, t, 1, (a, b))
+                 for bits in (2, 4, 5, 6, 8) for t in (4, 8)
+                 for a, b in ((-128, "lo"), (-128, "hi"), (127, "lo"),
+                              (127, "hi"))]
+
+
+def _tgemm_id(case):
+    *dims, fill = case
+    tag = "-".join(map(str, dims))
+    return tag if fill is None else f"{tag}-x{fill[0]}-w{fill[1]}"
+
+
+@pytest.mark.parametrize("m,n,k,w_bits,t,groups,fill", _TGEMM_CASES,
+                         ids=[_tgemm_id(c) for c in _TGEMM_CASES])
 def test_transitive_gemm_kernel_equals_plain(cuda, m, n, k, w_bits, t,
-                                             groups):
+                                             groups, fill):
     from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
                                                      transitive_gemm_plain)
     rng = np.random.default_rng(m + n + k)
     lim = 1 << (w_bits - 1)
-    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
-    w = torch.from_numpy(rng.integers(-lim, lim, (n, k)).astype(np.int8))
+    if fill is None:
+        x = rng.integers(-128, 128, (m, k))
+        w = rng.integers(-lim, lim, (n, k))
+    else:
+        x = np.full((m, k), fill[0])
+        w = np.full((n, k), -lim if fill[1] == "lo" else lim - 1)
+    x = torch.from_numpy(x.astype(np.int8))
+    w = torch.from_numpy(w.astype(np.int8))
     kw = dict(w_bits=w_bits, t=t, groups=groups)
     before = transitive_gemm_cuda.launches
     got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw)

@@ -22,7 +22,7 @@ from repro_torch.core import bitslice  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.rg_lru import rg_lru_cuda  # noqa: E402
 from repro_torch.kernels.transitive_gemm import (  # noqa: E402
-    transitive_gemm_cuda)
+    k_split, transitive_gemm_cuda)
 from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda  # noqa: E402
 
 
@@ -126,6 +126,127 @@ def test_ops_transitive_gemm_grouped_equals_reference(wbits, t, rng):
         jnp.asarray(xg), jnp.asarray(wg), w_bits=wbits, t=t))
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# The B3 kernel's packed-pair arithmetic (csrc/transitive_gemm.cu), in
+# int64 with each 16-bit half kept apart, so the overflow argument runs
+# without a card.
+_BIAS, _ENTRY_MAX, _HALF, _CH = 512, 1020, 1 << 16, 8
+
+
+def _flush_every(per_subtile):
+    f = 1
+    while 2 * f <= _CH and 2 * f * per_subtile < _HALF:
+        f *= 2
+    return f
+
+
+def _packed_schedule(w_bits, t):
+    """``Schedule<T, S>`` of the kernel: planes in the low segment, and
+    subtiles per flush of the low and the high segment."""
+    gmax = t // 4 * _ENTRY_MAX
+    pa = 6 if gmax * 63 < _HALF else 5
+    sa = min(w_bits, pa)
+    sb = w_bits - sa
+    fa = _flush_every(gmax * ((1 << sa) - 1))
+    fb = _flush_every(gmax * ((1 << sb) - 1)) if sb else _CH
+    return sa, fa, fb
+
+
+def _packed_pair_gemm(qx, qw, w_bits, t):
+    """int32 qx @ qw^T as the kernel computes it: biased nibble LUTs built
+    by doubling, two rows per word, offset-binary top plane, planes added
+    into packed segments flushed on the schedule. Returns (out, the
+    largest half seen); asserts every half stays in [0, 2^16)."""
+    m, k = qx.shape
+    n = qw.shape[0]
+    nl, nj = t // 4, k // t
+    sa, fa, fb = _packed_schedule(w_bits, t)
+    x = qx.long()
+    if m % 2:
+        x = torch.cat([x, torch.zeros((1, k), dtype=torch.long)])
+    pairs = x.reshape(-1, 2, nj, nl, 4)                 # (P, 2, J, NL, 4)
+    lut = torch.full(pairs.shape[:-1] + (1,), _BIAS, dtype=torch.long)
+    for b in range(4):                                   # doubling
+        lut = torch.cat([lut, lut + pairs[..., b:b + 1]], dim=-1)
+    assert 0 <= int(lut.min()) and int(lut.max()) <= _ENTRY_MAX
+    u = (qw.long() & ((1 << w_bits) - 1)) ^ (1 << (w_bits - 1))
+    planes = (u[None] >> torch.arange(w_bits)[:, None, None]) & 1
+    pat = (planes.reshape(w_bits, n, nj, nl, 4)
+           << torch.arange(4)).sum(-1)                   # (S, N, J, NL)
+    acc = torch.zeros((pairs.shape[0], 2, n), dtype=torch.long)
+    seg_a, seg_b = torch.zeros_like(acc), torch.zeros_like(acc)
+    top = 0
+    for j in range(nj):
+        for s in range(w_bits):
+            g = sum(lut[:, :, j, h][:, :, pat[s, :, j, h]]
+                    for h in range(nl))
+            if s < sa:
+                seg_a += g << s
+            else:
+                seg_b += g << (s - sa)
+            top = max(top, int(seg_a.max()), int(seg_b.max()))
+            assert int(seg_a.min()) >= 0 and int(seg_b.min()) >= 0
+            assert top < _HALF, (w_bits, t, j, s, top)
+        last = j == nj - 1
+        if (j + 1) % fa == 0 or last:
+            acc += seg_a
+            seg_a.zero_()
+        if (j + 1) % fb == 0 or last:
+            acc += seg_b << sa
+            seg_b.zero_()
+    acc -= nl * _BIAS * ((1 << w_bits) - 1) * nj
+    acc -= pairs.sum((2, 3, 4))[..., None] << (w_bits - 1)
+    out = acc.reshape(-1, n)[:m]
+    return ((out + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32), top
+
+
+@pytest.mark.parametrize("t", [4, 8])
+@pytest.mark.parametrize("wbits", [2, 3, 4, 5, 6, 7, 8])
+def test_transitive_gemm_packed_pairs_stay_in_range(wbits, t, rng):
+    """No packed half leaves [0, 2^16) under the kernel's flush schedule,
+    for random and extreme inputs, and unpacked the result equals the
+    plain version and the exact GEMM. Activations 127 against weights
+    2^(S-1) - 1 gather the largest entry at every plane, so they reach
+    the schedule's bound exactly."""
+    m, n, k = 5, 6, t * 20                  # 20 subtiles: 2.5 chunks
+    lo, hi = -(1 << (wbits - 1)), (1 << (wbits - 1)) - 1
+    inputs = [(_codes(rng, (m, k), 8), _codes(rng, (n, k), wbits))]
+    inputs += [(np.full((m, k), a, np.int8), np.full((n, k), b, np.int8))
+               for a in (-128, 127) for b in (lo, hi)]
+    tops = []
+    for qx, qw in inputs:
+        got, top = _packed_pair_gemm(torch.from_numpy(qx),
+                                     torch.from_numpy(qw), wbits, t)
+        tops.append(top)
+        want = ref.transitive_matmul_ref(torch.from_numpy(qx),
+                                         torch.from_numpy(qw), wbits, t)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        np.testing.assert_array_equal(
+            got.numpy(), qx.astype(np.int64) @ qw.astype(np.int64).T)
+    sa, fa, fb = _packed_schedule(wbits, t)
+    gmax = t // 4 * _ENTRY_MAX
+    bound = max(fa * gmax * ((1 << sa) - 1),
+                fb * gmax * ((1 << (wbits - sa)) - 1))
+    assert tops[4] == bound < _HALF         # activations 127, weights hi
+
+
+@pytest.mark.parametrize("m,n,k,groups,want", [
+    (4, 1536, 576, 1, 5), (1, 576, 1536, 1, 8), (4, 576, 1536, 12, 2),
+    (64, 192, 576, 1, 5), (512, 1536, 576, 1, 1)])
+def test_transitive_gemm_k_split(m, n, k, groups, want):
+    """The cluster split at the serving shapes on a 132-SM card (K=576: 9
+    chunks -> 5 blocks of 2; K=1536: 24 -> 8 of 3; 12 groups of 128: 2 ->
+    2), and for every shape: at most 8 blocks, none of them empty."""
+    assert k_split(m, n, k, groups, 8, 132) == want
+    for mm in (1, 4, 8, 9, 64, 512):
+        for nn in (8, 192, 576, 1536):
+            for kk, gg in ((64, 1), (576, 1), (1536, 1), (1536, 12)):
+                chunks = -(-(kk // gg // 8) // 8)
+                split = k_split(mm, nn, kk, gg, 8, 132)
+                per_block = -(-chunks // split)
+                assert 1 <= split <= min(8, chunks)
+                assert (split - 1) * per_block < chunks
 
 
 @pytest.mark.parametrize("m,n,k,g", [(8, 16, 256, 64), (130, 200, 384, 128),
