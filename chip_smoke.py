@@ -7,7 +7,7 @@ against its plain version.
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
   0. the card's ``nvidia-smi`` name and power limit;
-  1. build all five CUDA kernels from ``src/repro_torch/csrc`` (one
+  1. build all six CUDA sources from ``src/repro_torch/csrc`` (one
      ``nvcc`` each, in parallel) into ``build/kernels``;
   2. B1, the fused forest kernel from a compact ``ForestPlan``, through
      both its entries ((K, M) int32 and the serving path's (M, K) int8
@@ -20,9 +20,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the compact plan's bytes), the profiler's device time per call at
      every ungrouped shape, beside B3's and ``torch._int_mm``'s, and the
      (K, M) entry's cost from a DevicePlan;
-  3. B2, the paged-attention kernel, against the gather + attend_cached
-     path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
-     ragged steps, within the tolerance stated in ``check_attention``;
+  3. B2, the paged-attention kernel, in each of its four pool layouts
+     (int8 or exact bf16 pool x int8 or float attention) against the
+     gather + attend_cached path at B=4, KV=3, G=3, hd=64, page_size 16,
+     max_len 256 and 2048, ragged steps, within the bounds of
+     ``kernels.paged_attention.agreement``, with kernel / profiler /
+     plain / library
+     (``scaled_dot_product_attention``, exact float layout) / bound times;
   B3. the doubling-LUT transitive GEMM against its plain version and the
      exact integer GEMM at smollm-135m's four linear shapes x M in {1, 4,
      8, 64, 512} at w_bits 4, one shape at w_bits 8, at w_bits 2 and at
@@ -32,12 +36,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      library (``torch._int_mm``, M padded to 32) / bound times, the
      shared-memory floor of the gathers, the profiler's device time per
      call (one device op per call, asserted) and the K split;
+  B3g. B3 at T outside {4, 8} (the generic kernel): T in {1, 2, 3, 5, 6,
+     7, 9, 12} x w_bits in {2, 4, 8} and a grouped case, exact;
+  B1d. B1 for plans with T > 8: a T=9 ``engine_cuda`` linear (N=1536,
+     K=576) through the dense two-pass kernel, exact against
+     ``run_device`` at M in {4, 64}, its ``linear_apply`` equal to
+     ``engine_torch``'s;
   B4. the group-dequant GEMM against its plain version at (N, K, group) =
-     (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, within the
-     reference's tolerance (``check_w4a8``);
+     (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, group 6 and
+     K=32,768 at M=4, within the reference's tolerance (``check_w4a8``);
   B5. the linear recurrence against its plain version at
      recurrentgemma-9b's width D=4096, B=4, S=2048, in float32 and
-     bfloat16, within the reference's tolerance (``check_rg_lru``);
+     bfloat16 (the reference's tolerance) and with (x, a) in (float16,
+     float16) and (float32, bfloat16) (bit-equal) (``check_rg_lru``);
   4. a reduced float32 smollm served through ``ServeEngine`` on the card
      with the forest kernel and with its plain version: tokens equal;
   5. the forest serving path: full-width smollm-135m (30 layers, d_model 576,
@@ -54,19 +65,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``lut_cuda`` (the doubling-LUT kernel) with the paged-attention
      kernel and no plan: over that run B3 and B2 launch, B1 does not, the
      plan cache sees no lookup, and all 256 tokens equal phase 5's;
+  8-10. B2's other layouts served at full width (``layout_paths``), the
+     same requests: ``--fp`` (bf16, exact pool, float attention), W4A8 on
+     ``lut_cuda`` with an int8 pool and float attention, and with an exact
+     pool and int8 attention; B2 must launch once per layer per decode
+     step; the gather path's token agreement is printed, with the
+     teacher-forced logit differences and top-2 margins where the two
+     part, and B2 against its plain version on the serving path's own
+     inputs (a third run: within the loose bound, asserted);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
-     five functions once on the card at a serving shape, every kernel
-     launched, each result equal to (or, B4, within tolerance of) its
-     plain version.
+     five functions once on the card at a serving shape, plus B3 at T=6
+     and B1 from a T=9 plan, every kernel launched, each result equal to
+     (or, B4, B5, within tolerance of) its plain version.
 
 Every launch count in the JSON line is read from the run of the path
-that drives the kernel (B1: phase 5; B2, B3: phase 6; B4, B5: phase 7),
-with the counts set to 0 just before it; launches made to compare a
-kernel with its plain version are not counted. The line before the last
+that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
+int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
+the generic B3 and the dense B1: phase 7), with the counts set to 0 just
+before it; launches made to compare a kernel with its plain version are
+not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
 true, "device": {...}}``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,6 +99,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor rate
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor rate
 SCALAR_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor
                                    # cores (132 SMs x 128 lanes x 2 x
                                    # 1.98 GHz: it counts an FMA as two
@@ -292,80 +315,175 @@ def check_forest(flush):
     return entry
 
 
-def check_attention(flush):
-    """B2 vs the gather + attend_cached path; returns the JSON entry (timed
-    at max_len 256, the main path's extent).
+# B2's four pool layouts (kernels/paged_attention.py LAYOUTS): the JSON
+# name suffix, (quant_attention, kv_cache_bits) and the pool dtype checked
+ATTN_LAYOUTS = {0: ("kv8-int8attn", True, 8), 1: ("kv16-int8attn", True, 16),
+                2: ("kv16-float", False, 16), 3: ("kv8-float", False, 8)}
 
-    Tolerance: scores are exact int32 dot products times the same f32
-    factors in the same order, but the kernel's softmax sums and maxima
-    run in another order than torch's, so p * vs may differ by ulps and a
-    P code can move by one step where x / scale sits at a rounding
-    boundary; one step changes an output by at most sps * 128 <=
-    max(vs) * 128 / 127. The check allows two such steps per output."""
+
+def _attn_pool(layout, shp, gen):
+    import torch
+    if ATTN_LAYOUTS[layout][2] == 8:
+        return {"k": torch.randint(-128, 128, shp, generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                "v": torch.randint(-128, 128, shp, generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                "ks": torch.rand(shp[:-1] + (1,), generator=gen,
+                                 device="cuda") * 0.02 + 1e-3,
+                "vs": torch.rand(shp[:-1] + (1,), generator=gen,
+                                 device="cuda") * 0.02 + 1e-3}
+    return {"k": torch.randn(shp, generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "v": (torch.randn(shp, generator=gen, device="cuda") * 2)
+            .to(torch.bfloat16)}
+
+
+def _attn_bound(layout, pool, table, steps, q, max_len, ps):
+    """Bytes: the live lanes' K and V rows (+ their f32 scales in an int8
+    pool; an exact pool under int8 attention also reads the live pages'
+    other V rows and, where the table has dead entries, page 0's, for the
+    |V| max), q, the page table and steps read once, the output written
+    once. Operations: 4 * G * hd per live lane and KV head (two dots),
+    against the int8 tensor rate (int8 attention), the bf16 one (the bf16
+    exact pool) or the f32 scalar one (the int8 pool's f32 float layout)."""
+    import torch
+    b, pps = table.shape
+    _, _, kv, hd = pool["k"].shape
+    g = q.shape[2] // kv
+    esz = pool["k"].element_size()
+    live = int((torch.clamp(steps + 1, max=max_len)).sum())
+    n_bytes = q.numel() * q.element_size() + table.numel() * 4 + b * 4
+    if layout in (0, 3):
+        n_bytes += live * kv * (2 * hd + 2 * 4)
+    elif layout == 1:
+        pages = [min(int(s) // ps + 1, pps) for s in steps]
+        v_rows = sum(n * ps for n in pages) + ps * sum(n < pps for n in pages)
+        n_bytes += (live + v_rows) * kv * hd * esz
+    else:
+        n_bytes += 2 * live * kv * hd * esz
+    out_esz = esz if layout == 2 else 4
+    n_bytes += b * kv * g * hd * out_esz
+    n_ops = live * kv * g * hd * 4
+    rate = {0: INT8_OPS_PER_S, 1: INT8_OPS_PER_S, 2: BF16_OPS_PER_S,
+            3: SCALAR_OPS_PER_S}[layout]
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def _sdpa_ms(q, pool, table, steps, max_len, scale, flush):
+    """The library yardstick of layout 2: one
+    ``scaled_dot_product_attention`` call over the gathered pages (K and V
+    gathered and repeated to every query head beforehand, untimed), the
+    lanes past each step masked."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.attention import _gather_pages
+    b, _, h, hd = q.shape
+    kv = pool["k"].shape[2]
+    k = _gather_pages(pool["k"], table).repeat_interleave(h // kv, dim=2)
+    v = _gather_pages(pool["v"], table).repeat_interleave(h // kv, dim=2)
+    k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lanes = torch.arange(k.shape[2], device=q.device)
+    mask = (lanes[None, :] < torch.clamp(steps.long() + 1, max=max_len)
+            [:, None])[:, None, None, :]
+    qt = q.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=scale), flush)
+
+
+def check_attention(flush):
+    """B2 in each of its four pool layouts against its plain version at the
+    serving shape (B=4, KV=3, G=3, hd=64, page_size 16) at max_len 256 and
+    2048 with ragged steps, dead table entries reading page 0 (which holds
+    data), within the bounds of ``kernels.paged_attention.agreement``: at
+    most ROW_BUDGET of the 36 rows beyond the tight bound, none beyond the
+    loose one. Layout 0 is compared with the plain version on the card,
+    the others with it on CPU copies. Returns the JSON entry per layout
+    (timed at max_len 256, the main path's extent): kernel ms
+    (event-timed, L2 flushed), the profiler's device us per call, plain
+    ms, library ms (layout 2: ``scaled_dot_product_attention`` over the
+    gathered pages) and the bytes bound."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    from repro_torch.kernels.paged_attention import (LAYOUTS, ROW_BUDGET,
+                                                     agreement,
+                                                     paged_attention,
                                                      paged_attention_plain)
     from repro_torch.launch.specs import serve_config
-    cfg = serve_config(get_config("smollm_135m"))
+    base = serve_config(get_config("smollm_135m"))
+    names = {code: name for code, name in LAYOUTS.values()}
     b, kv, g, hd, ps = 4, 3, 3, 64, 16
     gen = torch.Generator(device="cuda").manual_seed(0)
-    entry, worst = None, 0.0
-    for max_len in (256, 2048):
-        pps = max_len // ps
-        n_pages = b * pps + 1
-        shp = (n_pages, ps, kv, hd)
-        pool = {
-            "k": torch.randint(-128, 128, shp, generator=gen,
-                               device="cuda", dtype=torch.int8),
-            "v": torch.randint(-128, 128, shp, generator=gen,
-                               device="cuda", dtype=torch.int8),
-            "ks": torch.rand(shp[:-1] + (1,), generator=gen,
-                             device="cuda") * 0.02 + 1e-3,
-            "vs": torch.rand(shp[:-1] + (1,), generator=gen,
-                             device="cuda") * 0.02 + 1e-3}
-        steps = torch.tensor([0, 17, max_len // 2, max_len - 1],
-                             dtype=torch.int32, device="cuda")
-        table = torch.zeros((b, pps), dtype=torch.int32, device="cuda")
-        nxt = 1
-        for s in range(b):
-            live = int(steps[s]) // ps + 1
-            table[s, :live] = torch.arange(nxt, nxt + live)
-            nxt += live
-        q = torch.randn((b, 1, kv * g, hd), generator=gen, device="cuda") \
-            .to(torch.bfloat16)
-        scale = hd ** -0.5
-        got = paged_attention(q, pool, table, steps, cfg, scale)
-        want = paged_attention_plain(q, pool, table, steps, cfg, scale)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = 2 * float(pool["vs"].max()) * 128 / 127
-        worst = max(worst, err)
-        if not (err <= tol and torch.isfinite(got).all()):
-            raise AssertionError(f"paged attention kernel vs plain at "
-                                 f"max_len={max_len}: max |diff| {err} > "
-                                 f"tolerance {tol}")
-        k_ms = cuda_ms(lambda: paged_attention(q, pool, table, steps, cfg,
-                                               scale), flush)
-        p_ms = cuda_ms(lambda: paged_attention_plain(q, pool, table, steps,
-                                                     cfg, scale), flush)
-        live = int((torch.clamp(steps + 1, max=max_len)).sum())
-        n_bytes = (live * kv * (2 * hd + 2 * 4) + q.numel() * 2
-                   + table.numel() * 4 + b * 4 + b * kv * g * hd * 4)
-        n_ops = live * kv * g * hd * 4
-        b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
-        print(f"[B2] B={b} KV={kv} G={g} hd={hd} page_size={ps} "
-              f"max_len={max_len} steps={steps.tolist()}: max_abs_err="
-              f"{err:.3e} (tolerance {tol:.3e}, max|out| "
-              f"{float(want.abs().max()):.3e}) | kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} "
-              f"({b_by})")
-        if max_len == 256:
-            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
-                     "shape": "B=4 KV=3 G=3 hd=64 ps=16 max_len=256"}
-    entry["max_abs_err"] = worst
-    return entry
+    entries = {}
+    for layout, (tag, quant, _) in ATTN_LAYOUTS.items():
+        cfg = base.replace(quant_attention=quant)
+        worst = 0.0
+        for max_len in (256, 2048):
+            pps = max_len // ps
+            n_pages = b * pps + 1
+            pool = _attn_pool(layout, (n_pages, ps, kv, hd), gen)
+            steps = torch.tensor([0, 17, max_len // 2, max_len - 1],
+                                 dtype=torch.int32, device="cuda")
+            table = torch.zeros((b, pps), dtype=torch.int32, device="cuda")
+            nxt = 1
+            for s in range(b):
+                live = int(steps[s]) // ps + 1
+                table[s, :live] = torch.arange(nxt, nxt + live)
+                nxt += live
+            q = torch.randn((b, 1, kv * g, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            scale = hd ** -0.5
+            got = paged_attention(q, pool, table, steps, cfg, scale)
+            if layout == 0:
+                want = paged_attention_plain(q, pool, table, steps, cfg,
+                                             scale)
+            else:
+                want = paged_attention_plain(
+                    q.cpu(), {n: a.cpu() for n, a in pool.items()},
+                    table.cpu(), steps.cpu(), cfg, scale).cuda()
+            torch.cuda.synchronize()
+            agree = agreement(got, want, pool, table, steps, cfg)
+            err = agree["max_abs_err"]
+            worst = max(worst, err)
+            ok = (got.dtype == want.dtype and torch.isfinite(got).all()
+                  and agree["rows_beyond"] <= ROW_BUDGET
+                  and agree["worst_loose"] <= 1)
+            if not ok:
+                raise AssertionError(
+                    f"paged attention kernel vs plain, {names[layout]}, "
+                    f"max_len={max_len}: {agree} (at most {ROW_BUDGET} "
+                    f"rows beyond the tight bound, worst_loose <= 1; dtypes "
+                    f"{got.dtype}, {want.dtype})")
+            call = (lambda: paged_attention(q, pool, table, steps, cfg,
+                                            scale))
+            k_ms = cuda_ms(call, flush)
+            dev, ker, ops = device_us(call, kernels=("paged_decode",))
+            p_ms = cuda_ms(lambda: paged_attention_plain(
+                q, pool, table, steps, cfg, scale), flush)
+            lib_ms = (_sdpa_ms(q, pool, table, steps, max_len, scale, flush)
+                      if layout == 2 else None)
+            b_ms, b_by = _attn_bound(layout, pool, table, steps, q,
+                                     max_len, ps)
+            lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f} (SDPA)"
+            print(f"[B2 {names[layout]}] B={b} KV={kv} G={g} hd={hd} "
+                  f"page_size={ps} max_len={max_len} pool "
+                  f"{pool['k'].dtype} steps={steps.tolist()}: max_abs_err="
+                  f"{err:.3e} (max|out| {float(want.float().abs().max()):.3e}"
+                  f", out {got.dtype}; rows beyond the tight bound "
+                  f"{agree['rows_beyond']}/{agree['rows']}, worst "
+                  f"|diff| / loose bound {agree['worst_loose']:.2e}) | "
+                  f"kernel_ms={k_ms:.4f} device us/call "
+                  f"{dev:.2f} (kernel {ker:.2f}, {ops:.0f} ops) plain_ms="
+                  f"{p_ms:.4f} library_ms={lib_txt} bound_ms={b_ms:.6f} "
+                  f"({b_by})")
+            if max_len == 256:
+                entries[layout] = {
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "device_us": dev, "layout": names[layout],
+                    "shape": f"B=4 KV=3 G=3 hd=64 ps=16 max_len=256, pool "
+                             f"{str(pool['k'].dtype).removeprefix('torch.')}"}
+        entries[layout]["max_abs_err"] = worst
+    return entries
 
 
 def _tgemm_bound(m, n, k, w_bits, t, groups):
@@ -481,9 +599,181 @@ def check_tgemm(flush):
     return entry
 
 
+def check_tgemm_generic(flush):
+    """B3 at T outside {4, 8}: ``transitive_gemm_cuda`` routes it to the
+    generic kernel (one block per 256 columns, row and group; the row's
+    2^T LUT built by doubling per subtile). Exact against the plain
+    version and the integer GEMM at N=1536, M=4, K the largest multiple of
+    T up to 576, T in {1, 2, 3, 5, 6, 7, 9, 12} x w_bits in {2, 4, 8}, and
+    one grouped case; returns the JSON entry (timed at T=6, w_bits 4,
+    K=576: the input ROADMAP C1 named).
+
+    Bound: x, w and the int32 output once over the memory rate, or the
+    adds (2^T per row and subtile for the LUT, one gather and one add per
+    output, subtile and plane) over the scalar rate."""
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+                                                     transitive_gemm_generic,
+                                                     transitive_gemm_plain)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(1536, 576 // t * t, 4, bits, t, 1)
+             for t in (1, 2, 3, 5, 6, 7, 9, 12) for bits in (2, 4, 8)]
+    cases += [(576, 1536, 4, 4, 6, 4)]
+    entry, worst = None, 0
+    for n, k, m, w_bits, t, groups in cases:
+        lim = 1 << (w_bits - 1)
+        w = torch.randint(-lim, lim, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        kw = dict(w_bits=w_bits, t=t, groups=groups)
+        before = transitive_gemm_generic.launches
+        got = transitive_gemm_cuda(x, w, **kw)
+        if transitive_gemm_generic.launches != before + 1:
+            raise AssertionError(f"T={t} did not run the generic kernel")
+        want = transitive_gemm_plain(x, w, **kw)
+        kg = k // groups
+        gemm = torch.stack([int_matmul(x[:, i * kg:(i + 1) * kg],
+                                       w[:, i * kg:(i + 1) * kg].T)
+                            for i in range(groups)], dim=1)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((got.long() - gemm.long()).abs().max()))
+        worst = max(worst, err)
+        tag = f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}"
+        if err:
+            raise AssertionError(f"generic transitive_gemm != plain at "
+                                 f"{tag}: max |diff| {err}")
+        if (t, w_bits, groups) != (6, 4, 1):
+            continue
+        call = (lambda: transitive_gemm_cuda(x, w, **kw))
+        k_ms = cuda_ms(call, flush)
+        dev, ker, _ = device_us(call, kernels=("tgemm_generic",))
+        p_ms = cuda_ms(lambda: transitive_gemm_plain(x, w, **kw), flush)
+        xm = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+        xm[:m] = x
+        wt = w.T
+        lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+        j = k // t
+        n_bytes = m * k + n * k + m * groups * n * 4
+        n_ops = m * j * (1 << t) + m * n * j * w_bits * 2
+        b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+        print(f"[B3 generic] {tag}: exact | kernel_ms={k_ms:.4f} device "
+              f"us/call {dev:.2f} (kernel {ker:.2f}) plain_ms={p_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (_int_mm, M padded to 32) bound_ms="
+              f"{b_ms:.6f} ({b_by})")
+        entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms, "device_us": dev,
+                 "shape": "N=1536 K=576 M=4 w_bits=4 T=6"}
+    print(f"[B3 generic] {len(cases)} cases exact (T 1, 2, 3, 5, 6, 7, 9, "
+          f"12 x w_bits 2, 4, 8, and one grouped)")
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_forest_dense(flush):
+    """B1 for plans with T > 8 (a node does not fit the compact plan's
+    byte): a T=9 linear of ``engine_cuda`` (N=1536, K=576, W4, per-channel)
+    compiles to a DevicePlan and runs through the dense two-pass kernel;
+    its int32 accumulators are exact against ``run_device`` and the
+    integer GEMM at M in {4, 64}, and the whole ``linear_apply`` equals
+    ``engine_torch``'s. Returns the JSON entry (timed at M=4).
+
+    Bound: the function's bytes (x and the int8 weights read once, the
+    int32 output written once) over the memory rate, or this plan's adds
+    (its real level edges, popcount adds per direct node, one per APE
+    gather, per column) over the scalar rate. Printed beside it, labelled:
+    the same with the int32 DevicePlan's bytes in place of the weights',
+    what this kernel design has to read."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import EngineConfig, get_backend, int_matmul
+    from repro_torch.core.engine import (BatchedTransitiveEngine, DevicePlan,
+                                         run_device)
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.quant import QuantConfig, linear_apply
+    rng = np.random.default_rng(9)
+    n, k, t = 1536, 576, 9
+    w = rng.integers(-8, 8, size=(n, k))
+    backend = get_backend("engine_cuda")
+    t0 = time.perf_counter()
+    dplan = backend.compile(BatchedTransitiveEngine(4, t).plan(w),
+                            device="cuda")
+    plan_s = time.perf_counter() - t0
+    if not isinstance(dplan, DevicePlan):
+        raise AssertionError("a T=9 plan must stay a DevicePlan")
+    qw = torch.from_numpy(w).to("cuda", torch.int8)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    entry, worst = None, 0
+    for m in (4, 64):
+        qx = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        before = transitive_forest_dense.launches
+        got = backend.execute(qx, qw, None, dplan, EngineConfig(4, t, 1))
+        if transitive_forest_dense.launches != before + 1:
+            raise AssertionError("the T=9 linear did not run the dense "
+                                 "forest kernel")
+        want = run_device(dplan, qx.T.to(torch.int32)).T
+        gemm = int_matmul(qx, qw.T)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((got.long() - gemm.long()).abs().max()))
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"dense forest != run_device at M={m}: "
+                                 f"max |diff| {err}")
+        call = (lambda: backend.execute(qx, qw, None, dplan,
+                                        EngineConfig(4, t, 1)))
+        k_ms = cuda_ms(call, flush)
+        dev, ker, ops = device_us(call, kernels=("forest_dense",))
+        p_ms = cuda_ms(lambda: run_device(dplan, qx.T.to(torch.int32)),
+                       flush, iters=5, warmup=1)
+        xm = torch.zeros((max(m, 32), k), dtype=torch.int8, device="cuda")
+        xm[:m] = qx
+        wt = qw.T
+        lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+        real = dplan.level_xsrc != k
+        direct = dplan.direct_idx < (k // t) << t
+        n_ops = (int(real.sum()) + int(dplan.direct_bits[direct].sum())
+                 + dplan.gather_idx.numel()) * m
+        b_ms, b_by = bound_ms(n * k + m * k + n * m * 4, n_ops,
+                              SCALAR_OPS_PER_S)
+        plan_b_ms, plan_b_by = bound_ms(dplan.nbytes() + m * k + n * m * 4,
+                                        n_ops, SCALAR_OPS_PER_S)
+        print(f"[B1 dense] N={n} K={k} M={m} T={t} (planned + lowered in "
+              f"{plan_s:.2f}s, DevicePlan {dplan.nbytes()} B): exact | "
+              f"kernel_ms={k_ms:.4f} device us/call {dev:.2f} (kernels "
+              f"{ker:.2f}, {ops:.0f} ops) plain_ms={p_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (_int_mm, M padded to 32) bound_ms={b_ms:.6f} "
+              f"({b_by}) | with the DevicePlan's bytes in place of the "
+              f"weights' {plan_b_ms:.6f} ({plan_b_by})")
+        if m == 4:
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "device_us": dev, "plan_bound_ms": plan_b_ms,
+                     "shape": "N=1536 K=576 M=4 T=9 (engine_cuda linear)"}
+    # the whole linear: engine_cuda (dense kernel) == engine_torch
+    sg = torch.rand((n, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+    x = torch.randn((4, k), generator=gen, device="cuda")
+    outs = []
+    for name in ("engine_cuda", "engine_torch"):
+        cfg = QuantConfig(mode="ptq", w_bits=4, group=0, backend=name,
+                          transrow_t=t)
+        outs.append(linear_apply({"qw": qw, "sg": sg, "dplan": dplan}, x,
+                                 cfg))
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("T=9 linear_apply: engine_cuda != engine_torch")
+    print("[B1 dense] T=9 linear_apply on engine_cuda == engine_torch")
+    entry["max_abs_err"] = worst
+    return entry
+
+
 def check_w4a8(flush):
-    """B4 vs its plain version; returns the JSON entry (timed at N=1536,
-    K=576, group 64, M=4).
+    """B4 vs its plain version, at the serving shapes and at group 6 (not a
+    multiple of 4: byte-wise dots) and K=32,768 (eight activation tiles);
+    returns the JSON entry (timed at N=1536, K=576, group 64, M=4).
 
     Tolerance: the reference's own, rtol 2e-3 and atol 1e-2
     (tests/test_kernels.py): the group dots are exact int32 in both, but
@@ -492,8 +782,9 @@ def check_w4a8(flush):
     from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda, w4a8_gemm_plain
     gen = torch.Generator(device="cuda").manual_seed(4)
     entry, worst = None, 0.0
-    for n, k, g in ((576, 1536, 128), (1536, 576, 64)):
-        for m in (4, 512):
+    for n, k, g, ms in ((576, 1536, 128, (4, 512)), (1536, 576, 64, (4, 512)),
+                        (1536, 576, 6, (4,)), (576, 32768, 128, (4,))):
+        for m in ms:
             x = torch.randint(-128, 128, (m, k), generator=gen,
                               device="cuda", dtype=torch.int8)
             w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
@@ -535,36 +826,40 @@ def check_rg_lru(flush):
     Tolerance: the reference's own, 3e-4 in float32 and 3e-2 in bfloat16
     (tests/test_kernels.py). Kernel and plain version round the same
     operations in the same order, so they are expected to agree exactly;
-    the tolerance is what the reference's doubling scan needs."""
+    the tolerance is what the reference's doubling scan needs. The mixed
+    pairs (x, a) = (float16, float16) and (float32, bfloat16), whose
+    output takes x's dtype, are held bit-equal."""
     import torch
     from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_plain
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, s, d = 4, 2048, 4096
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     entry, worst = None, 0.0
-    for dtype, tol in ((torch.float32, 3e-4), (torch.bfloat16, 3e-2)):
-        x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    for xdt, adt, tol in ((f32, f32, 3e-4), (bf16, bf16, 3e-2),
+                          (f16, f16, 0.0), (f32, bf16, 0.0)):
+        x = torch.randn((b, s, d), generator=gen, device="cuda").to(xdt)
         a = (torch.rand((b, s, d), generator=gen, device="cuda") * 0.199
-             + 0.8).to(dtype)
-        h0 = torch.randn((b, d), generator=gen, device="cuda").to(dtype)
+             + 0.8).to(adt)
+        h0 = torch.randn((b, d), generator=gen, device="cuda").to(xdt)
         got = rg_lru_cuda(x, a, h0)
         want = rg_lru_plain(x, a, h0)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
-        if got.dtype != dtype or not torch.allclose(
+        if got.dtype != xdt or not torch.allclose(
                 got.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"rg_lru kernel vs plain in {dtype}: max "
-                                 f"|diff| {err} beyond {tol}")
+            raise AssertionError(f"rg_lru kernel vs plain, x {xdt} a {adt}:"
+                                 f" max |diff| {err} beyond {tol}")
         k_ms = cuda_ms(lambda: rg_lru_cuda(x, a, h0), flush)
         p_ms = cuda_ms(lambda: rg_lru_plain(x, a, h0), flush, iters=5,
                        warmup=1)
-        esz = x.element_size()
-        n_bytes = 3 * b * s * d * esz + b * d * esz
+        n_bytes = b * s * d * (2 * x.element_size() + a.element_size()) \
+            + b * d * h0.element_size()
         b_ms, b_by = bound_ms(n_bytes, 2 * b * s * d, SCALAR_OPS_PER_S)
-        print(f"[B5] B={b} S={s} D={d} {dtype}: max_abs_err={err:.3e} "
-              f"(tolerance {tol}) | kernel_ms={k_ms:.4f} plain_ms="
+        print(f"[B5] B={b} S={s} D={d} x {xdt} a {adt}: max_abs_err="
+              f"{err:.3e} (tolerance {tol}) | kernel_ms={k_ms:.4f} plain_ms="
               f"{p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} ({b_by})")
-        if dtype == torch.float32:
+        if xdt == adt == f32:
             entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None,
                      "shape": f"B={b} S={s} D={d} float32"}
@@ -579,16 +874,95 @@ def _prompts(vocab, n, length):
     return prefix_sharing_prompts(vocab, n, length, seed=1)
 
 
-def _serve(model, params, prompts, gen, **kw):
+def _serve(model, params, prompts, gen, trace=None, **kw):
+    """Serve ``prompts`` for ``gen`` tokens each; returns (engine, seconds).
+    With a ``trace`` list, each decode step appends ([(slot, request id,
+    index of the token made)], that step's last-position logits as host
+    f32 (B, V))."""
     import torch
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(model, params, device=model.device, **kw)
     for p in prompts:
         eng.submit(p, gen)
+    if trace is not None:
+        decode, step = eng._decode, model.decode_step_paged
+
+        def traced_decode(packed):
+            trace.append([[(s, r.rid, len(r.out)) for s, r in packed]])
+            decode(packed)
+
+        def traced_step(*a, **k):
+            logits, pool = step(*a, **k)
+            trace[-1].append(logits[:, -1].float().cpu())
+            return logits, pool
+        eng._decode, model.decode_step_paged = traced_decode, traced_step
     t0 = time.perf_counter()
-    eng.run()
-    torch.cuda.synchronize()
+    try:
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        if trace is not None:
+            del model.decode_step_paged
     return eng, time.perf_counter() - t0
+
+
+def _serve_shadowed(model, params, prompts, gen, **kw):
+    """The kernel path once more, with B2's plain version computed beside
+    every kernel call on the same inputs (the serving path's own q, pool,
+    table and steps, on the card) and held to it by ``agreement``. The
+    wrapper takes the module's ``paged_attention`` name for the run, so
+    the kernel's launches here add to the wrapper's count, not to the
+    kernel's. Returns (tokens by request, one agreement dict per call)."""
+    import repro_torch.kernels.paged_attention as PA
+    kernel, stats = PA.paged_attention, []
+
+    def shadow(q, pool, page_indices, steps, cfg, scale):
+        out = kernel(q, pool, page_indices, steps, cfg, scale)
+        want = PA.paged_attention_plain(q, pool, page_indices, steps, cfg,
+                                        scale)
+        stats.append(PA.agreement(out, want, pool, page_indices, steps,
+                                  cfg))
+        return out
+    shadow.launches = 0
+    PA.paged_attention = shadow
+    try:
+        eng, _ = _serve(model, params, prompts, gen, paged_kernel=True,
+                        **kw)
+    finally:
+        PA.paged_attention = kernel
+    return {r.rid: r.tokens for r in eng.finished}, stats
+
+
+def _partings(trace_k, trace_g):
+    """Teacher-forced comparison of two runs of the same requests (kernel
+    path, gather path) from their decode traces. Until a request's first
+    differing token both runs feed it the same tokens, so its logits
+    differ only by the two paths' arithmetic. Returns (the max |logit
+    difference| of each agreeing (step, request) row, [(request, token
+    index, gather path's top-2 margin, kernel path's, max |logit diff| of
+    the row)] at each request's first parting, the gather path's top-2
+    margins over the agreeing rows)."""
+    import torch
+    parted, diffs, partings, margins = set(), [], [], []
+    for (rows_k, lk), (rows_g, lg) in zip(trace_k, trace_g):
+        if rows_k != rows_g:
+            break                     # the schedules part: stop comparing
+        for s, rid, idx in rows_k:
+            if rid in parted:
+                continue
+            top_k, top_g = lk[s].topk(2), lg[s].topk(2)
+            gap_g = float(top_g.values[0] - top_g.values[1])
+            gap_k = float(top_k.values[0] - top_k.values[1])
+            d = float((lk[s] - lg[s]).abs().max())
+            if int(top_k.indices[0]) != int(top_g.indices[0]):
+                parted.add(rid)
+                partings.append((rid, idx, gap_g, gap_k, d))
+            else:
+                diffs.append(d)
+                margins.append(gap_g)
+    nan = [float("nan")]
+    return (torch.tensor(diffs or nan), partings,
+            torch.tensor(margins or nan))
 
 
 def check_reduced_serve():
@@ -768,12 +1142,130 @@ def lut_path(toks_engine, raw, cfg):
     return launches
 
 
+def layout_paths(raw, cfg):
+    """B2's three other pool layouts on full-width serving paths: the same
+    8 requests as phases 5-6 (4 slots, page_size 16, max_len 256,
+    128-token prompts, 32 tokens each) with ``paged_kernel=True``:
+
+      8. ``--fp``: the base config unquantized (bf16 ``torch.matmul``
+         linears, exact bf16 pool, float attention), its own weights from
+         seed 0: layout 2;
+      9. W4A8 on ``lut_cuda`` (phase 6's weights), int8 pool, float
+         attention: layout 3;
+     10. W4A8 on ``lut_cuda``, exact bf16 pool, int8 attention: layout 1.
+
+    Each asserts that B2 launched once per layer per decode step, then
+    serves the same requests on the gather path and prints the share of
+    tokens the two agree on; where they part, the teacher-forced logit
+    differences and top-2 margins (``_partings``); and, from a third run,
+    how far B2 lay from its plain version on the serving path's own
+    inputs (asserted within the loose bound of ``agreement``). Returns
+    {layout: (launches, phase name)}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import LAYOUTS, paged_attention
+    from repro_torch.models.model import Model
+    lcfg = cfg.replace(quant=cfg.quant.with_(backend="lut_cuda"))
+    phases = [
+        ("phase 8 (--fp serve)",
+         get_config("smollm_135m").replace(paged_kernel=True), None),
+        ("phase 9 (lut_cuda, KV8, float attention)",
+         lcfg.replace(kv_cache_bits=8, quant_attention=False), raw),
+        ("phase 10 (lut_cuda, exact KV, int8 attention)",
+         lcfg.replace(kv_cache_bits=16, quant_attention=True), raw)]
+    kw = dict(n_slots=4, max_len=256, page_size=16)
+    out = {}
+    for phase, pcfg, params in phases:
+        model = Model(pcfg, device="cuda")
+        if params is None:
+            params = model.init(0)
+        kv8 = pcfg.kv_cache_bits == 8
+        layout, name = LAYOUTS[(pcfg.quant_attention, kv8)]
+        pool_dtype = torch.int8 if kv8 else pcfg.dtype
+        prompts = _prompts(pcfg.vocab, 8, 128)
+        paged_attention.launches = 0
+        trace_k, trace_g = [], []
+        eng, dt = _serve(model, params, prompts, 32, paged_kernel=True,
+                         trace=trace_k, **kw)
+        launches = paged_attention.launches
+        rep = eng.report()
+        c = rep["counters"]
+        toks = {r.rid: r.tokens for r in eng.finished}
+        if sorted(len(t) for t in toks.values()) != [32] * 8 or not all(
+                0 <= t < pcfg.vocab for ts in toks.values() for t in ts):
+            raise AssertionError(f"{phase}: output malformed: {toks}")
+        want = pcfg.n_layers * c["decode_steps"]
+        ttft = sum(r["ttft_s"] for r in rep["requests"]) / len(
+            rep["requests"])
+        print(f"[{phase}] {name}, pool {pool_dtype}: 8 "
+              f"requests x 32 tokens in {dt:.3f}s -> "
+              f"{rep['total_tokens'] / dt:.1f} tokens/s | mean TTFT "
+              f"{ttft * 1e3:.1f} ms | decode steps {c['decode_steps']} | "
+              f"paged_attention launches {launches} (want {pcfg.n_layers} "
+              f"layers x {c['decode_steps']} steps = {want})")
+        if launches != want:
+            raise AssertionError(f"{phase}: B2 launched {launches} times, "
+                                 f"not once per layer per decode step "
+                                 f"({want})")
+        peng, pdt = _serve(model, params, prompts, 32, paged_kernel=False,
+                           trace=trace_g, **kw)
+        if paged_attention.launches != launches:
+            raise AssertionError(f"{phase}: the gather path launched B2")
+        ptoks = {r.rid: r.tokens for r in peng.finished}
+        same = sum(a == b for rid in toks
+                   for a, b in zip(toks[rid], ptoks[rid]))
+        total = rep["total_tokens"]
+        # greedy decoding feeds each token back: after the first token the
+        # two paths disagree on, the rest of that request may differ too
+        lead = [next((i for i, (a, b) in enumerate(zip(toks[rid],
+                                                       ptoks[rid]))
+                      if a != b), 32) for rid in sorted(toks)]
+        print(f"[{phase}] gather path: {pdt:.3f}s | tokens agreeing with "
+              f"the kernel path: {same}/{total} ({same / total:.3f}); "
+              f"tokens before each request's first disagreement: {lead}")
+        diffs, partings, margins = _partings(trace_k, trace_g)
+        top = max(float(lg.abs().max()) for _, lg in trace_g)
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        print(f"[{phase}] teacher-forced, {len(diffs)} agreeing (step, "
+              f"request) rows: max |logit diff| per row median "
+              f"{float(diffs.median()):.4g}, max {float(diffs.max()):.4g}, "
+              f"rows with 0: {int((diffs == 0).sum())} | gather top-2 "
+              f"margin median {float(margins.median()):.4g}, min "
+              f"{float(margins.min()):.4g} | bf16 ulp at max|logit| "
+              f"{top:.3g}: {ulp:.4g}")
+        print(f"[{phase}] first partings (request, token index, gather "
+              f"top-2 margin, kernel top-2 margin, max |logit diff| of "
+              f"the row): " + "; ".join(
+                  f"({r}, {i}, {mg:.4g}, {mk:.4g}, {d:.4g})"
+                  for r, i, mg, mk, d in partings))
+        stoks, stats = _serve_shadowed(model, params, prompts, 32, **kw)
+        beyond = [a["rows_beyond"] for a in stats]
+        print(f"[{phase}] kernel beside its plain version on the serving "
+              f"path's own inputs, {len(stats)} calls: rows beyond the "
+              f"tight bound {sum(beyond)}/{sum(a['rows'] for a in stats)} "
+              f"(calls with any {sum(n > 0 for n in beyond)}, most in one "
+              f"call {max(beyond)}), max |diff| "
+              f"{max(a['max_abs_err'] for a in stats):.4g}, worst |diff| / "
+              f"loose bound {max(a['worst_loose'] for a in stats):.3g} | "
+              f"tokens equal to the kernel run's: {stoks == toks}")
+        if max(a["worst_loose"] for a in stats) > 1:
+            raise AssertionError(f"{phase}: B2 beyond its loose bound on "
+                                 f"the serving path's inputs")
+        out[layout] = (launches, phase)
+        del model, params, eng, peng
+        torch.cuda.empty_cache()
+    return out
+
+
 def ops_path():
     """The public kernel API on the card: each function of
-    repro_torch.kernels.ops once at a serving shape, with the launch
-    counts set to 0 just before and read just after; then each result
-    against its kernel's plain version (exact for the integer kernels,
-    the reference's tolerances for B4 and B5)."""
+    repro_torch.kernels.ops once at a serving shape, plus the routes that
+    take T outside the fast kernels' (``transitive_gemm`` at T=6 runs the
+    generic B3 kernel, ``transitive_forest`` from a T=9 DevicePlan the
+    dense B1 kernel), with the launch counts set to 0 just before and read
+    just after; then each result against its kernel's plain version
+    (exact for the integer kernels, the reference's tolerances for B4 and
+    B5)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
@@ -781,7 +1273,10 @@ def ops_path():
     from repro_torch.kernels.rg_lru import rg_lru_cuda
     from repro_torch.kernels.transitive_forest import (forest_plain,
                                                        transitive_forest)
-    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+                                                     transitive_gemm_generic)
     from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
     gen = torch.Generator(device="cuda").manual_seed(7)
 
@@ -802,24 +1297,32 @@ def ops_path():
                          device="cuda")
     xf = torch.randint(-128, 128, (576, 4), generator=gen, device="cuda",
                        dtype=torch.int32)
+    dplan9 = compile_plan(BatchedTransitiveEngine(4, 9).plan(wf),
+                          device="cuda")
     kernels = (transitive_forest, transitive_gemm_cuda, w4a8_gemm_cuda,
-               rg_lru_cuda)
+               rg_lru_cuda, transitive_gemm_generic, transitive_forest_dense)
     for k in kernels:
         k.launches = 0
     outs = (ops.transitive_gemm(x, w, w_bits=4),
             ops.transitive_gemm_grouped(xg, wg, w_bits=4),
             ops.w4a8_gemm(xq, sx, wq, sg, group=64),
             ops.rg_lru(hx, ha, h0),
-            ops.transitive_forest(dplan, xf))
+            ops.transitive_forest(dplan, xf),
+            ops.transitive_gemm(x, w, w_bits=4, t=6),
+            ops.transitive_forest(dplan9, xf))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     print(f"[ops] launches: {launches}")
     if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 2,
-                    "w4a8_gemm_cuda": 1, "rg_lru_cuda": 1}:
+                    "w4a8_gemm_cuda": 1, "rg_lru_cuda": 1,
+                    "transitive_gemm_generic": 1,
+                    "transitive_forest_dense": 1}:
         raise AssertionError(f"ops API launches wrong: {launches}")
     exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
              (outs[1], ref.transitive_matmul_grouped_ref(xg, wg, 4)),
-             (outs[4], forest_plain(dplan, xf)))
+             (outs[4], forest_plain(dplan, xf)),
+             (outs[5], ref.transitive_matmul_ref(x, w, 4, 6)),
+             (outs[6], forest_plain(dplan9, xf)))
     for got, want in exact:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError("ops API integer result != plain version")
@@ -829,8 +1332,9 @@ def ops_path():
     if not torch.allclose(outs[3], ref.rg_lru_ref(hx, ha, h0), rtol=3e-4,
                           atol=3e-4):
         raise AssertionError("ops.rg_lru beyond 3e-4")
-    print("[ops] transitive_gemm, transitive_gemm_grouped, "
-          "transitive_forest exact; w4a8_gemm and rg_lru within tolerance")
+    print("[ops] transitive_gemm (T=8 and T=6), transitive_gemm_grouped, "
+          "transitive_forest (T=8 and T=9) exact; w4a8_gemm and rg_lru "
+          "within tolerance")
     return launches
 
 
@@ -859,12 +1363,16 @@ def main() -> int:
     forest = check_forest(flush)
     attention = check_attention(flush)
     tgemm = check_tgemm(flush)
+    generic = check_tgemm_generic(flush)
+    dense = check_forest_dense(flush)
     w4a8 = check_w4a8(flush)
     rglru = check_rg_lru(flush)
     del flush
     check_reduced_serve()
     launches, toks, raw, cfg = main_path()
     lut = lut_path(toks, raw, cfg)
+    layouts = layout_paths(raw, cfg)
+    layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
     del raw
     ops = ops_path()
     kernels = [
@@ -873,16 +1381,28 @@ def main() -> int:
          "replaces": "src/repro/kernels/transitive_forest.py:47",
          "launches": launches["transitive_forest"],
          "launches_from": "phase 5 (engine_cuda serve)", **forest},
-        {"name": "paged_attention", "route": "cuda",
+        {"name": "transitive_forest_dense", "route": "cuda",
+         "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
+         "replaces": "src/repro/kernels/transitive_forest.py:47",
+         "launches": ops["transitive_forest_dense"],
+         "launches_from": "phase 7 (kernels.ops, a T=9 plan)", **dense}]
+    kernels += [
+        {"name": f"paged_attention/{ATTN_LAYOUTS[code][0]}", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:219",
-         "launches": lut["paged_attention"],
-         "launches_from": "phase 6 (lut_cuda serve)", **attention},
+         "launches": layouts[code][0], "launches_from": layouts[code][1],
+         **attention[code]} for code in sorted(ATTN_LAYOUTS)]
+    kernels += [
         {"name": "transitive_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",
          "launches": lut["transitive_gemm_cuda"],
          "launches_from": "phase 6 (lut_cuda serve)", **tgemm},
+        {"name": "transitive_gemm_generic", "route": "cuda",
+         "source": "src/repro_torch/csrc/transitive_gemm.cu",
+         "replaces": "src/repro/kernels/transitive_gemm.py:84",
+         "launches": ops["transitive_gemm_generic"],
+         "launches_from": "phase 7 (kernels.ops, T=6)", **generic},
         {"name": "w4a8_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/w4a8_gemm.cu",
          "replaces": "src/repro/kernels/w4a8_gemm.py:51",

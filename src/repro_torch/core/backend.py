@@ -44,7 +44,8 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core.engine import (DevicePlan, ExecutionPlan, ForestPlan,
+from repro_torch.core.engine import (FOREST_MAX_T, DevicePlan,
+                                     ExecutionPlan, ForestPlan,
                                      compile_plan, compile_plans,
                                      pack_forest_plan, run_device)
 
@@ -244,10 +245,16 @@ class EngineCudaBackend(EngineTorchBackend):
     ``device``). ``execute`` hands the int8 codes (..., K) to the kernel's
     row entry as they are and gets (..., N) / (..., G, N) back: no cast,
     transpose or copy. A DevicePlan passed in is packed at its first call
-    (``kernels/transitive_forest.py`` keeps the packing)."""
+    (``kernels/transitive_forest.py`` keeps the packing). Plans with T > 8
+    do not fit a ForestPlan's byte: they compile to DevicePlans on
+    ``device``, which the same entry runs through the dense two-pass
+    kernel (``kernels/transitive_forest_dense.py``)."""
     name = "engine_cuda"
 
     def compile(self, plan, device=None):
+        first = plan if isinstance(plan, ExecutionPlan) else plan[0]
+        if first.t > FOREST_MAX_T:
+            return super().compile(plan, device=device)
         return pack_forest_plan(super().compile(plan), device=device)
 
     def execute(self, x, w, plan, dplan, cfg):

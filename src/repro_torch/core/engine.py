@@ -34,7 +34,8 @@ __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "DevicePlan", "DEVICE_DATA_FIELDS", "compile_plan",
            "compile_plans", "pad_device_plan", "check_tile_local",
            "forest_body", "run_device", "ForestPlan", "FOREST_DATA_FIELDS",
-           "FOREST_DIRECT", "FOREST_UNUSED", "pack_forest_plan",
+           "FOREST_DIRECT", "FOREST_UNUSED", "FOREST_MAX_T",
+           "pack_forest_plan",
            "forest_plan_plain"]
 
 
@@ -451,6 +452,9 @@ FOREST_DATA_FIELDS = ("producer", "rows", "signs")
 # producer codes besides a bit index b < T
 FOREST_DIRECT = 254     # subset sum of the tile's activations over v's bits
 FOREST_UNUSED = 255     # stays 0 in the plain version; never read
+FOREST_MAX_T = 8        # a node and a gather fit one byte; plans with a
+                        # larger T run from their DevicePlan
+                        # (kernels/transitive_forest_dense.py)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -567,8 +571,10 @@ def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
 def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
     """Repack a tile-local :class:`DevicePlan` as a :class:`ForestPlan`.
 
-    Raises unless the plan is tile-local and T <= 8 (a node must fit a
-    byte; the serving T is 8), and unless every level edge adds one bit to
+    Raises unless the plan is tile-local and T <= ``FOREST_MAX_T`` = 8 (a
+    node must fit a byte; the serving T is 8; ``engine_cuda`` and the
+    forest wrappers route plans with a larger T to the dense kernel
+    instead of packing them), and unless every level edge adds one bit to
     a prefix one level down, no node is made twice, every direct node's
     bits are its own, and every node that a level or the APE reads is
     made (or is node 0, the empty sum): so an unused node's value is never
@@ -581,9 +587,10 @@ def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
     if not dplan.tile_local:
         raise ValueError("pack_forest_plan needs a tile-local plan (compile "
                          "it with compile_plan)")
-    if dplan.t > 8:
-        raise ValueError(f"a ForestPlan holds nodes in one byte: T <= 8, "
-                         f"got T={dplan.t}")
+    if dplan.t > FOREST_MAX_T:
+        raise ValueError(f"a ForestPlan holds nodes in one byte: T <= "
+                         f"{FOREST_MAX_T}, got T={dplan.t}; such plans run "
+                         f"from their DevicePlan")
     leaves = {f: a.detach().cpu().numpy() for f, a in dplan.leaves().items()}
     for name, a in leaves.items():
         if a.dtype != np.int32:

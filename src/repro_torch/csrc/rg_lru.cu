@@ -5,8 +5,10 @@
 //
 //   h_t = a_t * h_{t-1} + x_t   over x, a (B, S, D), h_{-1} = h0 (B, D)
 //
-// with an f32 carry; x, a and the output h (B, S, D) share one dtype,
-// float32 or bfloat16.
+// with an f32 carry; x and a are each float32, bfloat16 or float16 (any
+// pair), and the output h (B, S, D) takes x's dtype: every step is
+// computed in f32 and rounded once to x's dtype, as the plain version
+// rounds its f32 result.
 //
 // Design. One thread per (b, d) walks the sequence in order, so the
 // carry stays in a register and nothing crosses blocks; neighbouring
@@ -25,6 +27,7 @@
 // the memory rate, limit this design; splitting S into chunks with a
 // carry fix-up pass is later work.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,16 +40,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
 __device__ __forceinline__ void from_f(float v, float* o) { *o = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) {
   *o = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void from_f(float v, __half* o) {
+  *o = __float2half_rn(v);
+}
 
-template <typename T>
+template <typename TX, typename TA>
 __global__ void __launch_bounds__(128)
-rg_lru_seq(const T* __restrict__ x, const T* __restrict__ a,
+rg_lru_seq(const TX* __restrict__ x, const TA* __restrict__ a,
            const float* __restrict__ h0, int B, int S, int D,
-           T* __restrict__ out) {
+           TX* __restrict__ out) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)B * D) return;
   const long b = idx / D, d = idx % D;
@@ -73,29 +81,43 @@ rg_lru_seq(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-template <typename T>
+template <typename TX, typename TA>
 int launch(const void* x, const void* a, const void* h0, int B, int S, int D,
            void* out, cudaStream_t st) {
   const long n = (long)B * D;
-  rg_lru_seq<T><<<(unsigned)((n + 127) / 128), 128, 0, st>>>(
-      (const T*)x, (const T*)a, (const float*)h0, B, S, D, (T*)out);
+  rg_lru_seq<TX, TA><<<(unsigned)((n + 127) / 128), 128, 0, st>>>(
+      (const TX*)x, (const TA*)a, (const float*)h0, B, S, D, (TX*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename TX>
+int launch_a(const void* x, const void* a, int a_dtype, const void* h0,
+             int B, int S, int D, void* out, cudaStream_t st) {
+  switch (a_dtype) {
+    case 0: return launch<TX, float>(x, a, h0, B, S, D, out, st);
+    case 1: return launch<TX, __nv_bfloat16>(x, a, h0, B, S, D, out, st);
+    case 2: return launch<TX, __half>(x, a, h0, B, S, D, out, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (B, S, D) in x's dtype. x, a, out contiguous (B, S, D) of one
-// dtype; h0 (B, D) contiguous f32. Dtype codes: 0 float32, 1 bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
-int rg_lru_launch(const void* x, const void* a, int dtype, const void* h0,
-                  int B, int S, int D, void* out, void* stream) {
+// out (B, S, D) in x's dtype. x, a, out contiguous (B, S, D); h0 (B, D)
+// contiguous f32. Dtype codes for x and a: 0 float32, 1 bfloat16,
+// 2 float16. Returns the cudaError_t of the launch (0 on success).
+int rg_lru_launch(const void* x, int x_dtype, const void* a, int a_dtype,
+                  const void* h0, int B, int S, int D, void* out,
+                  void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return launch<float>(x, a, h0, B, S, D, out, st);
-    case 1: return launch<__nv_bfloat16>(x, a, h0, B, S, D, out, st);
+  switch (x_dtype) {
+    case 0: return launch_a<float>(x, a, a_dtype, h0, B, S, D, out, st);
+    case 1:
+      return launch_a<__nv_bfloat16>(x, a, a_dtype, h0, B, S, D, out, st);
+    case 2: return launch_a<__half>(x, a, a_dtype, h0, B, S, D, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -470,6 +470,64 @@ cudaError_t by_rows(const int8_t* x, const int8_t* w, int M, int N, int K,
   return by_bits<T, 16>(x, w, M, N, K, G, S, ksplit, out, st);
 }
 
+
+// ---------------------------------------------------------------------
+// Any T: the generic kernel (T in 1..15, the T that the fast kernel above
+// does not take). One block of GT threads per (GN = GT columns n, row m,
+// group). Per T-wide subtile of the group's K range the block builds the
+// row's complete 2^T-entry subset-sum LUT in shared memory by doubling,
+// as the reference's _lut_full does (step b writes lut[2^b + q] = lut[q]
+// + x[b] for q < 2^b: one add per entry, a barrier per step), then each
+// thread makes its column's S TransRow patterns from the weight bytes
+// (bit i of plane s = bit s of w[n, j*T + i]) and adds sign_s * lut[p_s],
+// sign_s = 2^s, or -2^(S-1) for the top plane, wrapping mod 2^32 like the
+// reference's int32 accumulator. The LUT is 2^T int32, so T <= 15 fits a
+// block (128 KiB at T = 15). No tuning: the LUT build is 2^T adds per
+// subtile and row against GN * S gathers, and the weight bytes are read
+// column by column.
+constexpr int GT = 256;        // threads (= columns) per generic block
+
+__global__ void __launch_bounds__(GT)
+tgemm_generic(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+              int M, int N, int K, int G, int S, int T,
+              uint32_t* __restrict__ out) {
+  extern __shared__ int32_t glut[];             // 2^T entries
+  const int n = blockIdx.x * GT + threadIdx.x;
+  const int m = blockIdx.y, g = blockIdx.z;
+  const int kg = K / G, size = 1 << T;
+  const int8_t* xrow = x + (size_t)m * K + (size_t)g * kg;
+  const int8_t* wrow = w + (size_t)(n < N ? n : 0) * K + (size_t)g * kg;
+  const uint32_t mask = (1u << S) - 1u;
+  uint32_t acc = 0;
+  for (int k0 = 0; k0 < kg; k0 += T) {
+    __syncthreads();                            // the last LUT is used
+    if (threadIdx.x == 0) glut[0] = 0;
+    for (int b = 0; b < T; ++b) {
+      __syncthreads();
+      const int32_t xb = xrow[k0 + b];
+      for (int q = threadIdx.x; q < (1 << b); q += GT)
+        glut[(1 << b) + q] = glut[q] + xb;
+    }
+    __syncthreads();
+    if (n < N) {
+      uint32_t pat[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int i = 0; i < T; ++i) {
+        const uint32_t u = (uint32_t)(uint8_t)wrow[k0 + i] & mask;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) pat[s] |= ((u >> s) & 1u) << i;
+      }
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s < S) {
+          const uint32_t v = (uint32_t)glut[pat[s] & (size - 1)];
+          acc += (s == S - 1) ? (0u - (v << s)) : (v << s);
+        }
+      }
+    }
+  }
+  if (n < N) out[((size_t)m * G + g) * N + n] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -493,6 +551,29 @@ int transitive_gemm_launch(const void* x, const void* w, int M, int N, int K,
   uint32_t* op = (uint32_t*)out;
   if (T == 8) return (int)by_rows<8>(xp, wp, M, N, K, G, S, ksplit, op, st);
   return (int)by_rows<4>(xp, wp, M, N, K, G, S, ksplit, op, st);
+}
+
+// The generic kernel for any T in 1..15 (the fast kernel takes T = 4, 8):
+// same function and layouts as transitive_gemm_launch, K % G == 0 and
+// (K / G) % T == 0, S in [2, 8]; one launch. Returns the cudaError_t of
+// the launch (0 on success), cudaErrorInvalidValue for T outside 1..15.
+int transitive_gemm_generic_launch(const void* x, const void* w, int M,
+                                   int N, int K, int G, int S, int T,
+                                   void* out, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || T < 1 || T > 15 ||
+      (K / G) % T || S < 2 || S > 8)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(int32_t) << T;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tgemm_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((N + GT - 1) / GT, M, G);
+  tgemm_generic<<<grid, GT, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)w, M, N, K, G, S, T, (uint32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 const char* transitive_gemm_error(int code) {

@@ -2,19 +2,24 @@
 ``csrc/paged_attention.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/paged_attention.py``
-(``paged_attention``) in the layout the serving path uses: an int8 KV pool
-with stored f32 per-position scales under dynamic int8 attention
-(``kv_cache_bits=8``, ``quant_attention=True``). The reference's other
-three layouts (exact pool, or int8 pool without quantized attention) are
-not ported yet and raise ``NotImplementedError`` on every device.
+(``paged_attention``) in all four of its pool layouts, one template
+instance of the kernel each (:data:`LAYOUTS`):
 
-:func:`paged_attention` quantizes q per token in q's own dtype (as the
-reference's wrapper does), then on CUDA tensors launches one block per
-(slot, KV head) that walks only the slot's live pages; on CPU tensors it
-runs :func:`paged_attention_plain`, the gather + ``attend_cached`` path.
-Each launch adds one to ``paged_attention.launches``. The kernel's softmax
-sums in another order than the plain version, so the two agree within a
-tolerance (see ``chip_smoke.py``), not bit for bit.
+  * int8 pool, quantized attention (``kv_cache_bits=8``,
+    ``quant_attention=True``): the serving layout;
+  * exact pool (the working dtype, bf16 or f32), quantized attention;
+  * exact pool, float attention (the unquantized ``--fp`` serve);
+  * int8 pool, float attention.
+
+:func:`paged_attention` prepares q as the reference's wrapper does (per
+token int8 codes in q's own dtype under quantized attention; f32 in the
+int8 pool's float layout; as it is in the exact pool's), then on CUDA
+tensors launches one block per (slot, KV head) that walks only the slot's
+live pages; on CPU tensors it runs :func:`paged_attention_plain`, the
+gather + ``attend_cached`` path. Each launch adds one to
+``paged_attention.launches``. The kernel's softmax and float dots sum in
+another order than the plain version, so the two agree within the
+bounds of :func:`agreement`, not bit for bit.
 """
 from __future__ import annotations
 
@@ -25,17 +30,25 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.quant.quantize import quantize_per_token
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["paged_attention", "paged_attention_plain", "agreement",
+           "LAYOUTS", "ROW_BUDGET"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# (quant_attention, int8 pool) -> the kernel's layout code and name
+LAYOUTS = {(True, True): (0, "int8 pool + int8 attention"),
+           (True, False): (1, "exact pool + int8 attention"),
+           (False, False): (2, "exact pool + float attention"),
+           (False, True): (3, "int8 pool + float attention")}
+_POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     if not getattr(lib, "_typed", False):
         lib.paged_attention_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _P, _P]
         lib.paged_attention_launch.restype = _I
         lib.paged_attention_error.argtypes = [_I]
@@ -44,29 +57,81 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_layout(pool, cfg) -> None:
-    if not (cfg.quant_attention and pool["k"].dtype == torch.int8):
-        raise NotImplementedError(
-            "the paged-attention kernel covers the int8 pool with quantized "
-            "attention (kv_cache_bits=8, quant_attention=True); the other "
-            "pool layouts decode through the gather path (kernel=False)")
-
-
 def paged_attention_plain(q, pool, page_indices, steps, cfg, scale):
     """The plain version: gather the full page extent, mask, attend
-    (``models.attention.attend_paged_gather``)."""
+    (``models.attention.attend_paged_gather``), in any pool layout."""
     from repro_torch.models.attention import attend_paged_gather
-    _check_layout(pool, cfg)
     return attend_paged_gather(q, pool, page_indices, steps, cfg, scale)
+
+
+# Rows (slot, query head) of one call that may lie beyond the tight bound
+# of :func:`agreement`: a code or rounding that falls the other way at a
+# boundary moves one row, a fault in the arithmetic moves most of them.
+ROW_BUDGET = 2
+
+
+def agreement(got, want, pool, page_indices, steps, cfg) -> dict:
+    """How far the kernel's output ``got`` lies from the plain version's
+    ``want`` on the same inputs (q, ``pool``, ``page_indices``, ``steps``,
+    ``cfg``). Two bounds per element:
+
+    * tight, where every code and every rounding to the pool dtype agrees
+      and only sum orders differ. Int8 attention: the int32 P·V is the
+      same integer and only the P scale moves, by the relative error of
+      the softmax sum (about ulps; 2^-14 allowed). The bf16 float layout:
+      one bf16 ulp of the output, 2^-7 of max(|got|, |want|). f32 float
+      attention: rtol and atol 1e-5.
+    * loose, where a P code falls one step the other way (int8 attention,
+      two steps allowed: 2 * 128 * sps * sv with the row's P scale sps <=
+      max of the slot's live V scales / 127 (int8 pool; sv = 1) or 1 / 127
+      (exact pool; sv = the slot's |V| max over its gathered extent / 127
+      per d)), or a bf16 rounding does (bf16 float layout: 2^-7 max|v|).
+      f32 float attention: as tight.
+
+    Returns ``max_abs_err``, ``rows`` (B * H), ``rows_beyond`` (rows with
+    an element beyond the tight bound) and ``worst_loose`` (the largest
+    |got - want| / loose bound). The two agree when ``rows_beyond <=
+    ROW_BUDGET`` and ``worst_loose <= 1``."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    pool = {n: a.detach().cpu() for n, a in pool.items()}
+    table = page_indices.cpu().long()
+    b, pps = table.shape
+    _, ps, kvh, hd = pool["k"].shape
+    got, want = got.reshape(b, kvh, -1, hd), want.reshape(b, kvh, -1, hd)
+    int8_pool = pool["k"].dtype == torch.int8
+    layout = LAYOUTS[(bool(cfg.quant_attention), int8_pool)][0]
+    err = (got - want).abs()
+    if layout in (0, 1):
+        tight = want.abs() * 2.0 ** -14
+        if layout == 0:
+            lanes = torch.arange(pps * ps)
+            live = lanes[None] < torch.clamp(steps.cpu().long() + 1,
+                                              max=pps * ps)[:, None]
+            vs = pool["vs"][table].reshape(b, pps * ps, kvh)
+            vmax = torch.where(live[..., None], vs, 0.0).amax(1)
+            loose = 2 * 128 / 127 * vmax[:, :, None, None]
+        else:
+            v = pool["v"][table].float().abs().reshape(b, pps * ps, kvh, hd)
+            loose = 2 * 128 / 127 * (v.amax(1) / 127 + 1e-8)[:, :, None]
+    elif layout == 2 and pool["k"].dtype == torch.bfloat16:
+        tight = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+        loose = float(pool["v"].float().abs().max()) * 2.0 ** -7
+    else:
+        tight = loose = want.abs() * 1e-5 + 1e-5
+    beyond = (err > tight).any(-1)
+    return {"max_abs_err": float(err.max()), "rows": beyond.numel(),
+            "rows_beyond": int(beyond.sum()),
+            "worst_loose": float((err / loose).max())}
 
 
 def paged_attention(q, pool, page_indices, steps, cfg, scale):
     """Live-page decode attention. ``q`` (B, 1, H, hd) post-RoPE; ``pool``
-    one layer's leaves ``k``/``v`` (n_pages, ps, KV, hd) int8 and
-    ``ks``/``vs`` (n_pages, ps, KV, 1) f32; ``page_indices`` (B, P) int32;
-    ``steps`` (B,) int32, the position written this step. Returns
-    (B, 1, H, hd) f32."""
-    _check_layout(pool, cfg)
+    one layer's leaves ``k``/``v`` (n_pages, ps, KV, hd), int8 with
+    ``ks``/``vs`` (n_pages, ps, KV, 1) f32 under KV8, else the working
+    dtype; ``page_indices`` (B, P) int32; ``steps`` (B,) int32, the
+    position written this step. Returns (B, 1, H, hd): the pool dtype in
+    the exact pool's float layout, else f32 (what ``attend_cached`` gives
+    for the layout)."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool, page_indices, steps, cfg,
                                      scale)
@@ -83,22 +148,45 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
     if hd % 16 or 128 % hd or g > 8:
         raise ValueError(f"kernel needs hd % 16 == 0, 128 % hd == 0 and "
                          f"<= 8 query heads per KV head; got hd={hd}, G={g}")
-    leaves = {name: pool[name] for name in ("k", "v", "ks", "vs")}
+    int8_pool = pool["k"].dtype == torch.int8
+    layout = LAYOUTS[(bool(cfg.quant_attention), int8_pool)][0]
+    names = ("k", "v", "ks", "vs") if int8_pool else ("k", "v")
+    leaves = {name: pool[name] for name in names}
     for name, a in leaves.items():
         if a.device != q.device or not a.is_contiguous():
             raise ValueError(f"pool leaf {name} must be contiguous on "
                              f"{q.device}")
+    pool_dtype = pool["k"].dtype
+    if not int8_pool and (pool_dtype not in _POOL_DTYPE
+                          or pool["v"].dtype != pool_dtype):
+        raise ValueError(f"the kernel's exact pools are float32 or "
+                         f"bfloat16, got {pool_dtype} / {pool['v'].dtype}")
+    if int8_pool and any(leaves[n].dtype != torch.float32
+                         for n in ("ks", "vs")):
+        raise ValueError("the int8 pool's scales must be float32")
     table = page_indices.to(device=q.device, dtype=torch.int32).contiguous()
     st = steps.to(device=q.device, dtype=torch.int32).contiguous()
-    qq, sqs = quantize_per_token(q.reshape(b, kvh, g, hd))
-    qq = qq.contiguous()
-    sq32 = sqs.to(torch.float32).reshape(b, kvh, g).contiguous()
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    qg = q.reshape(b, kvh, g, hd)
+    sq32 = None
+    if cfg.quant_attention:
+        qk, sqs = quantize_per_token(qg)        # q's dtype, as the reference
+        sq32 = sqs.to(torch.float32).reshape(b, kvh, g).contiguous()
+    elif int8_pool:
+        qk = qg.to(torch.float32)               # contracted in f32
+    else:
+        if q.dtype != pool_dtype:
+            raise ValueError(f"the exact pool's float layout takes q in the "
+                             f"pool dtype {pool_dtype}, got {q.dtype}")
+        qk = qg
+    qk = qk.contiguous()
+    out_dtype = pool_dtype if layout == 2 else torch.float32
+    out = torch.empty((b, kvh, g, hd), dtype=out_dtype, device=q.device)
+    ptr = (lambda a: None if a is None else a.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_launch(
-        qq.data_ptr(), sq32.data_ptr(), leaves["k"].data_ptr(),
-        leaves["v"].data_ptr(), leaves["ks"].data_ptr(),
-        leaves["vs"].data_ptr(), table.data_ptr(), st.data_ptr(),
+        layout, _POOL_DTYPE.get(pool_dtype, 0), qk.data_ptr(), ptr(sq32),
+        leaves["k"].data_ptr(), leaves["v"].data_ptr(), ptr(leaves.get("ks")),
+        ptr(leaves.get("vs")), table.data_ptr(), st.data_ptr(),
         b, kvh, g, hd, ps, pages, float(scale), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: "

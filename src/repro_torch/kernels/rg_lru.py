@@ -5,9 +5,11 @@ Replaces the Pallas kernel ``repro/kernels/rg_lru.py`` (``rg_lru_pallas``).
 (B, S, D) from h0 (B, D) with an f32 carry, h (B, S, D) in x's dtype. On
 CPU tensors it runs the plain version (``kernels/ref.py::rg_lru_ref``, a
 sequential f32 loop); on CUDA tensors it launches the kernel or raises.
-Each launch adds one to ``rg_lru_cuda.launches``. Kernel and plain version
-round the same operations in the same order, so in f32 they agree bit for
-bit; the reference's doubling scan rounds otherwise. Bound and design
+Each launch adds one to ``rg_lru_cuda.launches``. x and a may each be
+float32, bfloat16 or float16; both compute in f32 and round h once to x's
+dtype. Kernel and plain version round the same operations in the same
+order, so they agree bit for bit; the reference's doubling scan rounds
+otherwise. Bound and design
 notes are in the CUDA source.
 """
 from __future__ import annotations
@@ -22,13 +24,14 @@ __all__ = ["rg_lru_cuda", "rg_lru_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("rg_lru")
     if not getattr(lib, "_typed", False):
-        lib.rg_lru_launch.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _P]
+        lib.rg_lru_launch.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P,
+                                      _P]
         lib.rg_lru_launch.restype = _I
         lib.rg_lru_error.argtypes = [_I]
         lib.rg_lru_error.restype = ctypes.c_char_p
@@ -54,7 +57,7 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
     """h (B, S, D) in x's dtype.
 
     CPU tensors take the plain version. Anything else must be CUDA
-    tensors on one device with x and a both float32 or both bfloat16;
+    tensors on one device, x and a each float32, bfloat16 or float16;
     the kernel is built at first use, and a build or launch failure
     raises."""
     _check(x, a, h0)
@@ -65,9 +68,9 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
     if dev.type != "cuda" or a.device != dev or h0.device != dev:
         raise ValueError(f"rg_lru runs on CUDA or CPU tensors on one "
                          f"device, got {x.device}, {a.device}, {h0.device}")
-    if x.dtype not in _DTYPE_CODE or a.dtype != x.dtype:
-        raise ValueError(f"the kernel takes x and a both float32 or both "
-                         f"bfloat16, got {x.dtype} and {a.dtype}")
+    if x.dtype not in _DTYPE_CODE or a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes x and a in float32, bfloat16 "
+                         f"or float16, got {x.dtype} and {a.dtype}")
     b, s, d = x.shape
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if out.numel() == 0:
@@ -75,9 +78,9 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
     xc, ac = x.contiguous(), a.contiguous()
     h0c = h0.to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rg_lru_launch(xc.data_ptr(), ac.data_ptr(),
-                            _DTYPE_CODE[x.dtype], h0c.data_ptr(), b, s, d,
-                            out.data_ptr(), stream)
+    err = lib.rg_lru_launch(xc.data_ptr(), _DTYPE_CODE[x.dtype],
+                            ac.data_ptr(), _DTYPE_CODE[a.dtype],
+                            h0c.data_ptr(), b, s, d, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rg_lru launch failed: "
                            f"{lib.rg_lru_error(err).decode()}")

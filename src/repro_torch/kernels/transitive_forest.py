@@ -20,6 +20,11 @@ On CPU tensors both run the plain version :func:`forest_plan_plain`; on
 CUDA tensors they launch the kernel or raise. Each launch adds one to
 ``transitive_forest.launches``. Bound and design notes are in the CUDA
 source.
+
+A ForestPlan holds a node in one byte, so T <= 8. A DevicePlan with a
+larger T is not packed: both entries hand it to the two-pass dense kernel
+(:func:`~repro_torch.kernels.transitive_forest_dense.transitive_forest_dense`,
+its own launch count), or to ``run_device`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,10 +33,12 @@ import weakref
 
 import torch
 
-from repro_torch.core.engine import (DevicePlan, ForestPlan,
+from repro_torch.core.engine import (FOREST_MAX_T, DevicePlan, ForestPlan,
                                      forest_plan_plain, pack_forest_plan,
                                      run_device)
 from repro_torch.kernels import build
+from repro_torch.kernels.transitive_forest_dense import (
+    transitive_forest_dense)
 
 __all__ = ["transitive_forest", "transitive_forest_rows", "forest_plain",
            "forest_plan_plain"]
@@ -61,6 +68,11 @@ def forest_plain(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
 # the DevicePlan lives: a dense plan is packed at its first call only.
 _PACKED: "weakref.WeakKeyDictionary[DevicePlan, dict]" = (
     weakref.WeakKeyDictionary())
+
+
+def _dense(plan) -> bool:
+    """A DevicePlan too wide to pack: the dense kernel runs it."""
+    return isinstance(plan, DevicePlan) and plan.t > FOREST_MAX_T
 
 
 def _as_forest(plan, device) -> ForestPlan:
@@ -108,6 +120,8 @@ def transitive_forest(plan, x: torch.Tensor) -> torch.Tensor:
     launch failure raises."""
     if x.ndim != 2 or x.shape[0] != plan.k:
         raise ValueError(f"x must be (K={plan.k}, M), got {tuple(x.shape)}")
+    if _dense(plan):
+        return transitive_forest_dense(plan, x)
     if x.device.type == "cpu":
         return forest_plan_plain(_as_forest(plan, x.device), x)
     fplan = _as_forest(plan, x.device)
@@ -128,6 +142,9 @@ def transitive_forest_rows(plan, qx: torch.Tensor) -> torch.Tensor:
     if qx.ndim != 2 or qx.shape[1] != plan.k:
         raise ValueError(f"qx must be (B, K={plan.k}), got "
                          f"{tuple(qx.shape)}")
+    if _dense(plan):
+        y = transitive_forest_dense(plan, qx.T.to(torch.int32))
+        return y.T if y.ndim == 2 else y.permute(2, 1, 0)
     if qx.device.type == "cpu":
         y = forest_plan_plain(_as_forest(plan, qx.device), qx.T)
         return y.T if y.ndim == 2 else y.permute(2, 1, 0)

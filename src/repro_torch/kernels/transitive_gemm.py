@@ -7,15 +7,21 @@ int32 ``qx (M, K) @ qw (N, K)^T`` of int8 operands (``qw`` holding
 ``w_bits``-bit values) with transitive result reuse, in one launch for
 all ``groups`` equal slices of K: out (M, groups, N). On CPU tensors it
 runs the plain version (:mod:`repro_torch.kernels.ref`); on CUDA tensors
-it launches the kernel or raises. Each launch adds one to
-``transitive_gemm_cuda.launches``.
+it launches a kernel or raises: T in {4, 8} goes to the fast kernel
+(each launch adds one to ``transitive_gemm_cuda.launches``), any other T
+up to 15 to the generic kernel, :func:`transitive_gemm_generic` (each
+launch adds one to ``transitive_gemm_generic.launches``). T > 15 raises:
+the generic kernel keeps a row's 2^T-entry int32 LUT in one block's
+shared memory.
 
 The kernel reads the int8 weight directly (no packed TransRows), keeps
 two activation rows per 32-bit LUT word, masks ragged M and N itself and,
 when there are few output tiles, splits K across the blocks of a thread
 block cluster (:func:`k_split` picks the split; the cluster adds its
-partial sums through distributed shared memory). Bound and design notes
-are in the CUDA source.
+partial sums through distributed shared memory). The generic kernel is
+simple: one block per (256 columns, row, group) builds the row's full
+2^T LUT by doubling per subtile and gathers. Bound and design notes are
+in the CUDA source.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["transitive_gemm_cuda", "transitive_gemm_plain", "k_split"]
+__all__ = ["transitive_gemm_cuda", "transitive_gemm_generic",
+           "transitive_gemm_plain", "k_split"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +40,9 @@ _I = ctypes.c_int
 # The kernel's tiling (csrc/transitive_gemm.cu): columns per block,
 # subtiles per chunk, blocks per cluster at most.
 _NT, _CH, _MAX_SPLIT = 128, 8, 8
+# The largest T whose one-row int32 LUT (2^T entries) fits a block's
+# shared memory (227 KiB): the generic kernel's range.
+MAX_GENERIC_T = 15
 
 _LIB: list[ctypes.CDLL] = []
 _SMS: dict[int, int] = {}
@@ -44,6 +54,9 @@ def _library() -> ctypes.CDLL:
         lib.transitive_gemm_launch.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.transitive_gemm_launch.restype = _I
+        lib.transitive_gemm_generic_launch.argtypes = [
+            _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+        lib.transitive_gemm_generic_launch.restype = _I
         lib.transitive_gemm_error.argtypes = [_I]
         lib.transitive_gemm_error.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -101,49 +114,97 @@ def transitive_gemm_plain(qx: torch.Tensor, qw: torch.Tensor, *,
         w_bits, t)
 
 
-def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
-                         w_bits: int = 8, t: int = 8,
-                         groups: int = 1) -> torch.Tensor:
-    """int32 (M, groups, N) = per group g: qx[:, g] @ qw[:, g]^T.
-
-    CPU tensors take the plain version. Anything else must be a CUDA
-    tensor; the kernel needs int8 operands, T in {4, 8} and w_bits in
-    2..8, is built at first use, and a build or launch failure raises."""
-    _check(qx, qw, t, groups)
-    if qx.device.type == "cpu":
-        return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
-                                     groups=groups)
-    lib = _library()
+def _operands(qx: torch.Tensor, qw: torch.Tensor, w_bits: int):
+    """The kernels' operand checks; returns contiguous int8 operands with
+    x 4-byte and w 8-byte aligned."""
     if qx.device.type != "cuda" or qw.device != qx.device:
         raise ValueError(f"transitive_gemm runs on CUDA or CPU tensors on "
                          f"one device, got {qx.device} and {qw.device}")
     if qx.dtype != torch.int8 or qw.dtype != torch.int8:
         raise ValueError(f"the kernel takes int8 operands, got {qx.dtype} "
                          f"and {qw.dtype}")
-    if t not in (4, 8) or not 2 <= w_bits <= 8:
-        raise ValueError(f"the kernel covers T in (4, 8) and w_bits in "
-                         f"2..8, got T={t} w_bits={w_bits}")
-    m, k = qx.shape
-    n = qw.shape[0]
-    out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
-    if m == 0 or n == 0 or k == 0:
-        return out.zero_()
+    if not 2 <= w_bits <= 8:
+        raise ValueError(f"the kernels cover w_bits in 2..8, got {w_bits}")
     xc = qx.contiguous()
     wc = qw.contiguous()
     if xc.data_ptr() % 4:                      # the kernel loads 4 bytes
         xc = xc.clone()
     if wc.data_ptr() % 8:                      # and T weight bytes
         wc = wc.clone()
+    return xc, wc
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.transitive_gemm_error(err).decode()}")
+
+
+def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
+                         w_bits: int = 8, t: int = 8,
+                         groups: int = 1) -> torch.Tensor:
+    """int32 (M, groups, N) = per group g: qx[:, g] @ qw[:, g]^T.
+
+    CPU tensors take the plain version. Anything else must be a CUDA
+    tensor; the kernels need int8 operands and w_bits in 2..8, are built
+    at first use, and a build or launch failure raises. T in {4, 8} runs
+    the fast kernel; any other T runs :func:`transitive_gemm_generic`."""
+    _check(qx, qw, t, groups)
+    if qx.device.type == "cpu":
+        return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
+                                     groups=groups)
+    if t not in (4, 8):
+        return transitive_gemm_generic(qx, qw, w_bits=w_bits, t=t,
+                                       groups=groups)
+    lib = _library()
+    xc, wc = _operands(qx, qw, w_bits)
+    m, k = qx.shape
+    n = qw.shape[0]
+    out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
     ksplit = k_split(m, n, k, groups, t, _sm_count(qx.device))
     stream = torch.cuda.current_stream(qx.device).cuda_stream
-    err = lib.transitive_gemm_launch(
+    _raise_on(lib.transitive_gemm_launch(
         xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t, ksplit,
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"transitive_gemm launch failed: "
-                           f"{lib.transitive_gemm_error(err).decode()}")
+        out.data_ptr(), stream), lib, "transitive_gemm")
     transitive_gemm_cuda.launches += 1
     return out
 
 
 transitive_gemm_cuda.launches = 0
+
+
+def transitive_gemm_generic(qx: torch.Tensor, qw: torch.Tensor, *,
+                            w_bits: int = 8, t: int = 8,
+                            groups: int = 1) -> torch.Tensor:
+    """The generic-T kernel: the same function as
+    :func:`transitive_gemm_cuda`, for any T in 1..15 (the fast kernel's T
+    too). CPU tensors take the plain version; T > 15 raises on CUDA (the
+    row's LUT would outgrow a block's shared memory)."""
+    _check(qx, qw, t, groups)
+    if qx.device.type == "cpu":
+        return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
+                                     groups=groups)
+    lib = _library()
+    xc, wc = _operands(qx, qw, w_bits)
+    if not 1 <= t <= MAX_GENERIC_T:
+        raise ValueError(f"the generic kernel keeps a row's 2^T int32 LUT in "
+                         f"shared memory: T <= {MAX_GENERIC_T}, got T={t}")
+    m, k = qx.shape
+    n = qw.shape[0]
+    if m > 65535:
+        raise ValueError(f"the generic kernel takes M <= 65535 rows (one "
+                         f"grid row each), got M={m}")
+    out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(qx.device).cuda_stream
+    _raise_on(lib.transitive_gemm_generic_launch(
+        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t,
+        out.data_ptr(), stream), lib, "transitive_gemm_generic")
+    transitive_gemm_generic.launches += 1
+    return out
+
+
+transitive_gemm_generic.launches = 0

@@ -8,8 +8,10 @@ token scale, for qx (M, K) int8, sx (M, 1) f32, qw (N, K) int8 and sg
 (N, K // group) f32. On CPU tensors it runs the plain version
 (``kernels/ref.py::w4a8_matmul_ref``); on CUDA tensors it launches the
 kernel or raises. Each launch adds one to ``w4a8_gemm_cuda.launches``.
-The kernel sums the f32 group terms in another order than the plain
-version, so the two agree within a tolerance. Bound and design notes are
+The kernel walks K in activation tiles that fit shared memory (any K) and
+dots four codes per instruction when ``group % 4 == 0``, one otherwise. It
+sums the f32 group terms in another order than the plain version, so the
+two agree within a tolerance. Bound and design notes are
 in the CUDA source.
 """
 from __future__ import annotations
@@ -61,8 +63,8 @@ def w4a8_gemm_cuda(qx, sx, qw, sg, *, group: int = 128) -> torch.Tensor:
     """f32 (M, N) group-dequant GEMM.
 
     CPU tensors take the plain version. Anything else must be CUDA
-    tensors on one device; the kernel needs int8 codes, ``group % 4 ==
-    0``, is built at first use, and a build or launch failure raises."""
+    tensors on one device; the kernel needs int8 codes (any group and any
+    K), is built at first use, and a build or launch failure raises."""
     _check(qx, sx, qw, sg, group)
     if qx.device.type == "cpu":
         return w4a8_gemm_plain(qx, sx, qw, sg, group=group)
@@ -74,9 +76,6 @@ def w4a8_gemm_cuda(qx, sx, qw, sg, *, group: int = 128) -> torch.Tensor:
     if qx.dtype != torch.int8 or qw.dtype != torch.int8:
         raise ValueError(f"the kernel takes int8 codes, got {qx.dtype} and "
                          f"{qw.dtype}")
-    if group % 4:
-        raise ValueError(f"the kernel's dp4a dots need group % 4 == 0, got "
-                         f"{group}")
     m, k = qx.shape
     n = qw.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -85,10 +84,11 @@ def w4a8_gemm_cuda(qx, sx, qw, sg, *, group: int = 128) -> torch.Tensor:
     if k == 0:
         return out.zero_()
     xc, wc = qx.contiguous(), qw.contiguous()
-    if xc.data_ptr() % 4:                      # 32-bit loads of 4 codes
-        xc = xc.clone()
-    if wc.data_ptr() % 4:
-        wc = wc.clone()
+    if group % 4 == 0:                         # 32-bit loads of 4 codes
+        if xc.data_ptr() % 4:
+            xc = xc.clone()
+        if wc.data_ptr() % 4:
+            wc = wc.clone()
     sxc = sx.to(torch.float32).reshape(m).contiguous()
     sgc = sg.to(torch.float32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,13 +1,15 @@
 """Where the time of the port's main serving path goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--backend engine_cuda|lut_cuda] [--steps 8]
+        [--backend engine_cuda|lut_cuda | --fp] [--steps 8]
 
 Builds the serving path (smollm-135m at full width unless ``--reduced``,
 W4A8 linears through ``--backend``: the forest kernel with ``engine_cuda``,
 the default, which first plans every linear, or the doubling-LUT kernel
-with ``lut_cuda``; the paged-attention kernel, bf16, random weights from
-``--seed``), admits ``--slots`` requests of ``--prompt-len`` tokens, then:
+with ``lut_cuda``; or, with ``--fp``, the base config unquantized: bf16
+linears, float attention over an exact pool; the paged-attention kernel,
+bf16, random weights from ``--seed``), admits ``--slots`` requests of
+``--prompt-len`` tokens, then:
 
   * times ``--steps`` packed decode steps with the host clock around
     ``step()`` + ``torch.cuda.synchronize()`` (ms per step);
@@ -38,8 +40,10 @@ from repro_torch.serve import ServeEngine
 PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "forest_wide": "B1 forest, wide blocks (M > 8)",
                 "paged_decode": "B2 paged attention",
+                "forest_dense": "B1 forest from a dense plan (T > 8)",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
-                "w4a8_dp4a": "B4 group-dequant GEMM",
+                "tgemm_generic": "B3 generic-T transitive GEMM",
+                "w4a8_dot": "B4 group-dequant GEMM",
                 "rg_lru_seq": "B5 linear recurrence"}
 
 
@@ -66,6 +70,8 @@ def main(argv=None):
     ap.add_argument("--backend", default="engine_cuda",
                     choices=list_backends(),
                     help="integer-GEMM backend of the PTQ linears")
+    ap.add_argument("--fp", action="store_true",
+                    help="the base config unquantized (no backend)")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
@@ -75,8 +81,8 @@ def main(argv=None):
 
     base = get_reduced("smollm_135m") if args.reduced else \
         get_config("smollm_135m")
-    cfg = serve_config(base, backend=args.backend).replace(
-        paged_kernel=True)
+    cfg = base if args.fp else serve_config(base, backend=args.backend)
+    cfg = cfg.replace(paged_kernel=True)
     model = Model(cfg, device="cuda")
     params = model.attach_device_plans(model.init(args.seed))
     max_len = 256
@@ -102,8 +108,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     step_ms = 1e3 * sum(walls) / len(walls)
-    print(f"[profile] {cfg.name} ({cfg.n_layers} layers, backend "
-          f"{args.backend}, "
+    print(f"[profile] {cfg.name} ({cfg.n_layers} layers, "
+          f"{'fp' if args.fp else 'backend ' + args.backend}, "
           f"{torch.cuda.get_device_name(0)}) | {args.slots} slots x "
           f"{args.prompt_len}-token prompts | admission + first decode "
           f"{t_admit * 1e3:.1f} ms | decode step {step_ms:.2f} ms "

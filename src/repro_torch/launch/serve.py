@@ -1,8 +1,11 @@
 """Serving launcher of the port: continuous batching through the paged-KV
-serve engine, W4A8 TransitiveLinear + dynamic int8 attention + KV8 cache.
+serve engine, W4A8 TransitiveLinear + dynamic int8 attention + KV8 cache,
+or (``--fp``) the base config unquantized.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --continuous --backend lut_cuda --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --continuous --fp --paged-kernel
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Requests arrive
 staggered (``--requests`` of them, one every ``--arrive-every`` host
@@ -12,8 +15,12 @@ ones share its first half, so the prefix trie shares pages. Planned
 backends (``engine_torch``, ``engine_cuda``) build every linear's plan
 once before serving and serve from plans attached to the params; the
 LUT backends (``lut``, ``lut_cuda``) and ``int_dot`` need no plan and
-build none. The report prints per-request TTFT and latency, tokens/s,
-the prefix-reuse counters and the kernel launch counts.
+build none. ``--fp`` serves the base config as the reference's launcher
+does: dense bf16 linears (``torch.matmul``, no backend), float attention
+and an exact bf16 KV pool; ``--paged-kernel`` then decodes through the
+paged-attention kernel's exact-pool float layout. The report prints
+per-request TTFT and latency, tokens/s, the prefix-reuse counters and the
+kernel launch counts.
 
 Only the ``--continuous`` mode is ported; the one-shot batched generate,
 meshes, plan bundles, hot swap and the lint preflight of the reference
@@ -72,7 +79,12 @@ def serve_continuous(model, params, args):
         host_step += 1
     dt = time.perf_counter() - t0
     rep = eng.report()
-    print(f"[{cfg.name} | W{cfg.quant.w_bits}A8+KV8/{cfg.quant.backend} | "
+    if cfg.quant.mode == "ptq":
+        mode = (f"W{cfg.quant.w_bits}A8+KV{cfg.kv_cache_bits}/"
+                f"{cfg.quant.backend}")
+    else:
+        mode = f"fp {str(cfg.dtype).removeprefix('torch.')}"
+    print(f"[{cfg.name} | {mode} | "
           f"continuous | {model.device}] {rep['n_requests']} requests x "
           f"{args.gen} tokens ({args.slots} slots, page_size={ps}) in "
           f"{dt:.2f}s -> {rep['tokens_per_s']:.1f} tok/s")
@@ -109,6 +121,9 @@ def main(argv=None):
     ap.add_argument("--backend", default="int_dot", choices=list_backends(),
                     help="integer-GEMM backend for the PTQ linears")
     ap.add_argument("--w-bits", type=int, default=4, choices=(4, 8))
+    ap.add_argument("--fp", action="store_true",
+                    help="serve the base config unquantized (bf16 linears, "
+                    "float attention, exact KV pool)")
     ap.add_argument("--paged-kernel", action="store_true",
                     help="decode attention through the live-page CUDA "
                     "kernel instead of the full-extent gather")
@@ -127,10 +142,11 @@ def main(argv=None):
         ap.error("only --continuous serving is ported")
 
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    cfg = serve_config(base, w_bits=args.w_bits, backend=args.backend)
+    cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
+                                            backend=args.backend)
     model = Model(cfg, device=args.device)
     params = model.init(args.seed)
-    if get_backend(args.backend).needs_plan:
+    if not args.fp and get_backend(args.backend).needs_plan:
         from repro_torch.core import plancache
         cache = plancache.default_cache()
         t0 = time.perf_counter()

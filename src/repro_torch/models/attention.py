@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import linear_apply, linear_init, quantize_per_token
+from repro_torch.quant.quantize import true_div
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048        # direct softmax below, chunked above
@@ -83,7 +84,7 @@ def _pv(p, v, quant: bool):
     """P (B,H,Sq,Sk) @ V (B,Sk,H,D) -> (B,Sq,H,D), optionally int8."""
     if quant:
         qp, sp = quantize_per_token(p)                    # rows over Sk
-        sv = v.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-8
+        sv = true_div(v.abs().amax(dim=1, keepdim=True), 127.) + 1e-8
         qv = torch.clamp(torch.round(v / sv), -128, 127).to(torch.int8)
         o32 = _int_einsum("bhqk,bkhd->bqhd", qp, qv)
         return o32.to(torch.float32) * sp.movedim(1, 2) * sv
@@ -142,7 +143,7 @@ def attend_cached(q, ck, cv, cks, cvs, valid, cfg: ModelConfig, scale):
             sv_out = 1.0
         else:
             qp, sps = quantize_per_token(p)
-            sv = cv.abs().amax(dim=1, keepdim=True) / 127. + 1e-8
+            sv = true_div(cv.abs().amax(dim=1, keepdim=True), 127.) + 1e-8
             qv = torch.clamp(torch.round(cv / sv), -128, 127) \
                 .to(torch.int8)
             sv_out = sv[:, :, :, None, :]

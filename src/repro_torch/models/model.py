@@ -119,7 +119,8 @@ class Model:
     def attach_device_plans(self, params: Params) -> Params:
         """Embed compiled device plans (stacked like the weights, on the
         weights' device) next to every PTQ weight: DevicePlans for
-        ``engine_torch``, compact ForestPlans for ``engine_cuda``. No-op
+        ``engine_torch``, compact ForestPlans for ``engine_cuda`` (its
+        DevicePlans where T > 8). No-op
         unless the backend executes from device plans."""
         q = self.cfg.quant
         from repro_torch.core.backend import get_backend

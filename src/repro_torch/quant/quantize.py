@@ -2,9 +2,10 @@
 
 Per-token dynamic activation quantization and group-wise weight
 quantization with f32 scales. Each call keeps its input's working dtype
-(f32 stays f32, bf16 stays bf16), divides with true division ``x / scale``
-and rounds half to even (``torch.round`` and ``jnp.round`` agree), so
-codes and scales from f32 inputs equal the reference's exactly.
+(f32 stays f32, bf16 stays bf16), divides with true division on every
+device (:func:`true_div`) and rounds half to even (``torch.round`` and
+``jnp.round`` agree), so codes and scales from f32 inputs equal the
+reference's exactly.
 Training's ``fake_quant`` is not part of this slice.
 """
 from __future__ import annotations
@@ -12,11 +13,26 @@ from __future__ import annotations
 import torch
 
 __all__ = ["absmax_scale", "quantize", "quantize_groupwise",
-           "quantize_per_token"]
+           "quantize_per_token", "true_div"]
+
+_DIVISORS: dict = {}
 
 
 def _qmax(bits: int) -> int:
     return (1 << (bits - 1)) - 1
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as an IEEE division on every device. torch's CUDA kernels
+    multiply by the reciprocal of a Python-scalar divisor, which can move
+    a quotient by an ulp (and a quantizer scale with it); a divisor that
+    is a tensor on x's device is divided by, as on the CPU."""
+    if x.device.type == "cpu":
+        return x / d
+    key = (d, x.dtype, x.device)
+    if key not in _DIVISORS:
+        _DIVISORS[key] = torch.full((), d, dtype=x.dtype, device=x.device)
+    return x / _DIVISORS[key]
 
 
 def absmax_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
@@ -25,7 +41,7 @@ def absmax_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    return torch.clamp(amax, min=1e-8) / _qmax(bits)
+    return true_div(torch.clamp(amax, min=1e-8), float(_qmax(bits)))
 
 
 def quantize(x: torch.Tensor, bits: int, scale: torch.Tensor) -> torch.Tensor:

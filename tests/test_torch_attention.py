@@ -3,9 +3,11 @@
 The paged decode attention (the plain version of the port's CUDA kernel,
 which is what a CPU tensor runs) is held against the reference's Pallas
 ``paged_attention`` in interpret mode and against its gather +
-``attend_cached`` oracle, over page sizes 2, 4 and 8 with ragged live
-page counts. Norms, RoPE and the prefill attention are held to the float
-tolerances stated at each check.
+``attend_cached`` oracle in all four pool layouts: the int8 pool with int8
+attention over page sizes 2, 4 and 8, the other three in f32 and bf16
+over page sizes 8 and 16, with ragged live page counts. Norms, RoPE and
+the prefill attention are held to the float tolerances stated at each
+check.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from repro.kernels.paged_attention import (  # noqa: E402
 from repro.launch.specs import serve_config as ref_serve_config  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    ROW_BUDGET, agreement, paged_attention)
 from repro_torch.launch.specs import serve_config  # noqa: E402
 from repro_torch.models import attention as PA  # noqa: E402
 
@@ -144,13 +147,169 @@ def test_paged_decode_matches_reference_kernel_and_oracle(page_size, cfgs,
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
-def test_paged_attention_other_layouts_raise(cfgs, rng):
-    pt_cfg, _ = cfgs
-    q, pool, table, steps = _paged_case(rng, 4)
-    with pytest.raises(NotImplementedError, match="int8 pool"):
-        paged_attention(T(q), {n: T(a) for n, a in pool.items()}, T(table),
-                        T(steps), pt_cfg.replace(quant_attention=False),
-                        32 ** -0.5)
+def _layout_case(rng, page_size, int8_pool, dtype, b=4, kv=2, g=2, hd=32,
+                 max_len=48):
+    """A random pool in one layout (int8 with f32 scales, or exact in
+    ``dtype``), q in ``dtype``, ragged steps (1, 1, 2 and 3 live pages) and
+    a page table whose dead entries point at the null page 0, which holds
+    data too (so the exact pool's |V| max over the gathered extent has to
+    fold it in)."""
+    pps = max_len // page_size
+    n_pages = b * pps + 1
+    shp = (n_pages, page_size, kv, hd)
+    if int8_pool:
+        pool = {"k": rng.integers(-128, 128, size=shp, dtype=np.int8),
+                "v": rng.integers(-128, 128, size=shp, dtype=np.int8),
+                "ks": (rng.random(shp[:-1] + (1,)) * 0.02 + 1e-3)
+                .astype(np.float32),
+                "vs": (rng.random(shp[:-1] + (1,)) * 0.02 + 1e-3)
+                .astype(np.float32)}
+    else:
+        pool = {"k": rng.standard_normal(shp).astype(np.float32),
+                "v": (rng.standard_normal(shp) * 2).astype(np.float32)}
+    steps = np.array([0, 1, page_size, 3 * page_size - 1], np.int32)[:b]
+    table = np.zeros((b, pps), np.int32)
+    nxt = 1
+    for s in range(b):
+        for p in range(steps[s] // page_size + 1):
+            table[s, p], nxt = nxt, nxt + 1
+    q = rng.standard_normal((b, 1, kv * g, hd)).astype(np.float32)
+    return q, pool, table, steps
+
+
+def _both(a, dtype):
+    """One numpy array as a torch tensor and a jax array, floats cast to
+    ``dtype`` from f32 in both (round to nearest even: the same bits)."""
+    if a.dtype == np.float32 and dtype == "bfloat16":
+        return T(a).to(torch.bfloat16), jnp.asarray(a).astype(jnp.bfloat16)
+    return T(a), jnp.asarray(a)
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant,int8_pool", [(True, False), (False, False),
+                                             (False, True)],
+                         ids=["exact-int8attn", "exact-float",
+                              "int8pool-float"])
+def test_paged_attention_other_layouts_match_reference(quant, int8_pool,
+                                                       dtype, page_size,
+                                                       cfgs, rng):
+    """The paged attention's three other pool layouts (the plain version
+    on CPU tensors) against the reference's Pallas ``paged_attention``
+    (interpret mode) and its gather + ``attend_cached`` oracle, in f32 and
+    bf16, with ragged steps and dead table entries at page 0.
+
+    Tolerances. Float attention (the exact pool's and the int8 pool's):
+    the two packages' f32 dots and softmax sum in other orders, rtol 1e-5
+    and atol 1e-5 on O(1) outputs in f32. In bf16 the exact pool's score
+    dot and P.V are rounded to bf16 in both, so a different f32 sum order
+    can move a rounded value by one bf16 ulp: atol 2^-7 of max|v| (two
+    ulps of the largest output). Int8 attention over the exact pool: the
+    K codes, the V codes and their scales are equal to the reference's
+    (exact; checked below on the gathered extent), the int32 products are
+    exact, and the softmax ulps can move a P code by one step: atol one
+    P step, max(sv) * 128 / 127."""
+    pt_cfg, ref_cfg = cfgs
+    pt_cfg = pt_cfg.replace(quant_attention=quant)
+    ref_cfg = ref_cfg.replace(quant_attention=quant)
+    q, pool, table, steps = _layout_case(rng, page_size, int8_pool, dtype)
+    tq, jq = _both(q, dtype)
+    tpool, jpool = {}, {}
+    for n, a in pool.items():
+        tpool[n], jpool[n] = _both(a, dtype)
+    scale = 32 ** -0.5
+    got = paged_attention(tq, tpool, T(table), T(steps), pt_cfg, scale)
+    want_kernel = ref_paged_attention(jq, jpool, jnp.asarray(table),
+                                      jnp.asarray(steps), ref_cfg, scale,
+                                      interpret=True)
+    size = table.shape[1] * page_size
+    valid = np.arange(size)[None, :] < np.minimum(steps + 1, size)[:, None]
+    gather = {n: RA._gather_pages(a, jnp.asarray(table))
+              for n, a in jpool.items()}
+    want_oracle = RA.attend_cached(jq, gather["k"], gather["v"],
+                                   gather.get("ks"), gather.get("vs"),
+                                   jnp.asarray(valid), ref_cfg, scale)
+    assert got.shape == q.shape
+    assert str(got.dtype).removeprefix("torch.") == str(want_kernel.dtype)
+    got32 = got.float().numpy()
+    if quant:
+        # the codes attend_cached makes over the gathered extent, port
+        # against reference: K per token, V against the |V| max
+        ck_t = PA._gather_pages(tpool["k"], T(table))
+        cv_t = PA._gather_pages(tpool["v"], T(table))
+        kk_t, sk_t = PA.quantize_per_token(ck_t)
+        kk_j, sk_j = RA.quantize_per_token(gather["k"])
+        np.testing.assert_array_equal(kk_t.numpy(), np.asarray(kk_j))
+        np.testing.assert_array_equal(sk_t.float().numpy(),
+                                      np.asarray(sk_j.astype(jnp.float32)))
+        sv_t = cv_t.abs().amax(dim=1, keepdim=True) / 127. + 1e-8
+        sv_j = jnp.max(jnp.abs(gather["v"]), axis=1, keepdims=True) \
+            / 127. + 1e-8
+        np.testing.assert_array_equal(sv_t.float().numpy(),
+                                      np.asarray(sv_j.astype(jnp.float32)))
+        qv_t = torch.clamp(torch.round(cv_t / sv_t), -128, 127)
+        qv_j = jnp.clip(jnp.round(gather["v"] / sv_j), -128, 127)
+        np.testing.assert_array_equal(qv_t.float().numpy(),
+                                      np.asarray(qv_j.astype(jnp.float32)))
+        atol = float(sv_t.float().max()) * 128 / 127
+        rtol = 0
+    elif dtype == "bfloat16" and not int8_pool:
+        atol, rtol = float(np.abs(pool["v"]).max()) * 2 ** -7, 0
+    else:
+        atol, rtol = 1e-5, 1e-5
+    for want in (want_kernel, want_oracle):
+        np.testing.assert_allclose(
+            got32, np.asarray(want.astype(jnp.float32)), rtol=rtol,
+            atol=atol)
+        # and within the bounds the CUDA kernel is held to
+        agree = agreement(got, T(np.array(want.astype(jnp.float32))),
+                          tpool, T(table), T(steps), pt_cfg)
+        assert agree["rows_beyond"] <= ROW_BUDGET, agree
+        assert agree["worst_loose"] <= 1, agree
+    # the live-page walk never reads a dead lane's K, nor (but under int8
+    # attention over the exact pool, whose |V| max is taken over whole
+    # pages, as the reference's is) its V: scribbling over them leaves
+    # the result unchanged
+    scribbled = {n: a.clone() for n, a in tpool.items()}
+    for s, st in enumerate(steps):
+        for lane in range(st + 1, (st // page_size + 1) * page_size):
+            pid, off = table[s, lane // page_size], lane % page_size
+            scribbled["k"][pid, off] = 127
+            if not (quant and not int8_pool):
+                scribbled["v"][pid, off] = -128
+    again = paged_attention(tq, scribbled, T(table), T(steps), pt_cfg,
+                            scale)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fault", ["page 0 left out", "live lanes only"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_agreement_flags_a_v_max_over_too_few_lanes(fault, dtype, cfgs,
+                                                     rng):
+    """``agreement`` (the check that holds the CUDA kernel against its
+    plain version) catches a kernel whose |V| max, under int8 attention
+    over the exact pool, leaves out page 0 (read by dead table entries) or
+    every dead lane. Such a kernel computes what the plain version
+    computes on a pool whose left-out V rows are zero: those lanes' P is
+    exactly 0, so only the V scale moves. The plain version agrees with
+    itself exactly."""
+    pt_cfg = cfgs[0].replace(quant_attention=True)
+    q, pool, table, steps = _layout_case(rng, 16, False, dtype)
+    tq = _both(q, dtype)[0]
+    tpool = {n: _both(a, dtype)[0] for n, a in pool.items()}
+    args = (T(table), T(steps), pt_cfg)
+    want = paged_attention(tq, tpool, *args, 32 ** -0.5)
+    same = agreement(want, want, tpool, *args)
+    assert same["rows_beyond"] == 0 and same["worst_loose"] == 0, same
+    left_out = {n: a.clone() for n, a in tpool.items()}
+    left_out["v"][0] = 0
+    if fault == "live lanes only":
+        for s, st in enumerate(steps):
+            for lane in range(st + 1, (st // 16 + 1) * 16):
+                left_out["v"][table[s, lane // 16], lane % 16] = 0
+    bad = paged_attention(tq, left_out, *args, 32 ** -0.5)
+    agree = agreement(bad, want, tpool, *args)
+    assert agree["rows_beyond"] > ROW_BUDGET, agree
 
 
 def test_paged_decode_layer_kernel_vs_gather(cfgs, rng):

@@ -267,3 +267,67 @@ def test_dense_plan_is_packed_once(rng):
     assert pack.calls == calls + 1
     for got in (first, again, rows.T, backend.T):
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("t", [9, 10])
+def test_engine_cuda_runs_plans_wider_than_a_byte(t, rng):
+    """T > 8 on ``engine_cuda``: a reduced smollm whose linears' K are
+    multiples of 9 and 10 (d_model 180, 3 heads of 30, d_ff 360) with
+    ``transrow_t=t``. The attached plans stay DevicePlans (a ForestPlan's
+    byte cannot hold the node), nothing is packed, and every linear's
+    int32 accumulators through the backend equal the reference's
+    ``engine_pallas`` (interpret) on its own plan for the same weights,
+    exactly; the model's prefill logits equal the port's ``int_dot``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model, _index
+    base = get_reduced("smollm_135m").replace(
+        n_layers=1, d_model=180, n_heads=3, n_kv_heads=1, head_dim=30,
+        d_ff=360, dtype=torch.float32)
+    cfg = serve_config(base, backend="engine_cuda")
+    cfg = cfg.replace(quant=cfg.quant.with_(transrow_t=t))
+    model = Model(cfg, device="cpu")
+    raw = model.init(0)
+    calls = pack.calls
+    params = plancache.attach_device_plans(raw, cfg.quant,
+                                           plancache.PlanCache())
+    assert pack.calls == calls
+    block = _index(params["blocks"], 0)
+    layers = {f"{b}.{n}": layer for b, blk in block.items()
+              for n, layer in blk.items()
+              if isinstance(layer, dict) and "qw" in layer}
+    assert len(layers) == 7
+    backend = get_backend("engine_cuda")
+    for name, layer in layers.items():
+        dplan = layer["dplan"]
+        assert isinstance(dplan, pt_engine.DevicePlan) and dplan.t == t
+        qw = layer["qw"].numpy()
+        qx = rng.integers(-128, 128, size=(3, qw.shape[1])).astype(np.int8)
+        got = backend.execute(torch.from_numpy(qx), layer["qw"], None,
+                              dplan, EngineConfig(4, t, 1))
+        dref = ref_engine.compile_plan(ref_engine.BatchedTransitiveEngine(
+            4, t).plan(qw.astype(np.int64)))
+        want = ref_backend("engine_pallas").execute(
+            jnp.asarray(qx), jnp.asarray(qw), None, dref,
+            RefEngineConfig(4, t, 1))
+        assert got.dtype == torch.int32, name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=name)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 5)))
+    logits, _ = model.prefill(params, {"tokens": toks}, 8)
+    dense = Model(cfg.replace(quant=cfg.quant.with_(backend="int_dot")),
+                  device="cpu")
+    want_logits, _ = dense.prefill(raw, {"tokens": toks}, 8)
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+
+
+def test_dense_forest_kernel_states_its_shared_memory_bound():
+    """The dense kernel's pass-1 block holds two 2^T x bm int32 tables:
+    bm shrinks from 16 until they fit 227 KiB, so T = 14 runs (one
+    column per block) and T = 15 is refused with the bound."""
+    from repro_torch.kernels import transitive_forest_dense as tfd
+    assert tfd._columns_per_block(9, 64) == 16
+    assert tfd._columns_per_block(12, 64) == 4
+    assert tfd._columns_per_block(14, 64) == 1
+    with pytest.raises(ValueError, match="T <= 14 fits"):
+        tfd._columns_per_block(15, 64)

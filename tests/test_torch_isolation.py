@@ -106,6 +106,24 @@ def test_launcher_serves_lut_cuda_on_cpu_without_plans(capsys):
     assert "transitive_gemm launches=0" in out
 
 
+def test_launcher_serves_fp_on_cpu(capsys):
+    """``--fp``: the base config unquantized (dense linears, float
+    attention, exact pool), decoded through the paged kernel's plain
+    version on CPU tensors; no plan, no integer GEMM."""
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "smollm-135m", "--reduced", "--continuous",
+                      "--device", "cpu", "--fp", "--paged-kernel",
+                      "--prompt-len", "8", "--gen", "3", "--page-size", "4",
+                      "--requests", "3"])
+    cfg = eng.model.cfg
+    assert cfg.quant.mode == "none" and not cfg.quant_attention
+    assert cfg.kv_cache_bits == 16 and cfg.dtype == torch.bfloat16
+    assert [len(r.tokens) for r in eng.finished] == [3, 3, 3]
+    out = capsys.readouterr().out
+    assert "[plan cache]" not in out and "| fp bfloat16 |" in out
+    assert "paged_attention launches=0 | decode=paged-kernel" in out
+
+
 def _failing_build(name):
     raise RuntimeError(f"nvcc not found: cannot build {name}")
 
@@ -202,6 +220,34 @@ def test_gemm_and_scan_wrappers_raise_instead_of_falling_back(
     with pytest.raises(RuntimeError, match=f"cannot build {name}"):
         op(*(a.to("meta") for a in args), **kw)
     assert wrapper.launches == before
+
+
+def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
+    """T outside the fast kernels' range: B3 at T=6 (the generic kernel)
+    and B1 from a T=9 DevicePlan (the dense kernel) run their plain
+    versions on CPU tensors, and on a non-CPU tensor raise when their
+    kernel cannot be built, launching nothing."""
+    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import transitive_forest_dense as tfd
+    from repro_torch.kernels import transitive_gemm as tg
+    monkeypatch.setattr(build, "load", _failing_build)
+    qx = torch.from_numpy(rng.integers(-128, 128, (3, 36)).astype(np.int8))
+    qw = torch.from_numpy(rng.integers(-8, 8, (5, 36)).astype(np.int8))
+    dplan = compile_plan(BatchedTransitiveEngine(4, 9).plan(qw.numpy()))
+    before = (tg.transitive_gemm_generic.launches,
+              tfd.transitive_forest_dense.launches)
+    exact = qx.long() @ qw.long().T
+    assert torch.equal(ops.transitive_gemm(qx, qw, w_bits=4, t=6).long(),
+                       exact)
+    assert torch.equal(ops.transitive_forest(dplan, qx.T).T.long(), exact)
+    with pytest.raises(RuntimeError, match="cannot build transitive_gemm"):
+        ops.transitive_gemm(qx.to("meta"), qw.to("meta"), w_bits=4, t=6)
+    with pytest.raises(RuntimeError,
+                       match="cannot build transitive_forest_dense"):
+        ops.transitive_forest(dplan, qx.T.to("meta"))
+    assert (tg.transitive_gemm_generic.launches,
+            tfd.transitive_forest_dense.launches) == before
 
 
 def test_build_needs_nvcc_and_nothing_runs_at_import(monkeypatch, tmp_path):

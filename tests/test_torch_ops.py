@@ -22,7 +22,7 @@ from repro_torch.core import bitslice  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.rg_lru import rg_lru_cuda  # noqa: E402
 from repro_torch.kernels.transitive_gemm import (  # noqa: E402
-    k_split, transitive_gemm_cuda)
+    k_split, transitive_gemm_cuda, transitive_gemm_generic)
 from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda  # noqa: E402
 
 
@@ -125,6 +125,37 @@ def test_ops_transitive_gemm_grouped_equals_reference(wbits, t, rng):
     want = np.asarray(ref_ops.transitive_gemm_grouped(
         jnp.asarray(xg), jnp.asarray(wg), w_bits=wbits, t=t))
     assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 6, 7, 9, 12])
+@pytest.mark.parametrize("wbits", [2, 4, 8])
+def test_transitive_gemm_any_t_equals_reference_pallas(t, wbits, rng):
+    """T outside {4, 8}: the wrappers (their plain version on CPU tensors;
+    the generic kernel's on the card) against the reference's
+    ``transitive_gemm_pallas`` in interpret mode, which takes any T with
+    bk % T == 0, and the int64 GEMM: exact, one group and three."""
+    from repro.kernels.transitive_gemm import transitive_gemm_pallas
+    m, n, bk = 8, 16, 4 * t
+    qx = _codes(rng, (m, 2 * bk), 8)
+    qw = _codes(rng, (n, 2 * bk), wbits)
+    want = np.asarray(transitive_gemm_pallas(
+        jnp.asarray(qx), jnp.asarray(qw), w_bits=wbits, t=t, bm=m, bn=n,
+        bk=bk, interpret=True))
+    np.testing.assert_array_equal(
+        want, qx.astype(np.int64) @ qw.astype(np.int64).T)
+    for fn in (transitive_gemm_cuda, transitive_gemm_generic):
+        got = fn(torch.from_numpy(qx), torch.from_numpy(qw), w_bits=wbits,
+                 t=t)
+        assert got.dtype == torch.int32 and got.shape == (m, 1, n)
+        np.testing.assert_array_equal(got[:, 0].numpy(), want)
+    xg = _codes(rng, (5, 3 * t * 2), 8)
+    wg = _codes(rng, (7, 3 * t * 2), wbits)
+    got = transitive_gemm_cuda(torch.from_numpy(xg), torch.from_numpy(wg),
+                               w_bits=wbits, t=t, groups=3)
+    want = np.stack([xg[:, i * 2 * t:(i + 1) * 2 * t].astype(np.int64)
+                     @ wg[:, i * 2 * t:(i + 1) * 2 * t].astype(np.int64).T
+                     for i in range(3)], axis=1)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -266,6 +297,51 @@ def test_w4a8_gemm_matches_reference(m, n, k, g, rng):
     got = ops.w4a8_gemm(*pt, group=g)
     want = np.asarray(ref_ops.w4a8_gemm(*jx, group=g))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=1e-2)
+
+
+def test_w4a8_gemm_group_not_a_multiple_of_4_matches_reference(rng):
+    """Group 6 over K=576 (the kernel's byte-wise dots): the plain
+    version against the reference's ``w4a8_gemm_pallas`` (interpret, one
+    K block), at the reference's tolerance, rtol 2e-3 and atol 1e-2."""
+    from repro.kernels.w4a8_gemm import w4a8_gemm_pallas
+    m, n, k, g = 8, 16, 576, 6
+    qx = _codes(rng, (m, k), 8)
+    sx = rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32)
+    qw = _codes(rng, (n, k), 4)
+    sg = rng.uniform(0.5, 2.0, (n, k // g)).astype(np.float32)
+    want = np.asarray(w4a8_gemm_pallas(
+        *(jnp.asarray(a) for a in (qx, sx, qw, sg)), group=g, bm=m, bn=n,
+        bk=k, interpret=True))
+    got = w4a8_gemm_cuda(*(torch.from_numpy(a) for a in (qx, sx, qw, sg)),
+                         group=g)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=1e-2)
+
+
+@pytest.mark.parametrize("xdt,adt,tol", [("float16", "float16", 1e-2),
+                                         ("float32", "bfloat16", 3e-4)])
+def test_rg_lru_mixed_dtypes_match_reference(xdt, adt, tol, rng):
+    """x and a in other dtypes than f32/f32 and bf16/bf16: the output takes
+    x's dtype in both packages. Tolerance: the reference's f32 3e-4 where
+    the output is f32 (both widen the same a values to f32); in float16
+    one output ulp (2^-10 relative) of |h| up to ~10, 1e-2."""
+    b, s, d = 2, 256, 64
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    a = rng.uniform(0.8, 0.999, (b, s, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    jx = [jnp.asarray(x, getattr(jnp, xdt)), jnp.asarray(a, getattr(jnp, adt)),
+          jnp.asarray(h0, getattr(jnp, xdt))]
+    pt = [torch.from_numpy(x).to(getattr(torch, xdt)),
+          torch.from_numpy(a).to(getattr(torch, adt)),
+          torch.from_numpy(h0).to(getattr(torch, xdt))]
+    from repro.kernels.rg_lru import rg_lru_pallas
+    want = rg_lru_pallas(*jx, interpret=True)
+    got = rg_lru_cuda(*pt)
+    assert got.dtype == getattr(torch, xdt)
+    assert str(want.dtype) == xdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 64, 32), (2, 256, 512)])

@@ -275,3 +275,56 @@ def test_engine_cuda_serves_from_forest_plans_without_packing(cell):
                              device="cpu"), prompts)
     assert pack_forest_plan.calls == calls
     assert got == want
+
+
+# The paged-attention kernel's three other pool layouts, served: the
+# unquantized base config (``launch/serve.py --fp``: exact pool, float
+# attention), and W4A8 linears with an int8 pool and float attention, or
+# an exact pool and int8 attention. (reference config, port config)
+# makers; the reference's integer GEMM is ``int_dot`` (bit-exact with
+# every backend's int32 accumulator, and quick in interpret mode), the
+# port's ``lut_cuda`` (its plain version on CPU tensors).
+_LAYOUT_CELLS = {
+    "fp": lambda r, p: (r, p),
+    "kv8-float-attention": lambda r, p: (
+        ref_serve_config(r, backend="int_dot").replace(
+            kv_cache_bits=8, quant_attention=False),
+        serve_config(p, backend="lut_cuda").replace(
+            kv_cache_bits=8, quant_attention=False)),
+    "exact-kv-int8-attention": lambda r, p: (
+        ref_serve_config(r, backend="int_dot").replace(
+            kv_cache_bits=16, quant_attention=True),
+        serve_config(p, backend="lut_cuda").replace(
+            kv_cache_bits=16, quant_attention=True)),
+}
+
+
+@pytest.mark.parametrize("cell_name", list(_LAYOUT_CELLS))
+def test_serve_engine_other_pool_layouts_equal_reference(cell_name):
+    """The reduced 2-layer smollm (the reference's own ``fp_cell`` in
+    tests/test_serve_engine.py) in float32, served by ServeEngine with the
+    paged kernel on in both packages, on the staggered prefix-sharing
+    workload: the port's tokens equal the reference's, and equal the
+    port's gather path's. The weights are the reference's, converted."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    ref_cfg, cfg = _LAYOUT_CELLS[cell_name](
+        ref_reduced("smollm_135m").replace(n_layers=2, dtype=jnp.float32),
+        get_reduced("smollm_135m").replace(n_layers=2, dtype=torch.float32))
+    ref_model = RefModel(ref_cfg.replace(paged_kernel=True))
+    raw = ref_model.init(jax.random.PRNGKey(0))
+    model = Model(cfg.replace(paged_kernel=True), device="cpu")
+    params = params_from_reference(jax.tree.map(np.asarray, raw), "cpu")
+    prompts = _prompts(model.cfg.vocab, seed=17)
+    want = _serve(RefServeEngine(ref_model, raw, n_slots=2,
+                                 max_len=MAX_LEN, page_size=PAGE,
+                                 paged_kernel=True), prompts)
+    before = paged_attention.launches
+    toks = {}
+    for kernel in (True, False):
+        toks[kernel] = _serve(ServeEngine(model, params, n_slots=2,
+                                          max_len=MAX_LEN, page_size=PAGE,
+                                          paged_kernel=kernel,
+                                          device="cpu"), prompts)
+    assert paged_attention.launches == before    # CPU: the plain version
+    assert toks[True] == want
+    assert toks[False] == want
