@@ -20,10 +20,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the compact plan's bytes), the profiler's device time per call at
      every ungrouped shape, beside B3's and ``torch._int_mm``'s, and the
      (K, M) entry's cost from a DevicePlan;
-  3. B2, the paged-attention kernel, in each of its four pool layouts
-     (int8 or exact bf16 pool x int8 or float attention) against the
-     gather + attend_cached path at B=4, KV=3, G=3, hd=64, page_size 16,
-     max_len 256 and 2048, ragged steps, within the bounds of
+  3. B2, the paged-attention kernel (one thread block cluster per slot
+     and KV head), in each of its four pool layouts (int8 or exact bf16
+     pool x int8 or float attention) against the gather + attend_cached
+     path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
+     ragged steps, two calls bit-identical, within the bounds of
      ``kernels.paged_attention.agreement``, with kernel / profiler /
      plain / library
      (``scaled_dot_product_attention``, exact float layout) / bound times;
@@ -37,7 +38,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      shared-memory floor of the gathers, the profiler's device time per
      call (one device op per call, asserted) and the K split;
   B3g. B3 at T outside {4, 8} (the generic kernel): T in {1, 2, 3, 5, 6,
-     7, 9, 12} x w_bits in {2, 4, 8} and a grouped case, exact;
+     7, 9, 12, 16, 32} x w_bits in {2, 4, 8} and a grouped case, exact;
   B1d. B1 for plans with T > 8: a T=9 ``engine_cuda`` linear (N=1536,
      K=576) through the dense two-pass kernel, exact against
      ``run_device`` at M in {4, 64}, its ``linear_apply`` equal to
@@ -75,8 +76,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      inputs (a third run: within the loose bound, asserted);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
-     and B1 from a T=9 plan, every kernel launched, each result equal to
-     (or, B4, B5, within tolerance of) its plain version.
+     and T=16, B1 from a T=9 and a T=15 plan and B5 over float64, every
+     kernel launched, each result equal to (or, B4 and f32 B5, within
+     tolerance of) its plain version.
 
 Every launch count in the JSON line is read from the run of the path
 that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
@@ -149,14 +151,14 @@ def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):          # a profile now and then records no events
+    for _ in range(5):          # a profile now and then records no events,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(iters):  # or drops some: profile again then
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        if events:
+        if events and all(e.count % iters == 0 for e in events):
             break
     total = sum(e.self_device_time_total for e in events) / iters
     kernel = sum(e.self_device_time_total for e in events
@@ -405,7 +407,7 @@ def check_attention(flush):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import (LAYOUTS, ROW_BUDGET,
-                                                     agreement,
+                                                     agreement, launch_plan,
                                                      paged_attention,
                                                      paged_attention_plain)
     from repro_torch.launch.specs import serve_config
@@ -433,6 +435,7 @@ def check_attention(flush):
                             device="cuda").to(torch.bfloat16)
             scale = hd ** -0.5
             got = paged_attention(q, pool, table, steps, cfg, scale)
+            again = paged_attention(q, pool, table, steps, cfg, scale)
             if layout == 0:
                 want = paged_attention_plain(q, pool, table, steps, cfg,
                                              scale)
@@ -444,15 +447,19 @@ def check_attention(flush):
             agree = agreement(got, want, pool, table, steps, cfg)
             err = agree["max_abs_err"]
             worst = max(worst, err)
+            same = torch.equal(got, again)
             ok = (got.dtype == want.dtype and torch.isfinite(got).all()
                   and agree["rows_beyond"] <= ROW_BUDGET
-                  and agree["worst_loose"] <= 1)
+                  and agree["worst_loose"] <= 1 and same)
             if not ok:
                 raise AssertionError(
                     f"paged attention kernel vs plain, {names[layout]}, "
                     f"max_len={max_len}: {agree} (at most {ROW_BUDGET} "
                     f"rows beyond the tight bound, worst_loose <= 1; dtypes "
-                    f"{got.dtype}, {want.dtype})")
+                    f"{got.dtype}, {want.dtype}; two calls bit-identical: "
+                    f"{same})")
+            plan = launch_plan(pps, ps, g, hd, pool["k"].element_size(),
+                               layout in (0, 3), quant)
             call = (lambda: paged_attention(q, pool, table, steps, cfg,
                                             scale))
             k_ms = cuda_ms(call, flush)
@@ -468,13 +475,16 @@ def check_attention(flush):
                   f"page_size={ps} max_len={max_len} pool "
                   f"{pool['k'].dtype} steps={steps.tolist()}: max_abs_err="
                   f"{err:.3e} (max|out| {float(want.float().abs().max()):.3e}"
+                  f", two calls bit-identical"
                   f", out {got.dtype}; rows beyond the tight bound "
                   f"{agree['rows_beyond']}/{agree['rows']}, worst "
                   f"|diff| / loose bound {agree['worst_loose']:.2e}) | "
                   f"kernel_ms={k_ms:.4f} device us/call "
                   f"{dev:.2f} (kernel {ker:.2f}, {ops:.0f} ops) plain_ms="
                   f"{p_ms:.4f} library_ms={lib_txt} bound_ms={b_ms:.6f} "
-                  f"({b_by})")
+                  f"({b_by}) | cluster {plan.cluster}, {plan.pages_per_rank} "
+                  f"pages per rank, {plan.chunk_rows} rows per chunk, "
+                  f"{plan.smem} B shared memory per block")
             if max_len == 256:
                 entries[layout] = {
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -543,11 +553,11 @@ def check_tgemm(flush):
             x = torch.full((m, k), fill[0], device="cuda", dtype=torch.int8)
         kw = dict(w_bits=w_bits, t=t, groups=groups)
         got = transitive_gemm_cuda(x, w, **kw)
-        want = transitive_gemm_plain(x, w, **kw)
         kg = k // groups
         gemm = torch.stack([int_matmul(x[:, i * kg:(i + 1) * kg],
                                        w[:, i * kg:(i + 1) * kg].T)
                             for i in range(groups)], dim=1)
+        want = transitive_gemm_plain(x, w, **kw) if t <= 16 else gemm
         torch.cuda.synchronize()
         err = max(int((got.long() - want.long()).abs().max()),
                   int((got.long() - gemm.long()).abs().max()))
@@ -602,15 +612,17 @@ def check_tgemm(flush):
 def check_tgemm_generic(flush):
     """B3 at T outside {4, 8}: ``transitive_gemm_cuda`` routes it to the
     generic kernel (one block per 256 columns, row and group; the row's
-    2^T LUT built by doubling per subtile). Exact against the plain
-    version and the integer GEMM at N=1536, M=4, K the largest multiple of
-    T up to 576, T in {1, 2, 3, 5, 6, 7, 9, 12} x w_bits in {2, 4, 8}, and
-    one grouped case; returns the JSON entry (timed at T=6, w_bits 4,
-    K=576: the input ROADMAP C1 named).
+    subset sums built by doubling per subtile as ceil(T / 8) sub-LUTs of
+    at most 2^8 entries). Exact against the integer GEMM and (T <= 16:
+    its LUT has 2^T entries) the plain version at N=1536, M=4, K the
+    largest multiple of T up to 576, T in {1, 2, 3, 5, 6, 7, 9, 12, 16,
+    32} x w_bits in {2, 4, 8}, and one grouped case; returns the JSON
+    entry (timed at T=6, w_bits 4, K=576: the input ROADMAP C1 named).
 
     Bound: x, w and the int32 output once over the memory rate, or the
-    adds (2^T per row and subtile for the LUT, one gather and one add per
-    output, subtile and plane) over the scalar rate."""
+    adds (2^min(T, 8) per row, subtile and 8 activations for the LUTs,
+    ceil(T / 8) gathers and adds per output, subtile and plane) over the
+    scalar rate."""
     import torch
     from repro_torch.core.backend import int_matmul
     from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
@@ -618,7 +630,8 @@ def check_tgemm_generic(flush):
                                                      transitive_gemm_plain)
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = [(1536, 576 // t * t, 4, bits, t, 1)
-             for t in (1, 2, 3, 5, 6, 7, 9, 12) for bits in (2, 4, 8)]
+             for t in (1, 2, 3, 5, 6, 7, 9, 12, 16, 32)
+             for bits in (2, 4, 8)]
     cases += [(576, 1536, 4, 4, 6, 4)]
     entry, worst = None, 0
     for n, k, m, w_bits, t, groups in cases:
@@ -632,11 +645,11 @@ def check_tgemm_generic(flush):
         got = transitive_gemm_cuda(x, w, **kw)
         if transitive_gemm_generic.launches != before + 1:
             raise AssertionError(f"T={t} did not run the generic kernel")
-        want = transitive_gemm_plain(x, w, **kw)
         kg = k // groups
         gemm = torch.stack([int_matmul(x[:, i * kg:(i + 1) * kg],
                                        w[:, i * kg:(i + 1) * kg].T)
                             for i in range(groups)], dim=1)
+        want = transitive_gemm_plain(x, w, **kw) if t <= 16 else gemm
         torch.cuda.synchronize()
         err = max(int((got.long() - want.long()).abs().max()),
                   int((got.long() - gemm.long()).abs().max()))
@@ -655,9 +668,10 @@ def check_tgemm_generic(flush):
         xm[:m] = x
         wt = w.T
         lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
-        j = k // t
+        j, nh = k // t, -(-t // 8)
         n_bytes = m * k + n * k + m * groups * n * 4
-        n_ops = m * j * (1 << t) + m * n * j * w_bits * 2
+        n_ops = (m * j * sum(1 << min(8, t - 8 * h) for h in range(nh))
+                 + m * n * j * w_bits * 2 * nh)
         b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
         print(f"[B3 generic] {tag}: exact | kernel_ms={k_ms:.4f} device "
               f"us/call {dev:.2f} (kernel {ker:.2f}) plain_ms={p_ms:.4f} "
@@ -667,7 +681,7 @@ def check_tgemm_generic(flush):
                  "bound_by": b_by, "library_ms": lib_ms, "device_us": dev,
                  "shape": "N=1536 K=576 M=4 w_bits=4 T=6"}
     print(f"[B3 generic] {len(cases)} cases exact (T 1, 2, 3, 5, 6, 7, 9, "
-          f"12 x w_bits 2, 4, 8, and one grouped)")
+          f"12, 16, 32 x w_bits 2, 4, 8, and one grouped)")
     entry["max_abs_err"] = worst
     return entry
 
@@ -813,8 +827,14 @@ def check_w4a8(flush):
                   f"plain_ms={p_ms:.4f} library_ms=null bound_ms="
                   f"{b_ms:.6f} ({b_by})")
             if (n, k, g, m) == (1536, 576, 64, 4):
+                dev, ker, _ = device_us(
+                    lambda: w4a8_gemm_cuda(x, sx, w, sg, group=g),
+                    kernels=("w4a8_dot",))
+                print(f"[B4] {tag}: device us/call {dev:.2f} (kernel "
+                      f"{ker:.2f})")
                 entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": None,
+                         "device_us": dev,
                          "shape": "N=1536 K=576 group=64 M=4"}
     entry["max_abs_err"] = worst
     return entry
@@ -860,8 +880,12 @@ def check_rg_lru(flush):
               f"{err:.3e} (tolerance {tol}) | kernel_ms={k_ms:.4f} plain_ms="
               f"{p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} ({b_by})")
         if xdt == adt == f32:
+            dev, ker, _ = device_us(lambda: rg_lru_cuda(x, a, h0),
+                                    kernels=("rg_lru_seq",))
+            print(f"[B5] B={b} S={s} D={d} float32: device us/call "
+                  f"{dev:.2f} (kernel {ker:.2f})")
             entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None,
+                     "bound_by": b_by, "library_ms": None, "device_us": dev,
                      "shape": f"B={b} S={s} D={d} float32"}
     entry["max_abs_err"] = worst
     return entry
@@ -1260,12 +1284,13 @@ def layout_paths(raw, cfg):
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
-    take T outside the fast kernels' (``transitive_gemm`` at T=6 runs the
-    generic B3 kernel, ``transitive_forest`` from a T=9 DevicePlan the
-    dense B1 kernel), with the launch counts set to 0 just before and read
-    just after; then each result against its kernel's plain version
-    (exact for the integer kernels, the reference's tolerances for B4 and
-    B5)."""
+    take T outside the fast kernels' (``transitive_gemm`` at T=6 and T=16
+    runs the generic B3 kernel, ``transitive_forest`` from a T=9 and a
+    T=15 DevicePlan the dense B1 kernel, the T=15 one with its level
+    tables in global memory) and ``rg_lru`` over float64, with the launch
+    counts set to 0 just before and read just after; then each result
+    against its kernel's plain version (exact for the integer kernels and
+    for float64 B5, the reference's tolerances for B4 and f32 B5)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
@@ -1299,6 +1324,15 @@ def ops_path():
                        dtype=torch.int32)
     dplan9 = compile_plan(BatchedTransitiveEngine(4, 9).plan(wf),
                           device="cuda")
+    dplan15 = compile_plan(BatchedTransitiveEngine(4, 15).plan(
+        np.random.default_rng(15).integers(-8, 8, size=(16, 30))),
+        device="cuda")
+    xf15 = torch.randint(-128, 128, (30, 4), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    hx64 = torch.randn((2, 256, 512), generator=gen, device="cuda",
+                       dtype=torch.float64)
+    ha64 = (torch.rand((2, 256, 512), generator=gen, device="cuda",
+                       dtype=torch.float64) * 0.2 + 0.8)
     kernels = (transitive_forest, transitive_gemm_cuda, w4a8_gemm_cuda,
                rg_lru_cuda, transitive_gemm_generic, transitive_forest_dense)
     for k in kernels:
@@ -1309,20 +1343,26 @@ def ops_path():
             ops.rg_lru(hx, ha, h0),
             ops.transitive_forest(dplan, xf),
             ops.transitive_gemm(x, w, w_bits=4, t=6),
-            ops.transitive_forest(dplan9, xf))
+            ops.transitive_forest(dplan9, xf),
+            ops.transitive_gemm(x, w, w_bits=4, t=16),
+            ops.transitive_forest(dplan15, xf15),
+            ops.rg_lru(hx64, ha64, h0[:2, :512]))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     print(f"[ops] launches: {launches}")
     if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 2,
-                    "w4a8_gemm_cuda": 1, "rg_lru_cuda": 1,
-                    "transitive_gemm_generic": 1,
-                    "transitive_forest_dense": 1}:
+                    "w4a8_gemm_cuda": 1, "rg_lru_cuda": 2,
+                    "transitive_gemm_generic": 2,
+                    "transitive_forest_dense": 2}:
         raise AssertionError(f"ops API launches wrong: {launches}")
     exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
              (outs[1], ref.transitive_matmul_grouped_ref(xg, wg, 4)),
              (outs[4], forest_plain(dplan, xf)),
              (outs[5], ref.transitive_matmul_ref(x, w, 4, 6)),
-             (outs[6], forest_plain(dplan9, xf)))
+             (outs[6], forest_plain(dplan9, xf)),
+             (outs[7], ref.transitive_matmul_ref(x, w, 4, 16)),
+             (outs[8], forest_plain(dplan15, xf15)),
+             (outs[9], ref.rg_lru_ref(hx64, ha64, h0[:2, :512])))
     for got, want in exact:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError("ops API integer result != plain version")
@@ -1332,9 +1372,9 @@ def ops_path():
     if not torch.allclose(outs[3], ref.rg_lru_ref(hx, ha, h0), rtol=3e-4,
                           atol=3e-4):
         raise AssertionError("ops.rg_lru beyond 3e-4")
-    print("[ops] transitive_gemm (T=8 and T=6), transitive_gemm_grouped, "
-          "transitive_forest (T=8 and T=9) exact; w4a8_gemm and rg_lru "
-          "within tolerance")
+    print("[ops] transitive_gemm (T=8, 6 and 16), transitive_gemm_grouped, "
+          "transitive_forest (T=8, 9 and 15), rg_lru in float64 exact; "
+          "w4a8_gemm and f32 rg_lru within tolerance")
     return launches
 
 

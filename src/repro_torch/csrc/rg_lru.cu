@@ -5,10 +5,11 @@
 //
 //   h_t = a_t * h_{t-1} + x_t   over x, a (B, S, D), h_{-1} = h0 (B, D)
 //
-// with an f32 carry; x and a are each float32, bfloat16 or float16 (any
-// pair), and the output h (B, S, D) takes x's dtype: every step is
-// computed in f32 and rounded once to x's dtype, as the plain version
-// rounds its f32 result.
+// with an f32 carry; x and a are each float32, bfloat16, float16 or
+// float64 (any pair), and the output h (B, S, D) takes x's dtype: every
+// step is computed in f32 and rounded once to x's dtype, as the plain
+// version rounds its f32 result (a float64 input is first rounded to f32,
+// as the plain version's .to(float32) and the reference's astype do).
 //
 // Design. One thread per (b, d) walks the sequence in order, so the
 // carry stays in a register and nothing crosses blocks; neighbouring
@@ -41,6 +42,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 }
 
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(double v) { return __double2float_rn(v); }
 
 __device__ __forceinline__ void from_f(float v, float* o) { *o = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) {
@@ -49,6 +51,7 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) {
 __device__ __forceinline__ void from_f(float v, __half* o) {
   *o = __float2half_rn(v);
 }
+__device__ __forceinline__ void from_f(float v, double* o) { *o = (double)v; }
 
 template <typename TX, typename TA>
 __global__ void __launch_bounds__(128)
@@ -97,6 +100,7 @@ int launch_a(const void* x, const void* a, int a_dtype, const void* h0,
     case 0: return launch<TX, float>(x, a, h0, B, S, D, out, st);
     case 1: return launch<TX, __nv_bfloat16>(x, a, h0, B, S, D, out, st);
     case 2: return launch<TX, __half>(x, a, h0, B, S, D, out, st);
+    case 3: return launch<TX, double>(x, a, h0, B, S, D, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -107,7 +111,7 @@ extern "C" {
 
 // out (B, S, D) in x's dtype. x, a, out contiguous (B, S, D); h0 (B, D)
 // contiguous f32. Dtype codes for x and a: 0 float32, 1 bfloat16,
-// 2 float16. Returns the cudaError_t of the launch (0 on success).
+// 2 float16, 3 float64. Returns the cudaError_t of the launch (0 on success).
 int rg_lru_launch(const void* x, int x_dtype, const void* a, int a_dtype,
                   const void* h0, int B, int S, int D, void* out,
                   void* stream) {
@@ -118,6 +122,7 @@ int rg_lru_launch(const void* x, int x_dtype, const void* a, int a_dtype,
     case 1:
       return launch_a<__nv_bfloat16>(x, a, a_dtype, h0, B, S, D, out, st);
     case 2: return launch_a<__half>(x, a, a_dtype, h0, B, S, D, out, st);
+    case 3: return launch_a<double>(x, a, a_dtype, h0, B, S, D, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,11 +14,16 @@
 // tile*2^T + prefix; checked once per plan by check_tile_local). So:
 //
 //   pass 1 (forest_dense_tiles): one block per (tile j, block of bm columns)
-//     holds the tile's 2^T x bm psum table in shared memory, double
-//     buffered across levels, plus the tile's T activation rows and a
-//     pinned zero row (2 * 2^T * bm + (T + 1) * bm int32; the wrapper
-//     halves bm from 16 until it fits the block's 227 KiB, so T <= 14
-//     runs and T = 15 does not). It applies the direct entries that target its tile
+//     holds the tile's 2^T x bm psum table, double buffered across
+//     levels, plus the tile's T activation rows and a pinned zero row
+//     ((T + 1) * bm int32) in shared memory. The table is in shared
+//     memory too (2 * 2^T * bm int32; the wrapper halves bm from 16 until
+//     it fits the block's 227 KiB) up to T = 14; from T = 15, where even
+//     one column's two tables do not fit, it lives in a global-memory
+//     workspace of two tables per block, which the wrapper allocates.
+//     Each block reads and writes only its own tile's rows, so a block
+//     barrier between levels orders it either way. It applies the direct
+//     entries that target its tile
 //     (direct_idx is sorted; a binary search finds the tile's range, pad
 //     lanes at J*2^T fall outside every tile and are dropped), runs the T
 //     gather-only levels psum = psum[src] + x[xsrc] with a barrier between
@@ -50,12 +55,15 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int n,
   return lo;
 }
 
+// work: null for tables in shared memory, else the global workspace of
+// two size * bm tables per block.
 __global__ void forest_dense_tiles(const int32_t* __restrict__ x, int K, int M,
                              const int32_t* __restrict__ level_src,
                              const int32_t* __restrict__ level_xsrc,
                              const int32_t* __restrict__ direct_idx,
                              const int32_t* __restrict__ direct_bits, int D,
-                             int T, int bm, int32_t* __restrict__ scratch) {
+                             int T, int bm, int32_t* __restrict__ work,
+                             int32_t* __restrict__ scratch) {
   extern __shared__ int32_t smem[];
   const int size = 1 << T;
   const int J = K / T;
@@ -64,15 +72,17 @@ __global__ void forest_dense_tiles(const int32_t* __restrict__ x, int K, int M,
   const int col0 = blockIdx.y * bm;
   const int base = j * size;
   const int nt = blockDim.x;
-  int32_t* cur = smem;                       // size * bm
-  int32_t* nxt = smem + size * bm;           // size * bm
-  int32_t* xs = smem + 2 * size * bm;        // (T + 1) * bm; row T = 0
+  const long cells = (long)size * bm;
+  int32_t* xs = smem;                        // (T + 1) * bm; row T = 0
+  int32_t* cur = smem + (T + 1) * bm;        // size * bm
+  if (work) cur = work + ((long)blockIdx.y * J + j) * 2 * cells;
+  int32_t* nxt = cur + cells;                // size * bm
 
   for (int i = threadIdx.x; i < (T + 1) * bm; i += nt) {
     const int b = i / bm, c = i % bm, col = col0 + c;
     xs[i] = (b < T && col < M) ? x[(long)(j * T + b) * M + col] : 0;
   }
-  for (int i = threadIdx.x; i < size * bm; i += nt) cur[i] = 0;
+  for (long i = threadIdx.x; i < cells; i += nt) cur[i] = 0;
   __syncthreads();
 
   // direct dispatch: subset sums of this tile's outlier / root patterns
@@ -83,7 +93,7 @@ __global__ void forest_dense_tiles(const int32_t* __restrict__ x, int K, int M,
     const int32_t* bits = direct_bits + (long)d * T;
     int32_t acc = 0;
     for (int b = 0; b < T; ++b) acc += bits[b] * xs[b * bm + c];
-    cur[(direct_idx[d] - base) * bm + c] = acc;
+    cur[(long)(direct_idx[d] - base) * bm + c] = acc;
   }
   __syncthreads();
 
@@ -91,19 +101,19 @@ __global__ void forest_dense_tiles(const int32_t* __restrict__ x, int K, int M,
   for (int l = 0; l < T; ++l) {
     const int32_t* src = level_src + l * R + base;
     const int32_t* xsrc = level_xsrc + l * R + base;
-    for (int e = threadIdx.x; e < size * bm; e += nt) {
-      const int r = e / bm, c = e % bm;
+    for (long e = threadIdx.x; e < cells; e += nt) {
+      const int r = (int)(e / bm), c = (int)(e % bm);
       const int s = src[r] - base;
       const int xr = xsrc[r];
       const int xb = (xr == K) ? T : xr - j * T;
-      nxt[e] = cur[s * bm + c] + xs[xb * bm + c];
+      nxt[e] = cur[(long)s * bm + c] + xs[xb * bm + c];
     }
     __syncthreads();
     int32_t* t = cur; cur = nxt; nxt = t;
   }
 
-  for (int e = threadIdx.x; e < size * bm; e += nt) {
-    const int r = e / bm, c = e % bm, col = col0 + c;
+  for (long e = threadIdx.x; e < cells; e += nt) {
+    const int r = (int)(e / bm), c = (int)(e % bm), col = col0 + c;
     if (col < M) scratch[(long)(base + r) * M + col] = cur[e];
   }
 }
@@ -133,13 +143,17 @@ __global__ void forest_dense_ape(const int32_t* __restrict__ scratch, int M,
 
 extern "C" {
 
-// Shared memory pass 1 needs for a block of bm columns at width T.
-size_t transitive_forest_dense_smem(int T, int bm) {
-  return (size_t)(2 * (1 << T) * bm + (T + 1) * bm) * sizeof(int32_t);
+// Shared memory pass 1 needs for a block of bm columns at width T, with
+// its tables in shared memory (in_smem) or in a global workspace.
+size_t transitive_forest_dense_smem(int T, int bm, int in_smem) {
+  return ((in_smem ? 2 * ((size_t)1 << T) * bm : 0) + (size_t)(T + 1) * bm) *
+         sizeof(int32_t);
 }
 
 // Launches both passes on `stream`; returns the cudaError_t of the launch
 // (0 on success). All pointers are device pointers to contiguous int32.
+// work: null to keep pass 1's tables in shared memory, else a workspace
+// of 2 * 2^T * bm int32 per pass-1 block (J * ceil(M / bm) blocks).
 int transitive_forest_dense_launch(const void* x, int K, int M,
                                    const void* level_src,
                                    const void* level_xsrc,
@@ -147,10 +161,11 @@ int transitive_forest_dense_launch(const void* x, int K, int M,
                                    const void* direct_bits, int D,
                                    const void* gather_idx, const void* signs,
                                    int T, int S, int N, int G, int bm,
-                                   void* scratch, void* out, void* stream) {
+                                   void* work, void* scratch, void* out,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int J = K / T;
-  const size_t smem = transitive_forest_dense_smem(T, bm);
+  const size_t smem = transitive_forest_dense_smem(T, bm, work == nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         forest_dense_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -161,7 +176,8 @@ int transitive_forest_dense_launch(const void* x, int K, int M,
   forest_dense_tiles<<<grid1, 256, smem, st>>>(
       (const int32_t*)x, K, M, (const int32_t*)level_src,
       (const int32_t*)level_xsrc, (const int32_t*)direct_idx,
-      (const int32_t*)direct_bits, D, T, bm, (int32_t*)scratch);
+      (const int32_t*)direct_bits, D, T, bm, (int32_t*)work,
+      (int32_t*)scratch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long total = (long)N * G * M;

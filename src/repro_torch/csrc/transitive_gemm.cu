@@ -472,41 +472,60 @@ cudaError_t by_rows(const int8_t* x, const int8_t* w, int M, int N, int K,
 
 
 // ---------------------------------------------------------------------
-// Any T: the generic kernel (T in 1..15, the T that the fast kernel above
+// Any T: the generic kernel (T in 1..32, the T that the fast kernel above
 // does not take). One block of GT threads per (GN = GT columns n, row m,
 // group). Per T-wide subtile of the group's K range the block builds the
-// row's complete 2^T-entry subset-sum LUT in shared memory by doubling,
-// as the reference's _lut_full does (step b writes lut[2^b + q] = lut[q]
-// + x[b] for q < 2^b: one add per entry, a barrier per step), then each
-// thread makes its column's S TransRow patterns from the weight bytes
-// (bit i of plane s = bit s of w[n, j*T + i]) and adds sign_s * lut[p_s],
-// sign_s = 2^s, or -2^(S-1) for the top plane, wrapping mod 2^32 like the
-// reference's int32 accumulator. The LUT is 2^T int32, so T <= 15 fits a
-// block (128 KiB at T = 15). No tuning: the LUT build is 2^T adds per
-// subtile and row against GN * S gathers, and the weight bytes are read
-// column by column.
+// row's subset sums as NH = ceil(T / 8) sub-LUTs, sub-LUT h over the
+// subtile's activations 8h .. min(8h + 8, T) - 1 (the reference's
+// split-LUT idea, src/repro/kernels/transitive_gemm.py, extended to any
+// T): by doubling, step b writes lut_h[2^b + q] = lut_h[q] + x[8h + b] for
+// q < 2^b, thread q for every sub-LUT (one add per entry, a barrier per
+// step, at most 8 steps; every thread loads the step's x values before
+// the branch, which keeps the loads off the barrier chain). Each thread then makes its column's S TransRow patterns
+// from the weight bytes (bit i of plane s = bit s of w[n, j*T + i]; 32-bit
+// patterns, as the reference packs them) and gathers each plane's subset
+// sum as the sum of its NH sub-pattern lookups: subset sums are additive
+// over disjoint bits, so that is exact. It adds sign_s * sum, sign_s =
+// 2^s, or -2^(S-1) for the top plane, wrapping mod 2^32 like the
+// reference's int32 accumulator. The LUTs take NH * 256 int32 (4 KiB at
+// T = 32) of static shared memory. NH is a template parameter, so the
+// T <= 8 instance makes one lookup per plane, as a full 2^T LUT does. No
+// tuning: the build is NH * 2^8 adds per subtile and row against GN * S *
+// NH gathers, and the weight bytes are read column by column.
 constexpr int GT = 256;        // threads (= columns) per generic block
+constexpr int GMAX_T = 32;     // TransRow patterns are 32-bit
 
+template <int NH>              // ceil(T / 8) sub-LUTs
 __global__ void __launch_bounds__(GT)
 tgemm_generic(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
               int M, int N, int K, int G, int S, int T,
               uint32_t* __restrict__ out) {
-  extern __shared__ int32_t glut[];             // 2^T entries
+  __shared__ int32_t glut[NH][256];
   const int n = blockIdx.x * GT + threadIdx.x;
   const int m = blockIdx.y, g = blockIdx.z;
-  const int kg = K / G, size = 1 << T;
+  const int kg = K / G;
   const int8_t* xrow = x + (size_t)m * K + (size_t)g * kg;
   const int8_t* wrow = w + (size_t)(n < N ? n : 0) * K + (size_t)g * kg;
   const uint32_t mask = (1u << S) - 1u;
+  uint32_t hmask[NH];                           // sub-pattern h's bits
+#pragma unroll
+  for (int h = 0; h < NH; ++h) hmask[h] = (1u << min(8, T - 8 * h)) - 1u;
   uint32_t acc = 0;
   for (int k0 = 0; k0 < kg; k0 += T) {
-    __syncthreads();                            // the last LUT is used
-    if (threadIdx.x == 0) glut[0] = 0;
-    for (int b = 0; b < T; ++b) {
+    __syncthreads();                            // the last LUTs are used
+    if ((int)threadIdx.x < NH) glut[threadIdx.x][0] = 0;
+    for (int b = 0; b < 8 && b < T; ++b) {
       __syncthreads();
-      const int32_t xb = xrow[k0 + b];
-      for (int q = threadIdx.x; q < (1 << b); q += GT)
-        glut[(1 << b) + q] = glut[q] + xb;
+      int32_t xb[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        xb[h] = 8 * h + b < T ? xrow[k0 + 8 * h + b] : 0;
+      const int q = threadIdx.x;                // 2^b <= 128 < GT entries
+      if (q < (1 << b)) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          if (8 * h + b < T) glut[h][(1 << b) + q] = glut[h][q] + xb[h];
+      }
     }
     __syncthreads();
     if (n < N) {
@@ -519,7 +538,10 @@ tgemm_generic(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int s = 0; s < 8; ++s) {
         if (s < S) {
-          const uint32_t v = (uint32_t)glut[pat[s] & (size - 1)];
+          uint32_t v = 0;
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+            v += (uint32_t)glut[h][(pat[s] >> (8 * h)) & hmask[h]];
           acc += (s == S - 1) ? (0u - (v << s)) : (v << s);
         }
       }
@@ -553,25 +575,24 @@ int transitive_gemm_launch(const void* x, const void* w, int M, int N, int K,
   return (int)by_rows<4>(xp, wp, M, N, K, G, S, ksplit, op, st);
 }
 
-// The generic kernel for any T in 1..15 (the fast kernel takes T = 4, 8):
+// The generic kernel for any T in 1..32 (the fast kernel takes T = 4, 8):
 // same function and layouts as transitive_gemm_launch, K % G == 0 and
 // (K / G) % T == 0, S in [2, 8]; one launch. Returns the cudaError_t of
-// the launch (0 on success), cudaErrorInvalidValue for T outside 1..15.
+// the launch (0 on success), cudaErrorInvalidValue for T outside 1..32
+// (the reference's TransRow patterns are 32-bit).
 int transitive_gemm_generic_launch(const void* x, const void* w, int M,
                                    int N, int K, int G, int S, int T,
                                    void* out, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || T < 1 || T > 15 ||
-      (K / G) % T || S < 2 || S > 8)
+  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || T < 1 ||
+      T > GMAX_T || (K / G) % T || S < 2 || S > 8)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int32_t) << T;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tgemm_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   dim3 grid((N + GT - 1) / GT, M, G);
-  tgemm_generic<<<grid, GT, smem, (cudaStream_t)stream>>>(
+  const int nh = (T + 7) / 8;
+  auto* kernel = nh == 1   ? tgemm_generic<1>
+                 : nh == 2 ? tgemm_generic<2>
+                 : nh == 3 ? tgemm_generic<3>
+                           : tgemm_generic<4>;
+  kernel<<<grid, GT, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, M, N, K, G, S, T, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -14,16 +14,20 @@ instance of the kernel each (:data:`LAYOUTS`):
 :func:`paged_attention` prepares q as the reference's wrapper does (per
 token int8 codes in q's own dtype under quantized attention; f32 in the
 int8 pool's float layout; as it is in the exact pool's), then on CUDA
-tensors launches one block per (slot, KV head) that walks only the slot's
-live pages; on CPU tensors it runs :func:`paged_attention_plain`, the
-gather + ``attend_cached`` path. Each launch adds one to
-``paged_attention.launches``. The kernel's softmax and float dots sum in
-another order than the plain version, so the two agree within the
-bounds of :func:`agreement`, not bit for bit.
+tensors launches one thread block cluster per (slot, KV head), whose
+ranks split the slot's live pages and reduce the row statistics through
+distributed shared memory (:func:`launch_plan` chooses the cluster size,
+the pages per rank and the rows staged at once); on CPU tensors it runs
+:func:`paged_attention_plain`, the gather + ``attend_cached`` path. Each
+launch adds one to ``paged_attention.launches``. The kernel's softmax and
+float dots sum in another order than the plain version, so the two agree
+within the bounds of :func:`agreement`, not bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +35,8 @@ from repro_torch.kernels import build
 from repro_torch.quant.quantize import quantize_per_token
 
 __all__ = ["paged_attention", "paged_attention_plain", "agreement",
-           "LAYOUTS", "ROW_BUDGET"]
+           "launch_plan", "smem_bytes", "LaunchPlan", "LAYOUTS",
+           "ROW_BUDGET"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,17 +49,101 @@ LAYOUTS = {(True, True): (0, "int8 pool + int8 attention"),
 _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("paged_attention")
+# The kernel's constants (csrc/paged_attention.cu): threads per block,
+# query heads per KV head at most, blocks per cluster at most (the
+# portable size) and the shared memory a block may use.
+THREADS, MAX_G, MAX_CLUSTER = 128, 8, 8
+SMEM_LIMIT = 232448
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(g: int, hd: int, itemsize: int, int8_pool: bool,
+               quant: bool, lanes: int, chunk_rows: int) -> int:
+    """A block's dynamic shared memory, as the kernel carves it
+    (``smem_bytes`` in the CUDA source): the K chunk (which later holds the
+    P.V partial sums of the block's parts, 16 * THREADS * G bytes), the V
+    chunk, the chunk's K scales and every lane's V scale (int8 pool), the
+    score row (G * lanes f32), the inbox of the P.V sums this rank adds
+    (G * hd + 8 words), q (G * hd words), the statistics, the P codes
+    (quantized attention)."""
+    rb = hd * itemsize
+    small = (7 * MAX_G + (THREADS // 32) * MAX_G + THREADS + 2 * hd) * 4
+    sizes = (max(chunk_rows * rb, 16 * THREADS * g), chunk_rows * rb,
+             chunk_rows * 4 if int8_pool else 0, lanes * 4 if int8_pool else 0,
+             g * lanes * 4, (g * hd + MAX_CLUSTER) * 4, g * hd * 4, small,
+             g * lanes if quant else 0)
+    return sum(_align16(n) for n in sizes)
+
+
+class LaunchPlan(NamedTuple):
+    """How one call is spread: ``cluster`` blocks per (slot, KV head);
+    rank r owns pages r, r + cluster, ... (``pages_per_rank`` at most);
+    ``chunk_rows`` pool rows are staged at once; ``smem`` bytes per
+    block."""
+    cluster: int
+    pages_per_rank: int
+    chunk_rows: int
+    smem: int
+
+    def pages(self, rank: int, n_pages: int) -> list[int]:
+        """The page indices (of a table ``n_pages`` wide) rank owns."""
+        return list(range(rank, n_pages, self.cluster))
+
+    def grid(self, slots: int, kv_heads: int) -> tuple[int, int]:
+        """The launch's grid: block x serves slot x // cluster as rank
+        x % cluster (the cluster dims are (cluster, 1, 1)), block y the
+        KV head."""
+        return self.cluster * slots, kv_heads
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n_pages: int, page_size: int, g: int, hd: int,
+                itemsize: int, int8_pool: bool, quant: bool) -> LaunchPlan:
+    """The launch for a table of ``n_pages`` pages of ``page_size`` rows:
+    the portable cluster of min(8, n_pages) blocks (one grid column of
+    cluster blocks per slot, so the cluster divides the grid), each owning
+    every cluster-th page, and the most rows per staged chunk that keep a
+    block within 227 KiB of shared memory (the whole of a rank's rows at
+    every serving shape). Raises when not even one row fits. Cached: the
+    serving loop asks for the same few shapes on every call."""
+    cluster = min(MAX_CLUSTER, n_pages)
+    ppr = -(-n_pages // cluster)
+    lanes = ppr * page_size
+    args = (g, hd, itemsize, int8_pool, quant, lanes)
+    if smem_bytes(*args, 1) > SMEM_LIMIT:
+        raise ValueError(
+            f"paged attention: {ppr} pages of {page_size} rows per rank "
+            f"(G={g}, hd={hd}) outgrow a block's shared memory")
+    lo, hi = 1, lanes                       # largest chunk that fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_bytes(*args, mid) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return LaunchPlan(cluster, ppr, lo, smem_bytes(*args, lo))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``csrc/paged_attention.cu``."""
     if not getattr(lib, "_typed", False):
         lib.paged_attention_launch.argtypes = [
             _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            ctypes.c_float, _P, _P]
+            ctypes.c_float, _I, _I, _I, _P, _P]
         lib.paged_attention_launch.restype = _I
+        lib.paged_attention_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I]
+        lib.paged_attention_smem.restype = ctypes.c_size_t
         lib.paged_attention_error.argtypes = [_I]
         lib.paged_attention_error.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return typed(build.load("paged_attention"))
 
 
 def paged_attention_plain(q, pool, page_indices, steps, cfg, scale):
@@ -131,7 +220,10 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
     dtype; ``page_indices`` (B, P) int32; ``steps`` (B,) int32, the
     position written this step. Returns (B, 1, H, hd): the pool dtype in
     the exact pool's float layout, else f32 (what ``attend_cached`` gives
-    for the layout)."""
+    for the layout). The kernel stages K and V rows in 16-byte units: a
+    ``k`` or ``v`` leaf that does not start on a 16-byte boundary (a view
+    at an odd offset; the serve pool's layers always do) is copied on
+    each call, outside the launch count and the kernel's device time."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool, page_indices, steps, cfg,
                                      scale)
@@ -156,6 +248,9 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
         if a.device != q.device or not a.is_contiguous():
             raise ValueError(f"pool leaf {name} must be contiguous on "
                              f"{q.device}")
+    for name in ("k", "v"):                     # staged in 16-byte units
+        if leaves[name].data_ptr() % 16:
+            leaves[name] = leaves[name].clone()
     pool_dtype = pool["k"].dtype
     if not int8_pool and (pool_dtype not in _POOL_DTYPE
                           or pool["v"].dtype != pool_dtype):
@@ -181,13 +276,17 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
     qk = qk.contiguous()
     out_dtype = pool_dtype if layout == 2 else torch.float32
     out = torch.empty((b, kvh, g, hd), dtype=out_dtype, device=q.device)
+    plan = launch_plan(pages, ps, g, hd, pool_dtype.itemsize, int8_pool,
+                       bool(cfg.quant_attention))
     ptr = (lambda a: None if a is None else a.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_launch(
         layout, _POOL_DTYPE.get(pool_dtype, 0), qk.data_ptr(), ptr(sq32),
         leaves["k"].data_ptr(), leaves["v"].data_ptr(), ptr(leaves.get("ks")),
         ptr(leaves.get("vs")), table.data_ptr(), st.data_ptr(),
-        b, kvh, g, hd, ps, pages, float(scale), out.data_ptr(), stream)
+        plan.grid(b, kvh)[0], kvh, g, hd, ps, pages, float(scale),
+        plan.cluster, plan.pages_per_rank, plan.chunk_rows, out.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: "
                            f"{lib.paged_attention_error(err).decode()}")

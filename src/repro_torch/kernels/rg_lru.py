@@ -6,11 +6,10 @@ Replaces the Pallas kernel ``repro/kernels/rg_lru.py`` (``rg_lru_pallas``).
 CPU tensors it runs the plain version (``kernels/ref.py::rg_lru_ref``, a
 sequential f32 loop); on CUDA tensors it launches the kernel or raises.
 Each launch adds one to ``rg_lru_cuda.launches``. x and a may each be
-float32, bfloat16 or float16; both compute in f32 and round h once to x's
-dtype. Kernel and plain version round the same operations in the same
-order, so they agree bit for bit; the reference's doubling scan rounds
-otherwise. Bound and design
-notes are in the CUDA source.
+float32, bfloat16, float16 or float64; both compute in f32 and round h
+once to x's dtype. Kernel and plain version round the same operations in
+the same order, so they agree bit for bit; the reference's doubling scan
+rounds otherwise. Bound and design notes are in the CUDA source.
 """
 from __future__ import annotations
 
@@ -24,7 +23,8 @@ __all__ = ["rg_lru_cuda", "rg_lru_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float64: 3}
 
 
 def _library() -> ctypes.CDLL:
@@ -57,7 +57,8 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
     """h (B, S, D) in x's dtype.
 
     CPU tensors take the plain version. Anything else must be CUDA
-    tensors on one device, x and a each float32, bfloat16 or float16;
+    tensors on one device, x and a each float32, bfloat16, float16 or
+    float64;
     the kernel is built at first use, and a build or launch failure
     raises."""
     _check(x, a, h0)
@@ -69,8 +70,8 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
         raise ValueError(f"rg_lru runs on CUDA or CPU tensors on one "
                          f"device, got {x.device}, {a.device}, {h0.device}")
     if x.dtype not in _DTYPE_CODE or a.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes x and a in float32, bfloat16 "
-                         f"or float16, got {x.dtype} and {a.dtype}")
+        raise ValueError(f"the kernel takes x and a in float32, bfloat16, "
+                         f"float16 or float64, got {x.dtype} and {a.dtype}")
     b, s, d = x.shape
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if out.numel() == 0:

@@ -14,10 +14,13 @@ those plans; the reference runs a DevicePlan of any T.
 :func:`transitive_forest_dense` takes int32 x (K, M) and returns (N, M)
 ungrouped, (N, G, M) grouped. On CPU tensors it runs the plain version,
 ``run_device``; on CUDA tensors it launches the kernel or raises. Each
-launch adds one to ``transitive_forest_dense.launches``. The table needs
-``2 * 2^T * bm + (T + 1) * bm`` int32 of shared memory: bm (columns per
-block) is halved from 16 until it fits 227 KiB, so T <= 14 runs and a
-larger T raises with that bound.
+launch adds one to ``transitive_forest_dense.launches``. Pass 1 keeps the
+tile's activation rows ((T + 1) * bm int32) in shared memory, and its two
+level tables (2 * 2^T * bm int32) there too where they fit: bm (columns
+per block) is halved from 16 until they fit 227 KiB, which holds up to
+T = 14. From T = 15 the tables live in a global-memory workspace (two
+per block, bm = min(16, M)) that the wrapper allocates; the result is
+the same.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.transitive_forest_dense_launch.argtypes = [
             _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-            _P, _P, _P]
+            _P, _P, _P, _P]
         lib.transitive_forest_dense_launch.restype = _I
         lib.transitive_forest_dense_error.argtypes = [_I]
         lib.transitive_forest_dense_error.restype = ctypes.c_char_p
@@ -50,22 +53,22 @@ def _library() -> ctypes.CDLL:
 
 
 def _table_bytes(t: int, bm: int) -> int:
-    """Shared memory of one pass-1 block: two 2^T x bm tables and the
-    T + 1 activation rows (the last pinned at zero), int32."""
+    """Shared memory of one pass-1 block with its tables there: two
+    2^T x bm tables and the T + 1 activation rows (the last pinned at
+    zero), int32."""
     return (2 * (1 << t) * bm + (t + 1) * bm) * 4
 
 
-def _columns_per_block(t: int, m: int) -> int:
+def _columns_per_block(t: int, m: int) -> tuple[int, bool]:
+    """(bm, whether pass 1's tables fit shared memory): bm halved from
+    min(16, M) until two tables fit 227 KiB; where not even one column's
+    do (T >= 15), bm = min(16, M) with the tables in global memory."""
     bm = min(16, m)
     while bm > 1 and _table_bytes(t, bm) > _SMEM_LIMIT:
         bm //= 2
-    if _table_bytes(t, bm) > _SMEM_LIMIT:
-        raise ValueError(
-            f"the dense forest kernel keeps a tile's 2^T-node table twice "
-            f"in shared memory: {_table_bytes(t, 1)} B at T={t} for "
-            f"one column, above the {_SMEM_LIMIT} B a block may use "
-            f"(T <= 14 fits)")
-    return bm
+    if _table_bytes(t, bm) <= _SMEM_LIMIT:
+        return bm, True
+    return min(16, m), False
 
 
 def transitive_forest_dense(dplan: DevicePlan, x: torch.Tensor
@@ -103,17 +106,21 @@ def transitive_forest_dense(dplan: DevicePlan, x: torch.Tensor
     m = x.shape[1]
     out = torch.empty((n * g, m), dtype=torch.int32, device=x.device)
     if m:
-        bm = _columns_per_block(t, m)
+        bm, in_smem = _columns_per_block(t, m)
         xt = x.to(torch.int32).contiguous()
         scratch = torch.empty(((k // t) << t, m), dtype=torch.int32,
                               device=x.device)
+        work = None if in_smem else torch.empty(
+            (k // t) * -(-m // bm) * 2 * (bm << t), dtype=torch.int32,
+            device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.transitive_forest_dense_launch(
             xt.data_ptr(), k, m, leaves["level_src"].data_ptr(),
             leaves["level_xsrc"].data_ptr(), leaves["direct_idx"].data_ptr(),
             leaves["direct_bits"].data_ptr(), leaves["direct_idx"].shape[0],
             leaves["gather_idx"].data_ptr(), leaves["signs"].data_ptr(),
-            t, s, n, g, bm, scratch.data_ptr(), out.data_ptr(), stream)
+            t, s, n, g, bm, None if work is None else work.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(
                 f"transitive_forest_dense launch failed: "

@@ -9,18 +9,19 @@ all ``groups`` equal slices of K: out (M, groups, N). On CPU tensors it
 runs the plain version (:mod:`repro_torch.kernels.ref`); on CUDA tensors
 it launches a kernel or raises: T in {4, 8} goes to the fast kernel
 (each launch adds one to ``transitive_gemm_cuda.launches``), any other T
-up to 15 to the generic kernel, :func:`transitive_gemm_generic` (each
-launch adds one to ``transitive_gemm_generic.launches``). T > 15 raises:
-the generic kernel keeps a row's 2^T-entry int32 LUT in one block's
-shared memory.
+up to 32 to the generic kernel, :func:`transitive_gemm_generic` (each
+launch adds one to ``transitive_gemm_generic.launches``). T > 32 raises:
+the TransRow patterns are 32-bit, in the reference as here.
 
 The kernel reads the int8 weight directly (no packed TransRows), keeps
 two activation rows per 32-bit LUT word, masks ragged M and N itself and,
 when there are few output tiles, splits K across the blocks of a thread
 block cluster (:func:`k_split` picks the split; the cluster adds its
 partial sums through distributed shared memory). The generic kernel is
-simple: one block per (256 columns, row, group) builds the row's full
-2^T LUT by doubling per subtile and gathers. Bound and design notes are
+simple: one block per (256 columns, row, group) builds the row's subset
+sums per subtile as ceil(T / 8) sub-LUTs of at most 2^8 entries by
+doubling, and gathers each plane's pattern as the sum of its sub-pattern
+lookups. Bound and design notes are
 in the CUDA source.
 """
 from __future__ import annotations
@@ -40,9 +41,9 @@ _I = ctypes.c_int
 # The kernel's tiling (csrc/transitive_gemm.cu): columns per block,
 # subtiles per chunk, blocks per cluster at most.
 _NT, _CH, _MAX_SPLIT = 128, 8, 8
-# The largest T whose one-row int32 LUT (2^T entries) fits a block's
-# shared memory (227 KiB): the generic kernel's range.
-MAX_GENERIC_T = 15
+# The widest T of the generic kernel: TransRow patterns are 32-bit (the
+# reference packs them as uint32).
+MAX_T = 32
 
 _LIB: list[ctypes.CDLL] = []
 _SMS: dict[int, int] = {}
@@ -179,18 +180,19 @@ def transitive_gemm_generic(qx: torch.Tensor, qw: torch.Tensor, *,
                             w_bits: int = 8, t: int = 8,
                             groups: int = 1) -> torch.Tensor:
     """The generic-T kernel: the same function as
-    :func:`transitive_gemm_cuda`, for any T in 1..15 (the fast kernel's T
-    too). CPU tensors take the plain version; T > 15 raises on CUDA (the
-    row's LUT would outgrow a block's shared memory)."""
+    :func:`transitive_gemm_cuda`, for any T in 1..32 (the fast kernel's T
+    too). CPU tensors take the plain version; T > 32 raises on CUDA (the
+    TransRow patterns are 32-bit, as the reference's)."""
     _check(qx, qw, t, groups)
     if qx.device.type == "cpu":
         return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
                                      groups=groups)
     lib = _library()
     xc, wc = _operands(qx, qw, w_bits)
-    if not 1 <= t <= MAX_GENERIC_T:
-        raise ValueError(f"the generic kernel keeps a row's 2^T int32 LUT in "
-                         f"shared memory: T <= {MAX_GENERIC_T}, got T={t}")
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"the generic kernel's TransRow patterns are "
+                         f"32-bit, as the reference's: T <= {MAX_T}, "
+                         f"got T={t}")
     m, k = qx.shape
     n = qw.shape[0]
     if m > 65535:

@@ -333,3 +333,61 @@ def test_paged_decode_layer_kernel_vs_gather(cfgs, rng):
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
     for n in pool:
         torch.testing.assert_close(pools[0][n], pools[1][n], rtol=0, atol=0)
+
+
+def _one_block_smem(g, hd, s):
+    """Shared memory of the previous one-block-per-(slot, KV head) design:
+    the whole G x s score row (f32 + int8 codes) and its small arrays. It
+    ran every shape where this fit 227 KiB; the cluster must too."""
+    return 5 * g * s + 512 * g + 128 + 4 * hd + 512 + 5 * g * hd
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("n_pages", [1, 2, 3, 7, 16, 128, 512])
+def test_launch_plan_owns_every_page_once_and_fits(n_pages, hd):
+    """The B2 launch (``launch_plan``): for every G <= 8, page size and
+    layout, each page index of the table belongs to exactly one rank, the
+    cluster has at most 8 blocks and divides the launch's grid, whose
+    blocks serve every (slot, rank) once, the chunk of staged rows fits
+    the rank's rows, the block's shared memory fits 227 KiB, and every
+    shape the one-block design took is still taken."""
+    from repro_torch.kernels.paged_attention import (SMEM_LIMIT,
+                                                     launch_plan, smem_bytes)
+    layouts = [(1, True, True), (1, True, False), (2, False, True),
+               (4, False, True), (2, False, False), (4, False, False)]
+    for g in (1, 3, 8):
+        for page_size in (1, 16, 256):
+            for itemsize, int8_pool, quant in layouts:
+                try:
+                    plan = launch_plan(n_pages, page_size, g, hd, itemsize,
+                                       int8_pool, quant)
+                except ValueError:              # so did the one-block one
+                    assert _one_block_smem(
+                        g, hd, n_pages * page_size) > SMEM_LIMIT
+                    continue
+                assert 1 <= plan.cluster <= min(8, n_pages)
+                for b in (1, 4, 64):        # the grid the wrapper launches
+                    grid_x, grid_y = plan.grid(b, 3)
+                    assert grid_x % plan.cluster == 0 and grid_y == 3
+                    assert sorted((x // plan.cluster, x % plan.cluster)
+                                  for x in range(grid_x)) == [
+                        (s, r) for s in range(b)
+                        for r in range(plan.cluster)]
+                owned = [p for r in range(plan.cluster)
+                         for p in plan.pages(r, n_pages)]
+                assert sorted(owned) == list(range(n_pages))
+                assert all(len(plan.pages(r, n_pages)) <= plan.pages_per_rank
+                           for r in range(plan.cluster))
+                lanes = plan.pages_per_rank * page_size
+                assert 1 <= plan.chunk_rows <= lanes
+                assert plan.smem == smem_bytes(g, hd, itemsize, int8_pool,
+                                               quant, lanes, plan.chunk_rows)
+                assert plan.smem <= SMEM_LIMIT
+                if plan.chunk_rows < lanes:      # the largest that fits
+                    assert smem_bytes(g, hd, itemsize, int8_pool, quant,
+                                      lanes, plan.chunk_rows + 1) > SMEM_LIMIT
+    for page_size in (8, 16, 32, 64):            # long tables, big heads
+        for pages in (n_pages * 3, n_pages * 8):
+            if _one_block_smem(8, hd, pages * page_size) <= SMEM_LIMIT:
+                plan = launch_plan(pages, page_size, 8, hd, 4, False, True)
+                assert plan.smem <= SMEM_LIMIT

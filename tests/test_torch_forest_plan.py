@@ -323,11 +323,15 @@ def test_engine_cuda_runs_plans_wider_than_a_byte(t, rng):
 
 def test_dense_forest_kernel_states_its_shared_memory_bound():
     """The dense kernel's pass-1 block holds two 2^T x bm int32 tables:
-    bm shrinks from 16 until they fit 227 KiB, so T = 14 runs (one
-    column per block) and T = 15 is refused with the bound."""
+    bm shrinks from 16 until they fit 227 KiB, so T = 14 keeps them in
+    shared memory (one column per block); from T = 15, where one column's
+    do not fit, they go to a global workspace at bm = min(16, M)."""
     from repro_torch.kernels import transitive_forest_dense as tfd
-    assert tfd._columns_per_block(9, 64) == 16
-    assert tfd._columns_per_block(12, 64) == 4
-    assert tfd._columns_per_block(14, 64) == 1
-    with pytest.raises(ValueError, match="T <= 14 fits"):
-        tfd._columns_per_block(15, 64)
+    assert tfd._columns_per_block(9, 64) == (16, True)
+    assert tfd._columns_per_block(12, 64) == (4, True)
+    assert tfd._columns_per_block(14, 64) == (1, True)
+    assert tfd._table_bytes(14, 1) <= tfd._SMEM_LIMIT
+    assert tfd._table_bytes(15, 1) > tfd._SMEM_LIMIT
+    assert tfd._columns_per_block(15, 64) == (16, False)
+    assert tfd._columns_per_block(15, 4) == (4, False)
+    assert tfd._columns_per_block(20, 3) == (3, False)

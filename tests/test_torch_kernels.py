@@ -278,6 +278,95 @@ def test_paged_attention_other_layouts_within_tolerance(cuda, layout, dtype,
     _assert_agree(got, want, cpu, table, steps, cfg)
 
 
+# B2 cluster cases: (b, kv, g, hd, page_size, max_len, exact pool dtype,
+# steps; None draws them). The first holds steps 0, ps - 1, ps and the last
+# position, and a fifth slot whose table is all dead (only page 0, read
+# through its zero entries); P = 12 at page size 4 is not a multiple of the
+# cluster of 8; f32 pools at hd=128 over max_len 2048 and bf16 ones over
+# 4096 stage each rank's rows in several chunks.
+_B2_CASES = [
+    (5, 3, 3, 64, 16, (256,), "bfloat16", [0, 15, 16, 255, 5]),
+    (1, 2, 1, 16, 4, (48,), "bfloat16", [47]),
+    (2, 2, 3, 16, 1, (40,), "float32", [0, 39]),
+    (64, 3, 8, 64, 16, (256,), "bfloat16", None),
+    (64, 1, 1, 16, 16, (256,), "float32", None),
+    (3, 2, 8, 128, 16, (48,), "bfloat16", [0, 20, 47]),
+    (2, 2, 3, 128, 16, (2048,), "float32", [700, 2047]),
+    (1, 1, 8, 128, 16, (4096,), "bfloat16", [4095])]
+
+
+def _b2_id(case):
+    b, kv, g, hd, ps, (max_len,), dtype, _ = case
+    return f"B{b}-KV{kv}-G{g}-hd{hd}-ps{ps}-len{max_len}-{dtype}"
+
+
+@pytest.mark.parametrize("case", _B2_CASES, ids=_b2_id)
+@pytest.mark.parametrize("layout", [0, 1, 2, 3])
+def test_paged_attention_cluster_cases(cuda, layout, case):
+    """B2's cluster launch in each pool layout against the plain version on
+    CPU copies, within the bounds of ``kernels.paged_attention.agreement``,
+    one launch per call; a second call on the same inputs gives the same
+    bits (no atomics: every sum runs in a fixed order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import (LAYOUTS, launch_plan,
+                                                     paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.launch.specs import serve_config
+    b, kv, g, hd, ps, (max_len,), dtype, steps = case
+    quant, int8_pool = {v[0]: k for k, v in LAYOUTS.items()}[layout]
+    cfg = serve_config(get_config("smollm_135m")).replace(
+        quant_attention=quant)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(layout + b + hd + max_len)
+    pps = max_len // ps
+    pool = _pool(layout, dt, (b * pps + 1, ps, kv, hd), gen, cuda)
+    if steps is None:
+        steps = torch.randint(0, max_len, (b,), generator=gen, device=cuda)
+    steps = torch.as_tensor(steps, dtype=torch.int32, device=cuda)
+    table = torch.zeros((b, pps), dtype=torch.int32, device=cuda)
+    nxt = 1
+    for s in range(b):
+        live = int(steps[s]) // ps + 1
+        if (s, live) != (4, 1):                 # slot 4 of case 0: page 0
+            table[s, :live] = torch.arange(nxt, nxt + live)
+        nxt += live
+    q = torch.randn((b, 1, kv * g, hd), generator=gen, device=cuda)
+    q = q.to(dt) if layout == 2 else q.to(torch.bfloat16)
+    itemsize = 1 if int8_pool else dt.itemsize
+    plan = launch_plan(pps, ps, g, hd, itemsize, int8_pool, quant)
+    assert plan.cluster == min(8, pps)
+    before = paged_attention.launches
+    got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    again = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    assert paged_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    cpu = {n: a.cpu() for n, a in pool.items()}
+    want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
+                                 hd ** -0.5)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    _assert_agree(got, want, cpu, table, steps, cfg)
+
+
+def test_paged_attention_smem_matches_the_kernel(cuda):
+    """``kernels.paged_attention.smem_bytes`` (what ``launch_plan`` sizes
+    the chunk by) equals the kernel's own carve-up for every layout."""
+    from repro_torch.kernels.paged_attention import _library, smem_bytes
+    lib = _library()
+    for layout, pool_dtype in ((0, 0), (1, 0), (1, 1), (2, 0), (2, 1),
+                               (3, 0)):
+        int8_pool = layout in (0, 3)
+        itemsize = 1 if int8_pool else (4, 2)[pool_dtype]
+        for g in (1, 3, 8):
+            for hd in (16, 32, 64, 128):
+                for ps, ppr, chunk in ((16, 2, 32), (16, 16, 100), (1, 5, 1),
+                                       (4, 2, 7)):
+                    want = smem_bytes(g, hd, itemsize, int8_pool,
+                                      layout in (0, 1), ppr * ps, chunk)
+                    assert lib.paged_attention_smem(
+                        layout, pool_dtype, g, hd, ps, ppr, chunk) == want
+
+
 @pytest.mark.parametrize("t", [1, 2, 3, 5, 6, 7, 9, 12, 15])
 @pytest.mark.parametrize("w_bits", [2, 4, 8])
 def test_transitive_gemm_generic_kernel_equals_plain(cuda, t, w_bits):
@@ -303,14 +392,57 @@ def test_transitive_gemm_generic_kernel_equals_plain(cuda, t, w_bits):
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("t", [16, 32])
+@pytest.mark.parametrize("w_bits", [2, 4, 8])
+def test_transitive_gemm_generic_wide_t_is_exact(cuda, t, w_bits):
+    """T = 16 and 32 (sub-LUTs of 2^8 entries per 8 activations): exact
+    against the integer GEMM (int64, wrapped to int32), one group and
+    three, ragged N, extreme values; at T = 16 also against the plain
+    version (whose 2^T-entry LUT is too large at T = 32)."""
+    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+                                                     transitive_gemm_generic,
+                                                     transitive_gemm_plain)
+    rng = np.random.default_rng(t + w_bits)
+    lim = 1 << (w_bits - 1)
+    for m, n, k, groups, fill in ((4, 300, 4 * t, 1, None),
+                                  (3, 70, 6 * t, 3, None),
+                                  (2, 33, 2 * t, 1, (-128, -lim))):
+        if fill is None:
+            x = rng.integers(-128, 128, (m, k))
+            w = rng.integers(-lim, lim, (n, k))
+        else:
+            x, w = np.full((m, k), fill[0]), np.full((n, k), fill[1])
+        x = torch.from_numpy(x.astype(np.int8))
+        w = torch.from_numpy(w.astype(np.int8))
+        kw = dict(w_bits=w_bits, t=t, groups=groups)
+        before = (transitive_gemm_cuda.launches,
+                  transitive_gemm_generic.launches)
+        got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw).cpu()
+        assert (transitive_gemm_cuda.launches,
+                transitive_gemm_generic.launches) == (before[0],
+                                                      before[1] + 1)
+        kg = k // groups
+        want = torch.stack([x[:, i * kg:(i + 1) * kg].long()
+                            @ w[:, i * kg:(i + 1) * kg].long().T
+                            for i in range(groups)], dim=1).to(torch.int32)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if t == 16:
+            torch.testing.assert_close(got, transitive_gemm_plain(x, w, **kw),
+                                       rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("t,n,k,m,groups", [(9, 1536, 576, 4, 1),
                                             (9, 576, 576, 64, 1),
                                             (10, 200, 180, 5, 2),
                                             (12, 64, 96, 3, 1),
-                                            (14, 16, 28, 2, 1)])
+                                            (14, 16, 28, 2, 1),
+                                            (15, 16, 30, 4, 1),
+                                            (15, 8, 30, 20, 2)])
 def test_forest_dense_kernel_equals_plain(cuda, t, n, k, m, groups):
     """Plans with T > 8 through both forest entries (routed to the dense
-    two-pass kernel, not packed) against ``run_device``: exact."""
+    two-pass kernel, not packed) against ``run_device``: exact. From
+    T = 15 pass 1's tables live in a global workspace (M = 20 runs two
+    column blocks of it)."""
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
     from repro_torch.kernels.transitive_forest import (
         forest_plain, transitive_forest, transitive_forest_rows)
@@ -381,10 +513,14 @@ def test_w4a8_gemm_kernel_any_group_and_k(cuda, m, n, k, g):
 @pytest.mark.parametrize("xdt,adt", [("float16", "float16"),
                                      ("float32", "bfloat16"),
                                      ("bfloat16", "float16"),
-                                     ("float16", "float32")])
+                                     ("float16", "float32"),
+                                     ("float64", "float64"),
+                                     ("float64", "bfloat16"),
+                                     ("float32", "float64")])
 def test_rg_lru_kernel_mixed_dtypes_bit_equal(cuda, xdt, adt):
-    """x and a in any of f32, bf16, f16: the output takes x's dtype, and
-    kernel and plain version round the same f32 operations: bit-equal."""
+    """x and a in any of f32, bf16, f16, f64: the output takes x's dtype,
+    and kernel and plain version round the same f32 operations (a float64
+    input rounded to f32 first): bit-equal."""
     from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_plain
     rng = np.random.default_rng(11)
     b, s, d = 4, 300, 257

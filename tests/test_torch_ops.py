@@ -344,6 +344,32 @@ def test_rg_lru_mixed_dtypes_match_reference(xdt, adt, tol, rng):
                                atol=tol)
 
 
+@pytest.mark.parametrize("adt", ["float64", "float32", "bfloat16"])
+def test_rg_lru_float64_matches_reference(adt, rng):
+    """float64 x (the reference under 64-bit types): both packages round
+    x and a to f32, scan in f32 and give h in float64. Tolerance: the
+    reference's f32 3e-4 (its doubling scan rounds otherwise); the plain
+    version equals its own f32 run widened, bit for bit."""
+    import jax
+    b, s, d = 2, 256, 64
+    x = rng.standard_normal((b, s, d))
+    a = rng.uniform(0.8, 0.999, (b, s, d))
+    h0 = rng.standard_normal((b, d))
+    from repro.kernels.rg_lru import rg_lru_pallas
+    with jax.enable_x64(True):
+        want = rg_lru_pallas(jnp.asarray(x), jnp.asarray(a, getattr(
+            jnp, adt)), jnp.asarray(h0), interpret=True)
+        assert str(want.dtype) == "float64"
+        want = np.asarray(want)
+    pt = [torch.from_numpy(x), torch.from_numpy(a).to(getattr(torch, adt)),
+          torch.from_numpy(h0)]
+    got = rg_lru_cuda(*pt)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
+    f32 = rg_lru_cuda(pt[0].float(), pt[1].float(), pt[2].float())
+    torch.testing.assert_close(got, f32.double(), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("b,s,d", [(1, 64, 32), (2, 256, 512)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rg_lru_matches_reference(b, s, d, dtype, rng):
