@@ -37,8 +37,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      library (``torch._int_mm``, M padded to 32) / bound times, the
      shared-memory floor of the gathers, the profiler's device time per
      call (one device op per call, asserted) and the K split;
-  B3g. B3 at T outside {4, 8} (the generic kernel): T in {1, 2, 3, 5, 6,
-     7, 9, 12, 16, 32} x w_bits in {2, 4, 8} and a grouped case, exact;
+  B3g. B3 at T outside {4, 8}, through the same kernel at its own
+     subtile width (8, or 4 in the unaligned instance where K / groups is
+     not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
+     in {2, 4, 8} and a grouped case, exact, each call one launch of the
+     ``tgemm_lut`` instance expected; T=6 and T=5 at K=575 timed;
   B1d. B1 for plans with T > 8: a T=9 ``engine_cuda`` linear (N=1536,
      K=576) through the dense two-pass kernel, exact against
      ``run_device`` at M in {4, 64}, its ``linear_apply`` equal to
@@ -76,16 +79,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      inputs (a third run: within the loose bound, asserted);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
-     and T=16, B1 from a T=9 and a T=15 plan and B5 over float64, every
-     kernel launched, each result equal to (or, B4 and f32 B5, within
-     tolerance of) its plain version.
+     and T=16 (counted apart), B1 from a T=9 and a T=15 plan and B5 over
+     float64, every kernel launched, each result equal to (or, B4 and f32
+     B5, within tolerance of) its plain version.
 
 Every launch count in the JSON line is read from the run of the path
 that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
-the generic B3 and the dense B1: phase 7), with the counts set to 0 just
-before it; launches made to compare a kernel with its plain version are
-not counted. The line before the last
+B3 at T outside {4, 8} and the dense B1: phase 7), with the counts set to
+0 just before it; launches made to compare a kernel with its plain
+version are not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -142,10 +145,9 @@ def bound_ms(n_bytes, n_ops, ops_rate):
                                        else "operations")
 
 
-def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
-    """Device time per call of ``fn`` from ``torch.profiler``: (every
-    device op of the call, the ops whose name holds one of ``kernels``
-    alone: no memset) in microseconds, and the device ops per call."""
+def _device_events(fn, iters):
+    """The profiler's device events (``key_averages``) of ``iters`` calls of
+    ``fn``, after one call outside the profile."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,11 +162,25 @@ def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
                   if e.device_type == DeviceType.CUDA]
         if events and all(e.count % iters == 0 for e in events):
             break
+    return events
+
+
+def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
+    """Device time per call of ``fn`` from ``torch.profiler``: (every
+    device op of the call, the ops whose name holds one of ``kernels``
+    alone: no memset) in microseconds, and the device ops per call."""
+    events = _device_events(fn, iters)
     total = sum(e.self_device_time_total for e in events) / iters
     kernel = sum(e.self_device_time_total for e in events
                  if any(name in e.key for name in kernels))
     kernel /= iters
     return total, kernel, sum(e.count for e in events) / iters
+
+
+def kernel_names(fn):
+    """The names of the device kernels one call of ``fn`` runs (the
+    profiler's, template arguments included)."""
+    return [e.key for e in _device_events(fn, 1) for _ in range(e.count)]
 
 
 def _forest_weights(pattern, n, k, rng):
@@ -444,7 +460,8 @@ def check_attention(flush):
                     q.cpu(), {n: a.cpu() for n, a in pool.items()},
                     table.cpu(), steps.cpu(), cfg, scale).cuda()
             torch.cuda.synchronize()
-            agree = agreement(got, want, pool, table, steps, cfg)
+            agree = agreement(got, want, pool, table, steps, cfg, q=q,
+                              scale=scale)
             err = agree["max_abs_err"]
             worst = max(worst, err)
             same = torch.equal(got, again)
@@ -496,19 +513,22 @@ def check_attention(flush):
     return entries
 
 
-def _tgemm_bound(m, n, k, w_bits, t, groups):
-    """Bytes: x and w int8 read once, the int32 output written once.
-    Operations (data-independent): the doubling LUT build, (2^4 - 1) adds
-    per nibble LUT, and per (m, n, subtile, plane) T/4 gathers + T/4 adds
-    (nibble combine and shift-accumulate), against the scalar rate.
+def _tgemm_bound(m, n, k, w_bits, groups):
+    """The function's work at its own K, whatever subtile width the kernel
+    runs. Bytes: x and w int8 read once, the int32 output written once.
+    Operations (data-independent): the transitive product at the
+    nibble-LUT granularity (the reference's split LUT), per group of 4
+    activations of a row, one 16-entry LUT by doubling (15 adds), and per
+    (row, column, plane) one gather and one add; K / 4 such groups, a
+    fraction where K is not a multiple of 4, against the scalar rate.
     Returns (bound ms, what bounds it) of those two, and the design's
-    shared-memory floors: the gathers' bytes over SMEM_BYTES_PER_S at 2 B
-    per (row, gather) (two rows per 32-bit LUT word) and at the previous
-    layout's 4 B."""
-    nl, j = t // 4, k // t
+    shared-memory floors at the same K: the gathers' bytes over
+    SMEM_BYTES_PER_S at 2 B per (row, gather) (two rows per 32-bit LUT
+    word) and at the previous layout's 4 B."""
+    nib = k / 4
     n_bytes = m * k + n * k + m * groups * n * 4
-    n_ops = m * j * nl * 15 + m * n * j * w_bits * 2 * nl
-    gathers = m * n * j * w_bits * nl
+    n_ops = m * nib * 15 + m * n * nib * w_bits * 2
+    gathers = m * n * nib * w_bits
     b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
     return (b_ms, b_by, gathers * 2 / SMEM_BYTES_PER_S * 1e3,
             gathers * 4 / SMEM_BYTES_PER_S * 1e3)
@@ -523,12 +543,14 @@ def check_tgemm(flush):
     ``torch._int_mm``'s, and asserts that the call is one device op (no
     memset: the K split is reduced inside a thread block cluster), and
     the split it ran. Extreme-value cases (activations -128 or 127
-    against weights -2^(S-1) or 2^(S-1) - 1, w_bits 2, 4, 5, 6, 8, T 4 and
-    8) push the kernel's packed 16-bit LUT halves to their limits (0 and
-    the flush schedule's bound); they are checked, not timed."""
+    against weights -2^(S-1) or 2^(S-1) - 1, w_bits 2, 4, 5, 6, 8; T=8 at
+    K=576, width 8, and T=4 at K=580, width 4) push the kernel's packed
+    16-bit LUT halves to their limits (0 and the flush schedule's bound)
+    in both widths' instances (asserted by kernel name); they are checked,
+    not timed."""
     import torch
     from repro_torch.core.backend import int_matmul
-    from repro_torch.kernels.transitive_gemm import (k_split,
+    from repro_torch.kernels.transitive_gemm import (k_split, lut_width,
                                                      transitive_gemm_cuda,
                                                      transitive_gemm_plain)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -537,8 +559,9 @@ def check_tgemm(flush):
     cases += [(1536, 576, 64, 8, 8, 1, None), (1536, 576, 64, 2, 8, 1, None),
               (1536, 576, 64, 4, 4, 1, None), (70, 512, 130, 4, 8, 1, None),
               (576, 1536, 64, 4, 8, 12, None), (576, 1536, 4, 4, 8, 12, None)]
-    cases += [(1536, 576, 64, bits, t, 1, (a, b)) for bits in (2, 4, 5, 6, 8)
-              for t in (4, 8) for a in (-128, 127) for b in ("lo", "hi")]
+    cases += [(1536, 576 if t == 8 else 580, 64, bits, t, 1, (a, b))
+              for bits in (2, 4, 5, 6, 8) for t in (4, 8)
+              for a in (-128, 127) for b in ("lo", "hi")]
     entry, worst, extremes = None, 0, 0
     for n, k, m, w_bits, t, groups, fill in cases:
         lim = 1 << (w_bits - 1)
@@ -562,15 +585,21 @@ def check_tgemm(flush):
         err = max(int((got.long() - want.long()).abs().max()),
                   int((got.long() - gemm.long()).abs().max()))
         worst = max(worst, err)
-        split = k_split(m, n, k, groups, t, sms)
+        width = lut_width(k, groups)[0]
+        split = k_split(m, n, k, groups, width, sms)
         tag = (f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}"
-               f" ksplit={split}")
+               f" width={width} ksplit={split}")
         if fill is not None:
             tag += f" x={fill[0]} w={fill[1]}"
         if err:
             raise AssertionError(f"transitive_gemm kernel != plain at {tag}:"
                                  f" max |diff| {err}")
         if fill is not None:
+            names = kernel_names(lambda: transitive_gemm_cuda(x, w, **kw))
+            instance = f"tgemm_lut<{width}, 16, {w_bits}, false>"
+            if len(names) != 1 or instance not in names[0]:
+                raise AssertionError(f"{tag} ran {names}, not one "
+                                     f"{instance}")
             extremes += 1
             continue
         k_ms = cuda_ms(lambda: transitive_gemm_cuda(x, w, **kw), flush)
@@ -590,7 +619,7 @@ def check_tgemm(flush):
             lib_txt = f"{lib_ms:.4f} (device us {mm:.2f})"
         else:
             lib_ms, lib_txt = None, "null"
-        b_ms, b_by, smem_ms, smem_old_ms = _tgemm_bound(m, n, k, w_bits, t,
+        b_ms, b_by, smem_ms, smem_old_ms = _tgemm_bound(m, n, k, w_bits,
                                                         groups)
         floor = max((b_ms, b_by), (smem_ms, "shared-memory bytes"))
         print(f"[B3] {tag}: exact | kernel_ms={k_ms:.4f} device us/call "
@@ -610,30 +639,42 @@ def check_tgemm(flush):
 
 
 def check_tgemm_generic(flush):
-    """B3 at T outside {4, 8}: ``transitive_gemm_cuda`` routes it to the
-    generic kernel (one block per 256 columns, row and group; the row's
-    subset sums built by doubling per subtile as ceil(T / 8) sub-LUTs of
-    at most 2^8 entries). Exact against the integer GEMM and (T <= 16:
-    its LUT has 2^T entries) the plain version at N=1536, M=4, K the
-    largest multiple of T up to 576, T in {1, 2, 3, 5, 6, 7, 9, 12, 16,
-    32} x w_bits in {2, 4, 8}, and one grouped case; returns the JSON
-    entry (timed at T=6, w_bits 4, K=576: the input ROADMAP C1 named).
-
-    Bound: x, w and the int32 output once over the memory rate, or the
-    adds (2^min(T, 8) per row, subtile and 8 activations for the LUTs,
-    ceil(T / 8) gathers and adds per output, subtile and plane) over the
-    scalar rate."""
+    """B3 at T outside {4, 8}. T only blocks K (the result is the same
+    int32 for every T), so ``transitive_gemm_cuda`` runs every T through
+    the one kernel, ``tgemm_lut``, at the width ``lut_width`` picks from K
+    and groups: 8 where K / groups is a multiple of 8, else 4, in the
+    unaligned instance where it is not a multiple of 4 (bytes staged by
+    plain loads, each group's last subtile zero-filled). Exact against the
+    integer GEMM and (T <= 16: its LUT has 2^T entries) the plain version
+    at N=1536, M=4, K the largest multiple of T up to 576, T in {1, 2, 3,
+    5, 6, 7, 9, 12, 16, 32} x w_bits in {2, 4, 8}, and one grouped case.
+    Two more cases hold the two width-4 instances side by side at 145
+    subtiles, one on each side of ``lut_width``'s choice: T=2 at K=580
+    (aligned) and T=3 at K=579 (unaligned). Each call must be one launch
+    (the wrapper's count) and one device kernel, the ``tgemm_lut``
+    instance expected: T=5 at K=575, T=7 at K=574 and T=3 at K=579 the
+    unaligned one, T=2 at K=580 aligned width 4, every other case width
+    8. Times T=6 at K=576 (returns its JSON entry), T=5 at K=575, T=2 at
+    K=580 and T=3 at K=579: kernel ms (event-timed, L2 flushed), the
+    profiler's device us (the whole call and the kernel alone), plain ms,
+    ``torch._int_mm`` (M padded to 32, K to a multiple of 8 with zeros)
+    and the bound: x, w and the int32 output once over
+    the memory rate, or the function's nibble-LUT adds at its K
+    (``_tgemm_bound``) over the scalar rate."""
     import torch
     from repro_torch.core.backend import int_matmul
-    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
-                                                     transitive_gemm_generic,
+    from repro_torch.kernels.transitive_gemm import (lut_width,
+                                                     transitive_gemm_cuda,
                                                      transitive_gemm_plain)
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = [(1536, 576 // t * t, 4, bits, t, 1)
              for t in (1, 2, 3, 5, 6, 7, 9, 12, 16, 32)
              for bits in (2, 4, 8)]
-    cases += [(576, 1536, 4, 4, 6, 4)]
-    entry, worst = None, 0
+    cases += [(576, 1536, 4, 4, 6, 4), (1536, 580, 4, 4, 2, 1),
+              (1536, 579, 4, 4, 3, 1)]
+    expected = {575: (4, False), 574: (4, False), 579: (4, False),
+                580: (4, True)}
+    worst, timed = 0, {}
     for n, k, m, w_bits, t, groups in cases:
         lim = 1 << (w_bits - 1)
         w = torch.randint(-lim, lim, (n, k), generator=gen, device="cuda",
@@ -641,10 +682,15 @@ def check_tgemm_generic(flush):
         x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                           dtype=torch.int8)
         kw = dict(w_bits=w_bits, t=t, groups=groups)
-        before = transitive_gemm_generic.launches
+        width, aligned = lut_width(k, groups)
+        expect = expected.get(k, (8, True))
+        if (width, aligned) != expect:
+            raise AssertionError(f"T={t} K={k} picked width {width}, "
+                                 f"aligned {aligned}; expected {expect}")
+        before = transitive_gemm_cuda.launches
         got = transitive_gemm_cuda(x, w, **kw)
-        if transitive_gemm_generic.launches != before + 1:
-            raise AssertionError(f"T={t} did not run the generic kernel")
+        if transitive_gemm_cuda.launches != before + 1:
+            raise AssertionError(f"T={t} was not one launch of tgemm_lut")
         kg = k // groups
         gemm = torch.stack([int_matmul(x[:, i * kg:(i + 1) * kg],
                                        w[:, i * kg:(i + 1) * kg].T)
@@ -654,36 +700,52 @@ def check_tgemm_generic(flush):
         err = max(int((got.long() - want.long()).abs().max()),
                   int((got.long() - gemm.long()).abs().max()))
         worst = max(worst, err)
-        tag = f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups}"
+        tag = (f"N={n} K={k} M={m} w_bits={w_bits} T={t} G={groups} "
+               f"width={width}{'' if aligned else ' unaligned'}")
         if err:
-            raise AssertionError(f"generic transitive_gemm != plain at "
-                                 f"{tag}: max |diff| {err}")
-        if (t, w_bits, groups) != (6, 4, 1):
-            continue
+            raise AssertionError(f"transitive_gemm != plain at {tag}: max "
+                                 f"|diff| {err}")
         call = (lambda: transitive_gemm_cuda(x, w, **kw))
+        names = kernel_names(call)
+        instance = (f"tgemm_lut<{width}, 4, {w_bits}, "
+                    f"{str(not aligned).lower()}>")
+        if len(names) != 1 or instance not in names[0]:
+            raise AssertionError(f"{tag} ran {names}, not one {instance}")
+        if (t, k, w_bits, groups) not in ((6, 576, 4, 1), (5, 575, 4, 1),
+                                          (2, 580, 4, 1), (3, 579, 4, 1)):
+            continue
         k_ms = cuda_ms(call, flush)
-        dev, ker, _ = device_us(call, kernels=("tgemm_generic",))
+        dev, ker, _ = device_us(call, kernels=("tgemm_lut",))
         p_ms = cuda_ms(lambda: transitive_gemm_plain(x, w, **kw), flush)
-        xm = torch.zeros((32, k), dtype=torch.int8, device="cuda")
-        xm[:m] = x
-        wt = w.T
+        xm = torch.zeros((32, -(-k // 8) * 8), dtype=torch.int8,
+                         device="cuda")
+        xm[:m, :k] = x
+        wt = torch.zeros((n, xm.shape[1]), dtype=torch.int8, device="cuda")
+        wt[:, :k] = w
+        wt = wt.T
         lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
-        j, nh = k // t, -(-t // 8)
-        n_bytes = m * k + n * k + m * groups * n * 4
-        n_ops = (m * j * sum(1 << min(8, t - 8 * h) for h in range(nh))
-                 + m * n * j * w_bits * 2 * nh)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
-        print(f"[B3 generic] {tag}: exact | kernel_ms={k_ms:.4f} device "
-              f"us/call {dev:.2f} (kernel {ker:.2f}) plain_ms={p_ms:.4f} "
-              f"library_ms={lib_ms:.4f} (_int_mm, M padded to 32) bound_ms="
-              f"{b_ms:.6f} ({b_by})")
-        entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms, "device_us": dev,
-                 "shape": "N=1536 K=576 M=4 w_bits=4 T=6"}
-    print(f"[B3 generic] {len(cases)} cases exact (T 1, 2, 3, 5, 6, 7, 9, "
-          f"12, 16, 32 x w_bits 2, 4, 8, and one grouped)")
-    entry["max_abs_err"] = worst
-    return entry
+        lib_us, _, _ = device_us(lambda: torch._int_mm(xm, wt), kernels=())
+        b_ms, b_by, _, _ = _tgemm_bound(m, n, k, w_bits, groups)
+        print(f"[B3 generic] {tag}: exact, one tgemm_lut | kernel_ms="
+              f"{k_ms:.4f} device us/call {dev:.2f} (kernel {ker:.2f}) "
+              f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} (_int_mm, "
+              f"device us {lib_us:.2f}) bound_ms={b_ms:.6f} ({b_by})")
+        timed[k] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "device_us": dev, "kernel_us": ker}
+    print(f"[B3 generic] {len(cases)} cases exact, each one tgemm_lut "
+          f"launch (T 1, 2, 3, 5, 6, 7, 9, 12, 16, 32 x w_bits 2, 4, 8, one "
+          f"grouped, T=2 at K=580 aligned width 4; T=5 at K=575, T=7 at "
+          f"K=574 and T=3 at K=579 unaligned)")
+    return dict(timed[576], shape="N=1536 K=576 M=4 w_bits=4 T=6 (width 8)",
+                max_abs_err=worst,
+                unaligned={"shape": "N=1536 K=575 M=4 w_bits=4 T=5 "
+                                    "(width 4, unaligned)", **timed[575]},
+                width4={"shape": "N=1536 K=580 M=4 w_bits=4 T=2 (width 4, "
+                                 "aligned)", **timed[580]},
+                width4_unaligned={"shape": "N=1536 K=579 M=4 w_bits=4 T=3 "
+                                           "(width 4, unaligned)",
+                                  **timed[579]})
 
 
 def check_forest_dense(flush):
@@ -945,7 +1007,7 @@ def _serve_shadowed(model, params, prompts, gen, **kw):
         want = PA.paged_attention_plain(q, pool, page_indices, steps, cfg,
                                         scale)
         stats.append(PA.agreement(out, want, pool, page_indices, steps,
-                                  cfg))
+                                  cfg, q=q, scale=scale))
         return out
     shadow.launches = 0
     PA.paged_attention = shadow
@@ -1284,10 +1346,10 @@ def layout_paths(raw, cfg):
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
-    take T outside the fast kernels' (``transitive_gemm`` at T=6 and T=16
-    runs the generic B3 kernel, ``transitive_forest`` from a T=9 and a
-    T=15 DevicePlan the dense B1 kernel, the T=15 one with its level
-    tables in global memory) and ``rg_lru`` over float64, with the launch
+    take T outside {4, 8} (``transitive_gemm`` at T=6 and T=16, the one
+    B3 kernel at its width 8, counted apart; ``transitive_forest`` from a
+    T=9 and a T=15 DevicePlan the dense B1 kernel, the T=15 one with its
+    level tables in global memory) and ``rg_lru`` over float64, with the launch
     counts set to 0 just before and read just after; then each result
     against its kernel's plain version (exact for the integer kernels and
     for float64 B5, the reference's tolerances for B4 and f32 B5)."""
@@ -1300,8 +1362,7 @@ def ops_path():
                                                        transitive_forest)
     from repro_torch.kernels.transitive_forest_dense import (
         transitive_forest_dense)
-    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
-                                                     transitive_gemm_generic)
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
     gen = torch.Generator(device="cuda").manual_seed(7)
 
@@ -1334,26 +1395,29 @@ def ops_path():
     ha64 = (torch.rand((2, 256, 512), generator=gen, device="cuda",
                        dtype=torch.float64) * 0.2 + 0.8)
     kernels = (transitive_forest, transitive_gemm_cuda, w4a8_gemm_cuda,
-               rg_lru_cuda, transitive_gemm_generic, transitive_forest_dense)
+               rg_lru_cuda, transitive_forest_dense)
     for k in kernels:
         k.launches = 0
     outs = (ops.transitive_gemm(x, w, w_bits=4),
             ops.transitive_gemm_grouped(xg, wg, w_bits=4),
             ops.w4a8_gemm(xq, sx, wq, sg, group=64),
             ops.rg_lru(hx, ha, h0),
-            ops.transitive_forest(dplan, xf),
-            ops.transitive_gemm(x, w, w_bits=4, t=6),
-            ops.transitive_forest(dplan9, xf),
-            ops.transitive_gemm(x, w, w_bits=4, t=16),
-            ops.transitive_forest(dplan15, xf15),
-            ops.rg_lru(hx64, ha64, h0[:2, :512]))
+            ops.transitive_forest(dplan, xf))
+    fast = transitive_gemm_cuda.launches       # T=8 so far; T=6, 16 next
+    outs += (ops.transitive_gemm(x, w, w_bits=4, t=6),
+             ops.transitive_forest(dplan9, xf),
+             ops.transitive_gemm(x, w, w_bits=4, t=16),
+             ops.transitive_forest(dplan15, xf15),
+             ops.rg_lru(hx64, ha64, h0[:2, :512]))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    launches["transitive_gemm_cuda at T=6, 16"] = (
+        transitive_gemm_cuda.launches - fast)
     print(f"[ops] launches: {launches}")
-    if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 2,
+    if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 4,
                     "w4a8_gemm_cuda": 1, "rg_lru_cuda": 2,
-                    "transitive_gemm_generic": 2,
-                    "transitive_forest_dense": 2}:
+                    "transitive_forest_dense": 2,
+                    "transitive_gemm_cuda at T=6, 16": 2}:
         raise AssertionError(f"ops API launches wrong: {launches}")
     exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
              (outs[1], ref.transitive_matmul_grouped_ref(xg, wg, 4)),
@@ -1394,9 +1458,11 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build.build_all()
+    seconds = build.build_all()
     print(f"[build] {', '.join(build.SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s ("
+          + ", ".join(f"{n} {t:.1f}s" for n, t in seconds.items())
+          + "; transitive_gemm's includes its 21 unaligned instances)")
     for name in build.SOURCES:
         print(f"[ptxas {name}] {build.ptxas_report(name)}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1441,8 +1507,9 @@ def main() -> int:
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",
-         "launches": ops["transitive_gemm_generic"],
-         "launches_from": "phase 7 (kernels.ops, T=6)", **generic},
+         "launches": ops["transitive_gemm_cuda at T=6, 16"],
+         "launches_from": "phase 7 (kernels.ops, T=6 and T=16, through "
+                          "tgemm_lut)", **generic},
         {"name": "w4a8_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/w4a8_gemm.cu",
          "replaces": "src/repro/kernels/w4a8_gemm.py:51",

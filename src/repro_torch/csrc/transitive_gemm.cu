@@ -7,18 +7,28 @@
 //   out (M, G, N) int32 = per group gi: x[:, gi] (M, Kg) @ w[:, gi]^T
 //
 // with x (M, K) int8, w (N, K) int8 holding S-bit values (S = w_bits in
-// 2..8), K = G * Kg and Kg divisible by T in {4, 8}. G = 1 is the plain
-// GEMM.
+// 2..8) and K = G * Kg. G = 1 is the plain GEMM.
 //
-// Dataflow (the paper's, with the complete Hasse graph): for each T-wide
-// subtile of K, every subset sum of the T activations of a row is built
+// Subtile width. The reference blocks K in T-wide subtiles (any T with
+// Kg % T == 0) and builds a 2^T-entry LUT per subtile; T does not change
+// the result (int32, wrapping mod 2^32), only how K is blocked. So every
+// T runs here at a width W of the kernel's own, from K and G alone: W = 8
+// where Kg % 8 == 0, else W = 4 where Kg % 4 == 0 (the aligned instances:
+// every row and group starts on a W-byte boundary, and the bytes arrive
+// by cp.async), else W = 4 in the unaligned instance (UNALIGNED): the
+// bytes are staged by plain loads and each group's last subtile is
+// zero-filled past Kg. A zero activation adds nothing to a subset sum
+// (whatever the weight bits there), so the result stays exact.
+//
+// Dataflow (the paper's, with the complete Hasse graph): for each W-wide
+// subtile of K, every subset sum of the W activations of a row is built
 // by doubling (lut[2^b + q] = lut[q] + x[b]: one add per entry) — at
-// T = 8 as two 16-entry nibble LUTs (the reference's split LUT), at T = 4
+// W = 8 as two 16-entry nibble LUTs (the reference's split LUT), at W = 4
 // as one. Each weight TransRow gathers its subset sum and the S bit
 // planes shift-accumulate.
 //
 // TransRows come straight from the int8 weight: bit i of plane s's
-// pattern is bit s of w[n, j*T + i] (in S-bit 2's complement the low S
+// pattern is bit s of w[n, j*W + i] (in S-bit 2's complement the low S
 // bits of the int8 are the value's bits). One 32-bit word holds four
 // weights; ((word >> s) & 0x01010101) * 0x10204080 >> 28 collects bit s
 // of its four bytes into a nibble with byte i at bit i (the four partial
@@ -40,18 +50,19 @@
 // in range). One ld.shared.b32 then serves two rows, so a gather moves
 // 2 bytes per row instead of 4.
 //
-// The overflow budget. The gathers of one subtile and plane add NL = T/4
-// entries: at most GMAX = NL * 1020 per half. Planes are added into a
+// The overflow budget. The gathers of one subtile and plane add NL = W/4
+// entries: at most GMAX = NL * 1020 per half (a zero-filled byte only
+// lowers an entry). Planes are added into a
 // packed accumulator as g << (s - s0), so after F subtiles a half holds at
 // most F * GMAX * (2^(planes) - 1); it must stay below 2^16, or it
 // carries into the other row. The low segment takes planes 0..PA-1, PA
-// the most planes that fit one subtile (T = 8: 2040 * 31 = 63,240 <
-// 65,536, 2040 * 63 does not, so PA = 5; T = 4: 1020 * 63 = 64,260, PA =
+// the most planes that fit one subtile (W = 8: 2040 * 31 = 63,240 <
+// 65,536, 2040 * 63 does not, so PA = 5; W = 4: 1020 * 63 = 64,260, PA =
 // 6); the high segment (w_bits > PA) takes the rest, weighted from 2^PA.
 // Each segment is flushed into int32 accumulators every F subtiles, F the
 // largest power of two (dividing the chunk of CH) within the budget:
-// T = 8: S = 2..5 -> F = 8, 4, 2, 1; high segment at S = 6, 7, 8 -> 8, 8,
-// 4. Schedule<T, S> computes this and static_asserts the bound; the CPU
+// W = 8: S = 2..5 -> F = 8, 4, 2, 1; high segment at S = 6, 7, 8 -> 8, 8,
+// 4. Schedule<W, S> computes this and static_asserts the bound; the CPU
 // test tests/test_torch_ops.py emulates the same schedule on int64 and
 // checks that no half ever leaves [0, 2^16).
 //
@@ -65,7 +76,9 @@
 // chunk c+2's bytes arrive by cp.async into a ring of ST = 3 chunk slots
 // in shared memory and chunk c+1's packed LUTs are built (CH x NL x BM/2
 // builder threads, one nibble LUT each, into one of two LUT buffers)
-// while chunk c is gathered. The weight copies are coalesced (8
+// while chunk c is gathered. The unaligned instance loads chunk c+2's
+// bytes into registers before chunk c's gathers and stores them into the
+// same ring slot after them. The weight copies are coalesced (8
 // consecutive threads copy one column's 64 bytes of a chunk) and a
 // column's 16-byte units are stored swizzled, so the 8 columns a quarter
 // warp reads back land on 8 distinct bank groups. A gathering warp reads
@@ -91,7 +104,7 @@
 // activations once per column block. At decode (M <= 8) the kernel moves
 // ~1 MB per linear against a few million adds: bound by latency (launch,
 // one device-memory round trip, the chunk chain, two cluster barriers).
-// At M = 512 the S*(T/4) gathers per (row pair, n, subtile) dominate:
+// At M = 512 the S*(W/4) gathers per (row pair, n, subtile) dominate:
 // bound by the shared-memory pipe (one 128-byte wavefront per SM per
 // clock), which this layout halves. Accumulation is unsigned and wraps
 // mod 2^32 like the reference's int32.
@@ -123,9 +136,9 @@ __host__ __device__ constexpr int flush_every(uint32_t per_subtile) {
   return f;
 }
 
-template <int T, int S>
+template <int W, int S>
 struct Schedule {
-  static constexpr uint32_t GMAX = (T / 4) * ENTRY_MAX;  // one plane's gather
+  static constexpr uint32_t GMAX = (W / 4) * ENTRY_MAX;  // one plane's gather
   static constexpr int PA = GMAX * planes_max(6) < HALF_LIMIT ? 6 : 5;
   static constexpr int SA = S < PA ? S : PA;       // planes in the low segment
   static constexpr int SB = S - SA;                // planes in the high one
@@ -150,6 +163,16 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
                : "memory");
 }
 
+// The first n (<= 4; none if n <= 0) bytes at p, little-endian, zero past
+// them: the unaligned instance's staging load.
+__device__ __forceinline__ uint32_t load_bytes(const int8_t* p, int n) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (b < n) v |= (uint32_t)(uint8_t)p[b] << (8 * b);
+  return v;
+}
+
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -166,22 +189,23 @@ __host__ __device__ constexpr int threads_per_column() {
   return BM <= 8 ? 4 : 1;
 }
 
-template <int T, int BM, int S>
+template <int W, int BM, int S, bool UNALIGNED>
 __global__ void __launch_bounds__(NT * threads_per_column<BM>())
 tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
           int N, int K, int G, int ksplit, int chunks_per_split,
           uint32_t* __restrict__ out) {
-  using Sch = Schedule<T, S>;
+  static_assert(!UNALIGNED || W == 4, "the unaligned instance is W = 4");
+  using Sch = Schedule<W, S>;
   constexpr int KT = threads_per_column<BM>();
-  constexpr int NL = T / 4;                        // nibble LUTs per subtile
+  constexpr int NL = W / 4;                        // nibble LUTs per subtile
   constexpr int P = BM / 2;                        // row pairs
   constexpr int NTASK = CH * NL * P;               // LUTs built per chunk
   constexpr int ST = 3;                            // ring slots (chunks)
   constexpr int U = CH / KT;                       // a thread's subtiles/chunk
-  constexpr int WW = U * T / 4;                    // its weight words/chunk
+  constexpr int WW = U * W / 4;                    // its weight words/chunk
   constexpr int FA = Sch::FA < U ? Sch::FA : U;    // flushes, in own subtiles
   constexpr int FB = Sch::FB < U ? Sch::FB : U;
-  constexpr int CB = CH * T;                       // a column's bytes/chunk
+  constexpr int CB = CH * W;                       // a column's bytes/chunk
   constexpr int NU = CB / 16;                      // its 16-byte units
   constexpr int TILE = BM * NT;
   constexpr int RING = ST * NT * CB;
@@ -196,7 +220,7 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
   __shared__ int32_t xsum[NW][BM];                 // row sums of x per warp
 
   const int kg = K / G;
-  const int jg = kg / T;                           // subtiles per group
+  const int jg = UNALIGNED ? (kg + W - 1) / W : kg / W;  // subtiles/group
   const int nchunks = (jg + CH - 1) / CH;
   const int gi = blockIdx.z / ksplit;
   const int ks = blockIdx.z % ksplit;
@@ -226,7 +250,7 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
   auto unit_at = [](int column, int v) {
     return v ^ ((column / (8 / NU)) % NU);
   };
-  // Copy chunk c into ring slot (c - c_lo) % ST. Weights: T bytes per
+  // Copy chunk c into ring slot (c - c_lo) % ST. Weights: W bytes per
   // copy, consecutive threads on consecutive subtiles of one column, so a
   // warp reads whole 64-byte runs of the weight rows. Builders: their two
   // rows' 4 bytes, zero-filled where masked. One commit group per chunk,
@@ -240,23 +264,57 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
         const int cc = i / CH, jj = i % CH;
         const int nn = blockIdx.x * NT + cc;
         const int jl = c * CH + jj;
-        const int byte = jj * T;
+        const int byte = jj * W;
         if (nn < N && jl < jg)
-          copy_async<T>(slot + cc * CB + unit_at(cc, byte / 16) * 16 +
+          copy_async<W>(slot + cc * CB + unit_at(cc, byte / 16) * 16 +
                             byte % 16,
-                        wg + (size_t)nn * K + jl * T, T);
+                        wg + (size_t)nn * K + jl * W, W);
       }
       if (builder) {
         const int jl = c * CH + tj;
         const bool ok = jl < jg;
         const int slot_x = (c - c_lo) % ST;
-        copy_async<4>(&xsm[slot_x][task].x, ok ? xr0 + jl * T : x,
+        copy_async<4>(&xsm[slot_x][task].x, ok ? xr0 + jl * W : x,
                       ok && r0 < M ? 4 : 0);
-        copy_async<4>(&xsm[slot_x][task].y, ok ? xr1 + jl * T : x,
+        copy_async<4>(&xsm[slot_x][task].y, ok ? xr1 + jl * W : x,
                       ok && r0 + 1 < M ? 4 : 0);
       }
     }
     copy_commit();
+  };
+  // The unaligned instance: fetch loads chunk c's bytes (the same ones, by
+  // the same threads) into registers, zero past the group's Kg and past M;
+  // stage stores them into the chunk's ring slot.
+  uint32_t wst[U], xst[2];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT * KT;
+      const int nn = blockIdx.x * NT + i / CH;
+      const int k0 = (c * CH + i % CH) * W;
+      wst[u] = c < c_hi && nn < N
+                   ? load_bytes(wg + (size_t)nn * K + k0, kg - k0) : 0u;
+    }
+    if (builder) {
+      const int k0 = (c * CH + tj) * W + 4 * th;
+      xst[0] = c < c_hi && r0 < M ? load_bytes(xr0 + k0 - 4 * th, kg - k0)
+                                  : 0u;
+      xst[1] = c < c_hi && r0 + 1 < M
+                   ? load_bytes(xr1 + k0 - 4 * th, kg - k0) : 0u;
+    }
+  };
+  auto stage = [&](int c) {
+    if (c >= c_hi) return;
+    unsigned char* slot = ring + ((c - c_lo) % ST) * NT * CB;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT * KT;
+      const int cc = i / CH, byte = (i % CH) * W;
+      *reinterpret_cast<uint32_t*>(slot + cc * CB +
+                                   unit_at(cc, byte / 16) * 16 + byte % 16) =
+          wst[u];
+    }
+    if (builder) xsm[(c - c_lo) % ST][task] = make_uint2(xst[0], xst[1]);
   };
   // Build chunk c's packed nibble LUTs (builders only): doubling, 15 adds.
   int32_t xs0 = 0, xs1 = 0;
@@ -292,14 +350,25 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
   // built while chunk c is gathered; one barrier per chunk. After the
   // barrier closing chunk c, nobody reads chunk c's ring slot or LUT
   // buffer again, and chunk c+1's weights and LUTs are visible to all.
-  issue(c_lo);
-  issue(c_lo + 1);
-  copy_wait<1>();                                  // own copies of c_lo
+  if constexpr (UNALIGNED) {
+    fetch(c_lo);
+    stage(c_lo);
+    fetch(c_lo + 1);
+    stage(c_lo + 1);
+  } else {
+    issue(c_lo);
+    issue(c_lo + 1);
+    copy_wait<1>();                                // own copies of c_lo
+  }
   build_luts(c_lo);
   __syncthreads();
   for (int c = c_lo; c < c_hi; ++c) {
-    issue(c + 2);                                  // into chunk c-1's slot
-    copy_wait<1>();                                // own copies of c+1
+    if constexpr (UNALIGNED) {
+      fetch(c + 2);                                // lands during the gathers
+    } else {
+      issue(c + 2);                                // into chunk c-1's slot
+      copy_wait<1>();                              // own copies of c+1
+    }
     build_luts(c + 1);
     const int buf = (c - c_lo) & 1;
     if (col) {
@@ -363,9 +432,10 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
         }
       }
     }
+    if constexpr (UNALIGNED) stage(c + 2);         // into chunk c-1's slot
     __syncthreads();
   }
-  copy_wait<0>();               // (empty groups past the range)
+  if constexpr (!UNALIGNED) copy_wait<0>();  // empty groups past the range
   // The ring becomes the partial sums: every read of it is behind the
   // last barrier.
 
@@ -424,10 +494,10 @@ tgemm_lut(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
   cluster.sync();               // peers stay resident until all have read
 }
 
-template <int T, int BM, int S>
+template <int W, int BM, int S, bool UNALIGNED>
 cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
                    int G, int ksplit, uint32_t* out, cudaStream_t st) {
-  const int jg = K / G / T;
+  const int jg = (K / G + W - 1) / W;
   const int nchunks = (jg + CH - 1) / CH;
   const int cps = (nchunks + ksplit - 1) / ksplit;
   cudaLaunchConfig_t cfg = {};
@@ -442,112 +512,41 @@ cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
   attr[0].val.clusterDim.z = ksplit;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, tgemm_lut<T, BM, S>, x, w, M, N, K,
-                                     G, ksplit, cps, out);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, tgemm_lut<W, BM, S, UNALIGNED>, x,
+                                     w, M, N, K, G, ksplit, cps, out);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int T, int BM>
+template <int W, int BM, bool UNALIGNED>
 cudaError_t by_bits(const int8_t* x, const int8_t* w, int M, int N, int K,
                     int G, int S, int ksplit, uint32_t* out, cudaStream_t st) {
   switch (S) {
-    case 2: return launch<T, BM, 2>(x, w, M, N, K, G, ksplit, out, st);
-    case 3: return launch<T, BM, 3>(x, w, M, N, K, G, ksplit, out, st);
-    case 4: return launch<T, BM, 4>(x, w, M, N, K, G, ksplit, out, st);
-    case 5: return launch<T, BM, 5>(x, w, M, N, K, G, ksplit, out, st);
-    case 6: return launch<T, BM, 6>(x, w, M, N, K, G, ksplit, out, st);
-    case 7: return launch<T, BM, 7>(x, w, M, N, K, G, ksplit, out, st);
-    case 8: return launch<T, BM, 8>(x, w, M, N, K, G, ksplit, out, st);
+    case 2:
+      return launch<W, BM, 2, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 3:
+      return launch<W, BM, 3, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 4:
+      return launch<W, BM, 4, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 5:
+      return launch<W, BM, 5, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 6:
+      return launch<W, BM, 6, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 7:
+      return launch<W, BM, 7, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
+    case 8:
+      return launch<W, BM, 8, UNALIGNED>(x, w, M, N, K, G, ksplit, out, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <int T>
+template <int W, bool UNALIGNED>
 cudaError_t by_rows(const int8_t* x, const int8_t* w, int M, int N, int K,
                     int G, int S, int ksplit, uint32_t* out, cudaStream_t st) {
-  if (M <= 4) return by_bits<T, 4>(x, w, M, N, K, G, S, ksplit, out, st);
-  if (M <= 8) return by_bits<T, 8>(x, w, M, N, K, G, S, ksplit, out, st);
-  return by_bits<T, 16>(x, w, M, N, K, G, S, ksplit, out, st);
-}
-
-
-// ---------------------------------------------------------------------
-// Any T: the generic kernel (T in 1..32, the T that the fast kernel above
-// does not take). One block of GT threads per (GN = GT columns n, row m,
-// group). Per T-wide subtile of the group's K range the block builds the
-// row's subset sums as NH = ceil(T / 8) sub-LUTs, sub-LUT h over the
-// subtile's activations 8h .. min(8h + 8, T) - 1 (the reference's
-// split-LUT idea, src/repro/kernels/transitive_gemm.py, extended to any
-// T): by doubling, step b writes lut_h[2^b + q] = lut_h[q] + x[8h + b] for
-// q < 2^b, thread q for every sub-LUT (one add per entry, a barrier per
-// step, at most 8 steps; every thread loads the step's x values before
-// the branch, which keeps the loads off the barrier chain). Each thread then makes its column's S TransRow patterns
-// from the weight bytes (bit i of plane s = bit s of w[n, j*T + i]; 32-bit
-// patterns, as the reference packs them) and gathers each plane's subset
-// sum as the sum of its NH sub-pattern lookups: subset sums are additive
-// over disjoint bits, so that is exact. It adds sign_s * sum, sign_s =
-// 2^s, or -2^(S-1) for the top plane, wrapping mod 2^32 like the
-// reference's int32 accumulator. The LUTs take NH * 256 int32 (4 KiB at
-// T = 32) of static shared memory. NH is a template parameter, so the
-// T <= 8 instance makes one lookup per plane, as a full 2^T LUT does. No
-// tuning: the build is NH * 2^8 adds per subtile and row against GN * S *
-// NH gathers, and the weight bytes are read column by column.
-constexpr int GT = 256;        // threads (= columns) per generic block
-constexpr int GMAX_T = 32;     // TransRow patterns are 32-bit
-
-template <int NH>              // ceil(T / 8) sub-LUTs
-__global__ void __launch_bounds__(GT)
-tgemm_generic(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-              int M, int N, int K, int G, int S, int T,
-              uint32_t* __restrict__ out) {
-  __shared__ int32_t glut[NH][256];
-  const int n = blockIdx.x * GT + threadIdx.x;
-  const int m = blockIdx.y, g = blockIdx.z;
-  const int kg = K / G;
-  const int8_t* xrow = x + (size_t)m * K + (size_t)g * kg;
-  const int8_t* wrow = w + (size_t)(n < N ? n : 0) * K + (size_t)g * kg;
-  const uint32_t mask = (1u << S) - 1u;
-  uint32_t hmask[NH];                           // sub-pattern h's bits
-#pragma unroll
-  for (int h = 0; h < NH; ++h) hmask[h] = (1u << min(8, T - 8 * h)) - 1u;
-  uint32_t acc = 0;
-  for (int k0 = 0; k0 < kg; k0 += T) {
-    __syncthreads();                            // the last LUTs are used
-    if ((int)threadIdx.x < NH) glut[threadIdx.x][0] = 0;
-    for (int b = 0; b < 8 && b < T; ++b) {
-      __syncthreads();
-      int32_t xb[NH];
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-        xb[h] = 8 * h + b < T ? xrow[k0 + 8 * h + b] : 0;
-      const int q = threadIdx.x;                // 2^b <= 128 < GT entries
-      if (q < (1 << b)) {
-#pragma unroll
-        for (int h = 0; h < NH; ++h)
-          if (8 * h + b < T) glut[h][(1 << b) + q] = glut[h][q] + xb[h];
-      }
-    }
-    __syncthreads();
-    if (n < N) {
-      uint32_t pat[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (int i = 0; i < T; ++i) {
-        const uint32_t u = (uint32_t)(uint8_t)wrow[k0 + i] & mask;
-#pragma unroll
-        for (int s = 0; s < 8; ++s) pat[s] |= ((u >> s) & 1u) << i;
-      }
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        if (s < S) {
-          uint32_t v = 0;
-#pragma unroll
-          for (int h = 0; h < NH; ++h)
-            v += (uint32_t)glut[h][(pat[s] >> (8 * h)) & hmask[h]];
-          acc += (s == S - 1) ? (0u - (v << s)) : (v << s);
-        }
-      }
-    }
-  }
-  if (n < N) out[((size_t)m * G + g) * N + n] = acc;
+  if (M <= 4)
+    return by_bits<W, 4, UNALIGNED>(x, w, M, N, K, G, S, ksplit, out, st);
+  if (M <= 8)
+    return by_bits<W, 8, UNALIGNED>(x, w, M, N, K, G, S, ksplit, out, st);
+  return by_bits<W, 16, UNALIGNED>(x, w, M, N, K, G, S, ksplit, out, st);
 }
 
 }  // namespace
@@ -555,46 +554,32 @@ tgemm_generic(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 extern "C" {
 
 // out (M, G, N) int32 = grouped x (M, K) int8 @ w (N, K) int8 ^T. x and w
-// are contiguous device pointers, x 4-byte and w 8-byte aligned. K % G ==
-// 0, (K / G) % T == 0, T in {4, 8}, S in [2, 8]. ksplit in [1, 8]: blocks
-// per output tile along K, launched as one cluster (at most the number of
-// chunks of CH subtiles per group). Rows per block: 4 for M <= 4, 8 for
-// M <= 8, else 16. Returns the cudaError_t of the launch (0 on success).
+// are contiguous device pointers, K % G == 0, S in [2, 8]. width is the
+// kernel's subtile width W, 8 or 4: where (K / G) % width == 0 an aligned
+// instance runs (x 4-byte and w width-byte aligned), else, at width 4
+// only, the unaligned one (plain loads; no alignment needed). ksplit in
+// [1, 8]: blocks per output tile along K, launched as one cluster (at
+// most the number of chunks of CH subtiles per group). Rows per block: 4
+// for M <= 4, 8 for M <= 8, else 16. Returns the cudaError_t of the
+// launch (0 on success).
 int transitive_gemm_launch(const void* x, const void* w, int M, int N, int K,
-                           int G, int S, int T, int ksplit, void* out,
+                           int G, int S, int width, int ksplit, void* out,
                            void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || (T != 4 && T != 8) ||
-      (K / G) % T || S < 2 || S > 8 || ksplit < 1 || ksplit > MAX_SPLIT ||
-      ksplit > (K / G / T + CH - 1) / CH)
+  const bool unaligned = G > 0 && (K / G) % width != 0;
+  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G ||
+      (width != 4 && width != 8) || (unaligned && width != 4) || S < 2 ||
+      S > 8 || ksplit < 1 || ksplit > MAX_SPLIT ||
+      ksplit > ((K / G + width - 1) / width + CH - 1) / CH)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* xp = (const int8_t*)x;
   const int8_t* wp = (const int8_t*)w;
   uint32_t* op = (uint32_t*)out;
-  if (T == 8) return (int)by_rows<8>(xp, wp, M, N, K, G, S, ksplit, op, st);
-  return (int)by_rows<4>(xp, wp, M, N, K, G, S, ksplit, op, st);
-}
-
-// The generic kernel for any T in 1..32 (the fast kernel takes T = 4, 8):
-// same function and layouts as transitive_gemm_launch, K % G == 0 and
-// (K / G) % T == 0, S in [2, 8]; one launch. Returns the cudaError_t of
-// the launch (0 on success), cudaErrorInvalidValue for T outside 1..32
-// (the reference's TransRow patterns are 32-bit).
-int transitive_gemm_generic_launch(const void* x, const void* w, int M,
-                                   int N, int K, int G, int S, int T,
-                                   void* out, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || T < 1 ||
-      T > GMAX_T || (K / G) % T || S < 2 || S > 8)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((N + GT - 1) / GT, M, G);
-  const int nh = (T + 7) / 8;
-  auto* kernel = nh == 1   ? tgemm_generic<1>
-                 : nh == 2 ? tgemm_generic<2>
-                 : nh == 3 ? tgemm_generic<3>
-                           : tgemm_generic<4>;
-  kernel<<<grid, GT, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, M, N, K, G, S, T, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  if (unaligned)
+    return (int)by_rows<4, true>(xp, wp, M, N, K, G, S, ksplit, op, st);
+  if (width == 8)
+    return (int)by_rows<8, false>(xp, wp, M, N, K, G, S, ksplit, op, st);
+  return (int)by_rows<4, false>(xp, wp, M, N, K, G, S, ksplit, op, st);
 }
 
 const char* transitive_gemm_error(int code) {

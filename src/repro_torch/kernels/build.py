@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "load", "start", "finish",
@@ -55,7 +56,7 @@ def _target(name: str) -> Path:
 
 def start(name: str):
     """Start compiling ``name`` unless its library is built; returns the
-    ``(process, target, log)`` to hand to :func:`finish`, or None."""
+    job to hand to :func:`finish`, or None."""
     target = _target(name)
     if target.exists():
         return None
@@ -66,31 +67,40 @@ def start(name: str):
     cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-    return proc, tmp, target, log
+    return proc, tmp, target, log, time.perf_counter()
 
 
 def finish(job) -> None:
     """Wait for a :func:`start` job; raise with the compiler log on error."""
     if job is None:
         return
-    proc, tmp, target, log = job
+    proc, tmp, target, log, _ = job
     if proc.wait() != 0:
         raise RuntimeError(f"nvcc failed for {target.name}:\n"
                            f"{log.read_text()[-4000:]}")
     os.replace(tmp, target)
 
 
-def build_all(names=SOURCES) -> None:
-    """Compile every named source at once (one nvcc each), then wait."""
-    jobs = [start(n) for n in names]
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every named source at once (one nvcc each), then wait.
+    Returns the seconds each source's nvcc took (those already built are
+    left out)."""
+    jobs = {n: job for n in names if (job := start(n)) is not None}
+    seconds: dict[str, float] = {}
+    while len(seconds) < len(jobs):
+        for name, job in jobs.items():
+            if name not in seconds and job[0].poll() is not None:
+                seconds[name] = time.perf_counter() - job[4]
+        time.sleep(0.05)
     errors = []
-    for job in jobs:
+    for job in jobs.values():
         try:
             finish(job)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return seconds
 
 
 def ptxas_report(name: str) -> str:

@@ -35,8 +35,8 @@ from repro_torch.kernels import build
 from repro_torch.quant.quantize import quantize_per_token
 
 __all__ = ["paged_attention", "paged_attention_plain", "agreement",
-           "launch_plan", "smem_bytes", "LaunchPlan", "LAYOUTS",
-           "ROW_BUDGET"]
+           "float_roundings", "bf16_neighbours", "launch_plan", "smem_bytes",
+           "LaunchPlan", "LAYOUTS", "ROW_BUDGET"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -158,18 +158,117 @@ def paged_attention_plain(q, pool, page_indices, steps, cfg, scale):
 # boundary moves one row, a fault in the arithmetic moves most of them.
 ROW_BUDGET = 2
 
+_U = 2.0 ** -24                 # f32 unit roundoff
 
-def agreement(got, want, pool, page_indices, steps, cfg) -> dict:
+
+def bf16_neighbours(x: torch.Tensor):
+    """For float64 ``x``: (lo, ulp), the bf16 magnitudes lo <= |x| < lo +
+    ulp around |x| (8 significant bits: ulp = 2^(e - 8) for |x| in
+    [2^(e-1), 2^e)). Rounding |x| to bf16 turns from lo to lo + ulp at the
+    midpoint lo + ulp / 2."""
+    a = x.abs()
+    _, e = torch.frexp(a)
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    return torch.floor(a / ulp) * ulp, ulp
+
+
+def float_roundings(q, pool, page_indices, steps, scale) -> dict:
+    """The bf16 float layout's two roundings to the pool dtype, recomputed
+    in float64 from the plain version's own intermediates
+    (``models.attention.attend_cached``): the score, the bf16 ``einsum``
+    of q and K (an f32 dot of hd exact products, rounded to bf16), and P,
+    ``p.to(bf16)`` of the f32 softmax of the scaled scores.
+
+    A rounding is *ambiguous* when the value rounded lies within its own
+    f32 error of a bf16 midpoint: the kernel's f32 value and the plain
+    version's may then round to different neighbours. The radii, per side
+    (a value either side computes lies within them of the exact value):
+
+    * score: an f32 sum of hd exact products in any order errs by at most
+      (hd - 1) u sum_d |q_d k_d| (u = 2^-24) from the exact dot;
+    * P, given the same scores (the same f32 s - max in both): expf errs
+      by 2 ulp (4u) on the card and 1 ulp on the host, the exp-sum over the
+      row's n live lanes by (n - 1) u in any order (the kernel's runs in
+      rank order across the cluster), the division by u (a reciprocal and
+      a product, 2u, on the host); so P's f32 value lies within (n + 8) u
+      p of the exact softmax p.
+
+    Returns, per (slot, KV head, query head, lane) of the gathered extent:
+    ``dot`` (the exact score dot, f64), ``score`` (the plain version's
+    bf16 score, f64), ``p`` (the exact softmax of its scaled scores, f64),
+    ``P`` (its bf16 P, f64), ``p_ulp`` (P's bf16 spacing), ``p_amb`` and
+    ``s_amb`` (ambiguous P and score roundings, live lanes only),
+    ``s_step`` (how far s moves when the score rounds to its other
+    neighbour: one bf16 ulp of the score, times ``scale``); ``v`` (slot,
+    lane, KV head, hd) in f64, ``live`` (slot, lane) and ``order`` (slot,
+    KV head, query head, d): how far the two sides' f32 P·V sums, in other
+    orders, may lie apart, 2 gamma_(n-1) sum_j P_j |v_jd| over the n live
+    lanes (:func:`agreement`; P_j one bf16 step up at an ambiguous lane)."""
+    from repro_torch.models.attention import NEG_INF, _gather_pages
+    table = page_indices.cpu().long()
+    ck = _gather_pages(pool["k"].cpu(), table)          # (B, S, KV, hd)
+    cv = _gather_pages(pool["v"].cpu(), table)
+    b, size, kvh, hd = ck.shape
+    qg = q.cpu().reshape(b, 1, kvh, -1, hd)
+    lanes = torch.arange(size)
+    valid = lanes[None] < torch.clamp(steps.cpu().long() + 1,
+                                      max=size)[:, None]
+    live = valid[:, None, None, :]                       # (B, 1, 1, S)
+    # the plain version's scores and P, as attend_cached makes them
+    sb = torch.einsum("bqkgd,bskd->bkgqs", qg, ck)[:, :, :, 0]
+    s32 = torch.where(live, sb.to(torch.float32) * scale,
+                      torch.full_like(sb, NEG_INF, dtype=torch.float32))
+    p32 = torch.softmax(s32, dim=-1)
+    P = p32.to(torch.bfloat16).double()
+    # exact values and their distance from a bf16 midpoint
+    q64, k64 = qg[:, 0].double(), ck.double()
+    dot = torch.einsum("bkgd,bskd->bkgs", q64, k64)
+    mag = torch.einsum("bkgd,bskd->bkgs", q64.abs(), k64.abs())
+    lo, ulp = bf16_neighbours(dot)
+    s_amb = live & ((dot.abs() - lo - ulp / 2).abs()
+                    <= (hd - 1) * _U * mag)
+    p = torch.softmax(s32.double(), dim=-1)
+    n = valid.sum(-1)[:, None, None, None].double()
+    lo_p, p_ulp = bf16_neighbours(p)
+    p_amb = live & ((p - lo_p - p_ulp / 2).abs() <= (n + 8) * _U * p)
+    _, p_ulp = bf16_neighbours(P)
+    v = cv.double()
+    k = n - 1
+    order = 2 * k * _U / (1 - k * _U) * torch.einsum(
+        "bkgs,bskd->bkgd", P + p_ulp * (p_amb | s_amb), v.abs())
+    return {"dot": dot, "score": sb.double(), "p": p, "P": P,
+            "p_ulp": p_ulp, "p_amb": p_amb, "s_amb": s_amb,
+            "s_step": ulp * scale, "v": v, "live": valid, "order": order}
+
+
+def agreement(got, want, pool, page_indices, steps, cfg, *, q=None,
+              scale=None) -> dict:
     """How far the kernel's output ``got`` lies from the plain version's
-    ``want`` on the same inputs (q, ``pool``, ``page_indices``, ``steps``,
-    ``cfg``). Two bounds per element:
+    ``want`` on the same inputs (``q``, ``pool``, ``page_indices``,
+    ``steps``, ``cfg``, ``scale``; q and scale are needed by the bf16
+    float layout only). Two bounds per element:
 
-    * tight, where every code and every rounding to the pool dtype agrees
-      and only sum orders differ. Int8 attention: the int32 P·V is the
-      same integer and only the P scale moves, by the relative error of
-      the softmax sum (about ulps; 2^-14 allowed). The bf16 float layout:
-      one bf16 ulp of the output, 2^-7 of max(|got|, |want|). f32 float
-      attention: rtol and atol 1e-5.
+    * tight, where every code agrees and only sum orders differ. Int8
+      attention: the int32 P·V is the same integer and only the P scale
+      moves, by the relative error of the softmax sum (about ulps; 2^-14
+      allowed). The bf16 float layout, where every rounding to the pool
+      dtype agrees: one bf16 ulp of the output, 2^-7 of max(|got|,
+      |want|), for the two sides' final roundings to bf16, plus the order
+      of their f32 P·V sums. A product P_j v_jd of two bf16 values is
+      exact in f32 (8 + 8 significant bits), so a side's f32 sum of a
+      row's n live products, in any order, lies within gamma_(n-1) sum_j
+      P_j |v_jd| of the exact sum (each product passes at most n - 1
+      additions; gamma_k = k u / (1 - k u), u = 2^-24), and the two sides'
+      sums within twice that of each other (``order``): more than an ulp
+      of o_d where o_d nearly cancels. Where a rounding is ambiguous
+      (:func:`float_roundings`: the value rounded lies within its f32
+      error of a bf16 midpoint), the kernel may round it the other way,
+      and the bound adds the first-order change that doing so makes to
+      each output element o_d of the row: a P lane j
+      moves P_j by its bf16 spacing, o_d by ulp(P_j) |v_jd|; a score lane i
+      moves s_i by s_step_i, o_d by p_i s_step_i (v_id - o_d) through the
+      softmax, and P_i lands on another rounding, ulp(P_i) |v_id| more.
+      f32 float attention: rtol and atol 1e-5.
     * loose, where a P code falls one step the other way (int8 attention,
       two steps allowed: 2 * 128 * sps * sv with the row's P scale sps <=
       max of the slot's live V scales / 127 (int8 pool; sv = 1) or 1 / 127
@@ -203,7 +302,17 @@ def agreement(got, want, pool, page_indices, steps, cfg) -> dict:
             v = pool["v"][table].float().abs().reshape(b, pps * ps, kvh, hd)
             loose = 2 * 128 / 127 * (v.amax(1) / 127 + 1e-8)[:, :, None]
     elif layout == 2 and pool["k"].dtype == torch.bfloat16:
-        tight = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+        if q is None or scale is None:
+            raise ValueError("the bf16 float layout's bound needs q and "
+                             "scale")
+        r = float_roundings(q, pool, table, steps, scale)
+        av = r["v"].abs()
+        flip = r["p_ulp"] * (r["p_amb"] | r["s_amb"])
+        shift = r["p"] * r["s_step"] * r["s_amb"]
+        moved = (torch.einsum("bkgs,bskd->bkgd", flip + shift, av)
+                 + shift.sum(-1, keepdim=True) * want.abs().double())
+        tight = (torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+                 + r["order"] + moved)
         loose = float(pool["v"].float().abs().max()) * 2.0 ** -7
     else:
         tight = loose = want.abs() * 1e-5 + 1e-5

@@ -7,22 +7,22 @@ int32 ``qx (M, K) @ qw (N, K)^T`` of int8 operands (``qw`` holding
 ``w_bits``-bit values) with transitive result reuse, in one launch for
 all ``groups`` equal slices of K: out (M, groups, N). On CPU tensors it
 runs the plain version (:mod:`repro_torch.kernels.ref`); on CUDA tensors
-it launches a kernel or raises: T in {4, 8} goes to the fast kernel
-(each launch adds one to ``transitive_gemm_cuda.launches``), any other T
-up to 32 to the generic kernel, :func:`transitive_gemm_generic` (each
-launch adds one to ``transitive_gemm_generic.launches``). T > 32 raises:
-the TransRow patterns are 32-bit, in the reference as here.
+it launches the kernel ``tgemm_lut`` or raises, and each launch adds one
+to ``transitive_gemm_cuda.launches``.
+
+The reference's T (any T with (K / groups) % T == 0; T <= 32, its
+TransRow patterns being 32-bit) only blocks K: every T gives the same
+int32 result. So every T runs through the one kernel, at a subtile width
+of the kernel's own that :func:`lut_width` picks from K and groups: 8 or
+4 in the aligned instances, else 4 in the unaligned one (bytes staged by
+plain loads, each group's last subtile zero-filled).
 
 The kernel reads the int8 weight directly (no packed TransRows), keeps
 two activation rows per 32-bit LUT word, masks ragged M and N itself and,
 when there are few output tiles, splits K across the blocks of a thread
 block cluster (:func:`k_split` picks the split; the cluster adds its
-partial sums through distributed shared memory). The generic kernel is
-simple: one block per (256 columns, row, group) builds the row's subset
-sums per subtile as ceil(T / 8) sub-LUTs of at most 2^8 entries by
-doubling, and gathers each plane's pattern as the sum of its sub-pattern
-lookups. Bound and design notes are
-in the CUDA source.
+partial sums through distributed shared memory). Bound and design notes
+are in the CUDA source.
 """
 from __future__ import annotations
 
@@ -32,8 +32,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["transitive_gemm_cuda", "transitive_gemm_generic",
-           "transitive_gemm_plain", "k_split"]
+__all__ = ["transitive_gemm_cuda", "transitive_gemm_plain", "lut_width",
+           "k_split"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,9 +41,6 @@ _I = ctypes.c_int
 # The kernel's tiling (csrc/transitive_gemm.cu): columns per block,
 # subtiles per chunk, blocks per cluster at most.
 _NT, _CH, _MAX_SPLIT = 128, 8, 8
-# The widest T of the generic kernel: TransRow patterns are 32-bit (the
-# reference packs them as uint32).
-MAX_T = 32
 
 _LIB: list[ctypes.CDLL] = []
 _SMS: dict[int, int] = {}
@@ -55,9 +52,6 @@ def _library() -> ctypes.CDLL:
         lib.transitive_gemm_launch.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.transitive_gemm_launch.restype = _I
-        lib.transitive_gemm_generic_launch.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
-        lib.transitive_gemm_generic_launch.restype = _I
         lib.transitive_gemm_error.argtypes = [_I]
         lib.transitive_gemm_error.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -77,15 +71,30 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def k_split(m: int, n: int, k: int, groups: int, t: int, sms: int) -> int:
+def lut_width(k: int, groups: int) -> tuple[int, bool]:
+    """The kernel's subtile width for K in ``groups`` groups, and whether
+    the aligned instance takes it: 8 where K / groups is a multiple of 8,
+    else 4 where it is a multiple of 4 (K, a multiple of K / groups, is
+    one too, so every row and group starts on a width-byte boundary, as
+    the aligned instances' cp.async copies need), else 4 in the unaligned
+    instance."""
+    kg = k // groups
+    if kg % 8 == 0:
+        return 8, True
+    return 4, kg % 4 == 0
+
+
+def k_split(m: int, n: int, k: int, groups: int, width: int,
+            sms: int) -> int:
     """Blocks per output tile along K (one thread block cluster, <= 8).
 
     Output tiles are 128 columns x 4 (M <= 4), 8 (M <= 8) or 16 rows per
     group. With fewer tiles than two per SM, each group's chunks of 8
-    subtiles are split as far as a cluster allows: the fewest chunks per
-    block that keep the split at 8 or below."""
+    subtiles of the kernel's ``width`` (a ragged last one included) are
+    split as far as a cluster allows: the fewest chunks per block that
+    keep the split at 8 or below."""
     rows = 4 if m <= 4 else 8 if m <= 8 else 16
-    chunks = _cdiv(k // groups // t, _CH)
+    chunks = _cdiv(_cdiv(k // groups, width), _CH)
     tiles = _cdiv(n, _NT) * _cdiv(m, rows) * groups
     if tiles >= 2 * sms:
         return 1
@@ -100,6 +109,9 @@ def _check(qx: torch.Tensor, qw: torch.Tensor, t: int, groups: int) -> None:
     if groups < 1 or k % groups or (k // groups) % t:
         raise ValueError(f"K={k} must split into {groups} groups whose "
                          f"length is divisible by T={t}")
+    if qx.device.type != "cpu" and not 1 <= t <= 32:
+        raise ValueError(f"TransRow patterns are 32-bit, as the "
+                         f"reference's: T <= 32 on the card, got T={t}")
 
 
 def transitive_gemm_plain(qx: torch.Tensor, qw: torch.Tensor, *,
@@ -116,7 +128,7 @@ def transitive_gemm_plain(qx: torch.Tensor, qw: torch.Tensor, *,
 
 
 def _operands(qx: torch.Tensor, qw: torch.Tensor, w_bits: int):
-    """The kernels' operand checks; returns contiguous int8 operands with
+    """The kernel's operand checks; returns contiguous int8 operands with
     x 4-byte and w 8-byte aligned."""
     if qx.device.type != "cuda" or qw.device != qx.device:
         raise ValueError(f"transitive_gemm runs on CUDA or CPU tensors on "
@@ -125,20 +137,14 @@ def _operands(qx: torch.Tensor, qw: torch.Tensor, w_bits: int):
         raise ValueError(f"the kernel takes int8 operands, got {qx.dtype} "
                          f"and {qw.dtype}")
     if not 2 <= w_bits <= 8:
-        raise ValueError(f"the kernels cover w_bits in 2..8, got {w_bits}")
+        raise ValueError(f"the kernel covers w_bits in 2..8, got {w_bits}")
     xc = qx.contiguous()
     wc = qw.contiguous()
     if xc.data_ptr() % 4:                      # the kernel loads 4 bytes
         xc = xc.clone()
-    if wc.data_ptr() % 8:                      # and T weight bytes
+    if wc.data_ptr() % 8:                      # and up to 8 weight bytes
         wc = wc.clone()
     return xc, wc
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.transitive_gemm_error(err).decode()}")
 
 
 def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
@@ -147,16 +153,13 @@ def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
     """int32 (M, groups, N) = per group g: qx[:, g] @ qw[:, g]^T.
 
     CPU tensors take the plain version. Anything else must be a CUDA
-    tensor; the kernels need int8 operands and w_bits in 2..8, are built
-    at first use, and a build or launch failure raises. T in {4, 8} runs
-    the fast kernel; any other T runs :func:`transitive_gemm_generic`."""
+    tensor; the kernel needs int8 operands, w_bits in 2..8 and T <= 32, is
+    built at first use, and a build or launch failure raises. Every T is
+    one launch of the kernel, at the width :func:`lut_width` picks."""
     _check(qx, qw, t, groups)
     if qx.device.type == "cpu":
         return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
                                      groups=groups)
-    if t not in (4, 8):
-        return transitive_gemm_generic(qx, qw, w_bits=w_bits, t=t,
-                                       groups=groups)
     lib = _library()
     xc, wc = _operands(qx, qw, w_bits)
     m, k = qx.shape
@@ -164,49 +167,17 @@ def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
     out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    ksplit = k_split(m, n, k, groups, t, _sm_count(qx.device))
+    width = lut_width(k, groups)[0]
+    ksplit = k_split(m, n, k, groups, width, _sm_count(qx.device))
     stream = torch.cuda.current_stream(qx.device).cuda_stream
-    _raise_on(lib.transitive_gemm_launch(
-        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t, ksplit,
-        out.data_ptr(), stream), lib, "transitive_gemm")
+    err = lib.transitive_gemm_launch(
+        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, width, ksplit,
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"transitive_gemm launch failed: "
+                           f"{lib.transitive_gemm_error(err).decode()}")
     transitive_gemm_cuda.launches += 1
     return out
 
 
 transitive_gemm_cuda.launches = 0
-
-
-def transitive_gemm_generic(qx: torch.Tensor, qw: torch.Tensor, *,
-                            w_bits: int = 8, t: int = 8,
-                            groups: int = 1) -> torch.Tensor:
-    """The generic-T kernel: the same function as
-    :func:`transitive_gemm_cuda`, for any T in 1..32 (the fast kernel's T
-    too). CPU tensors take the plain version; T > 32 raises on CUDA (the
-    TransRow patterns are 32-bit, as the reference's)."""
-    _check(qx, qw, t, groups)
-    if qx.device.type == "cpu":
-        return transitive_gemm_plain(qx, qw, w_bits=w_bits, t=t,
-                                     groups=groups)
-    lib = _library()
-    xc, wc = _operands(qx, qw, w_bits)
-    if not 1 <= t <= MAX_T:
-        raise ValueError(f"the generic kernel's TransRow patterns are "
-                         f"32-bit, as the reference's: T <= {MAX_T}, "
-                         f"got T={t}")
-    m, k = qx.shape
-    n = qw.shape[0]
-    if m > 65535:
-        raise ValueError(f"the generic kernel takes M <= 65535 rows (one "
-                         f"grid row each), got M={m}")
-    out = torch.empty((m, groups, n), dtype=torch.int32, device=qx.device)
-    if m == 0 or n == 0 or k == 0:
-        return out.zero_()
-    stream = torch.cuda.current_stream(qx.device).cuda_stream
-    _raise_on(lib.transitive_gemm_generic_launch(
-        xc.data_ptr(), wc.data_ptr(), m, n, k, groups, w_bits, t,
-        out.data_ptr(), stream), lib, "transitive_gemm_generic")
-    transitive_gemm_generic.launches += 1
-    return out
-
-
-transitive_gemm_generic.launches = 0

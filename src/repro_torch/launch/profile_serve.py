@@ -42,7 +42,6 @@ PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "paged_decode": "B2 paged attention",
                 "forest_dense": "B1 forest from a dense plan (T > 8)",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
-                "tgemm_generic": "B3 generic-T transitive GEMM",
                 "w4a8_dot": "B4 group-dequant GEMM",
                 "rg_lru_seq": "B5 linear recurrence"}
 

@@ -263,7 +263,8 @@ def test_paged_attention_other_layouts_match_reference(quant, int8_pool,
             atol=atol)
         # and within the bounds the CUDA kernel is held to
         agree = agreement(got, T(np.array(want.astype(jnp.float32))),
-                          tpool, T(table), T(steps), pt_cfg)
+                          tpool, T(table), T(steps), pt_cfg, q=tq,
+                          scale=scale)
         assert agree["rows_beyond"] <= ROW_BUDGET, agree
         assert agree["worst_loose"] <= 1, agree
     # the live-page walk never reads a dead lane's K, nor (but under int8
@@ -310,6 +311,139 @@ def test_agreement_flags_a_v_max_over_too_few_lanes(fault, dtype, cfgs,
     bad = paged_attention(tq, left_out, *args, 32 ** -0.5)
     agree = agreement(bad, want, tpool, *args)
     assert agree["rows_beyond"] > ROW_BUDGET, agree
+
+
+@pytest.mark.parametrize("ambiguous", [True, False],
+                         ids=["ambiguous-lane", "unambiguous-lane"])
+def test_agreement_takes_an_ambiguous_p_rounding_flip(ambiguous, cfgs, rng):
+    """The bf16 float layout: the plain version with one lane's P rounded
+    to its other bf16 neighbour, in a row whose output element d = 0
+    nearly cancels (V at the row's largest-P lane set so that sum_j P_j
+    v_j0 is about 0), so the flip moves that element by more than one bf16
+    ulp and the f32 P·V sums' order term together. Where the lane's
+    rounding is ambiguous (its f32 value may lie on either side of the
+    bf16 midpoint: ``float_roundings``) the kernel may round it so, and
+    ``agreement`` leaves no row beyond; where it is not, in a row with no
+    ambiguous lane, the row is beyond. q and K hold small
+    integers, so every score is exact in bf16 and only P's roundings can
+    be ambiguous."""
+    from repro_torch.kernels.paged_attention import (bf16_neighbours,
+                                                     float_roundings)
+    pt_cfg = cfgs[0].replace(quant_attention=False)
+    b, kv, g, hd, ps, max_len = 8, 1, 8, 32, 16, 256
+    shp = (b * max_len // ps + 1, ps, kv, hd)
+    tpool = {"k": T(rng.integers(-2, 3, shp).astype(np.float32)),
+             "v": T((rng.standard_normal(shp) * 2).astype(np.float32))}
+    tpool = {n: a.to(torch.bfloat16) for n, a in tpool.items()}
+    tq = T(rng.integers(-2, 3, (b, 1, kv * g, hd)).astype(np.float32)).to(
+        torch.bfloat16)
+    steps = T(np.full(b, max_len - 1, np.int32))
+    table = T(np.arange(1, shp[0], dtype=np.int32).reshape(b, -1))
+    scale = hd ** -0.5
+    r = float_roundings(tq, tpool, table, steps, scale)
+    assert not r["s_amb"].any()
+    p, P, amb = r["p"][:, 0], r["P"][:, 0], r["p_amb"][:, 0]   # (B, G, S)
+    lo, ulp = bf16_neighbours(p)
+    if ambiguous:
+        pick = amb.clone()
+    else:
+        pick = ((p - lo - ulp / 2).abs() > ulp / 4) & ~amb.any(
+            -1, keepdim=True)
+    pick &= (p > 1e-3) & (P < P.amax(-1, keepdim=True))
+    # the lane whose flip moves element 0 most
+    moves = torch.where(pick, r["p_ulp"][:, 0] * r["v"][:, None, :, 0, 0]
+                        .abs(), 0.0)
+    sb, gh, j = np.unravel_index(int(moves.argmax()), moves.shape)
+    top = int(P[sb, gh].argmax())
+    # V at the top lane cancels element 0 of row (sb, gh)
+    v0 = tpool["v"][table[sb].long()].reshape(-1, kv, hd)[:, 0, 0].double()
+    rest = float((P[sb, gh] * v0).sum() - P[sb, gh, top] * v0[top])
+    tpool["v"][table[sb, top // ps], top % ps, 0, 0] = \
+        -rest / float(P[sb, gh, top])
+    args = (table, steps, pt_cfg)
+    want = paged_attention(tq, tpool, *args, scale)
+    # the plain version (attend_cached's float bf16 layout) with P_j flipped
+    ck = PA._gather_pages(tpool["k"], table)
+    cv = PA._gather_pages(tpool["v"], table)
+    s32 = torch.einsum("bqkgd,bskd->bkgqs", tq.reshape(b, 1, kv, g, hd),
+                       ck).to(torch.float32) * scale
+    probs = torch.softmax(s32, dim=-1).to(torch.bfloat16)
+    assert torch.equal(torch.einsum("bkgqs,bskd->bqkgd", probs, cv)
+                       .reshape(want.shape), want)
+    probs[sb, 0, gh, 0, j] = (2 * lo[sb, gh, j] + ulp[sb, gh, j]
+                              - probs[sb, 0, gh, 0, j].double())
+    got = torch.einsum("bkgqs,bskd->bqkgd", probs, cv).reshape(want.shape)
+    moved = float((got - want).float().abs()[sb, 0, gh, 0])
+    order = 2 * 255 * 2.0 ** -24 * float(       # 256 live lanes
+        (probs[sb, 0, gh, 0].double() * cv[sb, :, 0, 0].double().abs())
+        .sum())
+    assert moved > 2.0 ** -7 * max(abs(float(got[sb, 0, gh, 0])),
+                                   abs(float(want[sb, 0, gh, 0]))) + order
+    agree = agreement(got, want, tpool, *args, q=tq, scale=scale)
+    assert agree["rows_beyond"] == (0 if ambiguous else 1), agree
+    assert agree["worst_loose"] <= 1, agree
+
+
+@pytest.mark.parametrize("beyond", [False, True],
+                         ids=["sum-order", "beyond-sum-order"])
+def test_agreement_takes_the_p_v_sum_order(beyond, cfgs, rng):
+    """The bf16 float layout: two sides that agree on every rounding to
+    bf16 but add the row's f32 products P_j v_jd in other orders (lanes
+    forward and backward) differ by more than one bf16 ulp of an element
+    that nearly cancels (V at four lanes of one row set so that sum_j P_j
+    v_j0 is about 1e-8); ``agreement``'s sum-order term, 2 gamma_(n-1)
+    sum_j P_j |v_j0|, takes that, and a change of four times the term
+    there is beyond. q and K hold small integers (every score exact in
+    bf16), and the row has no ambiguous P rounding."""
+    from repro_torch.kernels.paged_attention import float_roundings
+    pt_cfg = cfgs[0].replace(quant_attention=False)
+    b, kv, g, hd, ps, max_len = 8, 1, 8, 32, 16, 256
+    shp = (b * max_len // ps + 1, ps, kv, hd)
+    tpool = {"k": T(rng.integers(-2, 3, shp).astype(np.float32)),
+             "v": T((rng.standard_normal(shp) * 2).astype(np.float32))}
+    tpool = {n: a.to(torch.bfloat16) for n, a in tpool.items()}
+    tq = T(rng.integers(-2, 3, (b, 1, kv * g, hd)).astype(np.float32)).to(
+        torch.bfloat16)
+    steps = T(np.full(b, max_len - 1, np.int32))
+    table = T(np.arange(1, shp[0], dtype=np.int32).reshape(b, -1))
+    scale = hd ** -0.5
+    r = float_roundings(tq, tpool, table, steps, scale)
+    assert not r["s_amb"].any()
+    sb, gh = (~r["p_amb"][:, 0].any(-1)).nonzero()[0].tolist()
+    P = r["P"][sb, 0, gh]                                   # (S,)
+    lanes = P.argsort(descending=True)[:4].tolist()
+    v = tpool["v"]
+    at = [(int(table[sb, j // ps]), j % ps) for j in lanes]
+    for page, slot in at:
+        v[page, slot, 0, 0] = 0
+    for (page, slot), j in zip(at, lanes):    # each cuts the rest ~2^-9
+        v0 = PA._gather_pages(v, table)[sb, :, 0, 0].double()
+        v[page, slot, 0, 0] = float(-(P * v0).sum() / P[j])
+    cv = PA._gather_pages(v, table)
+    v0 = cv[sb, :, 0, 0].double()
+    assert abs(float((P * v0).sum())) < 1e-7
+    probs = r["P"][:, 0].float()                            # (B, G, S)
+    cvf = cv[:, :, 0].float()                               # (B, S, hd)
+
+    def f32_sum(order):
+        acc = torch.zeros(b, g, hd)
+        for j in order:
+            acc = acc + probs[:, :, j, None] * cvf[:, None, j]
+        return acc.to(torch.bfloat16).reshape(b, 1, kv * g, hd)
+
+    want, got = f32_sum(range(max_len)), f32_sum(reversed(range(max_len)))
+    term = 2 * 255 * 2.0 ** -24 * float((P * v0.abs()).sum())
+    at0 = (sb, 0, gh, 0)
+    diff = abs(float(got[at0]) - float(want[at0]))
+    assert diff > 2.0 ** -7 * max(abs(float(got[at0])),
+                                  abs(float(want[at0])))
+    assert diff <= term
+    if beyond:
+        got[at0] = float(want[at0]) + 4 * term
+    agree = agreement(got, want, tpool, table, steps, pt_cfg, q=tq,
+                      scale=scale)
+    assert agree["rows_beyond"] == int(beyond), agree
+    assert agree["worst_loose"] <= 1, agree
 
 
 def test_paged_decode_layer_kernel_vs_gather(cfgs, rng):

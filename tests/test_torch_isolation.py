@@ -223,7 +223,7 @@ def test_gemm_and_scan_wrappers_raise_instead_of_falling_back(
 
 
 def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
-    """T outside the fast kernels' range: B3 at T=6 (the generic kernel)
+    """T outside {4, 8}: B3 at T=6 (the one LUT kernel, at its own width)
     and B1 from a T=9 DevicePlan (the dense kernel) run their plain
     versions on CPU tensors, and on a non-CPU tensor raise when their
     kernel cannot be built, launching nothing."""
@@ -235,7 +235,7 @@ def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     qx = torch.from_numpy(rng.integers(-128, 128, (3, 36)).astype(np.int8))
     qw = torch.from_numpy(rng.integers(-8, 8, (5, 36)).astype(np.int8))
     dplan = compile_plan(BatchedTransitiveEngine(4, 9).plan(qw.numpy()))
-    before = (tg.transitive_gemm_generic.launches,
+    before = (tg.transitive_gemm_cuda.launches,
               tfd.transitive_forest_dense.launches)
     exact = qx.long() @ qw.long().T
     assert torch.equal(ops.transitive_gemm(qx, qw, w_bits=4, t=6).long(),
@@ -246,7 +246,7 @@ def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     with pytest.raises(RuntimeError,
                        match="cannot build transitive_forest_dense"):
         ops.transitive_forest(dplan, qx.T.to("meta"))
-    assert (tg.transitive_gemm_generic.launches,
+    assert (tg.transitive_gemm_cuda.launches,
             tfd.transitive_forest_dense.launches) == before
 
 

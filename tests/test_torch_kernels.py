@@ -122,14 +122,15 @@ def test_paged_attention_kernel_within_tolerance(cuda, page_size, max_len):
     got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
     want = paged_attention_plain(q, pool, table, steps, cfg, hd ** -0.5)
     assert got.dtype == want.dtype
-    _assert_agree(got, want, pool, table, steps, cfg)
+    _assert_agree(got, want, q, pool, table, steps, cfg, hd ** -0.5)
 
 
 # (m, n, k, w_bits, t, groups, fill): fill None draws random codes; (a, b)
 # fills x with a and w with b ("lo" -2^(S-1), "hi" 2^(S-1) - 1), which
 # pushes the kernel's packed 16-bit halves to their limits (0 and the
-# flush schedule's bound). Split cases: K=1536 at M=1 runs 8 blocks per
-# cluster, K=576 at M=4 5, 12 groups of 128 at M=4 2, M=512 N=1536 none.
+# flush schedule's bound) at width 8 (T=8, K=640) and 4 (T=4, K=644).
+# Split cases: K=1536 at M=1 runs 8 blocks per cluster, K=576 at M=4 5,
+# 12 groups of 128 at M=4 2, M=512 N=1536 none.
 _TGEMM_CASES = [
     (4, 1536, 576, 4, 8, 1, None), (130, 70, 512, 4, 8, 1, None),
     (1, 8, 64, 8, 8, 1, None), (33, 192, 576, 8, 4, 1, None),
@@ -137,7 +138,7 @@ _TGEMM_CASES = [
     (4, 576, 1536, 4, 8, 12, None), (9, 40, 96, 4, 4, 3, None),
     (1, 576, 1536, 4, 8, 1, None), (4, 576, 576, 4, 8, 1, None),
     (1, 192, 1536, 4, 8, 12, None), (512, 1536, 576, 4, 8, 1, None)]
-_TGEMM_CASES += [(20, 136, 640, bits, t, 1, (a, b))
+_TGEMM_CASES += [(20, 136, 640 if t == 8 else 644, bits, t, 1, (a, b))
                  for bits in (2, 4, 5, 6, 8) for t in (4, 8)
                  for a, b in ((-128, "lo"), (-128, "hi"), (127, "lo"),
                               (127, "hi"))]
@@ -153,7 +154,8 @@ def _tgemm_id(case):
                          ids=[_tgemm_id(c) for c in _TGEMM_CASES])
 def test_transitive_gemm_kernel_equals_plain(cuda, m, n, k, w_bits, t,
                                              groups, fill):
-    from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
+    from repro_torch.kernels.transitive_gemm import (lut_width,
+                                                     transitive_gemm_cuda,
                                                      transitive_gemm_plain)
     rng = np.random.default_rng(m + n + k)
     lim = 1 << (w_bits - 1)
@@ -166,6 +168,8 @@ def test_transitive_gemm_kernel_equals_plain(cuda, m, n, k, w_bits, t,
     x = torch.from_numpy(x.astype(np.int8))
     w = torch.from_numpy(w.astype(np.int8))
     kw = dict(w_bits=w_bits, t=t, groups=groups)
+    if fill is not None:
+        assert lut_width(k, groups) == ((8, True) if t == 8 else (4, True))
     before = transitive_gemm_cuda.launches
     got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw)
     assert transitive_gemm_cuda.launches == before + 1
@@ -229,9 +233,9 @@ def _pool(layout, dtype, shp, gen, cuda):
             .to(dtype)}
 
 
-def _assert_agree(got, want, pool, table, steps, cfg):
+def _assert_agree(got, want, q, pool, table, steps, cfg, scale):
     from repro_torch.kernels.paged_attention import ROW_BUDGET, agreement
-    agree = agreement(got, want, pool, table, steps, cfg)
+    agree = agreement(got, want, pool, table, steps, cfg, q=q, scale=scale)
     assert agree["rows_beyond"] <= ROW_BUDGET, agree
     assert agree["worst_loose"] <= 1, agree
 
@@ -275,7 +279,7 @@ def test_paged_attention_other_layouts_within_tolerance(cuda, layout, dtype,
     want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
                                  hd ** -0.5)
     assert got.dtype == want.dtype
-    _assert_agree(got, want, cpu, table, steps, cfg)
+    _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
 
 
 # B2 cluster cases: (b, kv, g, hd, page_size, max_len, exact pool dtype,
@@ -307,17 +311,41 @@ def test_paged_attention_cluster_cases(cuda, layout, case):
     CPU copies, within the bounds of ``kernels.paged_attention.agreement``,
     one launch per call; a second call on the same inputs gives the same
     bits (no atomics: every sum runs in a fixed order)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import (LAYOUTS, launch_plan,
                                                      paged_attention,
                                                      paged_attention_plain)
+    b, kv, g, hd, ps, (max_len,), dtype, _ = case
+    q, pool, table, steps, cfg = _b2_inputs(layout, case,
+                                            layout + b + hd + max_len, cuda)
+    quant, int8_pool = {v[0]: k for k, v in LAYOUTS.items()}[layout]
+    itemsize = 1 if int8_pool else getattr(torch, dtype).itemsize
+    plan = launch_plan(max_len // ps, ps, g, hd, itemsize, int8_pool, quant)
+    assert plan.cluster == min(8, max_len // ps)
+    before = paged_attention.launches
+    got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    again = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    assert paged_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    cpu = {n: a.cpu() for n, a in pool.items()}
+    want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
+                                 hd ** -0.5)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
+
+
+def _b2_inputs(layout, case, seed, cuda):
+    """(q, pool, table, steps, cfg) of a B2 cluster case in one layout,
+    drawn from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import LAYOUTS
     from repro_torch.launch.specs import serve_config
     b, kv, g, hd, ps, (max_len,), dtype, steps = case
-    quant, int8_pool = {v[0]: k for k, v in LAYOUTS.items()}[layout]
+    quant = {v[0]: k[0] for k, v in LAYOUTS.items()}[layout]
     cfg = serve_config(get_config("smollm_135m")).replace(
         quant_attention=quant)
     dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda).manual_seed(layout + b + hd + max_len)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     pps = max_len // ps
     pool = _pool(layout, dt, (b * pps + 1, ps, kv, hd), gen, cuda)
     if steps is None:
@@ -332,20 +360,97 @@ def test_paged_attention_cluster_cases(cuda, layout, case):
         nxt += live
     q = torch.randn((b, 1, kv * g, hd), generator=gen, device=cuda)
     q = q.to(dt) if layout == 2 else q.to(torch.bfloat16)
-    itemsize = 1 if int8_pool else dt.itemsize
-    plan = launch_plan(pps, ps, g, hd, itemsize, int8_pool, quant)
-    assert plan.cluster == min(8, pps)
-    before = paged_attention.launches
-    got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
-    again = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
-    assert paged_attention.launches == before + 2
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    cpu = {n: a.cpu() for n, a in pool.items()}
-    want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
-                                 hd ** -0.5)
-    assert got.dtype == want.dtype and torch.isfinite(got).all()
-    _assert_agree(got, want, cpu, table, steps, cfg)
+    return q, pool, table, steps, cfg
+
+
+def _plain_row(r, row, flip, scale):
+    """The plain version's output row (slot, KV head, head) from
+    ``float_roundings``' intermediates: its bf16 P times V in float64,
+    rounded once to bf16, with the rounding ``flip`` (None; ("P", lane):
+    P's; ("s", lane): the score's, P following through the softmax)
+    turned to its other bf16 neighbour."""
+    from repro_torch.kernels.paged_attention import bf16_neighbours
+    P = r["P"][row].clone()
+    if flip is not None and flip[0] == "P":
+        lo, ulp = bf16_neighbours(r["p"][row][flip[1]])
+        P[flip[1]] = 2 * lo + ulp - P[flip[1]]
+    elif flip is not None:
+        dot, score = r["dot"][row][flip[1]], r["score"][row].clone()
+        lo, ulp = bf16_neighbours(dot)
+        score[flip[1]] = torch.sign(dot) * (2 * lo + ulp - score[flip[1]]
+                                            .abs())
+        s32 = torch.where(r["live"][row[0]], score.float() * scale,
+                          torch.full_like(score, -1e30, dtype=torch.float32))
+        P = torch.softmax(s32, -1).to(torch.bfloat16).double()
+    return (P @ r["v"][row[0], :, row[1]]).float().to(torch.bfloat16).float()
+
+
+def _ulps(a, b):
+    """max |a - b| over a row, in units of one bf16 ulp, 2^-7 max(|a|,
+    |b|) (0 where both are 0)."""
+    one = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+    return float(torch.where(one > 0, (a - b).abs() / one, 0.0).max())
+
+
+def test_paged_attention_bf16_rows_beyond_are_explained(cuda):
+    """C5: the exact bf16 float layout at B=64, KV=3, G=8 (1,536 rows per
+    call), at the cluster case's seed 386 and 8 more. Every row that the
+    kernel leaves beyond one bf16 ulp of the plain version is explained:
+    it lies within one ulp of the plain version recomputed exactly
+    (float64 P·V, rounded once to bf16) as it is ("none": the two sides'
+    f32 P·V sums differ) or with one ambiguous score or P rounding
+    (``kernels.paged_attention.float_roundings``) turned, or within one
+    ulp plus the sum-order term (``order``) of the plain version itself;
+    and ``agreement`` leaves at most ROW_BUDGET rows beyond. Prints, per
+    seed, each row beyond one ulp (slot, KV head, head) with its
+    ambiguous lanes, the turn found (False: none), whether the order term
+    alone takes it, and how far (in ulps) the plain version and the
+    kernel lie from the exact recomputation."""
+    from repro_torch.kernels.paged_attention import (ROW_BUDGET, agreement,
+                                                     float_roundings,
+                                                     paged_attention,
+                                                     paged_attention_plain)
+    case = _B2_CASES[3]
+    hd, scale = case[3], case[3] ** -0.5
+    for seed in (386, 0, 1, 2, 3, 4, 5, 6, 7):
+        q, pool, table, steps, cfg = _b2_inputs(2, case, seed, cuda)
+        got = paged_attention(q, pool, table, steps, cfg, scale).cpu()
+        cpu = {n: a.cpu() for n, a in pool.items()}
+        want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(),
+                                     cfg, scale)
+        agree = agreement(got, want, cpu, table, steps, cfg, q=q,
+                          scale=scale)
+        kvh = pool["k"].shape[2]
+        got, want = (a.float().reshape(a.shape[0], kvh, -1, hd)
+                     for a in (got, want))
+        one = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+        beyond = ((got - want).abs() > one).any(-1)
+        r = float_roundings(q, cpu, table, steps, scale)
+        readings = []
+        for row in map(tuple, beyond.nonzero().tolist()):
+            amb = [(kind, j) for kind in ("s", "P")
+                   for j in r[f"{kind.lower()}_amb"][row].nonzero()[:, 0]
+                   .tolist()]
+            turn = next((f for f in [None, *amb]
+                         if _ulps(_plain_row(r, row, f, scale), got[row])
+                         <= 1), False)
+            order = bool(((got[row] - want[row]).abs()
+                          <= one[row] + r["order"][row]).all())
+            exact = _plain_row(r, row, None, scale)
+            readings.append((row, len(amb), "none" if turn is None else
+                             turn and f"{turn[0]}{turn[1]}", order,
+                             round(_ulps(want[row], exact), 2),
+                             round(_ulps(got[row], exact), 2)))
+        print(f"[C5] seed {seed}: {int(beyond.sum())} of {beyond.numel()} "
+              f"rows beyond one bf16 ulp; (row, ambiguous lanes, turn that "
+              f"brings it within one ulp, within one ulp + order term, ulps "
+              f"plain vs exact, ulps kernel vs exact): {readings}; rows "
+              f"beyond agreement's bound: {agree['rows_beyond']}, worst "
+              f"|diff| / loose bound {agree['worst_loose']:.3e}")
+        assert all(turn is not False or order
+                   for _, _, turn, order, _, _ in readings), readings
+        assert agree["rows_beyond"] <= ROW_BUDGET, agree
+        assert agree["worst_loose"] <= 1, agree
 
 
 def test_paged_attention_smem_matches_the_kernel(cuda):
@@ -370,10 +475,11 @@ def test_paged_attention_smem_matches_the_kernel(cuda):
 @pytest.mark.parametrize("t", [1, 2, 3, 5, 6, 7, 9, 12, 15])
 @pytest.mark.parametrize("w_bits", [2, 4, 8])
 def test_transitive_gemm_generic_kernel_equals_plain(cuda, t, w_bits):
-    """T outside {4, 8} through ``transitive_gemm_cuda``, which routes it
-    to the generic kernel: exact, ragged N, one group and three."""
+    """T outside {4, 8} through ``transitive_gemm_cuda``: one launch of the
+    LUT kernel at the width ``lut_width`` picks (K / groups = 24T and 2T:
+    the unaligned instance wherever they are not multiples of 4), exact,
+    ragged N, one group and three."""
     from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
-                                                     transitive_gemm_generic,
                                                      transitive_gemm_plain)
     rng = np.random.default_rng(t * 10 + w_bits)
     lim = 1 << (w_bits - 1)
@@ -381,26 +487,31 @@ def test_transitive_gemm_generic_kernel_equals_plain(cuda, t, w_bits):
         x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
         w = torch.from_numpy(rng.integers(-lim, lim, (n, k)).astype(np.int8))
         kw = dict(w_bits=w_bits, t=t, groups=groups)
-        before = (transitive_gemm_cuda.launches,
-                  transitive_gemm_generic.launches)
+        before = transitive_gemm_cuda.launches
         got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw)
-        assert (transitive_gemm_cuda.launches,
-                transitive_gemm_generic.launches) == (before[0],
-                                                      before[1] + 1)
+        assert transitive_gemm_cuda.launches == before + 1
         torch.testing.assert_close(got.cpu(), transitive_gemm_plain(x, w,
                                                                     **kw),
                                    rtol=0, atol=0)
 
 
+def _exact_grouped(x, w, groups):
+    """The integer GEMM per group (int64, wrapped to int32)."""
+    kg = x.shape[1] // groups
+    return torch.stack([x[:, i * kg:(i + 1) * kg].long()
+                        @ w[:, i * kg:(i + 1) * kg].long().T
+                        for i in range(groups)], dim=1).to(torch.int32)
+
+
 @pytest.mark.parametrize("t", [16, 32])
 @pytest.mark.parametrize("w_bits", [2, 4, 8])
 def test_transitive_gemm_generic_wide_t_is_exact(cuda, t, w_bits):
-    """T = 16 and 32 (sub-LUTs of 2^8 entries per 8 activations): exact
-    against the integer GEMM (int64, wrapped to int32), one group and
-    three, ragged N, extreme values; at T = 16 also against the plain
-    version (whose 2^T-entry LUT is too large at T = 32)."""
+    """T = 16 and 32 (the kernel's own width, 8, blocks K: T only has to
+    divide K / groups): exact against the integer GEMM (int64, wrapped to
+    int32), one group and three, ragged N, extreme values; at T = 16 also
+    against the plain version (whose 2^T-entry LUT is too large at T =
+    32). One launch per call."""
     from repro_torch.kernels.transitive_gemm import (transitive_gemm_cuda,
-                                                     transitive_gemm_generic,
                                                      transitive_gemm_plain)
     rng = np.random.default_rng(t + w_bits)
     lim = 1 << (w_bits - 1)
@@ -415,20 +526,61 @@ def test_transitive_gemm_generic_wide_t_is_exact(cuda, t, w_bits):
         x = torch.from_numpy(x.astype(np.int8))
         w = torch.from_numpy(w.astype(np.int8))
         kw = dict(w_bits=w_bits, t=t, groups=groups)
-        before = (transitive_gemm_cuda.launches,
-                  transitive_gemm_generic.launches)
+        before = transitive_gemm_cuda.launches
         got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw).cpu()
-        assert (transitive_gemm_cuda.launches,
-                transitive_gemm_generic.launches) == (before[0],
-                                                      before[1] + 1)
-        kg = k // groups
-        want = torch.stack([x[:, i * kg:(i + 1) * kg].long()
-                            @ w[:, i * kg:(i + 1) * kg].long().T
-                            for i in range(groups)], dim=1).to(torch.int32)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert transitive_gemm_cuda.launches == before + 1
+        torch.testing.assert_close(got, _exact_grouped(x, w, groups),
+                                   rtol=0, atol=0)
         if t == 16:
             torch.testing.assert_close(got, transitive_gemm_plain(x, w, **kw),
                                        rtol=0, atol=0)
+
+
+# The unaligned instance (K / groups not a multiple of 4): (m, n, k,
+# groups, w_bits, T, fill). K % 4 != 0 at one group (T=5 at K=575, T=7 at
+# K=574; M > 8; a K of 4,995 whose 1,249 subtiles split over a cluster),
+# ragged N, three groups of 5 bytes, row strides of 18 and 30 bytes, and
+# extreme values (activations -128 or 127 against the weights' extremes).
+_UNALIGNED_CASES = [
+    (4, 1536, 575, 1, 4, 5, None), (4, 1536, 574, 1, 8, 7, None),
+    (64, 192, 575, 1, 4, 5, None), (4, 576, 4995, 1, 4, 5, None),
+    (7, 130, 21, 1, 2, 3, None), (3, 300, 15, 3, 4, 5, None),
+    (5, 70, 18, 2, 8, 3, None), (9, 33, 30, 3, 4, 5, None)]
+_UNALIGNED_CASES += [(20, 136, 639, 1, bits, 9, (a, b))
+                     for bits in (2, 4, 8) for a in (-128, 127)
+                     for b in ("lo", "hi")]
+
+
+@pytest.mark.parametrize("m,n,k,groups,w_bits,t,fill", _UNALIGNED_CASES,
+                         ids=[_tgemm_id(c) for c in _UNALIGNED_CASES])
+def test_transitive_gemm_unaligned_is_exact(cuda, m, n, k, groups, w_bits,
+                                            t, fill):
+    """K / groups not a multiple of 4: the wrapper picks the unaligned
+    instance, which stages bytes by plain loads and zero-fills each
+    group's last subtile; one launch, exact against the integer GEMM and
+    the plain version."""
+    from repro_torch.kernels.transitive_gemm import (lut_width,
+                                                     transitive_gemm_cuda,
+                                                     transitive_gemm_plain)
+    assert lut_width(k, groups) == (4, False)
+    rng = np.random.default_rng(m + n + k)
+    lim = 1 << (w_bits - 1)
+    if fill is None:
+        x = rng.integers(-128, 128, (m, k))
+        w = rng.integers(-lim, lim, (n, k))
+    else:
+        x = np.full((m, k), fill[0])
+        w = np.full((n, k), -lim if fill[1] == "lo" else lim - 1)
+    x = torch.from_numpy(x.astype(np.int8))
+    w = torch.from_numpy(w.astype(np.int8))
+    kw = dict(w_bits=w_bits, t=t, groups=groups)
+    before = transitive_gemm_cuda.launches
+    got = transitive_gemm_cuda(x.to(cuda), w.to(cuda), **kw).cpu()
+    assert transitive_gemm_cuda.launches == before + 1
+    torch.testing.assert_close(got, _exact_grouped(x, w, groups), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, transitive_gemm_plain(x, w, **kw),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("t,n,k,m,groups", [(9, 1536, 576, 4, 1),

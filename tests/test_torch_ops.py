@@ -22,7 +22,7 @@ from repro_torch.core import bitslice  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.rg_lru import rg_lru_cuda  # noqa: E402
 from repro_torch.kernels.transitive_gemm import (  # noqa: E402
-    k_split, transitive_gemm_cuda, transitive_gemm_generic)
+    k_split, lut_width, transitive_gemm_cuda)
 from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda  # noqa: E402
 
 
@@ -131,10 +131,11 @@ def test_ops_transitive_gemm_grouped_equals_reference(wbits, t, rng):
 @pytest.mark.parametrize("t", [1, 2, 3, 5, 6, 7, 9, 12])
 @pytest.mark.parametrize("wbits", [2, 4, 8])
 def test_transitive_gemm_any_t_equals_reference_pallas(t, wbits, rng):
-    """T outside {4, 8}: the wrappers (their plain version on CPU tensors;
-    the generic kernel's on the card) against the reference's
-    ``transitive_gemm_pallas`` in interpret mode, which takes any T with
-    bk % T == 0, and the int64 GEMM: exact, one group and three."""
+    """T outside {4, 8}: the wrapper (its plain version on CPU tensors;
+    on the card the one kernel, at the width ``lut_width`` picks) against
+    the reference's ``transitive_gemm_pallas`` in interpret mode, which
+    takes any T with bk % T == 0, and the int64 GEMM: exact, one group and
+    three."""
     from repro.kernels.transitive_gemm import transitive_gemm_pallas
     m, n, bk = 8, 16, 4 * t
     qx = _codes(rng, (m, 2 * bk), 8)
@@ -144,11 +145,10 @@ def test_transitive_gemm_any_t_equals_reference_pallas(t, wbits, rng):
         bk=bk, interpret=True))
     np.testing.assert_array_equal(
         want, qx.astype(np.int64) @ qw.astype(np.int64).T)
-    for fn in (transitive_gemm_cuda, transitive_gemm_generic):
-        got = fn(torch.from_numpy(qx), torch.from_numpy(qw), w_bits=wbits,
-                 t=t)
-        assert got.dtype == torch.int32 and got.shape == (m, 1, n)
-        np.testing.assert_array_equal(got[:, 0].numpy(), want)
+    got = transitive_gemm_cuda(torch.from_numpy(qx), torch.from_numpy(qw),
+                               w_bits=wbits, t=t)
+    assert got.dtype == torch.int32 and got.shape == (m, 1, n)
+    np.testing.assert_array_equal(got[:, 0].numpy(), want)
     xg = _codes(rng, (5, 3 * t * 2), 8)
     wg = _codes(rng, (7, 3 * t * 2), wbits)
     got = transitive_gemm_cuda(torch.from_numpy(xg), torch.from_numpy(wg),
@@ -157,6 +157,22 @@ def test_transitive_gemm_any_t_equals_reference_pallas(t, wbits, rng):
                      @ wg[:, i * 2 * t:(i + 1) * 2 * t].astype(np.int64).T
                      for i in range(3)], axis=1)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("t,k,groups,want", [
+    (6, 576, 1, (8, True)), (3, 576, 1, (8, True)), (16, 576, 1, (8, True)),
+    (32, 576, 1, (8, True)), (4, 576, 1, (8, True)), (6, 1536, 4, (8, True)),
+    (9, 36, 1, (4, True)), (3, 12, 1, (4, True)), (2, 12, 3, (4, True)),
+    (5, 575, 1, (4, False)), (7, 574, 1, (4, False)), (5, 30, 3, (4, False)),
+    (3, 18, 2, (4, False)), (1, 6, 3, (4, False)), (7, 42, 3, (4, False))])
+def test_transitive_gemm_lut_width(t, k, groups, want):
+    """The kernel's subtile width and instance from K and groups alone
+    (T only has to divide K / groups, the reference's contract): 8 where
+    K / groups is a multiple of 8, 4 where it is one of 4, else the
+    unaligned instance at 4 (K % 4 != 0 at one group; groups of 5, 9, 2
+    and 14 bytes; a row stride of 18 bytes)."""
+    assert (k // groups) % t == 0
+    assert lut_width(k, groups) == want
 
 
 # The B3 kernel's packed-pair arithmetic (csrc/transitive_gemm.cu), in
@@ -185,15 +201,20 @@ def _packed_schedule(w_bits, t):
 
 
 def _packed_pair_gemm(qx, qw, w_bits, t):
-    """int32 qx @ qw^T as the kernel computes it: biased nibble LUTs built
-    by doubling, two rows per word, offset-binary top plane, planes added
-    into packed segments flushed on the schedule. Returns (out, the
-    largest half seen); asserts every half stays in [0, 2^16)."""
+    """int32 qx @ qw^T as the kernel computes it at subtile width ``t``:
+    biased nibble LUTs built by doubling, two rows per word, offset-binary
+    top plane, planes added into packed segments flushed on the schedule;
+    a ragged last subtile (K % t != 0: the unaligned instance) zero-filled
+    in x and w. Returns (out, the largest half seen); asserts every half
+    stays in [0, 2^16)."""
     m, k = qx.shape
     n = qw.shape[0]
-    nl, nj = t // 4, k // t
+    nl, nj = t // 4, -(-k // t)
     sa, fa, fb = _packed_schedule(w_bits, t)
-    x = qx.long()
+    pad = nj * t - k
+    x = torch.nn.functional.pad(qx.long(), (0, pad))
+    qw = torch.nn.functional.pad(qw.long(), (0, pad))
+    k += pad
     if m % 2:
         x = torch.cat([x, torch.zeros((1, k), dtype=torch.long)])
     pairs = x.reshape(-1, 2, nj, nl, 4)                 # (P, 2, J, NL, 4)
@@ -239,42 +260,51 @@ def test_transitive_gemm_packed_pairs_stay_in_range(wbits, t, rng):
     for random and extreme inputs, and unpacked the result equals the
     plain version and the exact GEMM. Activations 127 against weights
     2^(S-1) - 1 gather the largest entry at every plane, so they reach
-    the schedule's bound exactly."""
-    m, n, k = 5, 6, t * 20                  # 20 subtiles: 2.5 chunks
+    the schedule's bound exactly. At width 4 also K = 79, whose last
+    subtile the unaligned instance zero-fills (held against the plain
+    version at T = 1, which divides any K)."""
+    m, n = 5, 6
     lo, hi = -(1 << (wbits - 1)), (1 << (wbits - 1)) - 1
-    inputs = [(_codes(rng, (m, k), 8), _codes(rng, (n, k), wbits))]
-    inputs += [(np.full((m, k), a, np.int8), np.full((n, k), b, np.int8))
-               for a in (-128, 127) for b in (lo, hi)]
-    tops = []
-    for qx, qw in inputs:
-        got, top = _packed_pair_gemm(torch.from_numpy(qx),
-                                     torch.from_numpy(qw), wbits, t)
-        tops.append(top)
-        want = ref.transitive_matmul_ref(torch.from_numpy(qx),
-                                         torch.from_numpy(qw), wbits, t)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-        np.testing.assert_array_equal(
-            got.numpy(), qx.astype(np.int64) @ qw.astype(np.int64).T)
     sa, fa, fb = _packed_schedule(wbits, t)
     gmax = t // 4 * _ENTRY_MAX
     bound = max(fa * gmax * ((1 << sa) - 1),
                 fb * gmax * ((1 << (wbits - sa)) - 1))
-    assert tops[4] == bound < _HALF         # activations 127, weights hi
+    for k in (t * 20, t * 20 - 1) if t == 4 else (t * 20,):  # 2.5 chunks
+        inputs = [(_codes(rng, (m, k), 8), _codes(rng, (n, k), wbits))]
+        inputs += [(np.full((m, k), a, np.int8),
+                    np.full((n, k), b, np.int8))
+                   for a in (-128, 127) for b in (lo, hi)]
+        tops = []
+        for qx, qw in inputs:
+            got, top = _packed_pair_gemm(torch.from_numpy(qx),
+                                         torch.from_numpy(qw), wbits, t)
+            tops.append(top)
+            want = ref.transitive_matmul_ref(
+                torch.from_numpy(qx), torch.from_numpy(qw), wbits,
+                t if k % t == 0 else 1)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            np.testing.assert_array_equal(
+                got.numpy(), qx.astype(np.int64) @ qw.astype(np.int64).T)
+        assert tops[4] == bound < _HALF     # activations 127, weights hi
 
 
 @pytest.mark.parametrize("m,n,k,groups,want", [
     (4, 1536, 576, 1, 5), (1, 576, 1536, 1, 8), (4, 576, 1536, 12, 2),
-    (64, 192, 576, 1, 5), (512, 1536, 576, 1, 1)])
+    (64, 192, 576, 1, 5), (512, 1536, 576, 1, 1), (4, 1536, 575, 1, 6)])
 def test_transitive_gemm_k_split(m, n, k, groups, want):
-    """The cluster split at the serving shapes on a 132-SM card (K=576: 9
+    """The cluster split at the serving shapes on a 132-SM card, counted
+    in chunks of 8 subtiles of the kernel's width (K=576 at width 8: 9
     chunks -> 5 blocks of 2; K=1536: 24 -> 8 of 3; 12 groups of 128: 2 ->
-    2), and for every shape: at most 8 blocks, none of them empty."""
-    assert k_split(m, n, k, groups, 8, 132) == want
+    2; K=575 at width 4: 144 subtiles, the last ragged, 18 chunks -> 6 of
+    3), and for every shape: at most 8 blocks, none of them empty."""
+    assert k_split(m, n, k, groups, lut_width(k, groups)[0], 132) == want
     for mm in (1, 4, 8, 9, 64, 512):
         for nn in (8, 192, 576, 1536):
-            for kk, gg in ((64, 1), (576, 1), (1536, 1), (1536, 12)):
-                chunks = -(-(kk // gg // 8) // 8)
-                split = k_split(mm, nn, kk, gg, 8, 132)
+            for kk, gg in ((64, 1), (576, 1), (1536, 1), (1536, 12),
+                           (575, 1), (30, 3)):
+                width = lut_width(kk, gg)[0]
+                chunks = -(-(-(-(kk // gg) // width)) // 8)
+                split = k_split(mm, nn, kk, gg, width, 132)
                 per_block = -(-chunks // split)
                 assert 1 <= split <= min(8, chunks)
                 assert (split - 1) * per_block < chunks
