@@ -42,10 +42,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
      in {2, 4, 8} and a grouped case, exact, each call one launch of the
      ``tgemm_lut`` instance expected; T=6 and T=5 at K=575 timed;
-  B1d. B1 for plans with T > 8: a T=9 ``engine_cuda`` linear (N=1536,
-     K=576) through the dense two-pass kernel, exact against
-     ``run_device`` at M in {4, 64}, its ``linear_apply`` equal to
-     ``engine_torch``'s;
+  B1d. B1 for plans with 9 <= T <= 15: ``engine_cuda`` attaches
+     ForestPlans with int16 gathers, each call one launch of the fused
+     kernel ``forest_fused16`` (profiler name asserted): a T=9 linear
+     (N=1536, K=576) at M in {4, 64}, its ``linear_apply`` equal to
+     ``engine_torch``'s; T=12 at smollm-135m's four linear shapes at M=4,
+     1536x576 at M=512, the grouped down-projection in 16 groups of 96;
+     extreme values at T=12 and T=15; exact against ``run_device``,
+     ``forest_plan_plain`` and the integer GEMM; T=9 and the four T=12
+     shapes timed (kernel ms, device us, ``torch._int_mm``, the
+     function's bound and those with the ForestPlan's and the
+     DevicePlan's bytes), ForestPlan and DevicePlan bytes printed;
   B4. the group-dequant GEMM against its plain version at (N, K, group) =
      (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, group 6 and
      K=32,768 at M=4, within the reference's tolerance (``check_w4a8``);
@@ -79,14 +86,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      inputs (a third run: within the loose bound, asserted);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
-     and T=16 (counted apart), B1 from a T=9 and a T=15 plan and B5 over
+     and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
+     int16 kernel) and a T=16 plan (the two-pass kernel) and B5 over
      float64, every kernel launched, each result equal to (or, B4 and f32
      B5, within tolerance of) its plain version.
 
 Every launch count in the JSON line is read from the run of the path
 that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
-B3 at T outside {4, 8} and the dense B1: phase 7), with the counts set to
+B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; launches made to compare a kernel with its plain
 version are not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
@@ -153,15 +161,16 @@ def _device_events(fn, iters):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):          # a profile now and then records no events,
+    for _ in range(10):         # a profile now and then records no events,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):  # or drops some: profile again then
-                fn()
+            for _ in range(iters):  # or drops some (once five profiles in
+                fn()                # a row): profile again then
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
         if events and all(e.count % iters == 0 for e in events):
             break
+        time.sleep(0.1)
     return events
 
 
@@ -196,10 +205,9 @@ def _forest_weights(pattern, n, k, rng):
     return rng.integers(-8, 8, size=(n, k))
 
 
-def _forest_bound(fplan, m, x_bytes):
-    """Bytes: the compact plan, x and the int32 output, each once.
-    Operations (this plan's): one add per level node, popcount adds per
-    direct node, one add per APE gather, per column."""
+def _forest_ops(fplan, m):
+    """This plan's adds: one per level node, popcount per direct node, one
+    per APE gather, per column."""
     import torch
     from repro_torch.core.engine import FOREST_DIRECT
     t = fplan.t
@@ -209,9 +217,14 @@ def _forest_bound(fplan, m, x_bytes):
     nodes = torch.arange(1 << t, device=prod.device)
     pop = ((nodes[:, None] >> torch.arange(t, device=prod.device)) & 1).sum(1)
     direct_adds = int((direct * pop[None]).sum())
-    n_ops = (steps + direct_adds + fplan.rows.numel()) * m
+    return (steps + direct_adds + fplan.rows.numel()) * m
+
+
+def _forest_bound(fplan, m, x_bytes):
+    """Bytes: the compact plan, x and the int32 output, each once.
+    Operations: :func:`_forest_ops`."""
     n_bytes = fplan.nbytes() + x_bytes + fplan.n * fplan.groups * m * 4
-    return bound_ms(n_bytes, n_ops, SCALAR_OPS_PER_S)
+    return bound_ms(n_bytes, _forest_ops(fplan, m), SCALAR_OPS_PER_S)
 
 
 def check_forest(flush):
@@ -748,101 +761,199 @@ def check_tgemm_generic(flush):
                                   **timed[579]})
 
 
-def check_forest_dense(flush):
-    """B1 for plans with T > 8 (a node does not fit the compact plan's
-    byte): a T=9 linear of ``engine_cuda`` (N=1536, K=576, W4, per-channel)
-    compiles to a DevicePlan and runs through the dense two-pass kernel;
-    its int32 accumulators are exact against ``run_device`` and the
-    integer GEMM at M in {4, 64}, and the whole ``linear_apply`` equals
-    ``engine_torch``'s. Returns the JSON entry (timed at M=4).
+def _wide_linear(w, t, groups=1):
+    """One engine_cuda linear at width T: (ForestPlan the backend attaches,
+    the DevicePlan of the same ExecutionPlan, seconds to plan and lower)."""
+    import torch
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    t0 = time.perf_counter()
+    plan = BatchedTransitiveEngine(4, t).plan(w, groups=groups)
+    fplan = get_backend("engine_cuda").compile(plan, device="cuda")
+    dplan = compile_plan(plan, device="cuda")
+    torch.cuda.synchronize()
+    return fplan, dplan, time.perf_counter() - t0
 
-    Bound: the function's bytes (x and the int8 weights read once, the
-    int32 output written once) over the memory rate, or this plan's adds
-    (its real level edges, popcount adds per direct node, one per APE
-    gather, per column) over the scalar rate. Printed beside it, labelled:
-    the same with the int32 DevicePlan's bytes in place of the weights',
-    what this kernel design has to read."""
+
+def _wide_exact(tag, w, fplan, dplan, qx):
+    """The row entry on ``qx`` (M, K) int8 and the (K, M) entry, each one
+    launch of ``forest_fused16`` (launch count and profiler name), exact
+    against ``run_device`` on the DevicePlan, ``forest_plan_plain`` and the
+    integer GEMM per group. Returns (the row entry's call, max |diff|)."""
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.core.engine import forest_plan_plain, run_device
+    from repro_torch.kernels.transitive_forest import (
+        transitive_forest, transitive_forest_rows)
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    x = qx.T.to(torch.int32).contiguous()
+    before = transitive_forest_dense.launches
+    got_rows = transitive_forest_rows(fplan, qx)
+    got = transitive_forest(fplan, x)
+    if transitive_forest_dense.launches != before + 2:
+        raise AssertionError(f"{tag}: not one fused launch per call")
+    g, k = fplan.groups, fplan.k
+    kg = k // g
+    gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
+                                   x[i * kg:(i + 1) * kg])
+                        for i in range(g)], dim=1)               # (N, G, M)
+    want = [run_device(dplan, x), forest_plan_plain(fplan, x),
+            gemm[:, 0] if g == 1 else gemm]
+    as_km = got_rows.T if g == 1 else got_rows.permute(2, 1, 0)
+    torch.cuda.synchronize()
+    err = max(int((a.long() - b.long()).abs().max())
+              for a in (got, as_km) for b in want)
+    if err:
+        raise AssertionError(f"{tag}: fused forest != plain, max |diff| "
+                             f"{err}")
+    call = (lambda: transitive_forest_rows(fplan, qx))
+    for fn in (call, lambda: transitive_forest(fplan, x)):
+        names = kernel_names(fn)
+        if len(names) != 1 or "forest_fused16" not in names[0]:
+            raise AssertionError(f"{tag} ran {names}, not one "
+                                 f"forest_fused16")
+    return call, err
+
+
+def check_forest_dense(flush):
+    """B1 for plans with T > 8: from 9 <= T <= 15 ``engine_cuda`` attaches
+    ForestPlans with int16 gathers, run by one launch of the fused kernel
+    ``forest_fused16`` per call. Cases (each exact against the DevicePlan's
+    ``run_device``, the ForestPlan's ``forest_plan_plain`` and the integer
+    GEMM, through both entries, each call one ``forest_fused16`` by
+    profiler name):
+
+      * a T=9 ``engine_cuda`` linear (N=1536, K=576, W4, per-channel) at M
+        in {4, 64}: its plan a ForestPlan with int16 rows (its bytes and
+        the DevicePlan's printed), its ``linear_apply`` equal to
+        ``engine_torch``'s;
+      * T=12 at smollm-135m's four linear shapes at M=4, 1536x576 at
+        M=512, and the grouped down-projection (576x1536) at M=4 in 16
+        groups of 96: a group holds whole 12-wide tiles (128 does not);
+      * extreme values at T=12 (96x576) and T=15 (40x60): every activation
+        -128 or 127, every weight -8 or 7.
+
+    Timed at M=4, T=9 and the four T=12 shapes (the row entry, as the
+    serving path calls it): kernel ms (event-timed, L2 flushed), the
+    profiler's device us (the kernel alone), ``torch._int_mm`` (M padded
+    to 32), plain ms (``forest_plan_plain``), and the two-pass kernel
+    (served for T >= 16) on the same DevicePlan, the same x, exact too.
+    Three bounds, labelled: the function's (x and
+    the int8 weights read once, the int32 output written once, over the
+    memory rate, or this plan's adds over the scalar rate: the JSON
+    entry's), and the same with the ForestPlan's bytes, what this design
+    reads, or the DevicePlan's, what the two-pass kernel read, in place of
+    the weights'. Returns the JSON entry (T=9, M=4)."""
     import numpy as np
     import torch
-    from repro_torch.core.backend import EngineConfig, get_backend, int_matmul
-    from repro_torch.core.engine import (BatchedTransitiveEngine, DevicePlan,
-                                         run_device)
+    from repro_torch.core.engine import ForestPlan, forest_plan_plain
     from repro_torch.kernels.transitive_forest_dense import (
         transitive_forest_dense)
     from repro_torch.quant import QuantConfig, linear_apply
     rng = np.random.default_rng(9)
-    n, k, t = 1536, 576, 9
-    w = rng.integers(-8, 8, size=(n, k))
-    backend = get_backend("engine_cuda")
-    t0 = time.perf_counter()
-    dplan = backend.compile(BatchedTransitiveEngine(4, t).plan(w),
-                            device="cuda")
-    plan_s = time.perf_counter() - t0
-    if not isinstance(dplan, DevicePlan):
-        raise AssertionError("a T=9 plan must stay a DevicePlan")
-    qw = torch.from_numpy(w).to("cuda", torch.int8)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    entry, worst = None, 0
-    for m in (4, 64):
-        qx = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
-                           dtype=torch.int8)
-        before = transitive_forest_dense.launches
-        got = backend.execute(qx, qw, None, dplan, EngineConfig(4, t, 1))
-        if transitive_forest_dense.launches != before + 1:
-            raise AssertionError("the T=9 linear did not run the dense "
-                                 "forest kernel")
-        want = run_device(dplan, qx.T.to(torch.int32)).T
-        gemm = int_matmul(qx, qw.T)
-        torch.cuda.synchronize()
-        err = max(int((got.long() - want.long()).abs().max()),
-                  int((got.long() - gemm.long()).abs().max()))
-        worst = max(worst, err)
-        if err:
-            raise AssertionError(f"dense forest != run_device at M={m}: "
-                                 f"max |diff| {err}")
-        call = (lambda: backend.execute(qx, qw, None, dplan,
-                                        EngineConfig(4, t, 1)))
-        k_ms = cuda_ms(call, flush)
-        dev, ker, ops = device_us(call, kernels=("forest_dense",))
-        p_ms = cuda_ms(lambda: run_device(dplan, qx.T.to(torch.int32)),
-                       flush, iters=5, warmup=1)
-        xm = torch.zeros((max(m, 32), k), dtype=torch.int8, device="cuda")
-        xm[:m] = qx
-        wt = qw.T
-        lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
-        real = dplan.level_xsrc != k
-        direct = dplan.direct_idx < (k // t) << t
-        n_ops = (int(real.sum()) + int(dplan.direct_bits[direct].sum())
-                 + dplan.gather_idx.numel()) * m
-        b_ms, b_by = bound_ms(n * k + m * k + n * m * 4, n_ops,
-                              SCALAR_OPS_PER_S)
-        plan_b_ms, plan_b_by = bound_ms(dplan.nbytes() + m * k + n * m * 4,
-                                        n_ops, SCALAR_OPS_PER_S)
-        print(f"[B1 dense] N={n} K={k} M={m} T={t} (planned + lowered in "
-              f"{plan_s:.2f}s, DevicePlan {dplan.nbytes()} B): exact | "
-              f"kernel_ms={k_ms:.4f} device us/call {dev:.2f} (kernels "
-              f"{ker:.2f}, {ops:.0f} ops) plain_ms={p_ms:.4f} library_ms="
-              f"{lib_ms:.4f} (_int_mm, M padded to 32) bound_ms={b_ms:.6f} "
-              f"({b_by}) | with the DevicePlan's bytes in place of the "
-              f"weights' {plan_b_ms:.6f} ({plan_b_by})")
-        if m == 4:
-            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms,
-                     "device_us": dev, "plan_bound_ms": plan_b_ms,
-                     "shape": "N=1536 K=576 M=4 T=9 (engine_cuda linear)"}
-    # the whole linear: engine_cuda (dense kernel) == engine_torch
-    sg = torch.rand((n, 1), generator=gen, device="cuda") * 0.01 + 1e-3
-    x = torch.randn((4, k), generator=gen, device="cuda")
-    outs = []
-    for name in ("engine_cuda", "engine_torch"):
-        cfg = QuantConfig(mode="ptq", w_bits=4, group=0, backend=name,
-                          transrow_t=t)
-        outs.append(linear_apply({"qw": qw, "sg": sg, "dplan": dplan}, x,
-                                 cfg))
-    if not torch.equal(outs[0], outs[1]):
-        raise AssertionError("T=9 linear_apply: engine_cuda != engine_torch")
-    print("[B1 dense] T=9 linear_apply on engine_cuda == engine_torch")
+    entry, timed, worst = None, {}, 0
+    cases = [(9, 1536, 576, (4, 64), 1)]
+    cases += [(12, n, k, (4,), 1) for n, k in SHAPES]
+    cases += [(12, 1536, 576, (512,), 1), (12, 576, 1536, (4,), 16)]
+    for t, n, k, ms, g in cases:
+        w = rng.integers(-8, 8, size=(n, k))
+        fplan, dplan, plan_s = _wide_linear(w, t, g)
+        if not isinstance(fplan, ForestPlan) or \
+                fplan.rows.dtype != torch.int16:
+            raise AssertionError(f"T={t}: engine_cuda's plan is not a "
+                                 f"ForestPlan with int16 rows")
+        qw = torch.from_numpy(w).to("cuda", torch.int8)
+        for m in ms:
+            qx = torch.randint(-128, 128, (m, k), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            tag = f"[B1 dense] N={n} K={k} M={m} T={t} G={g}"
+            call, err = _wide_exact(tag, qw, fplan, dplan, qx)
+            worst = max(worst, err)
+            print(f"{tag} (planned + lowered + packed in {plan_s:.2f}s; "
+                  f"ForestPlan {fplan.nbytes()} B, DevicePlan "
+                  f"{dplan.nbytes()} B): exact, one forest_fused16 per call")
+            if m != 4 or g != 1:
+                continue
+            k_ms = cuda_ms(call, flush)
+            dev, ker, ops = device_us(call, kernels=("forest_fused16",))
+            xm = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+            xm[:m] = qx
+            wt = qw.T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+            x_bytes, out_bytes = m * k, n * m * 4
+            f_ms, f_by = _forest_bound(fplan, m, x_bytes)
+            b_ms, b_by = bound_ms(n * k + x_bytes + out_bytes,
+                                  _forest_ops(fplan, m), SCALAR_OPS_PER_S)
+            d_ms, d_by = bound_ms(dplan.nbytes() + x_bytes + out_bytes,
+                                  _forest_ops(fplan, m), SCALAR_OPS_PER_S)
+            x = qx.T.to(torch.int32).contiguous()
+            p_ms = cuda_ms(lambda: forest_plan_plain(fplan, x), flush,
+                           iters=5, warmup=1)
+            # the two-pass kernel (served for T >= 16) on the DevicePlan
+            two = (lambda: transitive_forest_dense(dplan, x))
+            if not torch.equal(two(), forest_plan_plain(fplan, x)):
+                raise AssertionError(f"{tag}: two-pass kernel != plain")
+            two_ms = cuda_ms(two, flush)
+            two_us, _, _ = device_us(two, kernels=("forest_dense",))
+            print(f"{tag}: kernel_ms={k_ms:.4f} device us/call {dev:.2f} "
+                  f"(kernel {ker:.2f}, {ops:.0f} ops) plain_ms={p_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} (_int_mm, M padded to 32) "
+                  f"bound_ms={b_ms:.6f} ({b_by}; function: x, int8 "
+                  f"weights, output) | ForestPlan's bytes for the weights' "
+                  f"{f_ms:.6f} ({f_by}) | DevicePlan's {d_ms:.6f} ({d_by}) "
+                  f"| two-pass kernel on the DevicePlan, (K, M) entry: "
+                  f"kernel_ms={two_ms:.4f} device us/call {two_us:.2f}")
+            timed[(t, n, k)] = {"ms": k_ms, "device_us": dev,
+                                "kernel_us": ker, "plain_ms": p_ms,
+                                "library_ms": lib_ms,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "forestplan_bound_ms": f_ms,
+                                "deviceplan_bound_ms": d_ms,
+                                "forestplan_bytes": fplan.nbytes(),
+                                "deviceplan_bytes": dplan.nbytes(),
+                                "two_pass_ms": two_ms,
+                                "two_pass_device_us": two_us}
+            if t == 9:
+                entry = dict(timed[(t, n, k)],
+                             shape="N=1536 K=576 M=4 T=9 (engine_cuda "
+                                   "linear, row entry)")
+        if (t, n, k, g) == (12, 1536, 576, 1) and \
+                fplan.nbytes() > 800_000:
+            raise AssertionError(f"T=12 ForestPlan {fplan.nbytes()} B > "
+                                 f"0.8 MB")
+        if t == 9:
+            # the whole linear: engine_cuda (fused kernel) == engine_torch
+            sg = torch.rand((n, 1), generator=gen, device="cuda") * 0.01 \
+                + 1e-3
+            x = torch.randn((4, k), generator=gen, device="cuda")
+            outs = []
+            for name, plan in (("engine_cuda", fplan),
+                               ("engine_torch", dplan)):
+                cfg = QuantConfig(mode="ptq", w_bits=4, group=0,
+                                  backend=name, transrow_t=t)
+                outs.append(linear_apply({"qw": qw, "sg": sg,
+                                          "dplan": plan}, x, cfg))
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError("T=9 linear_apply: engine_cuda != "
+                                     "engine_torch")
+            print("[B1 dense] T=9 linear_apply on engine_cuda == "
+                  "engine_torch")
+    # extreme values: every activation -128 or 127, every weight -8 or 7
+    for t, n, k in ((12, 96, 576), (15, 40, 60)):
+        for xv, wv in ((-128, -8), (127, 7), (-128, 7), (127, -8)):
+            w = np.full((n, k), wv)
+            fplan, dplan, _ = _wide_linear(w, t)
+            qx = torch.full((4, k), xv, dtype=torch.int8, device="cuda")
+            _, err = _wide_exact(f"[B1 dense] extreme T={t} x={xv} w={wv}",
+                                 torch.from_numpy(w).to("cuda", torch.int8),
+                                 fplan, dplan, qx)
+            worst = max(worst, err)
+    print("[B1 dense] extreme values at T=12 (96x576) and T=15 (40x60), x "
+          "in {-128, 127} x w in {-8, 7}: exact, one forest_fused16 each")
     entry["max_abs_err"] = worst
+    entry["t12"] = {f"N={n} K={k}": timed[(12, n, k)] for n, k in SHAPES}
     return entry
 
 
@@ -1348,11 +1459,14 @@ def ops_path():
     repro_torch.kernels.ops once at a serving shape, plus the routes that
     take T outside {4, 8} (``transitive_gemm`` at T=6 and T=16, the one
     B3 kernel at its width 8, counted apart; ``transitive_forest`` from a
-    T=9 and a T=15 DevicePlan the dense B1 kernel, the T=15 one with its
-    level tables in global memory) and ``rg_lru`` over float64, with the launch
-    counts set to 0 just before and read just after; then each result
-    against its kernel's plain version (exact for the integer kernels and
-    for float64 B5, the reference's tolerances for B4 and f32 B5)."""
+    T=9 and a T=15 DevicePlan, packed at the first call and run by the
+    fused int16 kernel ``forest_fused16``, and from a T=16 DevicePlan, run
+    by the two-pass kernel: all three count in
+    ``transitive_forest_dense.launches``) and ``rg_lru`` over float64,
+    with the launch counts set to 0 just before and read just after; then
+    each result against its kernel's plain version (exact for the integer
+    kernels and for float64 B5, the reference's tolerances for B4 and f32
+    B5)."""
     import numpy as np
     import torch
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
@@ -1390,6 +1504,11 @@ def ops_path():
         device="cuda")
     xf15 = torch.randint(-128, 128, (30, 4), generator=gen, device="cuda",
                          dtype=torch.int32)
+    dplan16 = compile_plan(BatchedTransitiveEngine(4, 16).plan(
+        np.random.default_rng(16).integers(-8, 8, size=(8, 32))),
+        device="cuda")
+    xf16 = torch.randint(-128, 128, (32, 4), generator=gen, device="cuda",
+                         dtype=torch.int32)
     hx64 = torch.randn((2, 256, 512), generator=gen, device="cuda",
                        dtype=torch.float64)
     ha64 = (torch.rand((2, 256, 512), generator=gen, device="cuda",
@@ -1408,7 +1527,8 @@ def ops_path():
              ops.transitive_forest(dplan9, xf),
              ops.transitive_gemm(x, w, w_bits=4, t=16),
              ops.transitive_forest(dplan15, xf15),
-             ops.rg_lru(hx64, ha64, h0[:2, :512]))
+             ops.rg_lru(hx64, ha64, h0[:2, :512]),
+             ops.transitive_forest(dplan16, xf16))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     launches["transitive_gemm_cuda at T=6, 16"] = (
@@ -1416,7 +1536,7 @@ def ops_path():
     print(f"[ops] launches: {launches}")
     if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 4,
                     "w4a8_gemm_cuda": 1, "rg_lru_cuda": 2,
-                    "transitive_forest_dense": 2,
+                    "transitive_forest_dense": 3,
                     "transitive_gemm_cuda at T=6, 16": 2}:
         raise AssertionError(f"ops API launches wrong: {launches}")
     exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
@@ -1426,7 +1546,8 @@ def ops_path():
              (outs[6], forest_plain(dplan9, xf)),
              (outs[7], ref.transitive_matmul_ref(x, w, 4, 16)),
              (outs[8], forest_plain(dplan15, xf15)),
-             (outs[9], ref.rg_lru_ref(hx64, ha64, h0[:2, :512])))
+             (outs[9], ref.rg_lru_ref(hx64, ha64, h0[:2, :512])),
+             (outs[10], forest_plain(dplan16, xf16)))
     for got, want in exact:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError("ops API integer result != plain version")
@@ -1437,7 +1558,8 @@ def ops_path():
                           atol=3e-4):
         raise AssertionError("ops.rg_lru beyond 3e-4")
     print("[ops] transitive_gemm (T=8, 6 and 16), transitive_gemm_grouped, "
-          "transitive_forest (T=8, 9 and 15), rg_lru in float64 exact; "
+          "transitive_forest (T=8; 9 and 15 through forest_fused16; 16 "
+          "through the two-pass kernel), rg_lru in float64 exact; "
           "w4a8_gemm and f32 rg_lru within tolerance")
     return launches
 
@@ -1491,7 +1613,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
          "launches": ops["transitive_forest_dense"],
-         "launches_from": "phase 7 (kernels.ops, a T=9 plan)", **dense}]
+         "launches_from": "phase 7 (kernels.ops: T=9 and T=15 plans "
+                          "through forest_fused16, a T=16 plan through "
+                          "the two-pass kernel)", **dense}]
     kernels += [
         {"name": f"paged_attention/{ATTN_LAYOUTS[code][0]}", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",

@@ -44,7 +44,7 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core.engine import (FOREST_MAX_T, DevicePlan,
+from repro_torch.core.engine import (FOREST_WIDE_MAX_T, DevicePlan,
                                      ExecutionPlan, ForestPlan,
                                      compile_plan, compile_plans,
                                      pack_forest_plan, run_device)
@@ -240,20 +240,23 @@ class EngineCudaBackend(EngineTorchBackend):
     """The same forest through the hand-written CUDA kernel
     (kernels/transitive_forest.py); the counterpart of ``engine_pallas``.
 
-    Compiles to compact :class:`ForestPlan`s (the dense DevicePlan is
-    lowered on the host and packed; only the ForestPlan is placed on
-    ``device``). ``execute`` hands the int8 codes (..., K) to the kernel's
-    row entry as they are and gets (..., N) / (..., G, N) back: no cast,
-    transpose or copy. A DevicePlan passed in is packed at its first call
-    (``kernels/transitive_forest.py`` keeps the packing). Plans with T > 8
-    do not fit a ForestPlan's byte: they compile to DevicePlans on
-    ``device``, which the same entry runs through the dense two-pass
-    kernel (``kernels/transitive_forest_dense.py``)."""
+    Compiles plans with T <= 15 to compact :class:`ForestPlan`s (the dense
+    DevicePlan is lowered on the host and packed; only the ForestPlan is
+    placed on ``device``): uint8 gathers up to T = 8, run by the fused
+    kernel of ``csrc/transitive_forest.cu``; int16 gathers for 9 <= T <=
+    15, run by the fused kernel of ``csrc/transitive_forest_dense.cu``.
+    ``execute`` hands the int8 codes (..., K) to the kernels' row entry as
+    they are and gets (..., N) / (..., G, N) back: no cast, transpose or
+    copy. A DevicePlan passed in is packed at its first call
+    (``kernels/transitive_forest.py`` keeps the packing). Plans with T >=
+    16 do not fit int16: they compile to DevicePlans on ``device``, which
+    the same entry runs through the two-pass dense kernel
+    (``kernels/transitive_forest_dense.py``)."""
     name = "engine_cuda"
 
     def compile(self, plan, device=None):
         first = plan if isinstance(plan, ExecutionPlan) else plan[0]
-        if first.t > FOREST_MAX_T:
+        if first.t > FOREST_WIDE_MAX_T:
             return super().compile(plan, device=device)
         return pack_forest_plan(super().compile(plan), device=device)
 

@@ -12,11 +12,12 @@ reference's leaf names and values: gather-only per-level source maps over
 the flat ``(J * 2^T, M)`` psum table, the direct-dispatch arrays, and the
 APE gather table. :func:`run_device` executes it with plain torch gathers.
 
-:func:`pack_forest_plan` repacks a tile-local :class:`DevicePlan` into the
-compact :class:`ForestPlan` the CUDA forest kernel
-(:mod:`repro_torch.kernels.transitive_forest`) executes: one byte per
+:func:`pack_forest_plan` repacks a tile-local :class:`DevicePlan` with T
+<= 15 into the compact :class:`ForestPlan` the CUDA forest kernels
+(:mod:`repro_torch.kernels.transitive_forest`) execute: one byte per
 node (which bit produces it, or direct, or unused) and one byte per APE
-gather. :func:`forest_plan_plain` is that kernel's plain version. Plan
+gather up to T = 8, two from T = 9. :func:`forest_plan_plain` is those
+kernels' plain version. Plan
 persistence (``save``/``load``/bundles) is not part of this slice.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "compile_plans", "pad_device_plan", "check_tile_local",
            "forest_body", "run_device", "ForestPlan", "FOREST_DATA_FIELDS",
            "FOREST_DIRECT", "FOREST_UNUSED", "FOREST_MAX_T",
-           "pack_forest_plan",
+           "FOREST_WIDE_MAX_T", "forest_rows_dtype", "pack_forest_plan",
            "forest_plan_plain"]
 
 
@@ -452,14 +453,26 @@ FOREST_DATA_FIELDS = ("producer", "rows", "signs")
 # producer codes besides a bit index b < T
 FOREST_DIRECT = 254     # subset sum of the tile's activations over v's bits
 FOREST_UNUSED = 255     # stays 0 in the plain version; never read
-FOREST_MAX_T = 8        # a node and a gather fit one byte; plans with a
+FOREST_MAX_T = 8        # a gather fits one byte (uint8 rows)
+FOREST_WIDE_MAX_T = 15  # a gather fits int16 (int16 rows); plans with a
                         # larger T run from their DevicePlan
                         # (kernels/transitive_forest_dense.py)
 
 
+def forest_rows_dtype(t: int) -> torch.dtype:
+    """The dtype of a ForestPlan's ``rows`` at width ``t``: uint8 up to
+    ``FOREST_MAX_T``, int16 up to ``FOREST_WIDE_MAX_T``."""
+    if t > FOREST_WIDE_MAX_T:
+        raise ValueError(f"a ForestPlan holds a node index in int16: T <= "
+                         f"{FOREST_WIDE_MAX_T}, got T={t}; such plans run "
+                         f"from their DevicePlan")
+    return torch.uint8 if t <= FOREST_MAX_T else torch.int16
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ForestPlan:
-    """A tile-local forest schedule in one byte per node and per gather.
+    """A tile-local forest schedule in one byte per node and one byte (T <=
+    8) or two (9 <= T <= 15) per gather.
 
     ``producer[j, v]`` says how node ``v`` of tile ``j`` is made: a bit
     ``b < T`` means ``psum[v] = psum[v ^ (1 << b)] + x[j * T + b]`` at
@@ -470,7 +483,8 @@ class ForestPlan:
     ``rows[j, s, n]`` is the node that output ``n`` gathers from tile
     ``j`` in bit plane ``s`` (the DevicePlan's ``gather_idx - j * 2^T``),
     laid out ``(J, S, N)`` with N fastest so neighbouring outputs read
-    neighbouring bytes.
+    neighbouring bytes: uint8 for T <= ``FOREST_MAX_T``, int16 for T <=
+    ``FOREST_WIDE_MAX_T`` (:func:`forest_rows_dtype`).
 
     Leaves may carry leading stacked axes like :class:`DevicePlan`'s;
     :meth:`index` slices them. Built by :func:`pack_forest_plan`. The
@@ -483,11 +497,12 @@ class ForestPlan:
     k: int
     groups: int
     producer: torch.Tensor      # (J, 2^T) uint8
-    rows: torch.Tensor          # (J, S, N) uint8
+    rows: torch.Tensor          # (J, S, N) uint8 (T <= 8) / int16
     signs: torch.Tensor         # (S,) int32
 
     def __post_init__(self):
-        for name, dtype in (("producer", torch.uint8), ("rows", torch.uint8),
+        for name, dtype in (("producer", torch.uint8),
+                            ("rows", forest_rows_dtype(self.t)),
                             ("signs", torch.int32)):
             a = getattr(self, name)
             if a.dtype != dtype or not a.is_contiguous():
@@ -523,7 +538,8 @@ class ForestPlan:
 
 def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
               direct_bits, gather_idx) -> tuple[np.ndarray, np.ndarray]:
-    """(producer (J, 2^T), rows (J, S, N)) uint8 of one unstacked plan."""
+    """(producer (J, 2^T) uint8, rows (J, S, N) in the dtype of
+    :func:`forest_rows_dtype`) of one unstacked plan."""
     size = 1 << t
     j = k // t
     r = j * size
@@ -564,33 +580,31 @@ def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
         np.int64)
     if ((producer[read] == FOREST_UNUSED) & (read % size != 0)).any():
         raise ValueError("the plan reads a node it never makes")
+    rows_dtype = np.uint8 if t <= FOREST_MAX_T else np.int16
     return (producer.reshape(j, size),
-            np.ascontiguousarray(rows.transpose(2, 0, 1)).astype(np.uint8))
+            np.ascontiguousarray(rows.transpose(2, 0, 1)).astype(rows_dtype))
 
 
 def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
     """Repack a tile-local :class:`DevicePlan` as a :class:`ForestPlan`.
 
-    Raises unless the plan is tile-local and T <= ``FOREST_MAX_T`` = 8 (a
-    node must fit a byte; the serving T is 8; ``engine_cuda`` and the
-    forest wrappers route plans with a larger T to the dense kernel
+    Raises unless the plan is tile-local and T <= ``FOREST_WIDE_MAX_T`` =
+    15 (a gathered node must fit int16; ``engine_cuda`` and the forest
+    wrappers route plans with a larger T to the two-pass dense kernel
     instead of packing them), and unless every level edge adds one bit to
     a prefix one level down, no node is made twice, every direct node's
     bits are its own, and every node that a level or the APE reads is
     made (or is node 0, the empty sum): so an unused node's value is never
     read, and the kernel need not write it. Works on stacked plans. The
-    leaves are made here, contiguous uint8 / int32 on ``device`` (default:
-    the plan's).
+    leaves are made here, contiguous on ``device`` (default: the plan's):
+    ``rows`` uint8 for T <= 8, int16 for 9 <= T <= 15.
     Counts its calls in ``pack_forest_plan.calls``.
     """
     pack_forest_plan.calls += 1
     if not dplan.tile_local:
         raise ValueError("pack_forest_plan needs a tile-local plan (compile "
                          "it with compile_plan)")
-    if dplan.t > FOREST_MAX_T:
-        raise ValueError(f"a ForestPlan holds nodes in one byte: T <= "
-                         f"{FOREST_MAX_T}, got T={dplan.t}; such plans run "
-                         f"from their DevicePlan")
+    forest_rows_dtype(dplan.t)              # raises for T > 15
     leaves = {f: a.detach().cpu().numpy() for f, a in dplan.leaves().items()}
     for name, a in leaves.items():
         if a.dtype != np.int32:

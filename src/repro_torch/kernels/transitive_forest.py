@@ -5,7 +5,7 @@ Replaces the Pallas kernel ``repro/kernels/transitive_forest.py``
 :class:`~repro_torch.core.engine.ForestPlan` (one byte per node and per
 APE gather, :func:`~repro_torch.core.engine.pack_forest_plan`) in one
 fused pass: each block keeps its tiles' psum tables in shared memory from
-the first level to the APE sum. Two entries, one kernel, one launch each:
+the first level to the APE sum. Two entries, one launch each:
 
   * :func:`transitive_forest` — the reference's contract: int32 x (K, M)
     -> (N, M) ungrouped, (N, G, M) grouped, from a ``ForestPlan`` or a
@@ -17,14 +17,23 @@ the first level to the APE sum. Two entries, one kernel, one launch each:
     ``engine_cuda``).
 
 On CPU tensors both run the plain version :func:`forest_plan_plain`; on
-CUDA tensors they launch the kernel or raise. Each launch adds one to
-``transitive_forest.launches``. Bound and design notes are in the CUDA
-source.
+CUDA tensors they launch the kernel or raise. Bound and design notes are
+in the CUDA sources.
 
-A ForestPlan holds a node in one byte, so T <= 8. A DevicePlan with a
-larger T is not packed: both entries hand it to the two-pass dense kernel
-(:func:`~repro_torch.kernels.transitive_forest_dense.transitive_forest_dense`,
-its own launch count), or to ``run_device`` on CPU tensors.
+The route by T, the same for both entries:
+
+  * T <= 8 (uint8 gathers): ``forest_narrow`` / ``forest_wide`` of
+    ``csrc/transitive_forest.cu``; each launch adds one to
+    ``transitive_forest.launches``;
+  * 9 <= T <= 15 (int16 gathers): ``forest_fused16`` of
+    ``csrc/transitive_forest_dense.cu``
+    (:func:`~repro_torch.kernels.transitive_forest_dense.launch_fused16`),
+    from the same ForestPlan, also one fused launch with no cast or
+    transpose around it; it counts in ``transitive_forest_dense.launches``;
+  * T >= 16: a DevicePlan is not packed (int16 cannot hold its nodes);
+    both entries hand it to the two-pass dense kernel
+    (:func:`~repro_torch.kernels.transitive_forest_dense.transitive_forest_dense`,
+    the same count), or to ``run_device`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,12 +42,13 @@ import weakref
 
 import torch
 
-from repro_torch.core.engine import (FOREST_MAX_T, DevicePlan, ForestPlan,
+from repro_torch.core.engine import (FOREST_MAX_T, FOREST_WIDE_MAX_T,
+                                     DevicePlan, ForestPlan,
                                      forest_plan_plain, pack_forest_plan,
                                      run_device)
 from repro_torch.kernels import build
 from repro_torch.kernels.transitive_forest_dense import (
-    transitive_forest_dense)
+    launch_fused16, transitive_forest_dense)
 
 __all__ = ["transitive_forest", "transitive_forest_rows", "forest_plain",
            "forest_plan_plain"]
@@ -71,8 +81,9 @@ _PACKED: "weakref.WeakKeyDictionary[DevicePlan, dict]" = (
 
 
 def _dense(plan) -> bool:
-    """A DevicePlan too wide to pack: the dense kernel runs it."""
-    return isinstance(plan, DevicePlan) and plan.t > FOREST_MAX_T
+    """A DevicePlan too wide to pack (T >= 16): the two-pass kernel runs
+    it."""
+    return isinstance(plan, DevicePlan) and plan.t > FOREST_WIDE_MAX_T
 
 
 def _as_forest(plan, device) -> ForestPlan:
@@ -89,6 +100,9 @@ def _as_forest(plan, device) -> ForestPlan:
 
 def _launch(fplan: ForestPlan, x: torch.Tensor, rows_layout: bool,
             out: torch.Tensor) -> None:
+    if fplan.t > FOREST_MAX_T:
+        launch_fused16(fplan, x, rows_layout, out)
+        return
     lib = _library()
     if x.device.type != "cuda" or fplan.rows.device != x.device:
         raise ValueError(f"transitive_forest runs on CUDA or CPU tensors on "

@@ -40,7 +40,8 @@ from repro_torch.serve import ServeEngine
 PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "forest_wide": "B1 forest, wide blocks (M > 8)",
                 "paged_decode": "B2 paged attention",
-                "forest_dense": "B1 forest from a dense plan (T > 8)",
+                "forest_fused16": "B1 forest, int16 plan (9 <= T <= 15)",
+                "forest_dense": "B1 forest from a dense plan (T >= 16)",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
                 "w4a8_dot": "B4 group-dequant GEMM",
                 "rg_lru_seq": "B5 linear recurrence"}

@@ -5,8 +5,9 @@ against the JAX reference ``repro``.
 node and per APE gather; its plain version ``forest_plan_plain`` (what the
 kernel wrappers run on CPU tensors) must give the reference's
 ``run_device`` int32 result exactly on the reference's own plan for the
-same weights, over the planner tests' weight patterns, T in {4, 8}, 4- and
-8-bit weights and 1 or 3 groups. Stacked ForestPlans slice per layer like
+same weights, over the planner tests' weight patterns, T in {4, 8} (uint8
+gathers) and {9, 12, 15} (int16 gathers), 4- and 8-bit weights and 1 or 3
+groups. Stacked ForestPlans slice per layer like
 DevicePlans; plans the kernel cannot take are refused; ``engine_cuda``
 serving from attached ForestPlans gives the reference ``engine_pallas``
 result and packs nothing while it serves. Reference plans are built with
@@ -52,7 +53,7 @@ def _assert_fplans_equal(a, b):
 
 @pytest.mark.parametrize("groups", [1, 3])
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("t", [4, 8])
+@pytest.mark.parametrize("t", [4, 8, 9, 12, 15])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_forest_plan_equals_reference_run_device(pattern, t, bits, groups,
                                                  rng):
@@ -64,7 +65,9 @@ def test_forest_plan_equals_reference_run_device(pattern, t, bits, groups,
     fplan = pack(pt_engine.compile_plan(plan))
     assert fplan.producer.shape == (6, 1 << t)
     assert fplan.rows.shape == (6, bits, n) and fplan.lead == ()
-    assert fplan.producer.dtype == fplan.rows.dtype == torch.uint8
+    assert fplan.producer.dtype == torch.uint8
+    # a gathered node fits a byte up to T = 8, int16 up to T = 15
+    assert fplan.rows.dtype == (torch.uint8 if t <= 8 else torch.int16)
     got = pt_engine.forest_plan_plain(fplan, torch.from_numpy(x))
     assert got.dtype == torch.int32
     dref = ref_engine.compile_plan(
@@ -130,11 +133,21 @@ def test_pack_refuses_plans_the_kernel_cannot_take(rng):
                                .plan(w))
     with pytest.raises(ValueError, match="tile-local"):
         pack(dataclasses.replace(d, tile_local=False))
-    wide = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 9)
-                                  .plan(rng.integers(-8, 8, size=(3, 18))))
+    wide = pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 16)
+                                  .plan(rng.integers(-8, 8, size=(3, 32))))
     assert wide.tile_local
-    with pytest.raises(ValueError, match="T <= 8"):
+    with pytest.raises(ValueError, match="int16: T <= 15"):
         pack(wide)
+    # the dtype of rows follows T: uint8 to T = 8, int16 from T = 9
+    w9 = pack(pt_engine.compile_plan(pt_engine.BatchedTransitiveEngine(4, 9)
+                                     .plan(rng.integers(-8, 8, size=(3, 18)))))
+    assert w9.rows.dtype == torch.int16
+    with pytest.raises(ValueError, match="rows must be contiguous "
+                                         "torch.int16"):
+        dataclasses.replace(w9, rows=w9.rows.to(torch.uint8))
+    with pytest.raises(ValueError, match="rows must be contiguous "
+                                         "torch.uint8"):
+        dataclasses.replace(pack(d), rows=pack(d).rows.to(torch.int16))
     # an edge whose activation bit is not the one the node adds
     src = d.level_xsrc.clone()
     r = int(torch.nonzero(src[1] != d.k)[0, 0])
@@ -273,9 +286,10 @@ def test_dense_plan_is_packed_once(rng):
 def test_engine_cuda_runs_plans_wider_than_a_byte(t, rng):
     """T > 8 on ``engine_cuda``: a reduced smollm whose linears' K are
     multiples of 9 and 10 (d_model 180, 3 heads of 30, d_ff 360) with
-    ``transrow_t=t``. The attached plans stay DevicePlans (a ForestPlan's
-    byte cannot hold the node), nothing is packed, and every linear's
-    int32 accumulators through the backend equal the reference's
+    ``transrow_t=t``. The attached plans are ForestPlans with int16
+    gathers (a byte cannot hold the node), each layer packed once while
+    attaching and nothing packed while executing; every linear's int32
+    accumulators through the backend equal the reference's
     ``engine_pallas`` (interpret) on its own plan for the same weights,
     exactly; the model's prefill logits equal the port's ``int_dot``."""
     from repro_torch.configs import get_reduced
@@ -291,20 +305,22 @@ def test_engine_cuda_runs_plans_wider_than_a_byte(t, rng):
     calls = pack.calls
     params = plancache.attach_device_plans(raw, cfg.quant,
                                            plancache.PlanCache())
-    assert pack.calls == calls
     block = _index(params["blocks"], 0)
     layers = {f"{b}.{n}": layer for b, blk in block.items()
               for n, layer in blk.items()
               if isinstance(layer, dict) and "qw" in layer}
     assert len(layers) == 7
+    assert pack.calls == calls + len(layers)         # once per layer
+    calls = pack.calls
     backend = get_backend("engine_cuda")
     for name, layer in layers.items():
-        dplan = layer["dplan"]
-        assert isinstance(dplan, pt_engine.DevicePlan) and dplan.t == t
+        fplan = layer["dplan"]
+        assert isinstance(fplan, pt_engine.ForestPlan) and fplan.t == t
+        assert fplan.rows.dtype == torch.int16
         qw = layer["qw"].numpy()
         qx = rng.integers(-128, 128, size=(3, qw.shape[1])).astype(np.int8)
         got = backend.execute(torch.from_numpy(qx), layer["qw"], None,
-                              dplan, EngineConfig(4, t, 1))
+                              fplan, EngineConfig(4, t, 1))
         dref = ref_engine.compile_plan(ref_engine.BatchedTransitiveEngine(
             4, t).plan(qw.astype(np.int64)))
         want = ref_backend("engine_pallas").execute(
@@ -315,6 +331,7 @@ def test_engine_cuda_runs_plans_wider_than_a_byte(t, rng):
                                       err_msg=name)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 5)))
     logits, _ = model.prefill(params, {"tokens": toks}, 8)
+    assert pack.calls == calls
     dense = Model(cfg.replace(quant=cfg.quant.with_(backend="int_dot")),
                   device="cpu")
     want_logits, _ = dense.prefill(raw, {"tokens": toks}, 8)
@@ -335,3 +352,60 @@ def test_dense_forest_kernel_states_its_shared_memory_bound():
     assert tfd._columns_per_block(15, 64) == (16, False)
     assert tfd._columns_per_block(15, 4) == (4, False)
     assert tfd._columns_per_block(20, 3) == (3, False)
+
+
+@pytest.mark.parametrize("t,s,n,m,jg,groups,want", [
+    # smollm-135m's MLP up/gate at decode: 16 ranks of 4 tables, one round
+    (9, 4, 1536, 4, 64, 1, (4, 4, 2, 256, 16)),
+    # T = 12: 64 KiB tables, two a round over 16 ranks; the down
+    # projection (128 tiles) takes 2-column tables to fit four
+    (12, 4, 1536, 4, 48, 1, (4, 2, 2, 256, 16)),
+    (12, 4, 576, 4, 128, 1, (2, 4, 2, 256, 16)),
+    # prefill: 8 columns, one 128 KiB table a round
+    (12, 4, 1536, 512, 48, 1, (8, 1, 2, 256, 16)),
+    # T = 14: two columns fit (128 KiB) with two buffers
+    (14, 4, 16, 4, 2, 1, (2, 1, 2, 256, 2)),
+    # T = 15: one column (128 KiB) and one buffer; 8 planes leave no room
+    # for bn = 256
+    (15, 8, 576, 4, 4, 1, (1, 1, 1, 128, 4)),
+    (15, 4, 16, 4, 2, 1, (1, 1, 1, 256, 2))])
+def test_fused16_tiling_fits_and_fills_the_card(t, s, n, m, jg, groups,
+                                                want):
+    """The fused kernel for 9 <= T <= 15 (``forest_fused16``): the tiling
+    ``wide_tiling`` picks for 132 SMs (its cost model, fitted on an H100)
+    fits a block's shared memory as the kernel carves it up, keeps every
+    rank of a cluster (<= 16, one group) busy in the first round, holds
+    bm to the power of two >= M and no more than 8 columns, and at T = 15
+    leaves room for one column only."""
+    from repro_torch.kernels import transitive_forest_dense as tfd
+    tl = tfd.wide_tiling(t, s, n, m, jg, groups, 132)
+    assert (tl.bm, tl.jb, tl.nbuf, tl.bn, tl.cluster) == want
+    assert tl.smem == tfd.fused16_smem(t, s, tl.bm, tl.jb, tl.nbuf, tl.bn)
+    assert tl.smem <= tfd._SMEM_LIMIT
+    assert tl.jb * t * tl.bm <= 4 * tfd._WNT      # activations in flight
+    assert tl.bm <= min(8, 1 << (m - 1).bit_length())
+    assert tl.cluster <= 16 and (tl.cluster - 1) * tl.jb < jg
+    if t == 15:
+        assert tfd.fused16_smem(t, s, 2, 1, 1, 64) > tfd._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t", [9, 12, 15])
+def test_fused16_level_order_is_by_popcount_then_value(t):
+    """``forest_fused16`` builds each level from the order table the
+    wrapper hands it: every node once, level L (popcount L) in C(T, L)
+    consecutive places, in increasing value, so a node's prefix (one bit
+    fewer) lies in an earlier level; as int16 it keeps every value
+    (nodes < 2^15)."""
+    from math import comb
+
+    from repro_torch.kernels import transitive_forest_dense as tfd
+    order = tfd.level_order(t)
+    assert order.dtype == np.uint16 and sorted(order) == list(range(1 << t))
+    pop = np.array([bin(int(v)).count("1") for v in order])
+    off = 0
+    for lv in range(t + 1):
+        level = order[off:off + comb(t, lv)]
+        assert (pop[off:off + comb(t, lv)] == lv).all()
+        assert (np.diff(level.astype(np.int64)) > 0).all()
+        off += comb(t, lv)
+    assert (order.view(np.int16) >= 0).all()

@@ -223,31 +223,57 @@ def test_gemm_and_scan_wrappers_raise_instead_of_falling_back(
 
 
 def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
-    """T outside {4, 8}: B3 at T=6 (the one LUT kernel, at its own width)
-    and B1 from a T=9 DevicePlan (the dense kernel) run their plain
-    versions on CPU tensors, and on a non-CPU tensor raise when their
-    kernel cannot be built, launching nothing."""
-    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    """T outside {4, 8}: B3 at T=6 (the one LUT kernel, at its own width),
+    B1 from a T=9 DevicePlan (packed, the fused int16 kernel), from a T=9
+    ForestPlan through the serving row entry (the same kernel) and from a
+    T=16 DevicePlan (the two-pass kernel) run their plain versions on CPU
+    tensors, and on a non-CPU tensor raise when their kernel cannot be
+    built, launching nothing."""
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan, pack_forest_plan)
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import transitive_forest as tf
     from repro_torch.kernels import transitive_forest_dense as tfd
     from repro_torch.kernels import transitive_gemm as tg
     monkeypatch.setattr(build, "load", _failing_build)
     qx = torch.from_numpy(rng.integers(-128, 128, (3, 36)).astype(np.int8))
     qw = torch.from_numpy(rng.integers(-8, 8, (5, 36)).astype(np.int8))
     dplan = compile_plan(BatchedTransitiveEngine(4, 9).plan(qw.numpy()))
+    fplan = pack_forest_plan(dplan)
+    assert fplan.rows.dtype == torch.int16
+    qx16 = torch.from_numpy(rng.integers(-128, 128, (2, 32)).astype(np.int8))
+    qw16 = torch.from_numpy(rng.integers(-8, 8, (3, 32)).astype(np.int8))
+    dplan16 = compile_plan(BatchedTransitiveEngine(4, 16).plan(qw16.numpy()))
     before = (tg.transitive_gemm_cuda.launches,
-              tfd.transitive_forest_dense.launches)
+              tfd.transitive_forest_dense.launches,
+              tf.transitive_forest.launches)
     exact = qx.long() @ qw.long().T
     assert torch.equal(ops.transitive_gemm(qx, qw, w_bits=4, t=6).long(),
                        exact)
     assert torch.equal(ops.transitive_forest(dplan, qx.T).T.long(), exact)
+    assert torch.equal(tf.transitive_forest_rows(fplan, qx).long(), exact)
+    assert torch.equal(ops.transitive_forest(dplan16, qx16.T).T.long(),
+                       qx16.long() @ qw16.long().T)
     with pytest.raises(RuntimeError, match="cannot build transitive_gemm"):
         ops.transitive_gemm(qx.to("meta"), qw.to("meta"), w_bits=4, t=6)
-    with pytest.raises(RuntimeError,
-                       match="cannot build transitive_forest_dense"):
-        ops.transitive_forest(dplan, qx.T.to("meta"))
+    for call in (lambda: ops.transitive_forest(dplan, qx.T.to("meta")),
+                 lambda: tf.transitive_forest_rows(_on(fplan, "meta"),
+                                                   qx.to("meta")),
+                 lambda: ops.transitive_forest(_on(dplan16, "meta"),
+                                               qx16.T.to("meta"))):
+        with pytest.raises(RuntimeError,
+                           match="cannot build transitive_forest_dense"):
+            call()
     assert (tg.transitive_gemm_cuda.launches,
-            tfd.transitive_forest_dense.launches) == before
+            tfd.transitive_forest_dense.launches,
+            tf.transitive_forest.launches) == before
+
+
+def _on(plan, device):
+    """The plan with every leaf moved to ``device``."""
+    import dataclasses
+    return dataclasses.replace(plan, **{f: a.to(device)
+                                        for f, a in plan.leaves().items()})
 
 
 def test_build_needs_nvcc_and_nothing_runs_at_import(monkeypatch, tmp_path):

@@ -583,18 +583,45 @@ def test_transitive_gemm_unaligned_is_exact(cuda, m, n, k, groups, w_bits,
                                rtol=0, atol=0)
 
 
+def _kernel_names(fn):
+    """The device kernels one call of ``fn`` runs, by the profiler's names
+    (a profile now and then records nothing: profile again then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 for _ in range(e.count)]
+        if names:
+            return names
+    return names
+
+
+def _assert_one_launch_of(fn, kernel):
+    names = _kernel_names(fn)
+    assert len(names) == 1 and kernel in names[0], names
+
+
 @pytest.mark.parametrize("t,n,k,m,groups", [(9, 1536, 576, 4, 1),
                                             (9, 576, 576, 64, 1),
                                             (10, 200, 180, 5, 2),
                                             (12, 64, 96, 3, 1),
                                             (14, 16, 28, 2, 1),
                                             (15, 16, 30, 4, 1),
-                                            (15, 8, 30, 20, 2)])
+                                            (15, 8, 30, 20, 2),
+                                            (16, 8, 32, 4, 1)])
 def test_forest_dense_kernel_equals_plain(cuda, t, n, k, m, groups):
-    """Plans with T > 8 through both forest entries (routed to the dense
-    two-pass kernel, not packed) against ``run_device``: exact. From
-    T = 15 pass 1's tables live in a global workspace (M = 20 runs two
-    column blocks of it)."""
+    """Plans with T > 8 handed to both forest entries as DevicePlans
+    against ``run_device``: exact. For 9 <= T <= 15 each call is one
+    launch of the fused kernel ``forest_fused16`` (the DevicePlan packed
+    at its first call, int16 gathers); from T = 16 the two-pass kernel
+    (``forest_dense_tiles`` + ``forest_dense_ape``) runs the DevicePlan
+    itself. Both count in ``transitive_forest_dense.launches``."""
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
     from repro_torch.kernels.transitive_forest import (
         forest_plain, transitive_forest, transitive_forest_rows)
@@ -605,15 +632,113 @@ def test_forest_dense_kernel_equals_plain(cuda, t, n, k, m, groups):
     d = compile_plan(BatchedTransitiveEngine(4, t).plan(w, groups=groups),
                      device=cuda)
     x = torch.from_numpy(rng.integers(-128, 128, size=(k, m))).to(cuda)
+    qx = x.T.to(torch.int8).contiguous()
     before = transitive_forest_dense.launches
     got = transitive_forest(d, x)
-    rows = transitive_forest_rows(d, x.T.to(torch.int8).contiguous())
+    rows = transitive_forest_rows(d, qx)
     assert transitive_forest_dense.launches == before + 2
     want = forest_plain(d, x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(rows.T if groups == 1
                                else rows.permute(2, 1, 0), want, rtol=0,
                                atol=0)
+    x32 = x.to(torch.int32)              # no cast kernel inside the call
+    if t <= 15:
+        _assert_one_launch_of(lambda: transitive_forest(d, x32),
+                              "forest_fused16")
+        _assert_one_launch_of(lambda: transitive_forest_rows(d, qx),
+                              "forest_fused16")
+    else:
+        names = _kernel_names(lambda: transitive_forest(d, x32))
+        assert not any("forest_fused16" in nm for nm in names), names
+        assert sum("forest_dense_tiles" in nm for nm in names) == 1, names
+        assert sum("forest_dense_ape" in nm for nm in names) == 1, names
+
+
+# (T, N, K, M, groups, fill): fill None for random int4 weights and int8
+# activations, else (activation, weight) everywhere
+_FUSED16_CASES = [
+    # smollm-135m's four linear shapes at T = 12, decode
+    (12, 576, 576, 4, 1, None), (12, 192, 576, 4, 1, None),
+    (12, 1536, 576, 4, 1, None), (12, 576, 1536, 4, 1, None),
+    # prefill, and the grouped down-projection: 16 groups of 96 (a group
+    # holds whole 12-wide tiles; 128 does not)
+    (12, 1536, 576, 512, 1, None), (12, 576, 1536, 4, 16, None),
+    # M not a multiple of the block's columns (bm = 4, 8, 8 x 2 blocks)
+    (9, 300, 576, 3, 1, None), (11, 200, 352, 5, 2, None),
+    (13, 100, 104, 13, 1, None),
+    # extreme values
+    (12, 96, 576, 4, 1, (-128, -8)), (12, 96, 576, 4, 1, (127, 7)),
+    (12, 96, 576, 4, 1, (-128, 7)), (12, 96, 576, 4, 1, (127, -8)),
+    (15, 40, 60, 4, 1, (-128, -8)), (15, 40, 60, 4, 1, (127, 7)),
+    (15, 40, 60, 4, 1, (-128, 7)), (15, 40, 60, 4, 1, (127, -8))]
+
+
+def _fused16_id(case):
+    t, n, k, m, g, fill = case
+    return f"T{t}-{n}x{k}-M{m}-G{g}" + (f"-fill{fill[0]}_{fill[1]}"
+                                         if fill else "")
+
+
+@pytest.mark.parametrize("case", _FUSED16_CASES, ids=_fused16_id)
+def test_forest_fused16_cases(cuda, case):
+    """The fused kernel for 9 <= T <= 15 from a ForestPlan with int16
+    gathers, through both entries: exact against the DevicePlan's
+    ``run_device``, the ForestPlan's ``forest_plan_plain`` and the integer
+    GEMM (per group); each call one launch of ``forest_fused16``; two calls
+    bit-identical."""
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan, forest_plan_plain,
+                                         pack_forest_plan)
+    from repro_torch.kernels.transitive_forest import (
+        forest_plain, transitive_forest, transitive_forest_rows)
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    t, n, k, m, groups, fill = case
+    rng = np.random.default_rng(t + n + k + m + groups)
+    if fill is None:
+        w = rng.integers(-8, 8, size=(n, k))
+        x = rng.integers(-128, 128, size=(k, m))
+    else:
+        x, w = np.full((k, m), fill[0]), np.full((n, k), fill[1])
+    d = compile_plan(BatchedTransitiveEngine(4, t).plan(w, groups=groups),
+                     device=cuda)
+    f = pack_forest_plan(d)
+    assert f.rows.dtype == torch.int16
+    x = torch.from_numpy(x.astype(np.int32)).to(cuda)
+    qx = x.T.to(torch.int8).contiguous()
+    before = transitive_forest_dense.launches
+    got = transitive_forest(f, x)
+    rows = transitive_forest_rows(f, qx)
+    assert transitive_forest_dense.launches == before + 2
+    kg = k // groups
+    gemm = np.stack([w[:, i * kg:(i + 1) * kg].astype(np.int64)
+                     @ x.cpu().numpy()[i * kg:(i + 1) * kg]
+                     for i in range(groups)], axis=1)            # (N, G, M)
+    gemm = torch.from_numpy(gemm.astype(np.int32))
+    want = gemm[:, 0] if groups == 1 else gemm
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(got, forest_plain(d, x), rtol=0, atol=0)
+    torch.testing.assert_close(got, forest_plan_plain(f, x), rtol=0, atol=0)
+    torch.testing.assert_close(rows, got.T if groups == 1
+                               else got.permute(2, 1, 0), rtol=0, atol=0)
+    assert torch.equal(transitive_forest_rows(f, qx), rows)
+    assert torch.equal(transitive_forest(f, x), got)
+    _assert_one_launch_of(lambda: transitive_forest_rows(f, qx),
+                          "forest_fused16")
+    _assert_one_launch_of(lambda: transitive_forest(f, x), "forest_fused16")
+
+
+def test_fused16_smem_matches_the_kernel(cuda):
+    """The host's carve-up (``fused16_smem``, which ``wide_tiling`` sizes
+    the launch with) is the kernel's own."""
+    from repro_torch.kernels import transitive_forest_dense as tfd
+    lib = tfd._library()
+    for args in [(9, 4, 4, 8, 2, 64), (12, 4, 4, 1, 2, 64),
+                 (15, 8, 1, 1, 1, 128), (13, 3, 8, 1, 2, 256),
+                 (10, 2, 2, 4, 1, 128)]:
+        assert lib.transitive_forest_fused16_smem(*args) == \
+            tfd.fused16_smem(*args)
 
 
 @pytest.mark.parametrize("m,n,k,g", [(4, 1536, 576, 6), (4, 576, 32768, 128),
