@@ -9,29 +9,132 @@ Each launch adds one to ``rg_lru_cuda.launches``. x and a may each be
 float32, bfloat16, float16 or float64; both compute in f32 and round h
 once to x's dtype. Kernel and plain version round the same operations in
 the same order, so they agree bit for bit; the reference's doubling scan
-rounds otherwise. Bound and design notes are in the CUDA source.
+rounds otherwise.
+
+The kernel is bound by bytes (x and a read once, h written once: 0.1202
+ms at B=4, S=2048, D=4096 in f32 on an H100), and its design keeps enough
+of them in flight while the scan stays sequential in S: a block owns
+``dt`` neighbouring chains of one b and walks S. Where x, a and h have
+16-byte aligned bases and rows (``D * elem % 16 == 0``), the aligned
+instance ``rg_lru_ring`` runs: a ring of ``ns`` shared-memory stages of
+``st`` steps, kept full by TMA loads of 3-D tensor maps that the C entry
+encodes per call; h is written over x in the stage and leaves by one TMA
+store per stage. Elsewhere the unaligned instance ``rg_lru_regs``
+prefetches 16 steps per chain in registers on the same grid.
+:func:`launch_plan`, a pure function of the shapes, element sizes and
+base addresses, picks the instance and the tiling. More in the CUDA
+source.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["rg_lru_cuda", "rg_lru_plain"]
+__all__ = ["rg_lru_cuda", "rg_lru_plain", "launch_plan", "LaunchPlan",
+           "SMS", "SMEM_LIMIT"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float64: 3}
 
+SMS = 132                    # H100 SXM streaming multiprocessors
+SMEM_LIMIT = 232448          # shared memory a block can use (227 KiB)
+SMEM_PER_SM = 233472         # the SM's, shared by its blocks (228 KiB)
+SMEM_RESERVED = 1024         # the runtime's per block
+SMEM_SLACK = 128             # csrc/rg_lru.cu aligns the ring's base
+DTS = (128, 64, 32)          # chains per block, widest first
+V = 16                       # csrc/rg_lru.cu: steps per register batch
+LONE_STEPS = 128             # stage steps of a block alone on its SM
+SHARED_STAGE = 8192          # stage bytes where blocks share an SM
+LONE_RING = 98304            # ring bytes of a block alone on its SM
+SHARED_RING = 32768          # ring bytes of a block sharing its SM
+MIN_STAGES = 3               # a stage is freed one stage late
+MAX_STAGES = 16
+REGS_STEPS = 16              # rg_lru_regs: steps per register batch (U)
+
+
+class LaunchPlan(NamedTuple):
+    """One call's launch: ``blocks`` blocks of ``threads`` threads, each
+    owning ``dt`` neighbouring chains of one b (:meth:`chains`). The
+    aligned instance (``rg_lru_ring``) keeps a ring of ``ns`` stages of
+    ``st`` steps in ``smem`` bytes of shared memory; the unaligned one
+    (``rg_lru_regs``) ``st`` steps per register batch and no ring."""
+    aligned: bool
+    dt: int
+    st: int
+    ns: int
+    blocks: int
+    threads: int
+    smem: int
+
+    @property
+    def kernel(self) -> str:
+        """The kernel's name, as the profiler shows it."""
+        return "rg_lru_ring" if self.aligned else "rg_lru_regs"
+
+    def chains(self, block: int, d: int) -> tuple[int, range]:
+        """(b, the d range) that ``block`` owns at width ``d``, as the
+        kernel's ``owner`` computes them."""
+        tiles_d = -(-d // self.dt)
+        b = block // tiles_d
+        d0 = (block - b * tiles_d) * self.dt
+        return b, range(d0, min(d0 + self.dt, d))
+
+
+def ring_smem(dt: int, st: int, ns: int, x_size: int, a_size: int) -> int:
+    """Shared memory of ``rg_lru_ring``: ns stages of an a and an x tile
+    (st x dt each), two mbarriers a stage and the alignment slack."""
+    return SMEM_SLACK + ns * st * dt * (x_size + a_size) + 16 * ns
+
+
+def launch_plan(b: int, s: int, d: int, x_size: int, a_size: int,
+                out_size: int, x_ptr: int = 0, a_ptr: int = 0,
+                out_ptr: int = 0) -> LaunchPlan:
+    """The launch for x, a, h (b, s, d) of element sizes ``x_size``,
+    ``a_size``, ``out_size`` at base addresses ``*_ptr``.
+
+    The aligned instance exactly where every base is 16-byte aligned and
+    every row (``d * size``) a multiple of 16 bytes, as TMA needs. ``dt``:
+    the widest of 128, 64, 32 chains per block that still gives a block
+    to every SM, else 32 (so at least 132 blocks wherever b * d >=
+    132 * 32). The ring, from a sweep of every tiling at six shapes on an
+    H100 (``launch/bench_rg_lru.py --sweep``): each stage costs a fixed
+    hand-off (a barrier, a TMA store, a release), which a block alone on
+    its SM cannot hide behind another's steps, so it takes stages of 128
+    steps and ~96 KiB; blocks that share an SM take stages of ~8 KiB and
+    ~32 KiB each. ``st`` is a multiple of 16 (the kernel's register batch)
+    up to 256, at least 3 stages (one is freed a stage late) and at most
+    16, all within a block's shared memory and, where 3 stages allow it,
+    the SM's share of every block resident at once."""
+    aligned = all(p % 16 == 0 for p in (x_ptr, a_ptr, out_ptr)) and all(
+        d * n % 16 == 0 for n in (x_size, a_size, out_size))
+    dt = next((c for c in DTS if b * -(-d // c) >= SMS), DTS[-1])
+    blocks = b * -(-d // dt)
+    if not aligned:
+        return LaunchPlan(False, dt, REGS_STEPS, 0, blocks, dt, 0)
+    row = dt * (x_size + a_size)
+    per_sm = -(-blocks // SMS)
+    st, ring = ((LONE_STEPS, LONE_RING) if per_sm == 1 else
+                (SHARED_STAGE // row, SHARED_RING))
+    fit = (SMEM_LIMIT - SMEM_SLACK) // (MIN_STAGES * (row + 16))
+    st = max(V, min(st, fit, 256) // V * V)
+    share = SMEM_PER_SM // per_sm - SMEM_RESERVED - SMEM_SLACK
+    ns = max(MIN_STAGES, min(MAX_STAGES, ring // (st * row),
+                             share // (st * row + 16)))
+    return LaunchPlan(True, dt, st, ns, blocks, dt + 32,
+                      ring_smem(dt, st, ns, x_size, a_size))
+
 
 def _library() -> ctypes.CDLL:
     lib = build.load("rg_lru")
     if not getattr(lib, "_typed", False):
         lib.rg_lru_launch.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P,
-                                      _P]
+                                      _I, _I, _I, _I, _P]
         lib.rg_lru_launch.restype = _I
         lib.rg_lru_error.argtypes = [_I]
         lib.rg_lru_error.restype = ctypes.c_char_p
@@ -78,15 +181,27 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
         return out
     xc, ac = x.contiguous(), a.contiguous()
     h0c = h0.to(torch.float32).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rg_lru_launch(xc.data_ptr(), _DTYPE_CODE[x.dtype],
-                            ac.data_ptr(), _DTYPE_CODE[a.dtype],
-                            h0c.data_ptr(), b, s, d, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"rg_lru launch failed: "
-                           f"{lib.rg_lru_error(err).decode()}")
+    plan = launch_plan(b, s, d, xc.element_size(), ac.element_size(),
+                       out.element_size(), xc.data_ptr(), ac.data_ptr(),
+                       out.data_ptr())
+    _launch(lib, xc, ac, h0c, out, plan)
     rg_lru_cuda.launches += 1
     return out
+
+
+def _launch(lib, x, a, h0, out, plan: LaunchPlan) -> None:
+    """Launch ``plan`` on contiguous CUDA x, a, out and f32 h0 on the
+    current stream (no count: ``launch/bench_rg_lru.py`` sweeps tilings
+    through it); raise on failure."""
+    b, s, d = x.shape
+    err = lib.rg_lru_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], a.data_ptr(),
+                            _DTYPE_CODE[a.dtype], h0.data_ptr(), b, s, d,
+                            out.data_ptr(), plan.dt, plan.st, plan.ns,
+                            int(plan.aligned),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rg_lru launch failed ({plan.kernel}): "
+                           f"{lib.rg_lru_error(err).decode()}")
 
 
 rg_lru_cuda.launches = 0

@@ -44,7 +44,8 @@ PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "forest_dense": "B1 forest from a dense plan (T >= 16)",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
                 "w4a8_dot": "B4 group-dequant GEMM",
-                "rg_lru_seq": "B5 linear recurrence"}
+                "rg_lru_ring": "B5 linear recurrence, TMA ring",
+                "rg_lru_regs": "B5 linear recurrence, unaligned rows"}
 
 
 def _label(name: str) -> str:

@@ -222,6 +222,28 @@ def test_gemm_and_scan_wrappers_raise_instead_of_falling_back(
     assert wrapper.launches == before
 
 
+@pytest.mark.parametrize("d,kernel", [(4, "rg_lru_ring"),
+                                      (5, "rg_lru_regs")])
+def test_rg_lru_both_instances_raise_instead_of_falling_back(monkeypatch, d,
+                                                             kernel):
+    """B5's two instances (TMA ring where rows are 16-byte aligned, the
+    register prefetch elsewhere): with the kernel unbuildable, a non-CPU
+    input of either raises through ``ops.rg_lru`` and the wrapper, never
+    reaching the plain version, and nothing is launched."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import rg_lru as mod
+    args = (torch.ones((2, 3, d)), torch.ones((2, 3, d)), torch.ones((2, d)))
+    assert mod.launch_plan(2, 3, d, 4, 4, 4).kernel == kernel
+    monkeypatch.setattr(build, "load", _failing_build)
+    monkeypatch.setattr(mod, "rg_lru_plain", _never)
+    monkeypatch.setattr(mod, "ref", None)
+    before = mod.rg_lru_cuda.launches
+    for fn in (ops.rg_lru, mod.rg_lru_cuda):
+        with pytest.raises(RuntimeError, match="cannot build rg_lru"):
+            fn(*(a.to("meta") for a in args))
+    assert mod.rg_lru_cuda.launches == before
+
+
 def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     """T outside {4, 8}: B3 at T=6 (the one LUT kernel, at its own width),
     B1 from a T=9 DevicePlan (packed, the fused int16 kernel), from a T=9

@@ -814,6 +814,92 @@ def test_rg_lru_kernel_mixed_dtypes_bit_equal(cuda, xdt, adt):
     torch.testing.assert_close(got, rg_lru_plain(x, a, h0), rtol=0, atol=0)
 
 
+# (b, s, d, x dtype, a dtype, x one element off 16 bytes, kernel); s "st-1"
+# and "st+1" are one step either side of the plan's stage (or batch).
+_B5_CASES = [
+    (4, 1, 4096, "float32", "float32", False, "rg_lru_ring"),
+    (4, "st-1", 4096, "float32", "float32", False, "rg_lru_ring"),
+    (4, "st+1", 4096, "float32", "float32", False, "rg_lru_ring"),
+    (1, 300, 32, "float32", "float32", False, "rg_lru_ring"),
+    (1, 300, 4096, "float32", "float32", False, "rg_lru_ring"),
+    (2, 100, 4100, "float32", "float32", False, "rg_lru_ring"),
+    (2, 100, 4097, "float32", "float32", False, "rg_lru_regs"),
+    (2, 100, 4096, "float32", "float32", True, "rg_lru_regs"),
+    (2, 100, 4096, "bfloat16", "bfloat16", True, "rg_lru_regs"),
+    (2, 300, 512, "float64", "bfloat16", False, "rg_lru_ring"),
+    (2, 300, 257, "float64", "bfloat16", False, "rg_lru_regs"),
+    (4, 300, 4096, "bfloat16", "bfloat16", False, "rg_lru_ring"),
+    (4, 300, 4096, "float16", "float16", False, "rg_lru_ring"),
+    (4, "st+1", 4096, "float32", "bfloat16", False, "rg_lru_ring"),
+    (3, 1, 33, "bfloat16", "float16", False, "rg_lru_regs"),
+    (3, "st-1", 33, "float32", "float32", False, "rg_lru_regs"),
+    (3, "st+1", 33, "float32", "float32", False, "rg_lru_regs"),
+    (1, 77, 8, "float32", "float64", False, "rg_lru_ring"),
+]
+
+
+def _b5_id(case):
+    b, s, d, xdt, adt, off, _ = case
+    return f"B{b}-S{s}-D{d}-{xdt}-{adt}" + ("-off" if off else "")
+
+
+def _b5_inputs(b, s, d, xdt, adt, off, cuda, seed):
+    """x, a, h0 from a seed; x one element past a 16-byte aligned base
+    when ``off`` (contiguous all the same)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0.8, 0.999, (b, s, d)).astype(
+        np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    x = x.to(cuda, getattr(torch, xdt))
+    if off:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(b, s, d)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x, a.to(cuda, getattr(torch, adt)), h0.to(cuda)
+
+
+@pytest.mark.parametrize("case", _B5_CASES, ids=_b5_id)
+def test_rg_lru_instances_bit_equal_one_launch(cuda, case):
+    """Both instances of B5 (``rg_lru_ring`` where x, a and h have 16-byte
+    aligned bases and rows, ``rg_lru_regs`` elsewhere) against the plain
+    version: bit-equal, one launch per call by the counter and by the
+    profiler's name, at S on both sides of a stage, B=1, ragged D, a base
+    one element off 16 bytes and float64 x."""
+    from repro_torch.kernels.rg_lru import (launch_plan, rg_lru_cuda,
+                                            rg_lru_plain)
+    b, s, d, xdt, adt, off, kernel = case
+    if isinstance(s, str):
+        size = torch.empty((), dtype=getattr(torch, xdt)).element_size()
+        asize = torch.empty((), dtype=getattr(torch, adt)).element_size()
+        st = launch_plan(b, 1, d, size, asize, size, 0 if kernel ==
+                         "rg_lru_ring" else 1).st
+        s = st + (1 if s == "st+1" else -1)
+    x, a, h0 = _b5_inputs(b, s, d, xdt, adt, off, cuda, b + s + d)
+    plan = launch_plan(b, s, d, x.element_size(), a.element_size(),
+                       x.element_size(), x.data_ptr(), a.data_ptr(), 0)
+    assert plan.kernel == kernel
+    before = rg_lru_cuda.launches
+    got = rg_lru_cuda(x, a, h0)
+    assert rg_lru_cuda.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    torch.testing.assert_close(got, rg_lru_plain(x, a, h0), rtol=0, atol=0)
+    _assert_one_launch_of(lambda: rg_lru_cuda(x, a, h0), kernel)
+
+
+@pytest.mark.parametrize("d,off", [(4096, False), (4096, True), (257, False)])
+def test_rg_lru_two_calls_bit_identical(cuda, d, off):
+    """Two calls of either instance on the same inputs give the same bits
+    (B=4, S=2048; recurrentgemma-9b's width at d=4096)."""
+    from repro_torch.kernels.rg_lru import rg_lru_cuda
+    x, a, h0 = _b5_inputs(4, 2048, d, "float32", "float32", off, cuda, 3)
+    first = rg_lru_cuda(x, a, h0)
+    second = rg_lru_cuda(x, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantizer_divides_truly_on_the_card(cuda, dtype):
     """Per-token codes and scales, and the exact pool's V scale, made on
