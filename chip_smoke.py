@@ -7,7 +7,7 @@ against its plain version.
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
   0. the card's ``nvidia-smi`` name and power limit;
-  1. build all six CUDA sources from ``src/repro_torch/csrc`` (one
+  1. build all seven CUDA sources from ``src/repro_torch/csrc`` (one
      ``nvcc`` each, in parallel) into ``build/kernels``;
   2. B1, the fused forest kernel from a compact ``ForestPlan``, through
      both its entries ((K, M) int32 and the serving path's (M, K) int8
@@ -53,6 +53,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      shapes timed (kernel ms, device us, ``torch._int_mm``, the
      function's bound and those with the ForestPlan's and the
      DevicePlan's bytes), ForestPlan and DevicePlan bytes printed;
+  B1s. B1 for plans with T >= 16: ``engine_cuda`` packs them into
+     SparseForestPlans (each tile's made nodes only, int16 slots), each
+     call one launch of ``forest_sparse`` (launch count and profiler name
+     asserted): a T=16 linear at N=1536, K=64 (K cut from 576 for
+     planning time) at M in {4, 64}, timed (kernel ms, device us,
+     ``torch._int_mm``, plain, the function's bound and those with the
+     compact plan's and the DevicePlan's bytes) beside the parent's
+     two-pass kernel on the same DevicePlan and x; T=16 grouped, 8-bit,
+     T=17 grouped and extreme values; exact against ``run_device``,
+     ``sparse_forest_plain`` and the integer GEMM; the compact plan at
+     least 50x below the DevicePlan's bytes;
   B4. the group-dequant GEMM against its plain version at (N, K, group) =
      (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, group 6 and
      K=32,768 at M=4, within the reference's tolerance (``check_w4a8``);
@@ -92,7 +103,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
-     int16 kernel) and a T=16 plan (the two-pass kernel) and B5 over
+     int16 kernel), a T=16 plan (``forest_sparse``) and a T=16 plan too
+     large for a compact table (the two-pass kernel) and B5 over
      float64, every kernel launched, each result equal to (or, B4 and f32
      B5, within tolerance of) its plain version.
 
@@ -158,32 +170,14 @@ def bound_ms(n_bytes, n_ops, ops_rate):
                                        else "operations")
 
 
-def _device_events(fn, iters):
-    """The profiler's device events (``key_averages``) of ``iters`` calls of
-    ``fn``, after one call outside the profile."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(10):         # a profile now and then records no events,
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):  # or drops some (once five profiles in
-                fn()                # a row): profile again then
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        if events and all(e.count % iters == 0 for e in events):
-            break
-        time.sleep(0.1)
-    return events
-
-
 def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
     """Device time per call of ``fn`` from ``torch.profiler``: (every
     device op of the call, the ops whose name holds one of ``kernels``
-    alone: no memset) in microseconds, and the device ops per call."""
-    events = _device_events(fn, iters)
+    alone: no memset) in microseconds, and the device ops per call. Read
+    through ``repro_torch.launch.device_events``, which takes a read only
+    when it holds every launch."""
+    from repro_torch.launch.device_events import device_events
+    events = device_events(fn, iters)
     total = sum(e.self_device_time_total for e in events) / iters
     kernel = sum(e.self_device_time_total for e in events
                  if any(name in e.key for name in kernels))
@@ -194,7 +188,8 @@ def device_us(fn, kernels=("forest_narrow", "forest_wide"), iters=20):
 def kernel_names(fn):
     """The names of the device kernels one call of ``fn`` runs (the
     profiler's, template arguments included)."""
-    return [e.key for e in _device_events(fn, 1) for _ in range(e.count)]
+    from repro_torch.launch.device_events import kernel_names as names
+    return names(fn)
 
 
 def _forest_weights(pattern, n, k, rng):
@@ -766,14 +761,15 @@ def check_tgemm_generic(flush):
                                   **timed[579]})
 
 
-def _wide_linear(w, t, groups=1):
-    """One engine_cuda linear at width T: (ForestPlan the backend attaches,
-    the DevicePlan of the same ExecutionPlan, seconds to plan and lower)."""
+def _wide_linear(w, t, groups=1, bits=4):
+    """One engine_cuda linear at width T: (the plan the backend attaches,
+    ForestPlan or SparseForestPlan; the DevicePlan of the same
+    ExecutionPlan; seconds to plan, lower and pack)."""
     import torch
     from repro_torch.core.backend import get_backend
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
     t0 = time.perf_counter()
-    plan = BatchedTransitiveEngine(4, t).plan(w, groups=groups)
+    plan = BatchedTransitiveEngine(bits, t).plan(w, groups=groups)
     fplan = get_backend("engine_cuda").compile(plan, device="cuda")
     dplan = compile_plan(plan, device="cuda")
     torch.cuda.synchronize()
@@ -782,42 +778,50 @@ def _wide_linear(w, t, groups=1):
 
 def _wide_exact(tag, w, fplan, dplan, qx):
     """The row entry on ``qx`` (M, K) int8 and the (K, M) entry, each one
-    launch of ``forest_fused16`` (launch count and profiler name), exact
-    against ``run_device`` on the DevicePlan, ``forest_plan_plain`` and the
-    integer GEMM per group. Returns (the row entry's call, max |diff|)."""
+    launch of the plan's kernel (``forest_fused16`` for a ForestPlan,
+    ``forest_sparse`` for a SparseForestPlan; launch count and profiler
+    name), exact against ``run_device`` on the DevicePlan, the plan's plain
+    version and the integer GEMM per group. Returns (the row entry's call,
+    max |diff|)."""
     import torch
     from repro_torch.core.backend import int_matmul
-    from repro_torch.core.engine import forest_plan_plain, run_device
+    from repro_torch.core.engine import (SparseForestPlan, forest_plan_plain,
+                                         run_device, sparse_forest_plain)
     from repro_torch.kernels.transitive_forest import (
         transitive_forest, transitive_forest_rows)
     from repro_torch.kernels.transitive_forest_dense import (
         transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    if isinstance(fplan, SparseForestPlan):
+        kernel, counter, plain = ("forest_sparse", launch_sparse,
+                                  sparse_forest_plain)
+    else:
+        kernel, counter, plain = ("forest_fused16", transitive_forest_dense,
+                                  forest_plan_plain)
     x = qx.T.to(torch.int32).contiguous()
-    before = transitive_forest_dense.launches
+    before = counter.launches
     got_rows = transitive_forest_rows(fplan, qx)
     got = transitive_forest(fplan, x)
-    if transitive_forest_dense.launches != before + 2:
-        raise AssertionError(f"{tag}: not one fused launch per call")
+    if counter.launches != before + 2:
+        raise AssertionError(f"{tag}: not one {kernel} launch per call")
     g, k = fplan.groups, fplan.k
     kg = k // g
     gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
                                    x[i * kg:(i + 1) * kg])
                         for i in range(g)], dim=1)               # (N, G, M)
-    want = [run_device(dplan, x), forest_plan_plain(fplan, x),
+    want = [run_device(dplan, x), plain(fplan, x),
             gemm[:, 0] if g == 1 else gemm]
     as_km = got_rows.T if g == 1 else got_rows.permute(2, 1, 0)
     torch.cuda.synchronize()
     err = max(int((a.long() - b.long()).abs().max())
               for a in (got, as_km) for b in want)
     if err:
-        raise AssertionError(f"{tag}: fused forest != plain, max |diff| "
-                             f"{err}")
+        raise AssertionError(f"{tag}: {kernel} != plain, max |diff| {err}")
     call = (lambda: transitive_forest_rows(fplan, qx))
     for fn in (call, lambda: transitive_forest(fplan, x)):
         names = kernel_names(fn)
-        if len(names) != 1 or "forest_fused16" not in names[0]:
-            raise AssertionError(f"{tag} ran {names}, not one "
-                                 f"forest_fused16")
+        if len(names) != 1 or kernel not in names[0]:
+            raise AssertionError(f"{tag} ran {names}, not one {kernel}")
     return call, err
 
 
@@ -843,7 +847,8 @@ def check_forest_dense(flush):
     serving path calls it): kernel ms (event-timed, L2 flushed), the
     profiler's device us (the kernel alone), ``torch._int_mm`` (M padded
     to 32), plain ms (``forest_plan_plain``), and the two-pass kernel
-    (served for T >= 16) on the same DevicePlan, the same x, exact too.
+    (the route of T >= 16 plans too large for ``forest_sparse``) on the
+    same DevicePlan, the same x, exact too.
     Three bounds, labelled: the function's (x and
     the int8 weights read once, the int32 output written once, over the
     memory rate, or this plan's adds over the scalar rate: the JSON
@@ -896,7 +901,8 @@ def check_forest_dense(flush):
             x = qx.T.to(torch.int32).contiguous()
             p_ms = cuda_ms(lambda: forest_plan_plain(fplan, x), flush,
                            iters=5, warmup=1)
-            # the two-pass kernel (served for T >= 16) on the DevicePlan
+            # the two-pass kernel (T >= 16 plans too large for
+            # forest_sparse) on the DevicePlan
             two = (lambda: transitive_forest_dense(dplan, x))
             if not torch.equal(two(), forest_plan_plain(fplan, x)):
                 raise AssertionError(f"{tag}: two-pass kernel != plain")
@@ -960,6 +966,144 @@ def check_forest_dense(flush):
     entry["max_abs_err"] = worst
     entry["t12"] = {f"N={n} K={k}": timed[(12, n, k)] for n, k in SHAPES}
     return entry
+
+
+def _sparse_ops(splan, m):
+    """This sparse plan's adds: one per chained slot, popcount per direct
+    slot, one per APE gather, per column."""
+    import numpy as np
+    from repro_torch.core.engine import SPARSE_DIRECT
+    codes = splan.codes.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    slot = np.arange(splan.slots)
+    live = (slot >= 1) & (slot < splan.bounds.cpu().numpy()[..., -1:])
+    direct = (codes & SPARSE_DIRECT) != 0
+    pops = sum(bin(int(v)).count("1")
+               for v in codes[live & direct] & (SPARSE_DIRECT - 1))
+    return (int((live & ~direct).sum()) + pops + splan.rows.numel()) * m
+
+
+def check_forest_sparse(flush):
+    """B1 for plans with T >= 16 (B1s): ``engine_cuda`` packs them into
+    SparseForestPlans (each tile's made nodes only, renumbered in level
+    order: int16 slots), run by one launch of ``forest_sparse`` per call.
+    Cases, each exact against the DevicePlan's ``run_device``,
+    ``sparse_forest_plain`` and the integer GEMM, through both entries,
+    each call one ``forest_sparse`` by launch count and profiler name:
+
+      * the timed case, one ``engine_cuda`` T=16 linear at N=1536, K=64
+        (J=4 tiles; K cut from smollm-135m's 576 because planning at T=16
+        takes ~25 s per 1536 x 64 on the host), W4, ungrouped, at M=4 and
+        M=64;
+      * T=16 in 2 groups (96x128), 8-bit weights (64x32), T=17 in 2 groups
+        (64x68, M=9), and extreme values at T=16 (40x64): every activation
+        -128 or 127, every weight -8 or 7.
+
+    Per timed call (the row entry, as the serving path calls it): kernel
+    ms (event-timed, L2 flushed), the profiler's device us (the kernel
+    alone), ``torch._int_mm`` (M padded to 32), plain ms
+    (``sparse_forest_plain``), the function's bound (x, the int8 weights
+    and the int32 output over the memory rate, or this plan's adds over
+    the scalar rate: the JSON entry's) and the same with the
+    SparseForestPlan's bytes or the DevicePlan's in place of the weights';
+    and the parent's design, the two-pass kernel, on the same DevicePlan
+    and the same x: exact too, with its kernel ms and device us. The plans'
+    bytes are printed, and the compact plan must be at least 50x smaller.
+    Returns the JSON entry (M=4)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import (SparseForestPlan, run_device,
+                                         sparse_forest_plain)
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    timed, worst = {}, 0
+    # (T, N, K, M's, groups, weight bits, fill: (x, w) everywhere or None)
+    cases = [(16, 1536, 64, (4, 64), 1, 4, None),
+             (16, 96, 128, (4,), 2, 4, None), (16, 64, 32, (4,), 1, 8, None),
+             (17, 64, 68, (9,), 2, 4, None)]
+    cases += [(16, 40, 64, (4,), 1, 4, f) for f in
+              ((-128, -8), (127, 7), (-128, 7), (127, -8))]
+    for t, n, k, ms, g, bits, fill in cases:
+        lo = 1 << (bits - 1)
+        w = (rng.integers(-lo, lo, size=(n, k)) if fill is None
+             else np.full((n, k), fill[1]))
+        splan, dplan, plan_s = _wide_linear(w, t, g, bits)
+        if not isinstance(splan, SparseForestPlan):
+            raise AssertionError(f"T={t}: engine_cuda's plan is not a "
+                                 f"SparseForestPlan")
+        ratio = dplan.nbytes() / splan.nbytes()
+        qw = torch.from_numpy(w).to("cuda", torch.int8)
+        for m in ms:
+            qx = (torch.randint(-128, 128, (m, k), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  if fill is None else torch.full((m, k), fill[0],
+                                                  dtype=torch.int8,
+                                                  device="cuda"))
+            tag = (f"[B1 sparse] N={n} K={k} M={m} T={t} G={g} W{bits}"
+                   + (f" x={fill[0]} w={fill[1]}" if fill else ""))
+            call, err = _wide_exact(tag, qw, splan, dplan, qx)
+            worst = max(worst, err)
+            print(f"{tag} (planned + lowered + packed in {plan_s:.2f}s; "
+                  f"U={splan.slots} slots a tile; SparseForestPlan "
+                  f"{splan.nbytes()} B, DevicePlan {dplan.nbytes()} B, "
+                  f"{ratio:.1f}x): exact, one forest_sparse per call")
+            if (n, k) != (1536, 64):
+                continue
+            if ratio < 50:
+                raise AssertionError(f"{tag}: SparseForestPlan only "
+                                     f"{ratio:.1f}x below the DevicePlan")
+            k_ms = cuda_ms(call, flush)
+            dev, ker, ops = device_us(call, kernels=("forest_sparse",))
+            xm = torch.zeros((max(32, m), k), dtype=torch.int8,
+                             device="cuda")
+            xm[:m] = qx
+            wt = qw.T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+            lib_us, _, _ = device_us(lambda: torch._int_mm(xm, wt),
+                                     kernels=())
+            x_bytes, out_bytes = m * k, n * m * 4
+            adds = _sparse_ops(splan, m)
+            b_ms, b_by = bound_ms(n * k + x_bytes + out_bytes, adds,
+                                  SCALAR_OPS_PER_S)
+            s_ms, s_by = bound_ms(splan.nbytes() + x_bytes + out_bytes,
+                                  adds, SCALAR_OPS_PER_S)
+            d_ms, d_by = bound_ms(dplan.nbytes() + x_bytes + out_bytes,
+                                  adds, SCALAR_OPS_PER_S)
+            x = qx.T.to(torch.int32).contiguous()
+            p_ms = cuda_ms(lambda: sparse_forest_plain(splan, x), flush,
+                           iters=5, warmup=1)
+            # the parent's design: the two-pass kernel on the DevicePlan
+            two = (lambda: transitive_forest_dense(dplan, x))
+            if not torch.equal(two(), run_device(dplan, x)):
+                raise AssertionError(f"{tag}: two-pass kernel != plain")
+            two_ms = cuda_ms(two, flush, iters=3, warmup=1)
+            two_us, _, _ = device_us(two, kernels=("forest_dense",),
+                                     iters=3)
+            print(f"{tag}: kernel_ms={k_ms:.4f} device us/call {dev:.2f} "
+                  f"(kernel {ker:.2f}, {ops:.0f} ops) plain_ms={p_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} (_int_mm, M padded to >= 32; "
+                  f"device us {lib_us:.2f}) bound_ms={b_ms:.6f} ({b_by}; "
+                  f"function: x, int8 weights, output) | SparseForestPlan's "
+                  f"bytes for the weights' {s_ms:.6f} ({s_by}) | "
+                  f"DevicePlan's {d_ms:.6f} ({d_by}) | two-pass kernel on "
+                  f"the DevicePlan, (K, M) entry: kernel_ms={two_ms:.4f} "
+                  f"device us/call {two_us:.2f} ({two_us / ker:.1f}x "
+                  f"forest_sparse's)")
+            timed[m] = {"ms": k_ms, "device_us": dev, "kernel_us": ker,
+                        "plain_ms": p_ms, "library_ms": lib_ms,
+                        "library_device_us": lib_us, "bound_ms": b_ms,
+                        "bound_by": b_by, "sparseplan_bound_ms": s_ms,
+                        "deviceplan_bound_ms": d_ms,
+                        "sparseplan_bytes": splan.nbytes(),
+                        "deviceplan_bytes": dplan.nbytes(),
+                        "two_pass_ms": two_ms,
+                        "two_pass_device_us": two_us}
+    print("[B1 sparse] T=16 grouped, 8-bit, T=17 and extreme values: exact, "
+          "one forest_sparse each")
+    return dict(timed[4], shape="N=1536 K=64 M=4 T=16 (engine_cuda linear, "
+                                "row entry; K cut from 576)",
+                max_abs_err=worst, m64=timed[64])
 
 
 def check_w4a8(flush):
@@ -1491,22 +1635,28 @@ def ops_path():
     take T outside {4, 8} (``transitive_gemm`` at T=6 and T=16, the one
     B3 kernel at its width 8, counted apart; ``transitive_forest`` from a
     T=9 and a T=15 DevicePlan, packed at the first call and run by the
-    fused int16 kernel ``forest_fused16``, and from a T=16 DevicePlan, run
-    by the two-pass kernel: all three count in
-    ``transitive_forest_dense.launches``) and ``rg_lru`` over float64,
+    fused int16 kernel ``forest_fused16``; from a T=16 DevicePlan (8x32),
+    packed into a SparseForestPlan and run by ``forest_sparse``, counted
+    in ``launch_sparse.launches``; and from a T=16 DevicePlan whose
+    compact table does not fit shared memory (``complete_forest_plan``,
+    30,000 slots in one tile), run by the two-pass kernel, which counts
+    with ``forest_fused16`` in ``transitive_forest_dense.launches``) and
+    ``rg_lru`` over float64,
     with the launch counts set to 0 just before and read just after; then
     each result against its kernel's plain version (exact for the integer
     kernels and for float64 B5, the reference's tolerances for B4 and f32
     B5)."""
     import numpy as np
     import torch
-    from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan, complete_forest_plan)
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.rg_lru import rg_lru_cuda
     from repro_torch.kernels.transitive_forest import (forest_plain,
                                                        transitive_forest)
     from repro_torch.kernels.transitive_forest_dense import (
         transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1540,12 +1690,16 @@ def ops_path():
         device="cuda")
     xf16 = torch.randint(-128, 128, (32, 4), generator=gen, device="cuda",
                          dtype=torch.int32)
+    crowded = compile_plan(complete_forest_plan(16, 30000, 64, seed=16),
+                           device="cuda")
+    xc = torch.randint(-128, 128, (16, 4), generator=gen, device="cuda",
+                       dtype=torch.int32)
     hx64 = torch.randn((2, 256, 512), generator=gen, device="cuda",
                        dtype=torch.float64)
     ha64 = (torch.rand((2, 256, 512), generator=gen, device="cuda",
                        dtype=torch.float64) * 0.2 + 0.8)
     kernels = (transitive_forest, transitive_gemm_cuda, w4a8_gemm_cuda,
-               rg_lru_cuda, transitive_forest_dense)
+               rg_lru_cuda, transitive_forest_dense, launch_sparse)
     for k in kernels:
         k.launches = 0
     outs = (ops.transitive_gemm(x, w, w_bits=4),
@@ -1559,7 +1713,8 @@ def ops_path():
              ops.transitive_gemm(x, w, w_bits=4, t=16),
              ops.transitive_forest(dplan15, xf15),
              ops.rg_lru(hx64, ha64, h0[:2, :512]),
-             ops.transitive_forest(dplan16, xf16))
+             ops.transitive_forest(dplan16, xf16),
+             ops.transitive_forest(crowded, xc))
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     launches["transitive_gemm_cuda at T=6, 16"] = (
@@ -1567,7 +1722,7 @@ def ops_path():
     print(f"[ops] launches: {launches}")
     if launches != {"transitive_forest": 1, "transitive_gemm_cuda": 4,
                     "w4a8_gemm_cuda": 1, "rg_lru_cuda": 2,
-                    "transitive_forest_dense": 3,
+                    "transitive_forest_dense": 3, "launch_sparse": 1,
                     "transitive_gemm_cuda at T=6, 16": 2}:
         raise AssertionError(f"ops API launches wrong: {launches}")
     exact = ((outs[0], ref.transitive_matmul_ref(x, w, 4)),
@@ -1578,7 +1733,8 @@ def ops_path():
              (outs[7], ref.transitive_matmul_ref(x, w, 4, 16)),
              (outs[8], forest_plain(dplan15, xf15)),
              (outs[9], ref.rg_lru_ref(hx64, ha64, h0[:2, :512])),
-             (outs[10], forest_plain(dplan16, xf16)))
+             (outs[10], forest_plain(dplan16, xf16)),
+             (outs[11], forest_plain(crowded, xc)))
     for got, want in exact:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError("ops API integer result != plain version")
@@ -1590,7 +1746,8 @@ def ops_path():
         raise AssertionError("ops.rg_lru beyond 3e-4")
     print("[ops] transitive_gemm (T=8, 6 and 16), transitive_gemm_grouped, "
           "transitive_forest (T=8; 9 and 15 through forest_fused16; 16 "
-          "through the two-pass kernel), rg_lru in float64 exact; "
+          "through forest_sparse, and through the two-pass kernel where "
+          "the compact table does not fit), rg_lru in float64 exact; "
           "w4a8_gemm and f32 rg_lru within tolerance")
     return launches
 
@@ -1624,6 +1781,7 @@ def main() -> int:
     tgemm = check_tgemm(flush)
     generic = check_tgemm_generic(flush)
     dense = check_forest_dense(flush)
+    sparse = check_forest_sparse(flush)
     w4a8 = check_w4a8(flush)
     rglru = check_rg_lru(flush)
     del flush
@@ -1645,8 +1803,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/transitive_forest.py:47",
          "launches": ops["transitive_forest_dense"],
          "launches_from": "phase 7 (kernels.ops: T=9 and T=15 plans "
-                          "through forest_fused16, a T=16 plan through "
-                          "the two-pass kernel)", **dense}]
+                          "through forest_fused16, a T=16 plan too large "
+                          "for forest_sparse through the two-pass kernel)",
+         **dense},
+        {"name": "transitive_forest_sparse", "route": "cuda",
+         "source": "src/repro_torch/csrc/transitive_forest_sparse.cu",
+         "replaces": "src/repro/kernels/transitive_forest.py:47",
+         "launches": ops["launch_sparse"],
+         "launches_from": "phase 7 (kernels.ops: a T=16 plan through "
+                          "forest_sparse)", **sparse}]
     kernels += [
         {"name": f"paged_attention/{ATTN_LAYOUTS[code][0]}", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",

@@ -46,8 +46,10 @@ import torch
 
 from repro_torch.core.engine import (FOREST_WIDE_MAX_T, DevicePlan,
                                      ExecutionPlan, ForestPlan,
-                                     compile_plan, compile_plans,
-                                     pack_forest_plan, run_device)
+                                     SparseForestPlan, compile_plan,
+                                     compile_plans, pack_forest_plan,
+                                     pack_sparse_forest_plan, run_device,
+                                     sparse_forest_slots)
 
 __all__ = ["EngineConfig", "TransitiveBackend", "register_backend",
            "get_backend", "list_backends", "int_matmul"]
@@ -76,8 +78,8 @@ class TransitiveBackend:
     """Base class for one online execution strategy.
 
     ``device_resident``: ``execute`` runs on the tensors' device and, with
-    ``needs_plan``, from a compiled plan (:class:`DevicePlan` or
-    :class:`ForestPlan`). ``supports_groups``:
+    ``needs_plan``, from a compiled plan (:class:`DevicePlan`,
+    :class:`ForestPlan` or :class:`SparseForestPlan`). ``supports_groups``:
     grouped inputs are accepted. ``needs_plan``: there is an offline
     weight-only half (the plan cache builds it; :meth:`compile` lowers
     it). ``cpu_ok``: runs on CPU tensors (the CUDA backend does, through
@@ -89,14 +91,15 @@ class TransitiveBackend:
     needs_plan: bool = False
     cpu_ok: bool = True
 
-    def compile(self, plan, device=None) -> DevicePlan | ForestPlan | None:
+    def compile(self, plan, device=None
+                ) -> DevicePlan | ForestPlan | SparseForestPlan | None:
         """Lower one plan (or a sequence of same-signature plans -> one
         stacked plan) to device tensors; None if there is no lowering."""
         return None
 
     def execute(self, x: torch.Tensor, w: torch.Tensor,
                 plan: ExecutionPlan | None,
-                dplan: DevicePlan | ForestPlan | None,
+                dplan: DevicePlan | ForestPlan | SparseForestPlan | None,
                 cfg: EngineConfig) -> torch.Tensor:
         raise NotImplementedError
 
@@ -248,17 +251,27 @@ class EngineCudaBackend(EngineTorchBackend):
     ``execute`` hands the int8 codes (..., K) to the kernels' row entry as
     they are and gets (..., N) / (..., G, N) back: no cast, transpose or
     copy. A DevicePlan passed in is packed at its first call
-    (``kernels/transitive_forest.py`` keeps the packing). Plans with T >=
-    16 do not fit int16: they compile to DevicePlans on ``device``, which
-    the same entry runs through the two-pass dense kernel
-    (``kernels/transitive_forest_dense.py``)."""
+    (``kernels/transitive_forest.py`` keeps the packing). From T = 16 a
+    node does not fit int16: plans compile to :class:`SparseForestPlan`s
+    (the made nodes only, renumbered per tile), run by the fused kernel of
+    ``csrc/transitive_forest_sparse.cu``, where one column of a tile's
+    table fits shared memory (``kernels/transitive_forest_sparse.py::
+    sparse_fits``); a plan whose table does not fit stays a DevicePlan on
+    ``device``, which the same entry runs through the two-pass dense
+    kernel (``kernels/transitive_forest_dense.py``)."""
     name = "engine_cuda"
 
     def compile(self, plan, device=None):
-        first = plan if isinstance(plan, ExecutionPlan) else plan[0]
-        if first.t > FOREST_WIDE_MAX_T:
-            return super().compile(plan, device=device)
-        return pack_forest_plan(super().compile(plan), device=device)
+        from repro_torch.kernels.transitive_forest_sparse import sparse_fits
+        dplan = super().compile(plan)                # on the host
+        if dplan.t <= FOREST_WIDE_MAX_T:
+            return pack_forest_plan(dplan, device=device)
+        if sparse_fits(dplan.t, dplan.bits, sparse_forest_slots(dplan)):
+            return pack_sparse_forest_plan(dplan, device=device)
+        if device is None:
+            return dplan
+        return dataclasses.replace(dplan, **{
+            f: a.to(device) for f, a in dplan.leaves().items()})
 
     def execute(self, x, w, plan, dplan, cfg):
         from repro_torch.kernels.transitive_forest import (

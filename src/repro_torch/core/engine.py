@@ -17,8 +17,13 @@ APE gather table. :func:`run_device` executes it with plain torch gathers.
 (:mod:`repro_torch.kernels.transitive_forest`) execute: one byte per
 node (which bit produces it, or direct, or unused) and one byte per APE
 gather up to T = 8, two from T = 9. :func:`forest_plan_plain` is those
-kernels' plain version. Plan
-persistence (``save``/``load``/bundles) is not part of this slice.
+kernels' plain version. From T = 16 a node no longer fits int16:
+:func:`pack_sparse_forest_plan` repacks such a plan into a
+:class:`SparseForestPlan` that keeps only the nodes the plan makes,
+renumbered per tile in level order (slots), for the CUDA kernel of
+``csrc/transitive_forest_sparse.cu``; :func:`sparse_forest_plain` is its
+plain version. Plan persistence (``save``/``load``/bundles) is not part of
+this slice.
 """
 from __future__ import annotations
 
@@ -37,7 +42,11 @@ __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "forest_body", "run_device", "ForestPlan", "FOREST_DATA_FIELDS",
            "FOREST_DIRECT", "FOREST_UNUSED", "FOREST_MAX_T",
            "FOREST_WIDE_MAX_T", "forest_rows_dtype", "pack_forest_plan",
-           "forest_plan_plain"]
+           "forest_plan_plain", "SparseForestPlan", "SPARSE_DATA_FIELDS",
+           "SPARSE_DIRECT", "SPARSE_MAX_T", "SPARSE_MAX_SLOT",
+           "sparse_forest_slots", "complete_forest_plan",
+           "check_sparse_forest_plan",
+           "pack_sparse_forest_plan", "sparse_forest_plain"]
 
 
 # DevicePlan's array leaves, in the reference's order.
@@ -455,8 +464,7 @@ FOREST_DIRECT = 254     # subset sum of the tile's activations over v's bits
 FOREST_UNUSED = 255     # stays 0 in the plain version; never read
 FOREST_MAX_T = 8        # a gather fits one byte (uint8 rows)
 FOREST_WIDE_MAX_T = 15  # a gather fits int16 (int16 rows); plans with a
-                        # larger T run from their DevicePlan
-                        # (kernels/transitive_forest_dense.py)
+                        # larger T pack into a SparseForestPlan
 
 
 def forest_rows_dtype(t: int) -> torch.dtype:
@@ -464,8 +472,8 @@ def forest_rows_dtype(t: int) -> torch.dtype:
     ``FOREST_MAX_T``, int16 up to ``FOREST_WIDE_MAX_T``."""
     if t > FOREST_WIDE_MAX_T:
         raise ValueError(f"a ForestPlan holds a node index in int16: T <= "
-                         f"{FOREST_WIDE_MAX_T}, got T={t}; such plans run "
-                         f"from their DevicePlan")
+                         f"{FOREST_WIDE_MAX_T}, got T={t}; such plans pack "
+                         f"into a SparseForestPlan")
     return torch.uint8 if t <= FOREST_MAX_T else torch.int16
 
 
@@ -538,8 +546,10 @@ class ForestPlan:
 
 def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
               direct_bits, gather_idx) -> tuple[np.ndarray, np.ndarray]:
-    """(producer (J, 2^T) uint8, rows (J, S, N) in the dtype of
-    :func:`forest_rows_dtype`) of one unstacked plan."""
+    """(producer (J, 2^T) uint8, rows (J, S, N) int64: the gathered nodes)
+    of one unstacked plan, after checking it (:func:`pack_forest_plan`
+    lists the checks; :func:`pack_sparse_forest_plan` makes its slots from
+    the same codes)."""
     size = 1 << t
     j = k // t
     r = j * size
@@ -580,9 +590,7 @@ def _pack_one(t: int, k: int, level_src, level_xsrc, direct_idx,
         np.int64)
     if ((producer[read] == FOREST_UNUSED) & (read % size != 0)).any():
         raise ValueError("the plan reads a node it never makes")
-    rows_dtype = np.uint8 if t <= FOREST_MAX_T else np.int16
-    return (producer.reshape(j, size),
-            np.ascontiguousarray(rows.transpose(2, 0, 1)).astype(rows_dtype))
+    return producer.reshape(j, size), rows.transpose(2, 0, 1)
 
 
 def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
@@ -590,15 +598,15 @@ def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
 
     Raises unless the plan is tile-local and T <= ``FOREST_WIDE_MAX_T`` =
     15 (a gathered node must fit int16; ``engine_cuda`` and the forest
-    wrappers route plans with a larger T to the two-pass dense kernel
-    instead of packing them), and unless every level edge adds one bit to
-    a prefix one level down, no node is made twice, every direct node's
-    bits are its own, and every node that a level or the APE reads is
-    made (or is node 0, the empty sum): so an unused node's value is never
-    read, and the kernel need not write it. Works on stacked plans. The
-    leaves are made here, contiguous on ``device`` (default: the plan's):
-    ``rows`` uint8 for T <= 8, int16 for 9 <= T <= 15.
-    Counts its calls in ``pack_forest_plan.calls``.
+    wrappers pack plans with a larger T with
+    :func:`pack_sparse_forest_plan` instead), and unless every level edge
+    adds one bit to a prefix one level down, no node is made twice, every
+    direct node's bits are its own, and every node that a level or the APE
+    reads is made (or is node 0, the empty sum): so an unused node's value
+    is never read, and the kernel need not write it. Works on stacked
+    plans. The leaves are made here, contiguous on ``device`` (default: the
+    plan's): ``rows`` uint8 for T <= 8, int16 for 9 <= T <= 15. Counts its
+    calls in ``pack_forest_plan.calls``.
     """
     pack_forest_plan.calls += 1
     if not dplan.tile_local:
@@ -616,7 +624,9 @@ def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
         "gather_idx"))) for idx in np.ndindex(*lead)]
     producer = np.stack([p for p, _ in packed]).reshape(
         lead + packed[0][0].shape)
-    rows = np.stack([r for _, r in packed]).reshape(lead + packed[0][1].shape)
+    rows_dtype = np.uint8 if dplan.t <= FOREST_MAX_T else np.int16
+    rows = np.ascontiguousarray(np.stack([r for _, r in packed]).astype(
+        rows_dtype).reshape(lead + packed[0][1].shape))
     device = dplan.signs.device if device is None else device
     return ForestPlan(
         t=dplan.t, bits=dplan.bits, n=dplan.n, k=dplan.k, groups=dplan.groups,
@@ -669,6 +679,332 @@ def forest_plan_plain(fplan: ForestPlan, x: torch.Tensor) -> torch.Tensor:
     for s in range(rows.shape[1]):
         gathered = flat.index_select(0, (rows[:, s] + base).reshape(-1))
         out += int(fplan.signs[s]) * gathered.reshape(g, j // g, n, m).sum(
+            1, dtype=torch.int64)
+    out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
+    return out[:, 0] if g == 1 else out.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The sparse forest plan: T >= 16, made nodes only
+# ---------------------------------------------------------------------------
+
+# SparseForestPlan's array leaves.
+SPARSE_DATA_FIELDS = ("codes", "bounds", "rows", "signs")
+SPARSE_DIRECT = 1 << 31     # the code of a direct node: this flag | v
+SPARSE_MAX_T = 31           # a direct node's bits fit the code's low 31
+SPARSE_MAX_SLOT = 32767     # a slot fits int16 (rows, prefix slots)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseForestPlan:
+    """A tile-local forest schedule for T >= 16 that keeps only the nodes
+    the plan makes.
+
+    A ForestPlan spends a byte on each of a tile's 2^T nodes; at T = 16 a
+    tile makes ~8,700 of its 65,536 (N = 1536, W4). Here each tile's made
+    nodes (level targets and direct nodes) are renumbered densely in level
+    order (by popcount, then value): slots 1..U_j, slot 0 the empty sum.
+
+    ``codes[j, u]`` says how slot ``u`` of tile ``j`` is made: the prefix
+    slot ``p`` and the activation bit ``b`` as ``p | b << 16`` (``psum[u]
+    = psum[p] + x[j * T + b]``, p in an earlier level), or
+    ``SPARSE_DIRECT | v`` for a direct node ``v`` (the subset sum of the
+    tile's activations over v's bits); int32, slot 0 and the pad past U_j
+    are 0. ``bounds[j, L]`` is one past the last slot of level L (``L =
+    1..T``) and ``bounds[j, 0] = 1``: level L is slots ``bounds[j, L - 1]
+    .. bounds[j, L] - 1``. ``rows[j, s, n]`` is the slot that output n
+    gathers from tile j in plane s, int16, N fastest as in
+    :class:`ForestPlan`; ``signs`` as there. The codes' width U (a table's
+    rows, slot 0 included) is a multiple of 4, so a tile's codes start on
+    16 bytes.
+
+    Leaves may carry leading stacked axes (:meth:`index`). Built by
+    :func:`pack_sparse_forest_plan`; run by
+    ``kernels/transitive_forest_sparse.py`` and, on any device, by
+    :func:`sparse_forest_plain`. Dtype, contiguity and one device are
+    checked here, once per plan.
+    """
+    t: int
+    bits: int
+    n: int
+    k: int
+    groups: int
+    codes: torch.Tensor         # (J, U) int32
+    bounds: torch.Tensor        # (J, T + 1) int32
+    rows: torch.Tensor          # (J, S, N) int16
+    signs: torch.Tensor         # (S,) int32
+
+    def __post_init__(self):
+        for name, dtype in (("codes", torch.int32), ("bounds", torch.int32),
+                            ("rows", torch.int16), ("signs", torch.int32)):
+            a = getattr(self, name)
+            if a.dtype != dtype or not a.is_contiguous():
+                raise ValueError(f"SparseForestPlan.{name} must be "
+                                 f"contiguous {dtype}, got {a.dtype} "
+                                 f"(contiguous: {a.is_contiguous()})")
+        devices = {a.device for a in self.leaves().values()}
+        if len(devices) != 1:
+            raise ValueError(f"SparseForestPlan leaves must share one "
+                             f"device, got {sorted(map(str, devices))}")
+        if self.codes.shape[-1] % 4:
+            raise ValueError(f"SparseForestPlan.codes' width must be a "
+                             f"multiple of 4, got {self.codes.shape[-1]}")
+
+    @property
+    def n_tiles(self) -> int:
+        return self.k // self.t
+
+    @property
+    def slots(self) -> int:
+        """U: the rows of a tile's table, slot 0 and the pad included."""
+        return int(self.codes.shape[-1])
+
+    @property
+    def lead(self) -> tuple[int, ...]:
+        """Leading stacked axes (``()`` for a single plan)."""
+        return tuple(self.signs.shape[:-1])
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {f: getattr(self, f) for f in SPARSE_DATA_FIELDS}
+
+    def index(self, i) -> "SparseForestPlan":
+        """The plan of stacked entry ``i`` (views, no copies)."""
+        return dataclasses.replace(
+            self, **{f: a[i] for f, a in self.leaves().items()})
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in self.leaves().values())
+
+
+def _made(dplan: DevicePlan) -> np.ndarray:
+    """(..., J, 2^T) bool: the nodes a tile-local DevicePlan makes (level
+    targets and real direct targets), node 0 left out."""
+    size, r = 1 << dplan.t, dplan.n_tiles << dplan.t
+    made = (dplan.level_xsrc.detach().cpu().numpy() != dplan.k).any(-2)
+    didx = dplan.direct_idx.detach().cpu().numpy().astype(np.int64)
+    for idx in np.ndindex(*dplan.lead):
+        real = didx[idx][didx[idx] < r]
+        made[idx][real] = True
+    made = made.reshape(dplan.lead + (dplan.n_tiles, size))
+    made[..., 0] = False
+    return made
+
+
+def sparse_forest_slots(dplan: DevicePlan) -> int:
+    """U, the table rows per tile a :class:`SparseForestPlan` of ``dplan``
+    would have (slot 0 included, rounded up to 4), counted from the level
+    maps and direct targets without packing: what the forest wrappers and
+    ``engine_cuda`` pick the route by before they pack."""
+    made = _made(dplan)
+    u = int(made.sum(-1).max()) + 1 if made.size else 1
+    return -(-u // 4) * 4
+
+
+def _sparse_one(t: int, k: int, level_src, level_xsrc, direct_idx,
+                direct_bits, gather_idx) -> tuple[np.ndarray, ...]:
+    """(codes (J, U_max + 1) int64, bounds (J, T + 1), rows (J, S, N)) of
+    one unstacked plan, its codes not yet padded."""
+    producer, nodes = _pack_one(t, k, level_src, level_xsrc, direct_idx,
+                                direct_bits, gather_idx)
+    j, size = producer.shape
+    pop = hasse.levels(t)
+    order = hasse.hamming_order(t)               # level order, then value
+    made = producer != FOREST_UNUSED
+    made[:, 0] = False                           # node 0 is slot 0
+    counts = made.sum(1)
+    u_max = int(counts.max()) if j else 0
+    if u_max > SPARSE_MAX_SLOT:
+        raise ValueError(f"a tile makes {u_max} nodes: a slot must fit "
+                         f"int16 (<= {SPARSE_MAX_SLOT})")
+    codes = np.zeros((j, u_max + 1), np.int64)
+    bounds = np.zeros((j, t + 1), np.int64)
+    slot_of = np.zeros((j, size), np.int64)
+    for jj in range(j):
+        seq = order[made[jj, order]]             # made nodes, level order
+        slot_of[jj, seq] = np.arange(1, seq.size + 1)
+        bounds[jj] = 1 + np.searchsorted(pop[seq], np.arange(t + 1),
+                                         side="right")
+        p = producer[jj, seq].astype(np.int64)
+        chained = p < t
+        pre = seq[chained] ^ (1 << p[chained])
+        code = np.where(chained, 0, SPARSE_DIRECT | seq)
+        code[chained] = slot_of[jj, pre] | (p[chained] << 16)
+        codes[jj, 1:seq.size + 1] = code
+    rows = np.take_along_axis(slot_of[:, None, :],
+                              nodes.reshape(j, -1)[:, None, :], 2)
+    return codes, bounds, rows.reshape(nodes.shape)
+
+
+def complete_forest_plan(t: int, count: int, n: int, bits: int = 4,
+                         seed: int = 0) -> ExecutionPlan:
+    """A one-tile ExecutionPlan (K = T) that makes the first ``count``
+    nonzero nodes of width T in level order (by popcount, then value),
+    each from its prefix without its highest bit; its N x S APE gathers
+    are drawn from them by ``seed``. Every lower level is complete, so a
+    tile of such a plan makes as many nodes as any plan can up to that
+    level: it sizes plans whose compact table is too large for shared
+    memory or for int16 slots (the two-pass route) without planning a
+    weight that large."""
+    made = hasse.hamming_order(t)[1:count + 1]
+    pop = hasse.levels(t)[made]
+    steps = []
+    for lv in range(1, int(pop.max()) + 1):
+        nd = made[pop == lv]
+        top = np.floor(np.log2(nd)).astype(np.int64)       # highest bit
+        steps.append(LevelStep(tile=np.zeros_like(nd), node=nd,
+                               prefix=nd ^ (1 << top), bit=top))
+    rows = np.random.default_rng(seed).choice(made, size=(bits, n, 1))
+    empty = np.zeros(0, np.int64)
+    return ExecutionPlan(
+        t=t, bits=bits, n=n, k=t, rows=rows, si=None, steps=tuple(steps),
+        direct_tile=empty, direct_node=empty,
+        direct_bits=np.zeros((0, t), np.int64),
+        signs=bitslice.plane_signs(bits))
+
+
+def check_sparse_forest_plan(splan: SparseForestPlan) -> None:
+    """Raise unless the sparse plan holds what its kernel relies on: T <=
+    ``SPARSE_MAX_T``; slots fit int16; each tile's level bounds start at
+    1 and never fall; every chained slot's prefix slot lies in an earlier
+    level (or is slot 0) and its bit is below T; every direct slot's
+    node has T bits and its own level's popcount; and every gathered slot
+    is made (or is slot 0). The kernel leaves slots past a tile's last
+    level unwritten, so nothing may read one. Works on stacked plans."""
+    t = splan.t
+    if t > SPARSE_MAX_T:
+        raise ValueError(f"a direct node's bits fit 31: T <= "
+                         f"{SPARSE_MAX_T}, got T={t}")
+    u = splan.slots
+    if u - 1 > SPARSE_MAX_SLOT:
+        raise ValueError(f"{u} table rows: a slot must fit int16 (<= "
+                         f"{SPARSE_MAX_SLOT})")
+    j = splan.n_tiles
+    codes = splan.codes.detach().cpu().numpy().astype(np.int64)
+    codes = codes.reshape(-1, j, u) & 0xFFFFFFFF
+    bounds = splan.bounds.detach().cpu().numpy().astype(np.int64).reshape(
+        -1, j, t + 1)
+    rows = splan.rows.detach().cpu().numpy().astype(np.int64).reshape(
+        codes.shape[0], j, -1)
+    if ((bounds[..., 0] != 1).any() or (np.diff(bounds, axis=-1) < 0).any()
+            or (bounds[..., -1] > u).any()):
+        raise ValueError("level bounds must start at slot 1, never fall "
+                         "and stay inside the table")
+    slot = np.arange(u)
+    # the level of each slot: L where bounds[L - 1] <= slot < bounds[L]
+    level = np.zeros(codes.shape, np.int64)
+    for lv in range(t + 1):
+        level += slot >= bounds[..., lv, None]
+    live = (slot >= 1) & (level <= t)
+    start = np.take_along_axis(bounds, np.clip(level - 1, 0, t), -1)
+    direct = (codes & SPARSE_DIRECT) != 0
+    pre, bit = codes & 0xFFFF, (codes >> 16) & 0x7FFF
+    v = codes & (SPARSE_DIRECT - 1)
+    if (live & ~direct & ((pre >= start) | (bit >= t))).any():
+        raise ValueError("a slot reads a prefix that is not in an earlier "
+                         "level, or an activation bit >= T")
+    if (live & direct & ((v >> t != 0) | (hasse.popcount(v) != level))).any():
+        raise ValueError("a direct slot's node is not of its own level")
+    if (rows < 0).any() or (rows >= bounds[..., -1:]).any():
+        raise ValueError("the plan gathers a slot it never makes")
+
+
+def pack_sparse_forest_plan(dplan: DevicePlan, *, device=None
+                            ) -> SparseForestPlan:
+    """Repack a tile-local :class:`DevicePlan` as a
+    :class:`SparseForestPlan`, for any T up to ``SPARSE_MAX_T`` (the
+    route of T >= 16, where a ForestPlan's gather no longer fits int16).
+
+    Runs :func:`pack_forest_plan`'s checks on the dense plan (edges add
+    one bit to a prefix one level down, no node made twice, direct bits
+    the node's own, nothing reads a node never made), numbers each tile's
+    made nodes in level order, pads U to the largest tile's (over stacked
+    entries too) and to a multiple of 4, and checks the result with
+    :func:`check_sparse_forest_plan`. The leaves are made here, contiguous
+    on ``device`` (default: the plan's). Counts its calls in
+    ``pack_sparse_forest_plan.calls``."""
+    pack_sparse_forest_plan.calls += 1
+    if not dplan.tile_local:
+        raise ValueError("pack_sparse_forest_plan needs a tile-local plan "
+                         "(compile it with compile_plan)")
+    if dplan.t > SPARSE_MAX_T:
+        raise ValueError(f"a direct node's bits fit 31: T <= "
+                         f"{SPARSE_MAX_T}, got T={dplan.t}")
+    leaves = {f: a.detach().cpu().numpy() for f, a in dplan.leaves().items()}
+    for name, a in leaves.items():
+        if a.dtype != np.int32:
+            raise ValueError(f"plan leaf {name} must be int32, got "
+                             f"{a.dtype}")
+    lead = dplan.lead
+    packed = [_sparse_one(dplan.t, dplan.k, *(leaves[f][idx] for f in (
+        "level_src", "level_xsrc", "direct_idx", "direct_bits",
+        "gather_idx"))) for idx in np.ndindex(*lead)]
+    u = -(-max(c.shape[1] for c, _, _ in packed) // 4) * 4
+    codes = np.stack([np.pad(c, ((0, 0), (0, u - c.shape[1])))
+                      for c, _, _ in packed])
+    codes = (codes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    bounds = np.stack([b for _, b, _ in packed]).astype(np.int32)
+    rows = np.stack([r for _, _, r in packed]).astype(np.int16)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.reshape(lead + a.shape[1:])))
+    splan = SparseForestPlan(
+        t=dplan.t, bits=dplan.bits, n=dplan.n, k=dplan.k, groups=dplan.groups,
+        codes=as_t(codes), bounds=as_t(bounds), rows=as_t(rows),
+        signs=torch.from_numpy(leaves["signs"].copy()))
+    check_sparse_forest_plan(splan)                 # on the host
+    device = dplan.signs.device if device is None else device
+    return dataclasses.replace(splan, **{
+        f: a.to(device) for f, a in splan.leaves().items()})
+
+
+pack_sparse_forest_plan.calls = 0
+
+
+def sparse_forest_plain(splan: SparseForestPlan, x: torch.Tensor
+                        ) -> torch.Tensor:
+    """Execute a :class:`SparseForestPlan` against activations ``x`` (K, M)
+    in plain torch, level by level over the slots, on any device.
+
+    Returns int32 (N, M) ungrouped, (N, G, M) grouped, bit-exact with
+    :func:`run_device` on the plan it was packed from: the sparse forest
+    kernel's plain version. The table is int32 (wrapping adds like the
+    reference's); the APE sums run in int64 and are cast back, which is
+    congruent mod 2^32."""
+    if x.ndim != 2 or x.shape[0] != splan.k:
+        raise ValueError(f"x must be (K={splan.k}, M), got {tuple(x.shape)}")
+    if splan.lead:
+        raise ValueError(f"sparse_forest_plain takes one plan, got stacked "
+                         f"leading axes {splan.lead}; slice with "
+                         f"SparseForestPlan.index")
+    t, u, j = splan.t, splan.slots, splan.n_tiles
+    m = x.shape[1]
+    dev = x.device
+    xt = x.to(torch.int32).reshape(j, t, m)
+    codes = splan.codes.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    bounds = splan.bounds.to(device=dev, dtype=torch.int64)      # (J, T+1)
+    slot = torch.arange(u, device=dev)
+    level = (slot[None, :, None] >= bounds[:, None, :]).sum(-1)  # (J, U)
+    direct = (codes & SPARSE_DIRECT) != 0
+    tbits = torch.arange(t, device=dev)
+    table = xt.new_zeros((j, u, m))
+    for lv in range(1, t + 1):
+        on = (level == lv) & (slot >= 1)[None]
+        jj, uu = torch.nonzero(on & ~direct, as_tuple=True)
+        code = codes[jj, uu]
+        table[jj, uu] = table[jj, code & 0xFFFF] + xt[jj, (code >> 16)
+                                                       & 0x7FFF]
+        jd, ud = torch.nonzero(on & direct, as_tuple=True)
+        vbits = (codes[jd, ud, None] >> tbits) & 1                # (D, T)
+        table[jd, ud] = (vbits.to(torch.int32)[:, :, None]
+                         * xt[jd]).sum(1, dtype=torch.int32)
+    flat = table.reshape(j * u, m)
+    rows = splan.rows.to(device=dev, dtype=torch.int64)          # (J, S, N)
+    base = torch.arange(j, device=dev)[:, None] * u
+    g, n = splan.groups, splan.n
+    out = torch.zeros((g, n, m), dtype=torch.int64, device=dev)
+    for s in range(rows.shape[1]):
+        gathered = flat.index_select(0, (rows[:, s] + base).reshape(-1))
+        out += int(splan.signs[s]) * gathered.reshape(g, j // g, n, m).sum(
             1, dtype=torch.int64)
     out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
     return out[:, 0] if g == 1 else out.contiguous()

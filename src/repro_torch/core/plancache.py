@@ -5,7 +5,8 @@ The offline half (TransRow packing + Scoreboard build) must run once per
 weight, not once per forward call. :class:`PlanCache` is an LRU map from
 ``(weight fingerprint, EngineConfig)`` to an :class:`ExecutionPlan` and
 its lazily compiled device lowering (a :class:`DevicePlan`, or the
-compact :class:`ForestPlan` of ``engine_cuda``), with hit / miss / eviction
+compact :class:`ForestPlan` / :class:`SparseForestPlan` of
+``engine_cuda``), with hit / miss / eviction
 counters (per backend too) so a serve run can show each plan was built
 once. :func:`precompile` warms it from a params tree and
 :func:`attach_device_plans` embeds compiled plans next to every PTQ
@@ -29,7 +30,8 @@ import torch
 from repro_torch.core.backend import (EngineConfig, TransitiveBackend,
                                       get_backend)
 from repro_torch.core.engine import (BatchedTransitiveEngine, DevicePlan,
-                                     ExecutionPlan, ForestPlan)
+                                     ExecutionPlan, ForestPlan,
+                                     SparseForestPlan)
 
 __all__ = ["PlanCache", "weight_fingerprint", "default_cache",
            "set_default_cache", "precompile", "attach_device_plans"]
@@ -130,7 +132,8 @@ class PlanCache:
         return self._entry(qw, cfg, _backend_tag(backend)).plan
 
     def get_or_build_device(self, qw, cfg: EngineConfig, *, backend=None,
-                            device=None) -> DevicePlan | ForestPlan:
+                            device=None
+                            ) -> DevicePlan | ForestPlan | SparseForestPlan:
         """The cached plan's device lowering, compiled once per (entry,
         compile hook, device) through the requesting backend's hook
         (``engine_torch``'s when the tag names no device lowering)."""
@@ -256,7 +259,9 @@ def attach_device_plans(params: Any, cfg: Any,
 
     The plan is the backend's lowering: a :class:`DevicePlan` for
     ``engine_torch``, a compact :class:`ForestPlan` for ``engine_cuda``
-    (packed here, once; the dense plan never reaches the card). Stacked
+    (a :class:`SparseForestPlan` from T = 16; packed here, once; the dense
+    plan reaches the card only where a sparse table does not fit shared
+    memory). Stacked
     weights get one plan per slice, stacked along the same leading axes
     (DevicePlans padded to a shared direct bound first); plans are placed
     on the weight's device. The tensors themselves are shared with

@@ -29,8 +29,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "load", "start", "finish",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("transitive_forest", "transitive_forest_dense", "paged_attention",
-           "transitive_gemm", "w4a8_gemm", "rg_lru")
+SOURCES = ("transitive_forest", "transitive_forest_dense",
+           "transitive_forest_sparse", "paged_attention", "transitive_gemm",
+           "w4a8_gemm", "rg_lru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

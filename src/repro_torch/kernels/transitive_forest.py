@@ -16,11 +16,12 @@ the first level to the APE sum. Two entries, one launch each:
     with no cast, transpose or copy around the call (backend
     ``engine_cuda``).
 
-On CPU tensors both run the plain version :func:`forest_plan_plain`; on
-CUDA tensors they launch the kernel or raise. Bound and design notes are
+On CPU tensors both run the plain version of the route's kernel
+(:func:`forest_plan_plain`, :func:`sparse_forest_plain` or ``run_device``);
+on CUDA tensors they launch the kernel or raise. Bound and design notes are
 in the CUDA sources.
 
-The route by T, the same for both entries:
+The route, the same for both entries:
 
   * T <= 8 (uint8 gathers): ``forest_narrow`` / ``forest_wide`` of
     ``csrc/transitive_forest.cu``; each launch adds one to
@@ -30,10 +31,18 @@ The route by T, the same for both entries:
     (:func:`~repro_torch.kernels.transitive_forest_dense.launch_fused16`),
     from the same ForestPlan, also one fused launch with no cast or
     transpose around it; it counts in ``transitive_forest_dense.launches``;
-  * T >= 16: a DevicePlan is not packed (int16 cannot hold its nodes);
-    both entries hand it to the two-pass dense kernel
+  * T >= 16: a :class:`SparseForestPlan` (a DevicePlan is packed into one
+    at its first call and kept, as above) runs through ``forest_sparse``
+    of ``csrc/transitive_forest_sparse.cu``
+    (:func:`~repro_torch.kernels.transitive_forest_sparse.launch_sparse`),
+    one fused launch, counted in ``launch_sparse.launches``;
+  * T >= 16 where one column of a tile's compact table does not fit
+    shared memory (``sparse_fits``, from the plan's made nodes alone,
+    :func:`~repro_torch.core.engine.sparse_forest_slots`): the DevicePlan
+    is not packed, and the two-pass dense kernel
     (:func:`~repro_torch.kernels.transitive_forest_dense.transitive_forest_dense`,
-    the same count), or to ``run_device`` on CPU tensors.
+    counted in ``transitive_forest_dense.launches``) runs it, or
+    ``run_device`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -44,14 +53,19 @@ import torch
 
 from repro_torch.core.engine import (FOREST_MAX_T, FOREST_WIDE_MAX_T,
                                      DevicePlan, ForestPlan,
-                                     forest_plan_plain, pack_forest_plan,
-                                     run_device)
+                                     SparseForestPlan, forest_plan_plain,
+                                     pack_forest_plan,
+                                     pack_sparse_forest_plan, run_device,
+                                     sparse_forest_plain,
+                                     sparse_forest_slots)
 from repro_torch.kernels import build
 from repro_torch.kernels.transitive_forest_dense import (
     launch_fused16, transitive_forest_dense)
+from repro_torch.kernels.transitive_forest_sparse import (launch_sparse,
+                                                          sparse_fits)
 
 __all__ = ["transitive_forest", "transitive_forest_rows", "forest_plain",
-           "forest_plan_plain"]
+           "forest_plan_plain", "sparse_forest_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,31 +89,47 @@ def forest_plain(dplan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
 
 
 # The packing of each DevicePlan handed to an entry, per device, kept while
-# the DevicePlan lives: a dense plan is packed at its first call only.
+# the DevicePlan lives: a dense plan is packed at its first call only (None:
+# too wide to pack, the two-pass kernel runs the DevicePlan itself).
 _PACKED: "weakref.WeakKeyDictionary[DevicePlan, dict]" = (
     weakref.WeakKeyDictionary())
 
 
-def _dense(plan) -> bool:
-    """A DevicePlan too wide to pack (T >= 16): the two-pass kernel runs
-    it."""
-    return isinstance(plan, DevicePlan) and plan.t > FOREST_WIDE_MAX_T
+def _pack(dplan: DevicePlan, device):
+    if dplan.t <= FOREST_WIDE_MAX_T:
+        return pack_forest_plan(dplan, device=device)
+    if sparse_fits(dplan.t, dplan.bits, sparse_forest_slots(dplan)):
+        return pack_sparse_forest_plan(dplan, device=device)
+    return None
 
 
-def _as_forest(plan, device) -> ForestPlan:
-    if isinstance(plan, ForestPlan):
+def _compact(plan, device):
+    """The plan the kernels run: a ForestPlan or SparseForestPlan as it
+    is; a DevicePlan's packing (made at its first call on ``device``), or
+    the DevicePlan itself where it is too wide to pack."""
+    if isinstance(plan, (ForestPlan, SparseForestPlan)):
         return plan
     if isinstance(plan, DevicePlan):
         per_device = _PACKED.setdefault(plan, {})
         if device not in per_device:
-            per_device[device] = pack_forest_plan(plan, device=device)
-        return per_device[device]
-    raise TypeError(f"plan must be a ForestPlan or a DevicePlan, got "
-                    f"{type(plan).__name__}")
+            per_device[device] = _pack(plan, device)
+        packed = per_device[device]
+        return plan if packed is None else packed
+    raise TypeError(f"plan must be a ForestPlan, a SparseForestPlan or a "
+                    f"DevicePlan, got {type(plan).__name__}")
 
 
-def _launch(fplan: ForestPlan, x: torch.Tensor, rows_layout: bool,
+def _plain(plan, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(plan, SparseForestPlan):
+        return sparse_forest_plain(plan, x)
+    return forest_plan_plain(plan, x)
+
+
+def _launch(fplan, x: torch.Tensor, rows_layout: bool,
             out: torch.Tensor) -> None:
+    if isinstance(fplan, SparseForestPlan):
+        launch_sparse(fplan, x, rows_layout, out)
+        return
     if fplan.t > FOREST_MAX_T:
         launch_fused16(fplan, x, rows_layout, out)
         return
@@ -126,19 +156,19 @@ def _launch(fplan: ForestPlan, x: torch.Tensor, rows_layout: bool,
 def transitive_forest(plan, x: torch.Tensor) -> torch.Tensor:
     """Forest execution of ``x`` (K, M) -> int32 (N, M) / (N, G, M).
 
-    ``plan`` is a :class:`ForestPlan`, used as it is, or a
-    :class:`DevicePlan`, packed at its first call on a device (the
-    packing is kept while the DevicePlan lives). CPU tensors take
-    the plain version. Anything else must be a CUDA tensor, with the plan
-    on the same device; the kernel is built at first use and a build or
-    launch failure raises."""
+    ``plan`` is a :class:`ForestPlan` or :class:`SparseForestPlan`, used
+    as it is, or a :class:`DevicePlan`, packed at its first call on a
+    device (the packing is kept while the DevicePlan lives; see the module
+    docstring for the route). CPU tensors take the plain version. Anything
+    else must be a CUDA tensor, with the plan on the same device; the
+    kernel is built at first use and a build or launch failure raises."""
     if x.ndim != 2 or x.shape[0] != plan.k:
         raise ValueError(f"x must be (K={plan.k}, M), got {tuple(x.shape)}")
-    if _dense(plan):
-        return transitive_forest_dense(plan, x)
+    fplan = _compact(plan, x.device)
+    if isinstance(fplan, DevicePlan):
+        return transitive_forest_dense(fplan, x)
     if x.device.type == "cpu":
-        return forest_plan_plain(_as_forest(plan, x.device), x)
-    fplan = _as_forest(plan, x.device)
+        return _plain(fplan, x)
     n, g, m = fplan.n, fplan.groups, x.shape[1]
     out = torch.empty((n, g, m), dtype=torch.int32, device=x.device)
     if m:
@@ -156,13 +186,11 @@ def transitive_forest_rows(plan, qx: torch.Tensor) -> torch.Tensor:
     if qx.ndim != 2 or qx.shape[1] != plan.k:
         raise ValueError(f"qx must be (B, K={plan.k}), got "
                          f"{tuple(qx.shape)}")
-    if _dense(plan):
-        y = transitive_forest_dense(plan, qx.T.to(torch.int32))
+    fplan = _compact(plan, qx.device)
+    if isinstance(fplan, DevicePlan) or qx.device.type == "cpu":
+        y = (transitive_forest_dense(fplan, qx.T.to(torch.int32))
+             if isinstance(fplan, DevicePlan) else _plain(fplan, qx.T))
         return y.T if y.ndim == 2 else y.permute(2, 1, 0)
-    if qx.device.type == "cpu":
-        y = forest_plan_plain(_as_forest(plan, qx.device), qx.T)
-        return y.T if y.ndim == 2 else y.permute(2, 1, 0)
-    fplan = _as_forest(plan, qx.device)
     if qx.dtype != torch.int8:
         raise ValueError(f"transitive_forest_rows takes int8 codes on "
                          f"CUDA, got {qx.dtype}")

@@ -19,7 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.engine import DevicePlan, ForestPlan
+from repro_torch.core.engine import DevicePlan, ForestPlan, SparseForestPlan
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -31,7 +31,7 @@ def _index(tree, i):
     """Stacked entry ``i`` of every leaf (views; device plans sliced)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, (DevicePlan, ForestPlan)):
+    if isinstance(tree, (DevicePlan, ForestPlan, SparseForestPlan)):
         return tree.index(i)
     return tree[i]
 
@@ -119,8 +119,9 @@ class Model:
     def attach_device_plans(self, params: Params) -> Params:
         """Embed compiled device plans (stacked like the weights, on the
         weights' device) next to every PTQ weight: DevicePlans for
-        ``engine_torch``, compact ForestPlans for ``engine_cuda`` (its
-        DevicePlans where T > 8). No-op
+        ``engine_torch``, compact ForestPlans for ``engine_cuda``
+        (SparseForestPlans from T = 16; DevicePlans where one column of a
+        tile's table does not fit shared memory). No-op
         unless the backend executes from device plans."""
         q = self.cfg.quant
         from repro_torch.core.backend import get_backend

@@ -61,10 +61,10 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int,
 def _resolve_device_plan(params, backend, qw: torch.Tensor,
                          ecfg: EngineConfig):
     """The compiled plan a device-resident planned backend executes (a
-    DevicePlan, or ``engine_cuda``'s ForestPlan; both carry the signature
-    fields checked here): the one embedded in the params, else a
-    process-cache lookup (hashes the weight bytes: serve with attached
-    plans)."""
+    DevicePlan, or ``engine_cuda``'s ForestPlan / SparseForestPlan; all
+    carry the signature fields checked here): the one embedded in the
+    params, else a process-cache lookup (hashes the weight bytes: serve
+    with attached plans)."""
     if not (backend.needs_plan and backend.device_resident):
         return None
     dplan = params.get("dplan")

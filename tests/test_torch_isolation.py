@@ -247,15 +247,19 @@ def test_rg_lru_both_instances_raise_instead_of_falling_back(monkeypatch, d,
 def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     """T outside {4, 8}: B3 at T=6 (the one LUT kernel, at its own width),
     B1 from a T=9 DevicePlan (packed, the fused int16 kernel), from a T=9
-    ForestPlan through the serving row entry (the same kernel) and from a
-    T=16 DevicePlan (the two-pass kernel) run their plain versions on CPU
-    tensors, and on a non-CPU tensor raise when their kernel cannot be
-    built, launching nothing."""
+    ForestPlan through the serving row entry (the same kernel), from a
+    T=16 DevicePlan (packed into a SparseForestPlan, ``forest_sparse``)
+    and from a T=16 DevicePlan whose compact table does not fit (the
+    two-pass kernel) run their plain versions on CPU tensors, and on a
+    non-CPU tensor raise when their kernel cannot be built, launching
+    nothing."""
     from repro_torch.core.engine import (BatchedTransitiveEngine,
-                                         compile_plan, pack_forest_plan)
+                                         compile_plan, complete_forest_plan,
+                                         pack_forest_plan, run_device)
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import transitive_forest as tf
     from repro_torch.kernels import transitive_forest_dense as tfd
+    from repro_torch.kernels import transitive_forest_sparse as tfs
     from repro_torch.kernels import transitive_gemm as tg
     monkeypatch.setattr(build, "load", _failing_build)
     qx = torch.from_numpy(rng.integers(-128, 128, (3, 36)).astype(np.int8))
@@ -266,9 +270,11 @@ def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     qx16 = torch.from_numpy(rng.integers(-128, 128, (2, 32)).astype(np.int8))
     qw16 = torch.from_numpy(rng.integers(-8, 8, (3, 32)).astype(np.int8))
     dplan16 = compile_plan(BatchedTransitiveEngine(4, 16).plan(qw16.numpy()))
+    crowded = compile_plan(complete_forest_plan(16, 30000, 3))
+    xc = torch.from_numpy(rng.integers(-128, 128, (16, 2)))
     before = (tg.transitive_gemm_cuda.launches,
               tfd.transitive_forest_dense.launches,
-              tf.transitive_forest.launches)
+              tf.transitive_forest.launches, tfs.launch_sparse.launches)
     exact = qx.long() @ qw.long().T
     assert torch.equal(ops.transitive_gemm(qx, qw, w_bits=4, t=6).long(),
                        exact)
@@ -276,19 +282,27 @@ def test_wide_t_routes_raise_instead_of_falling_back(monkeypatch, rng):
     assert torch.equal(tf.transitive_forest_rows(fplan, qx).long(), exact)
     assert torch.equal(ops.transitive_forest(dplan16, qx16.T).T.long(),
                        qx16.long() @ qw16.long().T)
+    assert torch.equal(ops.transitive_forest(crowded, xc),
+                       run_device(crowded, xc))
     with pytest.raises(RuntimeError, match="cannot build transitive_gemm"):
         ops.transitive_gemm(qx.to("meta"), qw.to("meta"), w_bits=4, t=6)
     for call in (lambda: ops.transitive_forest(dplan, qx.T.to("meta")),
                  lambda: tf.transitive_forest_rows(_on(fplan, "meta"),
                                                    qx.to("meta")),
-                 lambda: ops.transitive_forest(_on(dplan16, "meta"),
-                                               qx16.T.to("meta"))):
+                 lambda: ops.transitive_forest(crowded, xc.to("meta"))):
         with pytest.raises(RuntimeError,
                            match="cannot build transitive_forest_dense"):
             call()
+    for call in (lambda: ops.transitive_forest(dplan16, qx16.T.to("meta")),
+                 lambda: tf.transitive_forest_rows(dplan16,
+                                                   qx16.to("meta"))):
+        with pytest.raises(RuntimeError,
+                           match="cannot build transitive_forest_sparse"):
+            call()
     assert (tg.transitive_gemm_cuda.launches,
             tfd.transitive_forest_dense.launches,
-            tf.transitive_forest.launches) == before
+            tf.transitive_forest.launches,
+            tfs.launch_sparse.launches) == before
 
 
 def _on(plan, device):

@@ -584,22 +584,12 @@ def test_transitive_gemm_unaligned_is_exact(cuda, m, n, k, groups, w_bits,
 
 
 def _kernel_names(fn):
-    """The device kernels one call of ``fn`` runs, by the profiler's names
-    (a profile now and then records nothing: profile again then)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 for _ in range(e.count)]
-        if names:
-            return names
-    return names
+    """The device kernels one call of ``fn`` runs, by the profiler's names,
+    read through ``repro_torch.launch.device_events``: a profile can lose
+    its first launches, so each opens with a primer, and a read is taken
+    only when it holds every launch of the call."""
+    from repro_torch.launch.device_events import kernel_names
+    return kernel_names(fn)
 
 
 def _assert_one_launch_of(fn, kernel):
@@ -619,40 +609,158 @@ def test_forest_dense_kernel_equals_plain(cuda, t, n, k, m, groups):
     """Plans with T > 8 handed to both forest entries as DevicePlans
     against ``run_device``: exact. For 9 <= T <= 15 each call is one
     launch of the fused kernel ``forest_fused16`` (the DevicePlan packed
-    at its first call, int16 gathers); from T = 16 the two-pass kernel
-    (``forest_dense_tiles`` + ``forest_dense_ape``) runs the DevicePlan
-    itself. Both count in ``transitive_forest_dense.launches``."""
+    at its first call, int16 gathers), counted in
+    ``transitive_forest_dense.launches``; from T = 16 one launch of
+    ``forest_sparse`` (packed into a SparseForestPlan), counted in
+    ``launch_sparse.launches``."""
     from repro_torch.core.engine import BatchedTransitiveEngine, compile_plan
     from repro_torch.kernels.transitive_forest import (
         forest_plain, transitive_forest, transitive_forest_rows)
     from repro_torch.kernels.transitive_forest_dense import (
         transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
     rng = np.random.default_rng(t + n + k)
     w = rng.integers(-8, 8, size=(n, k))
     d = compile_plan(BatchedTransitiveEngine(4, t).plan(w, groups=groups),
                      device=cuda)
     x = torch.from_numpy(rng.integers(-128, 128, size=(k, m))).to(cuda)
     qx = x.T.to(torch.int8).contiguous()
-    before = transitive_forest_dense.launches
+    counter, kernel = ((transitive_forest_dense, "forest_fused16") if t <= 15
+                       else (launch_sparse, "forest_sparse"))
+    before = counter.launches
     got = transitive_forest(d, x)
     rows = transitive_forest_rows(d, qx)
-    assert transitive_forest_dense.launches == before + 2
+    assert counter.launches == before + 2
     want = forest_plain(d, x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(rows.T if groups == 1
                                else rows.permute(2, 1, 0), want, rtol=0,
                                atol=0)
     x32 = x.to(torch.int32)              # no cast kernel inside the call
-    if t <= 15:
-        _assert_one_launch_of(lambda: transitive_forest(d, x32),
-                              "forest_fused16")
-        _assert_one_launch_of(lambda: transitive_forest_rows(d, qx),
-                              "forest_fused16")
+    _assert_one_launch_of(lambda: transitive_forest(d, x32), kernel)
+    _assert_one_launch_of(lambda: transitive_forest_rows(d, qx), kernel)
+
+
+# (T, N, K, M, groups, weight bits, fill): fill None for random weights
+# and int8 activations, else (activation, weight) everywhere
+_SPARSE_CASES = [
+    # T = 16 and 17, ungrouped and grouped, 8-bit weights
+    (16, 16, 32, 3, 1, 4, None), (16, 24, 64, 5, 2, 4, None),
+    (16, 8, 32, 4, 1, 8, None), (17, 64, 68, 9, 2, 4, None),
+    # N not a multiple of 8 (rows read plainly, not by cp.async); more
+    # outputs and columns than one block's (bn 512, bm 8 x 5 blocks)
+    (17, 20, 34, 4, 1, 4, None), (16, 300, 64, 33, 1, 4, None),
+    # several rounds per rank with two plan buffers (40 and 18 tiles a
+    # group over clusters of 16): the kernel takes any T a SparseForestPlan
+    # holds, so narrow plans plan quickly here
+    (9, 64, 360, 4, 1, 4, None), (9, 40, 324, 6, 2, 4, None),
+    # extreme values
+    (16, 40, 64, 4, 1, 4, (-128, -8)), (16, 40, 64, 4, 1, 4, (127, 7)),
+    (16, 40, 64, 4, 1, 4, (-128, 7)), (16, 40, 64, 4, 1, 4, (127, -8))]
+
+
+def _sparse_id(case):
+    t, n, k, m, g, bits, fill = case
+    return f"T{t}-{n}x{k}-M{m}-G{g}-W{bits}" + (
+        f"-fill{fill[0]}_{fill[1]}" if fill else "")
+
+
+@pytest.mark.parametrize("case", _SPARSE_CASES, ids=_sparse_id)
+def test_forest_sparse_cases(cuda, case):
+    """``forest_sparse`` from a SparseForestPlan through both entries:
+    exact against the DevicePlan's ``run_device``, the plan's
+    ``sparse_forest_plain`` and the integer GEMM (per group); each call
+    one launch by count and by profiler name; two calls bit-identical."""
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan,
+                                         pack_sparse_forest_plan,
+                                         run_device, sparse_forest_plain)
+    from repro_torch.kernels.transitive_forest import (
+        transitive_forest, transitive_forest_rows)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    t, n, k, m, groups, bits, fill = case
+    rng = np.random.default_rng(t + n + k + m + groups)
+    lo = 1 << (bits - 1)
+    if fill is None:
+        w = rng.integers(-lo, lo, size=(n, k))
+        x = rng.integers(-128, 128, size=(k, m))
     else:
-        names = _kernel_names(lambda: transitive_forest(d, x32))
-        assert not any("forest_fused16" in nm for nm in names), names
-        assert sum("forest_dense_tiles" in nm for nm in names) == 1, names
-        assert sum("forest_dense_ape" in nm for nm in names) == 1, names
+        x, w = np.full((k, m), fill[0]), np.full((n, k), fill[1])
+    d = compile_plan(BatchedTransitiveEngine(bits, t).plan(w, groups=groups),
+                     device=cuda)
+    s = pack_sparse_forest_plan(d)
+    x = torch.from_numpy(x.astype(np.int32)).to(cuda)
+    qx = x.T.to(torch.int8).contiguous()
+    before = launch_sparse.launches
+    got = transitive_forest(s, x)
+    rows = transitive_forest_rows(s, qx)
+    assert launch_sparse.launches == before + 2
+    kg = k // groups
+    gemm = np.stack([w[:, i * kg:(i + 1) * kg].astype(np.int64)
+                     @ x.cpu().numpy()[i * kg:(i + 1) * kg]
+                     for i in range(groups)], axis=1)            # (N, G, M)
+    gemm = torch.from_numpy(gemm.astype(np.int32))
+    torch.testing.assert_close(got.cpu(), gemm[:, 0] if groups == 1
+                               else gemm, rtol=0, atol=0)
+    torch.testing.assert_close(got, run_device(d, x), rtol=0, atol=0)
+    torch.testing.assert_close(got, sparse_forest_plain(s, x), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(rows, got.T if groups == 1
+                               else got.permute(2, 1, 0), rtol=0, atol=0)
+    assert torch.equal(transitive_forest_rows(s, qx), rows)
+    assert torch.equal(transitive_forest(s, x), got)
+    _assert_one_launch_of(lambda: transitive_forest_rows(s, qx),
+                          "forest_sparse")
+    _assert_one_launch_of(lambda: transitive_forest(s, x), "forest_sparse")
+
+
+@pytest.mark.parametrize("count", [30000, 39202])
+def test_forest_two_pass_route_for_tables_too_large(cuda, count):
+    """A T = 16 DevicePlan whose compact table does not fit shared memory
+    (30,000 slots: packs, but one column and its codes exceed 227 KiB) or
+    int16 (39,202 slots: every node up to popcount 8) runs the two-pass
+    kernel, picked from its size: both entries exact against
+    ``run_device``, each call one ``forest_dense_tiles`` and one
+    ``forest_dense_ape`` and no ``forest_sparse``, counted in
+    ``transitive_forest_dense.launches``."""
+    from repro_torch.core.engine import (compile_plan, complete_forest_plan,
+                                         run_device)
+    from repro_torch.kernels.transitive_forest import (
+        transitive_forest, transitive_forest_rows)
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    d = compile_plan(complete_forest_plan(16, count, 48, seed=count),
+                     device=cuda)
+    rng = np.random.default_rng(count)
+    x = torch.from_numpy(rng.integers(-128, 128, size=(16, 4))).to(
+        cuda, torch.int32)
+    qx = x.T.to(torch.int8).contiguous()
+    before, sparse = transitive_forest_dense.launches, launch_sparse.launches
+    got = transitive_forest(d, x)
+    rows = transitive_forest_rows(d, qx)
+    assert transitive_forest_dense.launches == before + 2
+    assert launch_sparse.launches == sparse
+    want = run_device(d, x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(rows.T, want, rtol=0, atol=0)
+    names = _kernel_names(lambda: transitive_forest(d, x))
+    assert not any("forest_sparse" in nm for nm in names), names
+    assert sum("forest_dense_tiles" in nm for nm in names) == 1, names
+    assert sum("forest_dense_ape" in nm for nm in names) == 1, names
+
+
+def test_sparse_smem_matches_the_kernel(cuda):
+    """The host's carve-up (``sparse_smem``, which ``sparse_tiling`` and
+    ``sparse_fits`` size the launch and the route with) is the kernel's
+    own."""
+    from repro_torch.kernels import transitive_forest_sparse as tfs
+    lib = tfs._library()
+    for args in [(16, 4, 8720, 4, 1, 512), (17, 8, 100, 1, 2, 64),
+                 (16, 2, 68, 8, 2, 128), (31, 4, 30004, 1, 1, 64),
+                 (9, 3, 516, 2, 2, 256)]:
+        assert lib.transitive_forest_sparse_smem(*args) == \
+            tfs.sparse_smem(*args)
 
 
 # (T, N, K, M, groups, fill): fill None for random int4 weights and int8
