@@ -64,9 +64,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      T=17 grouped and extreme values; exact against ``run_device``,
      ``sparse_forest_plain`` and the integer GEMM; the compact plan at
      least 50x below the DevicePlan's bytes;
-  B4. the group-dequant GEMM against its plain version at (N, K, group) =
-     (576, 1536, 128) and (1536, 576, 64) x M in {4, 512}, group 6 and
-     K=32,768 at M=4, within the reference's tolerance (``check_w4a8``);
+  B4. the group-dequant GEMM: its tensor-core instance ``w4a8_wgmma`` at
+     (N, K, group) = (1536, 576, 64), (576, 1536, 128) (smollm-135m) and
+     (11008, 4096, 128), (4096, 11008, 128) (llama1_7b) x M in {4, 512},
+     bit-equal to ``w4a8_gemm_ordered``, within the first-order bound of
+     its order from the function in float64, and timed beside
+     ``w4a8_dot`` in turns on the same data (device us, kernel ms,
+     ``torch._int_mm`` for scale); ``w4a8_dot`` at group 6 and K=32,768
+     at M=4; both within the reference's tolerance of the plain version
+     except at llama1_7b's M=512, where the outputs beyond it are counted
+     (``check_w4a8``);
   B5. the linear recurrence against its plain version at
      recurrentgemma-9b's width D=4096: B=4, S=2048 with (x, a) in
      (float32, float32), (bfloat16, bfloat16), (float16, float16) and
@@ -1106,59 +1113,208 @@ def check_forest_sparse(flush):
                 max_abs_err=worst, m64=timed[64])
 
 
-def check_w4a8(flush):
-    """B4 vs its plain version, at the serving shapes and at group 6 (not a
-    multiple of 4: byte-wise dots) and K=32,768 (eight activation tiles);
-    returns the JSON entry (timed at N=1536, K=576, group 64, M=4).
-
-    Tolerance: the reference's own, rtol 2e-3 and atol 1e-2
-    (tests/test_kernels.py): the group dots are exact int32 in both, but
-    the kernel sums the f32 group terms in another order."""
+def _w4a8_exact(x, sx, w, sg, group, ranges):
+    """The function in float64 on the card (exact: integer group dots, each
+    group term exact) and, for each instance, the first-order bound of its
+    order of f32 roundings, u = 2^-24, times 1.01 for second-order terms.
+    ``w4a8_wgmma`` (each rank adds its groups' terms in increasing g,
+    ``ranges``, the ranks' sums are added in rank order, then times sx): u
+    (sum over the products of |term|, over each rank's additions of
+    |partial sum|, over the rank sums of |running total|) |sx| + u |out|.
+    ``w4a8_dot`` (warp v adds the terms of groups v, v + 8, ... in
+    increasing g, then the eight warp sums in order, then times sx): u
+    (sum over the additions of |partial sum| + |term|, plus the partial
+    sums of the warp sums) |sx| + u |out|, as
+    tests/test_torch_kernels.py::_w4a8_bound."""
     import torch
-    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda, w4a8_gemm_plain
+    m, k = x.shape
+    n, groups = w.shape[0], k // group
+    terms = torch.einsum("mgi,ngi->mgn",
+                         x.reshape(m, groups, group).to(torch.float64),
+                         w.reshape(n, groups, group).to(torch.float64))
+    terms *= sg.to(torch.float64).T[None]
+    s = sx.to(torch.float64).reshape(m, 1)
+    exact = terms.sum(1) * s
+    errs = {}
+    for kernel, chains in (("w4a8_wgmma", [slice(lo, hi)
+                                           for lo, hi in ranges]),
+                           ("w4a8_dot", [slice(v, None, 8)
+                                         for v in range(8)])):
+        err = terms.abs().sum(1)
+        totals = []
+        for chain in chains:
+            run = terms[:, chain].cumsum(1)
+            err += run[:, 0 if kernel == "w4a8_dot" else 1:].abs().sum(1)
+            totals.append(terms[:, chain].sum(1))     # 0 for an idle warp
+            del run
+        err += torch.stack(totals).cumsum(0)[1:].abs().sum(0)
+        errs[kernel] = 1.01 * 2.0 ** -24 * (err * s.abs() + exact.abs())
+        del err, totals
+    del terms
+    return exact, errs
+
+
+def check_w4a8(flush):
+    """B4 vs its plain versions; returns the JSON entry (the serving shape
+    N=1536, K=576, group 64, M=4, with every shape's numbers under
+    ``shapes``).
+
+    The tensor-core instance ``w4a8_wgmma`` (groups 32 to 256 on aligned
+    bases) at smollm-135m's (N, K, group) = (1536, 576, 64), (576, 1536,
+    128) and llama1_7b's (11008, 4096, 128), (4096, 11008, 128), each at M
+    = 4 and 512: bit-equal to ``w4a8_gemm_ordered`` (its own order, plain
+    torch) and within the first-order bound of that order from the
+    function in float64; timed beside ``w4a8_dot`` (any group, any K) on
+    the same data in turns (the profiler's device us of the kernel alone
+    and event-timed ms, the L2 flushed before each call), with
+    ``torch._int_mm``'s device time for the ungrouped int8 product (M
+    padded to 32: not the same function, for scale). ``w4a8_dot`` is held
+    at those eight shapes to the first-order bound of its own order from
+    the same float64 function. ``w4a8_dot`` alone at group 6 (byte-wise
+    dots) and K=32,768 (eight activation tiles) at M=4, the parent's own
+    checks.
+
+    Tolerance against the plain version (the reference's order): the
+    reference's, rtol 2e-3 and atol 1e-2 (tests/test_kernels.py), for
+    both instances, held at every shape but llama1_7b's at M = 512. There
+    each output sums 32 or 86 group terms of up to ~10^4 with partial
+    sums near 10^5, so two f32 orders part by more than atol 1e-2 where
+    an output cancels to near zero: the plain version itself, against the
+    function in float64, does so too. The outputs beyond it are counted
+    and printed there, for all three; both instances are held there to
+    their first-order bounds instead."""
+    import torch
+    from repro_torch.kernels import w4a8_gemm as w4
+    lib = w4._library()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    entry, worst = None, 0.0
-    for n, k, g, ms in ((576, 1536, 128, (4, 512)), (1536, 576, 64, (4, 512)),
-                        (1536, 576, 6, (4,)), (576, 32768, 128, (4,))):
-        for m in ms:
-            x = torch.randint(-128, 128, (m, k), generator=gen,
-                              device="cuda", dtype=torch.int8)
-            w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            sx = torch.rand((m, 1), generator=gen, device="cuda") * 1.5 + 0.5
-            sg = torch.rand((n, k // g), generator=gen,
-                            device="cuda") * 1.5 + 0.5
-            got = w4a8_gemm_cuda(x, sx, w, sg, group=g)
-            want = w4a8_gemm_plain(x, sx, w, sg, group=g)
+    entry, worst, shapes = None, 0.0, []
+    cases = [(n, k, g, m) for n, k, g in ((1536, 576, 64), (576, 1536, 128),
+                                          (11008, 4096, 128),
+                                          (4096, 11008, 128))
+             for m in (4, 512)]
+    cases += [(1536, 576, 6, 4), (576, 32768, 128, 4)]
+    for n, k, g, m in cases:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sx = torch.rand((m, 1), generator=gen, device="cuda") * 1.5 + 0.5
+        sg = torch.rand((n, k // g), generator=gen,
+                        device="cuda") * 1.5 + 0.5
+        sxc = sx.reshape(m).contiguous()
+        tag = f"N={n} K={k} group={g} M={m}"
+        dot_only = g == 6 or k == 32768
+        picked = w4.launch_plan(m, n, k, g, x.data_ptr(), w.data_ptr())
+        plans = {"w4a8_dot": w4.dot_plan(m, n, k, g)}
+        if not dot_only:
+            if picked.kernel != "w4a8_wgmma":
+                raise AssertionError(f"launch_plan at {tag}: {picked.kernel}")
+            plans["w4a8_wgmma"] = picked
+        shown = picked if not dot_only else plans["w4a8_dot"]
+        want = w4.w4a8_gemm_plain(x, sx, w, sg, group=g)
+        held = not (n in (11008, 4096) and m == 512)
+        outs, row = {}, {"shape": tag}
+        for name, plan in plans.items():
+            out = torch.empty((m, n), device="cuda")
+            w4._launch(lib, x, sxc, w, sg, out, g, plan)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            outs[name] = out
+            err = float((out - want).abs().max())
             worst = max(worst, err)
-            tag = f"N={n} K={k} group={g} M={m}"
-            if not torch.allclose(got, want, rtol=2e-3, atol=1e-2):
-                raise AssertionError(f"w4a8_gemm kernel vs plain at {tag}: "
-                                     f"max |diff| {err} beyond rtol 2e-3, "
-                                     f"atol 1e-2")
-            k_ms = cuda_ms(lambda: w4a8_gemm_cuda(x, sx, w, sg, group=g),
+            beyond = int((~torch.isclose(out, want, rtol=2e-3,
+                                         atol=1e-2)).sum())
+            row[name] = {"max_abs_err": err, "beyond_tolerance": beyond}
+            if held and beyond:
+                raise AssertionError(f"{name} vs plain at {tag}: {beyond} "
+                                     f"outputs beyond rtol 2e-3, atol 1e-2 "
+                                     f"(max |diff| {err})")
+        if not dot_only:
+            got = outs["w4a8_wgmma"]
+            ordered = w4.w4a8_gemm_ordered(x, sx, w, sg, group=g,
+                                           plan=picked)
+            if not torch.equal(got, ordered):
+                raise AssertionError(f"w4a8_wgmma at {tag}: not bit-equal to "
+                                     f"w4a8_gemm_ordered")
+            del ordered
+            exact, bounds = _w4a8_exact(x, sx, w, sg, g, picked.ranges)
+            for name, bound in bounds.items():
+                diff = (outs[name].to(torch.float64) - exact).abs()
+                if not bool((diff <= bound).all()):
+                    raise AssertionError(
+                        f"{name} at {tag}: beyond its first-order bound, "
+                        f"worst {float((diff / bound).max()):.3f}")
+                del diff
+            row["plain_beyond_tolerance_of_exact"] = int(
+                (~torch.isclose(want, exact.to(torch.float32), rtol=2e-3,
+                                atol=1e-2)).sum())
+            del exact, bounds
+        print(f"[B4] {tag}: plan {shown.kernel} bt={shown.bt} "
+              f"split={shown.split} ns={shown.ns} kb={shown.kb} | "
+              + "; ".join(f"{nm} max_abs_err vs plain "
+                          f"{row[nm]['max_abs_err']:.3e}, beyond rtol 2e-3/"
+                          f"atol 1e-2: {row[nm]['beyond_tolerance']}"
+                          for nm in plans)
+              + ("" if dot_only else
+                 f" | w4a8_wgmma bit-equal to w4a8_gemm_ordered; both "
+                 f"instances within their first-order bounds of float64; "
+                 f"plain beyond the tolerance of float64: "
+                 f"{row['plain_beyond_tolerance_of_exact']}")
+              + ("" if held else " (tolerance reported, not held: see "
+                 "check_w4a8)"))
+        times = {}
+        for name in (["w4a8_wgmma", "w4a8_dot", "w4a8_dot", "w4a8_wgmma"]
+                     if not dot_only else ["w4a8_dot"]):
+            plan = plans[name]
+
+            def call():
+                w4._launch(lib, x, sxc, w, sg, outs[name], g, plan)
+
+            def cold():                  # the flush's memset is left out
+                flush.zero_()
+                call()
+            _, ker, _ = device_us(cold, kernels=("w4a8_wgmma", "w4a8_dot"))
+            times.setdefault(name, []).append(
+                (ker, cuda_ms(call, flush)))
+        n_bytes = m * k + n * k + m * 4 + sg.numel() * 4 + m * n * 4
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS_PER_S)
+        row.update(bound_ms=b_ms, bound_by=b_by,
+                   device_us={nm: [t[0] for t in v]
+                              for nm, v in times.items()},
+                   kernel_ms={nm: [t[1] for t in v]
+                              for nm, v in times.items()})
+        if not dot_only:
+            xp = x if m >= 32 else torch.cat([x, x.new_zeros((32 - m, k))])
+            wt = w.t()
+            lib_us, _, _ = device_us(lambda: torch._int_mm(xp, wt),
+                                     kernels=("",))
+            row["int_mm_device_us"] = lib_us
+            print(f"[B4] {tag}: torch._int_mm {lib_us:.2f} us (ungrouped, M "
+                  f"padded to 32: not the same function, for scale)")
+        print(f"[B4] {tag}: " + " | ".join(
+            f"{nm} device us " + ", ".join(f"{t[0]:.2f}" for t in v)
+            + " (kernel ms " + ", ".join(f"{t[1]:.4f}" for t in v) + ")"
+            for nm, v in times.items())
+            + f" | bound_ms={b_ms:.6f} ({b_by})")
+        shapes.append(row)
+        if (n, k, g, m) == (1536, 576, 64, 4):
+            k_ms = cuda_ms(lambda: w4.w4a8_gemm_cuda(x, sx, w, sg, group=g),
                            flush)
-            p_ms = cuda_ms(lambda: w4a8_gemm_plain(x, sx, w, sg, group=g),
+            p_ms = cuda_ms(lambda: w4.w4a8_gemm_plain(x, sx, w, sg, group=g),
                            flush)
-            n_bytes = m * k + n * k + m * 4 + sg.numel() * 4 + m * n * 4
-            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS_PER_S)
-            print(f"[B4] {tag}: max_abs_err={err:.3e} (max|out| "
-                  f"{float(want.abs().max()):.3e}) | kernel_ms={k_ms:.4f} "
+            dev, _, _ = device_us(
+                lambda: w4.w4a8_gemm_cuda(x, sx, w, sg, group=g),
+                kernels=("w4a8_wgmma", "w4a8_dot"))
+            print(f"[B4] {tag}: w4a8_gemm_cuda kernel_ms={k_ms:.4f} "
                   f"plain_ms={p_ms:.4f} library_ms=null bound_ms="
-                  f"{b_ms:.6f} ({b_by})")
-            if (n, k, g, m) == (1536, 576, 64, 4):
-                dev, ker, _ = device_us(
-                    lambda: w4a8_gemm_cuda(x, sx, w, sg, group=g),
-                    kernels=("w4a8_dot",))
-                print(f"[B4] {tag}: device us/call {dev:.2f} (kernel "
-                      f"{ker:.2f})")
-                entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": None,
-                         "device_us": dev,
-                         "shape": "N=1536 K=576 group=64 M=4"}
+                  f"{b_ms:.6f} ({b_by}) | device us/call {dev:.2f}")
+            entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "device_us": dev,
+                     "kernel": picked.kernel,
+                     "shape": "N=1536 K=576 group=64 M=4"}
+        del x, w, sg, sx, sxc, want, outs
+        torch.cuda.empty_cache()
     entry["max_abs_err"] = worst
+    entry["shapes"] = shapes
     return entry
 
 

@@ -181,19 +181,35 @@ def test_transitive_gemm_kernel_equals_plain(cuda, m, n, k, w_bits, t,
                                      (130, 200, 384, 128), (3, 24, 96, 32)])
 def test_w4a8_gemm_kernel_within_tolerance(cuda, m, n, k, g):
     """The reference's tolerance (rtol 2e-3, atol 1e-2): exact group dots,
-    f32 group terms summed in another order."""
-    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda, w4a8_gemm_plain
+    f32 group terms summed in another order. Held for both instances on
+    the same data: the wrapper's (``w4a8_wgmma`` at these groups and
+    aligned bases) and ``w4a8_dot`` through the uncounted launcher."""
+    from repro_torch.kernels import w4a8_gemm as w4
     rng = np.random.default_rng(m + n + k + g)
     args = [rng.integers(-128, 128, (m, k)).astype(np.int8),
             rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32),
             rng.integers(-8, 8, (n, k)).astype(np.int8),
             rng.uniform(0.5, 2.0, (n, k // g)).astype(np.float32)]
     args = [torch.from_numpy(a).to(cuda) for a in args]
-    before = w4a8_gemm_cuda.launches
-    got = w4a8_gemm_cuda(*args, group=g)
-    assert w4a8_gemm_cuda.launches == before + 1
-    torch.testing.assert_close(got, w4a8_gemm_plain(*args, group=g),
-                               rtol=2e-3, atol=1e-2)
+    want = w4.w4a8_gemm_plain(*args, group=g)
+    before = w4.w4a8_gemm_cuda.launches
+    got = w4.w4a8_gemm_cuda(*args, group=g)
+    assert w4.w4a8_gemm_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-2)
+    torch.testing.assert_close(_w4a8_dot_out(args, g), want, rtol=2e-3,
+                               atol=1e-2)
+
+
+def _w4a8_dot_out(args, g):
+    """``w4a8_dot``'s output on qx, sx, qw, sg through the uncounted
+    launcher, whatever ``launch_plan`` would pick."""
+    from repro_torch.kernels import w4a8_gemm as w4
+    qx, sx, qw, sg = args
+    out = torch.full((qx.shape[0], qw.shape[0]), float("nan"),
+                     device=qx.device)
+    w4._launch(w4._library(), qx, sx.reshape(-1).contiguous(), qw, sg, out,
+               g, w4.dot_plan(qx.shape[0], qw.shape[0], qx.shape[1], g))
+    return out
 
 
 @pytest.mark.parametrize("b,s,d", [(4, 2048, 4096), (2, 13, 33)])
@@ -858,15 +874,14 @@ def test_w4a8_gemm_kernel_any_group_and_k(cuda, m, n, k, g):
     against the plain version's function evaluated exactly (float64: the
     group dots are integers, each group term dot * sg is exact).
 
-    Bound: the kernel's own f32 rounding, first order, in its order of
-    summation (csrc/w4a8_gemm.cu: warp v adds the terms of groups v,
-    v + 8, ... in increasing g, then the eight warp sums in order, then
-    times sx): u (sum over the additions of |partial sum| + |term|, plus
-    the partial sums of the warp sums) |sx| + u |out|, u = 2^-24, times
-    1.01 for second-order terms. At 5,461 groups of 6 the bound stays
-    below a fiftieth of the mean |group term| * sx, so a dropped or
+    Bound: the kernel's own f32 rounding, first order, in the order of
+    summation of the instance ``launch_plan`` picks (``_w4a8_bound``).
+    Where that is ``w4a8_wgmma`` (group 128 at K = 32,768), ``w4a8_dot``
+    runs on the same data too, through the uncounted launcher, and is
+    held to the bound of its own order. At 5,461 groups of 6 the bound
+    stays below a fiftieth of the mean |group term| * sx, so a dropped or
     half-counted group fails on its own."""
-    from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
+    from repro_torch.kernels.w4a8_gemm import launch_plan, w4a8_gemm_cuda
     rng = np.random.default_rng(m + n + k + g)
     args = [rng.integers(-128, 128, (m, k)).astype(np.int8),
             rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32),
@@ -880,19 +895,199 @@ def test_w4a8_gemm_kernel_any_group_and_k(cuda, m, n, k, g):
     terms = part * args[3].T.astype(np.float64)[None]   # (m, groups, n)
     sx = args[1].astype(np.float64)
     exact = terms.sum(1) * sx
-    err, warp_sums = 0.0, []
-    for v in range(8):
-        tv = terms[:, v::8]
-        err = err + (np.abs(np.cumsum(tv, 1)) + np.abs(tv)).sum(1)
-        warp_sums.append(tv.sum(1))
-    err = err + np.abs(np.cumsum(warp_sums, 0)[1:]).sum(0)
-    bound = 1.01 * 2.0 ** -24 * (err * sx + np.abs(exact))
-    args = [torch.from_numpy(a).to(cuda) for a in args]
+    targs = [torch.from_numpy(a).to(cuda) for a in args]
+    plan = launch_plan(m, n, k, g, targs[0].data_ptr(), targs[2].data_ptr())
+    assert plan.kernel == ("w4a8_wgmma" if g == 128 else "w4a8_dot")
+    before = w4a8_gemm_cuda.launches
+    got = w4a8_gemm_cuda(*targs, group=g)
+    assert w4a8_gemm_cuda.launches == before + 1
+    outs = {plan.kernel: got}
+    if plan.kernel == "w4a8_wgmma":
+        outs["w4a8_dot"] = _w4a8_dot_out(targs, g)
+    for kernel, out in outs.items():
+        bound = _w4a8_bound(terms, sx, exact, kernel, plan.ranges)
+        diff = np.abs(out.cpu().numpy().astype(np.float64) - exact)
+        assert (diff <= bound).all(), (kernel,
+                                       float((diff / bound).max()))
+
+
+def _w4a8_bound(terms, sx, exact, kernel, ranges):
+    """The first-order bound of ``kernel``'s f32 rounding from the exact
+    output, u = 2^-24, times 1.01 for second-order terms, given the exact
+    group terms (m, groups, n), sx (m, 1) and the exact output.
+    ``w4a8_dot`` (csrc/w4a8_gemm.cu: warp v adds the terms of groups v,
+    v + 8, ... in increasing g, then the eight warp sums in order, then
+    times sx): u (sum over the additions of |partial sum| + |term|, plus
+    the partial sums of the warp sums) |sx| + u |out|. ``w4a8_wgmma``
+    (each rank adds its groups' terms in increasing g, ``ranges``, then
+    the ranks' sums in rank order, then times sx): u (sum over the
+    products of |term|, over each rank's additions of |partial sum|, over
+    the rank sums of |running total|) |sx| + u |out|."""
+    if kernel == "w4a8_dot":
+        err, warp_sums = 0.0, []
+        for v in range(8):
+            tv = terms[:, v::8]
+            err = err + (np.abs(np.cumsum(tv, 1)) + np.abs(tv)).sum(1)
+            warp_sums.append(tv.sum(1))
+        err = err + np.abs(np.cumsum(warp_sums, 0)[1:]).sum(0)
+    else:
+        err, totals = np.abs(terms).sum(1), []
+        for lo, hi in ranges:
+            run = np.cumsum(terms[:, lo:hi], 1)
+            err = err + np.abs(run[:, 1:]).sum(1)
+            totals.append(run[:, -1])
+        err = err + np.abs(np.cumsum(totals, 0)[1:]).sum(0)
+    return 1.01 * 2.0 ** -24 * (err * sx + np.abs(exact))
+
+
+@pytest.mark.parametrize("m,n,k,g,offset", [
+    (512, 1536, 576, 48, 0), (9, 200, 960, 96, 0), (512, 576, 1536, 64, 0),
+    (512, 1536, 576, 64, 1), (4, 576, 1536, 128, 4)])
+def test_w4a8_dot_keeps_its_groups_rows_and_views(cuda, m, n, k, g, offset):
+    """``w4a8_dot``, which serves every group outside 32..256 and every
+    base that is not 16-byte aligned: groups 48 and 96 (four-code words,
+    no tensor-core instance) through the wrapper; groups 64 and 128 with
+    qx and qw as views ``offset`` bytes into a buffer (so ``launch_plan``
+    routes them to ``w4a8_dot``, and the wrapper copies an odd base to a
+    word-aligned one) through the wrapper, and the aligned group 64 at
+    M = 512 (64 blocks of 8 rows) through the uncounted launcher. Each
+    wrapper call is one ``w4a8_dot`` launch by the counter and runs no
+    ``w4a8_wgmma``; every output lies within the first-order bound of
+    ``w4a8_dot``'s order from the exact function (``_w4a8_bound``) and
+    within the reference's tolerance of the plain version."""
+    from repro_torch.kernels.w4a8_gemm import (launch_plan, w4a8_gemm_cuda,
+                                               w4a8_gemm_plain)
+    rng = np.random.default_rng(m + n + k + g + offset)
+    qx = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    sx = rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32)
+    qw = rng.integers(-8, 8, (n, k)).astype(np.int8)
+    sg = rng.uniform(0.5, 2.0, (n, k // g)).astype(np.float32)
+
+    def view(a):                # a at ``offset`` bytes into a buffer
+        buf = torch.empty(a.size + 16, dtype=torch.int8, device=cuda)
+        out = buf[offset:offset + a.size].view(a.shape)
+        out.copy_(torch.from_numpy(a))
+        return out
+    targs = [view(qx), torch.from_numpy(sx).to(cuda), view(qw),
+             torch.from_numpy(sg).to(cuda)]
+    plan = launch_plan(m, n, k, g, targs[0].data_ptr(), targs[2].data_ptr())
+    through_wrapper = plan.kernel == "w4a8_dot"
+    assert through_wrapper == (g not in (32, 64, 128, 256) or offset != 0)
+    if through_wrapper:
+        before = w4a8_gemm_cuda.launches
+        got = w4a8_gemm_cuda(*targs, group=g)
+        assert w4a8_gemm_cuda.launches == before + 1
+        names = _kernel_names(lambda: w4a8_gemm_cuda(*targs, group=g))
+        assert sum("w4a8_dot" in nm for nm in names) == 1, names
+        assert not any("w4a8_wgmma" in nm for nm in names), names
+    else:
+        got = _w4a8_dot_out(targs, g)
+    part = np.einsum("mgi,ngi->mgn",
+                     qx.reshape(m, k // g, g).astype(np.float64),
+                     qw.reshape(n, k // g, g).astype(np.float64))
+    terms = part * sg.T.astype(np.float64)[None]
+    exact = terms.sum(1) * sx.astype(np.float64)
+    bound = _w4a8_bound(terms, sx.astype(np.float64), exact, "w4a8_dot",
+                        None)
+    diff = np.abs(got.cpu().numpy().astype(np.float64) - exact)
+    assert (diff <= bound).all(), float((diff / bound).max())
+    torch.testing.assert_close(got, w4a8_gemm_plain(*targs, group=g),
+                               rtol=2e-3, atol=1e-2)
+
+
+def _w4a8_inputs(m, n, k, g, cuda, seed, kind="random"):
+    """qx, sx, qw, sg from a seed on the card: random int8 activations,
+    int4 weights and scales in [0.5, 2), or ``extreme``: activations all
+    at -128, 127 or -127, weights at -8 or 7, group scales spanning
+    2^-20 .. 2^20."""
+    rng = np.random.default_rng(seed)
+    if kind == "extreme":
+        qx = rng.choice(np.array([-128, 127, -127], np.int8), (m, k))
+        qw = rng.choice(np.array([-8, 7], np.int8), (n, k))
+        sg = np.exp2(rng.uniform(-20, 20, (n, k // g))).astype(np.float32)
+    else:
+        qx = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        qw = rng.integers(-8, 8, (n, k)).astype(np.int8)
+        sg = rng.uniform(0.5, 2.0, (n, k // g)).astype(np.float32)
+    sx = rng.uniform(0.5, 2.0, (m, 1)).astype(np.float32)
+    return [torch.from_numpy(a).to(cuda) for a in (qx, sx, qw, sg)]
+
+
+@pytest.mark.parametrize("m,n,k,g", [
+    (1, 24, 96, 32), (3, 200, 384, 64), (4, 576, 1536, 128),
+    (8, 1536, 576, 64), (9, 200, 1024, 256), (64, 576, 1536, 128),
+    (130, 200, 384, 128), (512, 1536, 576, 64), (4, 11008, 4096, 128),
+    (3, 11008, 256, 256), (64, 11008, 512, 64), (4, 576, 32768, 128),
+    (9, 24, 32768, 32), (130, 1536, 2048, 256), (512, 24, 1024, 32),
+    (512, 576, 1536, 128)])
+def test_w4a8_wgmma_bit_equal_one_launch(cuda, m, n, k, g):
+    """The tensor-core instance against ``w4a8_gemm_ordered`` (its own
+    order, plain torch): bit-equal; within the reference's tolerance of
+    the plain version (rtol 2e-3, atol 1e-2); one launch of
+    ``w4a8_wgmma`` per call by the counter and by the profiler's name."""
+    from repro_torch.kernels.w4a8_gemm import (launch_plan, w4a8_gemm_cuda,
+                                               w4a8_gemm_ordered,
+                                               w4a8_gemm_plain)
+    args = _w4a8_inputs(m, n, k, g, cuda, m + n + k + g)
+    plan = launch_plan(m, n, k, g, args[0].data_ptr(), args[2].data_ptr())
+    assert plan.kernel == "w4a8_wgmma"
     before = w4a8_gemm_cuda.launches
     got = w4a8_gemm_cuda(*args, group=g)
     assert w4a8_gemm_cuda.launches == before + 1
-    diff = np.abs(got.cpu().numpy().astype(np.float64) - exact)
-    assert (diff <= bound).all(), float((diff / bound).max())
+    torch.testing.assert_close(
+        got, w4a8_gemm_ordered(*args, group=g, plan=plan), rtol=0, atol=0)
+    torch.testing.assert_close(got, w4a8_gemm_plain(*args, group=g),
+                               rtol=2e-3, atol=1e-2)
+    _assert_one_launch_of(lambda: w4a8_gemm_cuda(*args, group=g),
+                          "w4a8_wgmma")
+
+
+@pytest.mark.parametrize("m,n,k,g", [(4, 1536, 1024, 128),
+                                     (130, 200, 2048, 256),
+                                     (64, 576, 8192, 32)])
+def test_w4a8_wgmma_every_split_bit_equal(cuda, m, n, k, g):
+    """Every cluster split ``launch_plan`` can pick (1 to 8 ranks along K)
+    at decode, prefill and group 32, through the uncounted launcher:
+    bit-equal to ``w4a8_gemm_ordered`` at the same split."""
+    from repro_torch.kernels import w4a8_gemm as w4
+    args = _w4a8_inputs(m, n, k, g, cuda, 7)
+    sx = args[1].reshape(-1).contiguous()
+    for split in range(1, 9):
+        plan = w4.with_split(w4.launch_plan(m, n, k, g, args[0].data_ptr(),
+                                            args[2].data_ptr()), split)
+        out = torch.full((m, n), float("nan"), device=cuda)
+        w4._launch(w4._library(), args[0], sx, args[2], args[3], out, g,
+                   plan)
+        torch.testing.assert_close(
+            out, w4.w4a8_gemm_ordered(*args, group=g, plan=plan), rtol=0,
+            atol=0, msg=f"split {split}")
+
+
+@pytest.mark.parametrize("m,n,k,g", [(4, 576, 1536, 128), (512, 200, 512, 64),
+                                     (9, 1536, 1024, 256), (64, 24, 96, 32)])
+def test_w4a8_wgmma_extreme_values_bit_equal(cuda, m, n, k, g):
+    """All activations at -128, 127 or -127, weights at -8 or 7, group
+    scales spanning 2^-20 .. 2^20: bit-equal to ``w4a8_gemm_ordered``."""
+    from repro_torch.kernels.w4a8_gemm import (launch_plan, w4a8_gemm_cuda,
+                                               w4a8_gemm_ordered)
+    args = _w4a8_inputs(m, n, k, g, cuda, 11, kind="extreme")
+    plan = launch_plan(m, n, k, g, args[0].data_ptr(), args[2].data_ptr())
+    assert plan.kernel == "w4a8_wgmma"
+    got = w4a8_gemm_cuda(*args, group=g)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, w4a8_gemm_ordered(*args, group=g, plan=plan), rtol=0, atol=0)
+
+
+def test_w4a8_wgmma_smem_matches_the_kernel(cuda):
+    """The host's carve-up (``wgmma_smem``, which ``launch_plan`` sizes the
+    launch and the split's residency with) is the kernel's own."""
+    from repro_torch.kernels import w4a8_gemm as w4
+    lib = w4._library()
+    for bt, (wgs, kb, ns) in w4.TILINGS.items():
+        for args in [(bt, wgs, ns, kb), (bt, wgs, 2, 2 * kb),
+                     (bt, wgs, 3, 1)]:
+            assert lib.w4a8_wgmma_smem(*args) == w4.wgmma_smem(*args)
 
 
 @pytest.mark.parametrize("xdt,adt", [("float16", "float16"),
