@@ -20,11 +20,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the compact plan's bytes), the profiler's device time per call at
      every ungrouped shape, beside B3's and ``torch._int_mm``'s, and the
      (K, M) entry's cost from a DevicePlan;
-  3. B2, the paged-attention kernel (one thread block cluster per slot
-     and KV head), in each of its four pool layouts (int8 or exact bf16
-     pool x int8 or float attention) against the gather + attend_cached
-     path at B=4, KV=3, G=3, hd=64, page_size 16, max_len 256 and 2048,
-     ragged steps, two calls bit-identical, within the bounds of
+  3. B2, the paged-attention kernel (one thread block cluster per slot,
+     KV head and block of at most 8 query heads), in each of its four
+     pool layouts (int8 or exact bf16 pool x int8 or float attention)
+     against the gather + attend_cached path at B=4, page_size 16: KV=3,
+     G=3, hd=64 (smollm-135m) at max_len 256 and 2048; G=1 hd=128 (KV 32,
+     llama1-7b), G=5 (KV 8, qwen3-14b), G=16 (KV 2, chatglm3-6b) and G=16
+     hd=256 (KV 1, recurrentgemma-9b's heads) at max_len 256; ragged
+     steps, two calls bit-identical, within the bounds of
      ``kernels.paged_attention.agreement``, with kernel / profiler /
      plain / library
      (``scaled_dot_product_attention``, exact float layout) / bound times;
@@ -36,7 +39,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      40 extreme-value cases: exact int32 equality, with kernel / plain /
      library (``torch._int_mm``, M padded to 32) / bound times, the
      shared-memory floor of the gathers, the profiler's device time per
-     call (one device op per call, asserted) and the K split;
+     call (one device op per call, asserted) and the K split; then
+     llama1-7b's three linear shapes (N, K) = (4096, 4096), (11008,
+     4096), (4096, 11008) at M = 4 and 512, exact against the integer
+     GEMM, timed beside ``torch._int_mm`` (``check_tgemm_llama``);
   B3g. B3 at T outside {4, 8}, through the same kernel at its own
      subtile width (8, or 4 in the unaligned instance where K / groups is
      not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
@@ -107,6 +113,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      teacher-forced logit differences and top-2 margins where the two
      part, and B2 against its plain version on the serving path's own
      inputs (a third run: within the loose bound, asserted);
+  11. llama1-7b, the paper's evaluation model, at full width and depth
+     (32 layers, d_model 4096, 32/32 heads, hd 128, d_ff 11008, vocab
+     32000, untied, bf16, random weights from seed 0 drawn on the card)
+     served on ``lut_cuda`` + B2 with phase 5's workload: B3 and B2 (once
+     per layer per decode step) launch, B1 does not, the plan cache sees
+     no lookup; the same requests on ``int_dot`` + B2 give all 256 tokens
+     equal; then the host planning of one q-projection (4096 x 4096, T=8)
+     for ``engine_cuda``, timed, with its ForestPlan bytes;
+  11b. qwen3-14b (G=5, qk-norm), mistral-nemo-12b (G=4, hd 128 against
+     d_model / heads = 160) and chatglm3-6b (G=16, partial RoPE) at their
+     published widths, depth cut to 4 layers, the same checks, each
+     model freed before the next is built (``dense_paths``);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -119,8 +137,9 @@ Every launch count in the JSON line is read from the run of the path
 that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
 B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
-0 just before it; launches made to compare a kernel with its plain
-version are not counted. The line before the last
+0 just before it; B2's int8 entry and B3's also list their launches in
+phases 11 and 11b under ``launches_in_other_phases``; launches made to
+compare a kernel with its plain version are not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -428,18 +447,31 @@ def _sdpa_ms(q, pool, table, steps, max_len, scale, flush):
         qt, k, v, attn_mask=mask, scale=scale), flush)
 
 
+# B2's head shapes (KV heads, query heads per KV head, head dim): smollm-135m
+# (timed at max_len 256 and 2048, the JSON line's entries) and, at max_len
+# 256, the dense architectures' and recurrentgemma-9b's
+ATTN_SHAPES = ((3, 3, 64, "smollm-135m"), (32, 1, 128, "llama1-7b"),
+               (8, 5, 128, "qwen3-14b"), (2, 16, 128, "chatglm3-6b"),
+               (1, 16, 256, "recurrentgemma-9b"))
+
+
 def check_attention(flush):
-    """B2 in each of its four pool layouts against its plain version at the
-    serving shape (B=4, KV=3, G=3, hd=64, page_size 16) at max_len 256 and
-    2048 with ragged steps, dead table entries reading page 0 (which holds
-    data), within the bounds of ``kernels.paged_attention.agreement``: at
-    most ROW_BUDGET of the 36 rows beyond the tight bound, none beyond the
-    loose one. Layout 0 is compared with the plain version on the card,
-    the others with it on CPU copies. Returns the JSON entry per layout
-    (timed at max_len 256, the main path's extent): kernel ms
-    (event-timed, L2 flushed), the profiler's device us per call, plain
-    ms, library ms (layout 2: ``scaled_dot_product_attention`` over the
-    gathered pages) and the bytes bound."""
+    """B2 in each of its four pool layouts against its plain version at
+    B=4, page_size 16, with ragged steps and dead table entries reading
+    page 0 (which holds data), within the bounds of
+    ``kernels.paged_attention.agreement`` (at most ROW_BUDGET rows beyond
+    the tight bound, none beyond the loose one), two calls bit-identical,
+    at each of ``ATTN_SHAPES``: smollm-135m's (KV=3, G=3, hd=64) at
+    max_len 256 and 2048; llama1-7b's G=1 hd=128 (KV 32), qwen3-14b's G=5
+    (KV 8), chatglm3-6b's G=16 (KV 2, two blocks of 8 query heads per KV
+    head) and recurrentgemma-9b's G=16 hd=256 (KV 1) at max_len 256.
+    Layout 0 is compared with the plain version on the card, the others
+    with it on CPU copies. Each shape prints kernel ms (event-timed, L2
+    flushed), the profiler's device us per call, plain ms, library ms
+    (layout 2: ``scaled_dot_product_attention`` over the gathered pages)
+    and the bytes bound. Returns the JSON entry per layout (smollm-135m
+    at max_len 256, the main path's extent), the other shapes' numbers
+    under ``shapes``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import (LAYOUTS, ROW_BUDGET,
@@ -449,13 +481,16 @@ def check_attention(flush):
     from repro_torch.launch.specs import serve_config
     base = serve_config(get_config("smollm_135m"))
     names = {code: name for code, name in LAYOUTS.values()}
-    b, kv, g, hd, ps = 4, 3, 3, 64, 16
+    b, ps = 4, 16
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = {}
+    runs = [(shape, max_len) for shape in ATTN_SHAPES
+            for max_len in ((256, 2048) if shape == ATTN_SHAPES[0]
+                            else (256,))]
     for layout, (tag, quant, _) in ATTN_LAYOUTS.items():
         cfg = base.replace(quant_attention=quant)
-        worst = 0.0
-        for max_len in (256, 2048):
+        worst, shapes = 0.0, {}
+        for (kv, g, hd, arch), max_len in runs:
             pps = max_len // ps
             n_pages = b * pps + 1
             pool = _attn_pool(layout, (n_pages, ps, kv, hd), gen)
@@ -491,6 +526,7 @@ def check_attention(flush):
             if not ok:
                 raise AssertionError(
                     f"paged attention kernel vs plain, {names[layout]}, "
+                    f"{arch}'s KV={kv} G={g} hd={hd}, "
                     f"max_len={max_len}: {agree} (at most {ROW_BUDGET} "
                     f"rows beyond the tight bound, worst_loose <= 1; dtypes "
                     f"{got.dtype}, {want.dtype}; two calls bit-identical: "
@@ -508,8 +544,8 @@ def check_attention(flush):
             b_ms, b_by = _attn_bound(layout, pool, table, steps, q,
                                      max_len, ps)
             lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f} (SDPA)"
-            print(f"[B2 {names[layout]}] B={b} KV={kv} G={g} hd={hd} "
-                  f"page_size={ps} max_len={max_len} pool "
+            print(f"[B2 {names[layout]}] {arch}: B={b} KV={kv} G={g} "
+                  f"hd={hd} page_size={ps} max_len={max_len} pool "
                   f"{pool['k'].dtype} steps={steps.tolist()}: max_abs_err="
                   f"{err:.3e} (max|out| {float(want.float().abs().max()):.3e}"
                   f", two calls bit-identical"
@@ -521,15 +557,21 @@ def check_attention(flush):
                   f"{p_ms:.4f} library_ms={lib_txt} bound_ms={b_ms:.6f} "
                   f"({b_by}) | cluster {plan.cluster}, {plan.pages_per_rank} "
                   f"pages per rank, {plan.chunk_rows} rows per chunk, "
-                  f"{plan.smem} B shared memory per block")
-            if max_len == 256:
-                entries[layout] = {
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_ms,
-                    "device_us": dev, "layout": names[layout],
-                    "shape": f"B=4 KV=3 G=3 hd=64 ps=16 max_len=256, pool "
-                             f"{str(pool['k'].dtype).removeprefix('torch.')}"}
+                  f"{plan.head_blocks} block(s) of {plan.heads} query "
+                  f"heads per KV head, {plan.smem} B shared memory per "
+                  f"block")
+            row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": lib_ms,
+                   "device_us": dev, "kernel_us": ker, "max_abs_err": err,
+                   "shape": f"B=4 KV={kv} G={g} hd={hd} ps=16 max_len="
+                            f"{max_len}, pool "
+                            f"{str(pool['k'].dtype).removeprefix('torch.')}"}
+            if arch == ATTN_SHAPES[0][3] and max_len == 256:
+                entries[layout] = dict(row, layout=names[layout])
+            elif max_len == 256:
+                shapes[arch] = row
         entries[layout]["max_abs_err"] = worst
+        entries[layout]["shapes"] = shapes
     return entries
 
 
@@ -656,6 +698,64 @@ def check_tgemm(flush):
     print(f"[B3] {extremes} extreme-value cases exact")
     entry["max_abs_err"] = worst
     return entry
+
+
+LLAMA_SHAPES = ((4096, 4096, "q/k/v/o"), (11008, 4096, "up/gate"),
+                (4096, 11008, "down"))
+
+
+def check_tgemm_llama(flush):
+    """B3 at llama1-7b's three linear shapes, (N, K) = (4096, 4096),
+    (11008, 4096) and (4096, 11008), at M = 4 (decode) and 512 (a bucketed
+    prefill), w_bits 4, T=8: exact against the integer GEMM, one device op
+    per call, with kernel ms (event-timed, L2 flushed), the profiler's
+    device us, ``torch._int_mm`` (M padded to 32) and the bound
+    (``_tgemm_bound``). Returns {shape: numbers}."""
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.kernels.transitive_gemm import (k_split, lut_width,
+                                                     transitive_gemm_cuda)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for n, k, role in LLAMA_SHAPES:
+        w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        for m in (4, 512):
+            x = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            call = (lambda: transitive_gemm_cuda(x, w, w_bits=4))
+            got = call()
+            err = int((got[:, 0].long() - int_matmul(x, w.T).long())
+                      .abs().max())
+            width = lut_width(k, 1)[0]
+            tag = (f"llama1-7b {role} N={n} K={k} M={m} w_bits=4 T=8 "
+                   f"width={width} ksplit={k_split(m, n, k, 1, width, sms)}")
+            if err:
+                raise AssertionError(f"B3 at {tag}: max |diff| {err} from "
+                                     f"the integer GEMM")
+            k_ms = cuda_ms(call, flush)
+            dev, ker, ops = device_us(call, kernels=("tgemm_lut",))
+            if ops != 1:
+                raise AssertionError(f"B3 at {tag} ran {ops} device ops "
+                                     f"per call, not 1")
+            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
+                             device="cuda")
+            xm[:m] = x
+            wt = w.T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
+            lib_us, _, _ = device_us(lambda: torch._int_mm(xm, wt),
+                                     kernels=())
+            b_ms, b_by, _, _ = _tgemm_bound(m, n, k, 4, 1)
+            print(f"[B3 llama1-7b] {tag}: exact | kernel_ms={k_ms:.4f} "
+                  f"device us/call {dev:.2f} (kernel {ker:.2f}, one op) "
+                  f"library_ms={lib_ms:.4f} (_int_mm, device us "
+                  f"{lib_us:.2f}) bound_ms={b_ms:.6f} ({b_by})")
+            out[f"N={n} K={k} M={m}"] = {
+                "ms": k_ms, "device_us": dev, "kernel_us": ker,
+                "library_ms": lib_ms, "library_us": lib_us, "bound_ms": b_ms,
+                "bound_by": b_by}
+    return out
 
 
 def check_tgemm_generic(flush):
@@ -1785,6 +1885,162 @@ def layout_paths(raw, cfg):
     return out
 
 
+def _plan_one_linear(qcfg, layer):
+    """Host planning of one stacked linear (a one-entry ``{"qw", "sg"}``
+    slice) for ``engine_cuda`` at the config's T, into a fresh plan cache:
+    (seconds to plan, seconds to lower, pack and upload, ForestPlan bytes
+    on the card, the int8 weight's bytes)."""
+    import torch
+    from repro_torch.core import plancache
+    cache = plancache.PlanCache()
+    qcfg = qcfg.with_(backend="engine_cuda")
+    t0 = time.perf_counter()
+    plancache.precompile({"w": layer}, qcfg, cache=cache)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fplan = plancache.attach_device_plans({"w": layer}, qcfg,
+                                          cache=cache)["w"]["dplan"]
+    torch.cuda.synchronize()
+    return (t_plan, time.perf_counter() - t0, fplan.nbytes(),
+            layer["qw"].numel())
+
+
+def serve_arch(arch, phase, n_layers=None):
+    """One dense architecture at its published widths (depth cut to
+    ``n_layers`` where given, printed) served on ``lut_cuda`` (B3) with the
+    paged-attention kernel (B2): W4A8 per-channel linears, int8 attention,
+    KV8 pool, bf16, random weights from seed 0 drawn on the card
+    (``Model.init(on_device=True)``); phase 5's workload (4 slots,
+    page_size 16, max_len 256, 8 requests of 128-token prompts sharing
+    prefixes, 32 tokens each). Over that run B3 launches, B2 launches
+    once per layer per decode step, B1 (all three kernels) does not, and
+    the plan cache sees no lookup. Then the same requests on ``int_dot``
+    (an exact float64 integer GEMM) with B2: every token equal, since both
+    backends give the same int32 accumulators and the same attention
+    kernel runs. Returns ({kernel: launches}, cfg, params)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import plancache
+    from repro_torch.kernels.paged_attention import (launch_plan,
+                                                     paged_attention)
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    full = get_config(arch)
+    cfg = serve_config(full, backend="lut_cuda").replace(paged_kernel=True)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, on_device=True)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    g = cfg.n_heads // cfg.n_kv_heads
+    plan = launch_plan(16, 16, g, cfg.hd, 1, True, True)
+    depth = (f"{cfg.n_layers} layers (cut from {full.n_layers}: the phase "
+             f"shares chip_smoke's time limit)" if n_layers is not None
+             else f"{cfg.n_layers} layers (full depth)")
+    print(f"[{phase}] {cfg.name}: {depth}, d_model={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} (G={g}: B2 in {plan.head_blocks} "
+          f"block(s) of {plan.heads} query heads per KV head) hd={cfg.hd} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} "
+          f"qk_norm={cfg.qk_norm} rope_2d={cfg.rope_2d} dtype={cfg.dtype} | "
+          f"init on the card {t_init:.2f}s, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
+    prompts = _prompts(cfg.vocab, 8, 128)
+    kw = dict(n_slots=4, max_len=256, page_size=16)
+    kernels = (transitive_gemm_cuda, paged_attention, transitive_forest,
+               transitive_forest_dense, launch_sparse)
+    cache = plancache.default_cache().stats()
+    for k in kernels:
+        k.launches = 0
+    eng, dt = _serve(model, params, prompts, 32, paged_kernel=True, **kw)
+    launches = {k.__name__: k.launches for k in kernels}
+    after = plancache.default_cache().stats()
+    rep = eng.report()
+    c = rep["counters"]
+    ttft = sum(r["ttft_s"] for r in rep["requests"]) / len(rep["requests"])
+    toks = {r.rid: r.tokens for r in eng.finished}
+    if sorted(len(t) for t in toks.values()) != [32] * 8 or not all(
+            0 <= t < cfg.vocab for ts in toks.values() for t in ts):
+        raise AssertionError(f"{phase}: output malformed: {toks}")
+    want_b2 = cfg.n_layers * c["decode_steps"]
+    print(f"[{phase}] lut_cuda + paged kernel: 8 requests x 32 tokens in "
+          f"{dt:.3f}s -> {rep['total_tokens'] / dt:.1f} tokens/s | mean "
+          f"TTFT {ttft * 1e3:.1f} ms | decode steps {c['decode_steps']} | "
+          f"prefix hits={c['prefix_hits']} pages_shared="
+          f"{c['pages_shared']} | launches: {launches} (B2 want "
+          f"{cfg.n_layers} layers x {c['decode_steps']} steps = {want_b2}) "
+          f"| plan cache hits+misses {cache['hits'] + cache['misses']} -> "
+          f"{after['hits'] + after['misses']}")
+    if not launches["transitive_gemm_cuda"]:
+        raise AssertionError(f"{phase}: B3 never launched")
+    if launches["paged_attention"] != want_b2:
+        raise AssertionError(f"{phase}: B2 launched "
+                             f"{launches['paged_attention']} times, not once "
+                             f"per layer per decode step ({want_b2})")
+    if any(launches[k.__name__] for k in kernels[2:]):
+        raise AssertionError(f"{phase}: a B1 kernel launched: {launches}")
+    if (after["hits"], after["misses"]) != (cache["hits"], cache["misses"]):
+        raise AssertionError(f"{phase}: lut_cuda touched the plan cache")
+    icfg = cfg.replace(quant=cfg.quant.with_(backend="int_dot"))
+    before = [k.launches for k in kernels]
+    ieng, idt = _serve(Model(icfg, device="cuda"), params, prompts, 32,
+                       paged_kernel=True, **kw)
+    b3 = transitive_gemm_cuda.launches - before[0]
+    itoks = {r.rid: r.tokens for r in ieng.finished}
+    same = sum(a == b for rid in toks for a, b in zip(toks[rid], itoks[rid]))
+    print(f"[{phase}] int_dot (float64 integer GEMM) + paged kernel: "
+          f"{idt:.3f}s -> {ieng.report()['total_tokens'] / idt:.1f} "
+          f"tokens/s | tokens equal to the lut_cuda run: {same}/"
+          f"{rep['total_tokens']} | B3 launches {b3}")
+    if itoks != toks or b3:
+        raise AssertionError(f"{phase}: int_dot + B2 tokens differ from "
+                             f"lut_cuda + B2 ({same}/{rep['total_tokens']} "
+                             f"equal; B3 launched {b3} times there)")
+    return launches, cfg, params
+
+
+def dense_paths():
+    """Phase 11: llama1-7b (the paper's evaluation model) at full width and
+    depth through ``serve_arch``, then the host planning of one of its
+    q-projections (4096 x 4096) for ``engine_cuda`` at T = 8, timed. Phase
+    11b: qwen3-14b (G=5), mistral-nemo-12b (G=4) and chatglm3-6b (G=16)
+    at their published widths, depth cut to 4 layers, each freed before
+    the next is built. Returns {phase: launches}."""
+    import torch
+    out = {}
+    launches, cfg, params = serve_arch("llama1_7b", "phase 11")
+    wq = params["blocks"]["b0"]["wq"]
+    t_plan, t_pack, fbytes, wbytes = _plan_one_linear(
+        cfg.quant, {"qw": wq["qw"][:1], "sg": wq["sg"][:1]})
+    print(f"[phase 11] engine_cuda planning of one llama1-7b q-projection "
+          f"(N=4096, K=4096, w_bits 4, T={cfg.quant.transrow_t}) on the "
+          f"host: plan {t_plan:.2f}s, lower + pack + upload {t_pack:.2f}s | "
+          f"ForestPlan {fbytes} B on the card ({fbytes / wbytes:.3f} x the "
+          f"int8 weight, {wbytes} B); x {7 * cfg.n_layers} linears of "
+          f"this model")
+    out["phase 11 (llama1-7b, lut_cuda)"] = launches
+    del params
+    torch.cuda.empty_cache()
+    for arch, g in (("qwen3_14b", 5), ("mistral_nemo_12b", 4),
+                    ("chatglm3_6b", 16)):
+        launches, cfg, params = serve_arch(arch, "phase 11b", n_layers=4)
+        if cfg.n_heads // cfg.n_kv_heads != g:
+            raise AssertionError(f"{arch}: G={cfg.n_heads // cfg.n_kv_heads}"
+                                 f", not the published {g}")
+        out[f"phase 11b ({arch}, lut_cuda)"] = launches
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
@@ -1935,6 +2191,7 @@ def main() -> int:
     forest = check_forest(flush)
     attention = check_attention(flush)
     tgemm = check_tgemm(flush)
+    tgemm["llama1_7b"] = check_tgemm_llama(flush)
     generic = check_tgemm_generic(flush)
     dense = check_forest_dense(flush)
     sparse = check_forest_sparse(flush)
@@ -1947,6 +2204,7 @@ def main() -> int:
     layouts = layout_paths(raw, cfg)
     layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
     del raw
+    archs = dense_paths()
     ops = ops_path()
     kernels = [
         {"name": "transitive_forest", "route": "cuda",
@@ -1974,12 +2232,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:219",
          "launches": layouts[code][0], "launches_from": layouts[code][1],
          **attention[code]} for code in sorted(ATTN_LAYOUTS)]
+    kernels[3]["launches_in_other_phases"] = {      # int8 pool + int8 attn
+        phase: n["paged_attention"] for phase, n in archs.items()}
     kernels += [
         {"name": "transitive_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",
          "launches": lut["transitive_gemm_cuda"],
-         "launches_from": "phase 6 (lut_cuda serve)", **tgemm},
+         "launches_from": "phase 6 (lut_cuda serve)",
+         "launches_in_other_phases": {
+             phase: n["transitive_gemm_cuda"] for phase, n in archs.items()},
+         **tgemm},
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",

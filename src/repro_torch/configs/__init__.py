@@ -1,9 +1,11 @@
-"""Architecture config registry (the port's slice: the main-path model).
+"""Architecture config registry: the attention-only dense decoders the
+port serves.
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_reduced(name)`` the smoke-test-sized variant of the same family.
 The reference registers eleven architectures; the port registers the ones
-its serving slice runs.
+its model code runs (recurrent, MoE, cross-attention and enc-dec families
+come later).
 """
 from __future__ import annotations
 
@@ -11,7 +13,13 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
 
-ARCHS = ["smollm_135m"]
+ARCHS = [
+    "smollm_135m",
+    "mistral_nemo_12b",
+    "qwen3_14b",
+    "chatglm3_6b",
+    "llama1_7b",          # the paper's own evaluation model
+]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 

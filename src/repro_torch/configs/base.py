@@ -1,7 +1,12 @@
 """Model / run configuration dataclasses (port of ``repro.configs.base``).
 
 Only the fields the port's serving slice reads are kept, plus the ones
-that size a config; JAX dtypes become torch dtypes.
+that size a config and those the registered configs pass (``grad_accum``,
+inert until training is ported); JAX dtypes become torch dtypes. The
+reference's fields not kept here: ``n_experts``, ``top_k``,
+``n_shared_experts``, ``expert_capacity_factor`` (MoE), ``remat``,
+``seq_shard``, ``opt_state_dtype``, ``factored_second_moment`` and
+``compress_pod_grads`` (training), and the ``sub_quadratic`` property.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ class ModelConfig:
                                      # CUDA kernel (kernels/paged_attention)
 
     dtype: Any = torch.bfloat16
+    grad_accum: int = 1              # training knob; inert in serving
 
     @property
     def hd(self) -> int:
@@ -92,4 +98,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         max_target_positions=64 if cfg.max_target_positions else 0,
         local_window=min(cfg.local_window, 64) if cfg.local_window else 0,
         quant=cfg.quant.with_(group=64),
+        grad_accum=1,
     )

@@ -23,8 +23,13 @@
 // repro_torch/models/attention.py; each instance computes what that path
 // computes, operation for operation, over the live lanes only.
 //
-// Design: one thread block cluster of C <= 8 blocks per (slot b, KV head);
-// the G query heads of the group share it. Rank r of the cluster owns the
+// Design: one thread block cluster of C <= 8 blocks per (slot b, KV head,
+// block of at most kMaxG query heads); the GB query heads of the block
+// share it. A group of G > kMaxG query heads per KV head is cut into
+// ceil(G / kMaxG) blocks of heads as even as they come (G = 16: two of 8,
+// G = 9: 5 and 4), each its own cluster that stages the KV head's pages
+// again: more bytes read, the reduction code unchanged. Rank r of the
+// cluster owns the
 // slot's pages r, r + C, r + 2C, ... (pages_per_rank of them at most) and
 // works on those that are live (page index <= step / page_size), so the
 // live pages are read by C SMs at once and each rank's P.V loop is short.
@@ -42,8 +47,10 @@
 //      cp.async in 16-byte units, in chunks of chunk_rows rows (one chunk
 //      at every serving shape; the wrapper sizes it to shared memory).
 //   1. scores of the live lanes l < min(step + 1, P*ps): under quantized
-//      attention TPL threads per lane (one 16-byte unit of the K row each,
-//      their integer partial dots added by shuffles); in the float layouts
+//      attention TPL threads per lane (TPL the largest power of two up to
+//      32 and the row's 16-byte units; thread u takes units u, u + TPL,
+//      ..., their integer partial dots added by shuffles); in the float
+//      layouts
 //      one thread per lane, summing in d order as the plain version does.
 //      Lanes past the step are the reference's -1e30 lanes, whose softmax
 //      weight is exactly 0.
@@ -101,7 +108,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;                // query heads per KV head
+constexpr int kMaxG = 8;                // query heads per block
+constexpr int kMaxHd = 256;             // head dimension, a multiple of 16
 constexpr int kMaxCluster = 8;          // the portable cluster size
 constexpr size_t kSmemLimit = 232448;   // 227 KiB a block may use
 constexpr float kNegInf = -1e30f;
@@ -173,9 +181,25 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) / 16 * 16;
 }
 
+// The query heads one block serves out of G per KV head: G cut into
+// ceil(G / kMaxG) blocks as even as they come
+// (kernels/paged_attention.py::heads_per_block mirrors it).
+__host__ __device__ constexpr int heads_per_block(int G) {
+  return (G + (G + kMaxG - 1) / kMaxG - 1) / ((G + kMaxG - 1) / kMaxG);
+}
+
+// Threads that share one K row's score under quantized attention: the
+// largest power of two up to 32 and the row's 16-byte units.
+__device__ __forceinline__ int threads_per_row(int units) {
+  int t = 1;
+  while (t * 2 <= units && t < 32) t *= 2;
+  return t;
+}
+
 // The shared-memory carve-up (kernels/paged_attention.py::smem_bytes
-// mirrors it; a card test holds the two equal). lanes = pages_per_rank *
-// page_size: the rank's row capacity; chunk: rows staged at once.
+// mirrors it; a card test holds the two equal). G: the block's query heads
+// (heads_per_block); lanes = pages_per_rank * page_size: the rank's row
+// capacity; chunk: rows staged at once.
 struct Smem {
   unsigned char* kbuf;  // chunk K rows; then the P.V partials per part
   unsigned char* vbuf;  // chunk V rows
@@ -189,7 +213,7 @@ struct Smem {
   float* gst;           // 3 * kMaxG: the cluster's max, exp-sum, P scale
   float* qs;            // kMaxG: q's scales (quantized layouts)
   float* red;           // kWarps * kMaxG: block reductions
-  float* vmxp;          // kThreads: |V| max per (part, d)
+  float* vmxp;          // max(kThreads, hd): |V| max per (part, d)
   float* vmxr;          // hd: this rank's |V| max per d
   float* vsc;           // hd: the V scale per d (exact pool + quant)
   int8_t* codes;        // G * lanes: P codes (quantized layouts)
@@ -201,7 +225,8 @@ __host__ __device__ inline size_t smem_bytes(int G, int hd, int esz,
                                              Smem* out, void* base) {
   const size_t rb = (size_t)hd * esz;
   const size_t small =
-      (size_t)(7 * kMaxG + kWarps * kMaxG + kThreads + 2 * hd) * 4;
+      (size_t)(7 * kMaxG + kWarps * kMaxG + (hd > kThreads ? hd : kThreads) +
+               2 * hd) * 4;
   const size_t pv_parts = (size_t)16 * kThreads * G;   // see paged_decode
   const size_t kb = (size_t)chunk * rb;
   const size_t sizes[9] = {kb > pv_parts ? kb : pv_parts,
@@ -227,8 +252,8 @@ __host__ __device__ inline size_t smem_bytes(int G, int hd, int esz,
                 (float*)(p + offs[4]), (float*)(p + offs[5]),
                 (float*)(p + offs[6]), s, s + 3 * kMaxG, s + 6 * kMaxG,
                 s + 7 * kMaxG, s + (7 + kWarps) * kMaxG,
-                s + (7 + kWarps) * kMaxG + kThreads,
-                s + (7 + kWarps) * kMaxG + kThreads + hd,
+                s + (7 + kWarps) * kMaxG + (hd > kThreads ? hd : kThreads),
+                s + (7 + kWarps) * kMaxG + (hd > kThreads ? hd : kThreads) + hd,
                 (int8_t*)(p + offs[8])};
   }
   return off;
@@ -307,12 +332,13 @@ __device__ __forceinline__ void from_peers(cg::cluster_group& cluster,
 // QT: q's element type (int8 codes under quantized attention, f32 in the
 // int8 pool's float layout, the pool dtype in the exact pool's). OT: the
 // output's (the pool dtype in the exact pool's float layout, else f32).
-// NG >= G: the query heads the registers and unrolled loops are sized
-// for (G itself up to 4, else 8). A block runs its code once, so the
+// NG >= GB: the query heads the registers and unrolled loops are sized
+// for (GB itself up to 4, else 8). A block runs its code once, so the
 // code's size is fetch time: a small group does not fetch an 8-head
-// body.
-// Grid (C * B, KV), cluster (C, 1, 1), kThreads threads: block x serves
-// slot x / C as rank x % C.
+// body. G: query heads per KV head; GB: per block (heads_per_block(G)).
+// Grid (C * B, KV * NB) with NB = ceil(G / GB), cluster (C, 1, 1),
+// kThreads threads: block x serves slot x / C as rank x % C; block y
+// serves KV head y / NB and its query heads [GB * (y % NB), ...).
 template <bool QUANT, bool INT8_POOL, typename PT, typename QT, typename OT,
           int NG>
 __global__ void __launch_bounds__(kThreads)
@@ -321,8 +347,8 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
              const float* __restrict__ kscale,
              const float* __restrict__ vscale,
              const int32_t* __restrict__ table,
-             const int32_t* __restrict__ steps, int KV, int G, int hd,
-             int ps, int P, int C, int ppr, int chunk, float scale,
+             const int32_t* __restrict__ steps, int KV, int G, int GB,
+             int hd, int ps, int P, int C, int ppr, int chunk, float scale,
              OT* __restrict__ out) {
   constexpr int ESZ = (int)sizeof(PT);
   constexpr int E = 16 / ESZ;             // pool elements per 16-byte unit
@@ -330,11 +356,14 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
-  const int b = blockIdx.x / C, kvh = blockIdx.y, tid = threadIdx.x;
+  const int nb = (G + GB - 1) / GB;       // blocks of heads per KV head
+  const int b = blockIdx.x / C, kvh = blockIdx.y / nb, tid = threadIdx.x;
+  const int g0 = (blockIdx.y % nb) * GB;  // the block's first query head
+  const int Gl = min(GB, G - g0);         // and how many it serves
   const int lanes = ppr * ps;
   const int rb = hd * ESZ;                // bytes of one pool row
   Smem sm;
-  smem_bytes(G, hd, ESZ, INT8_POOL, QUANT, lanes, chunk, &sm, smem4);
+  smem_bytes(GB, hd, ESZ, INT8_POOL, QUANT, lanes, chunk, &sm, smem4);
 
   // The rank's live rows: local row li is row li % ps of page
   // r + (li / ps) * C. Lanes grow with li, so the live ones (l < valid)
@@ -350,7 +379,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   const int ns = VMAX ? n_rows : nv;                    // rows staged
   const int n_chunks = (ns + chunk - 1) / chunk;
   const int32_t* trow = table + (long)b * P;
-  const long qbase = ((long)b * KV + kvh) * G;
+  const long qbase = ((long)b * KV + kvh) * G + g0;
 
   // Copy rows [c * chunk, ...) of the rank's live rows of pool (and their
   // scales into sbuf, when given) into buf.
@@ -375,39 +404,49 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   if constexpr (QUANT) {
     const int32_t* qsrc = reinterpret_cast<const int32_t*>(q + qbase * hd);
     int32_t* q4 = reinterpret_cast<int32_t*>(sm.qf);
-    for (int i = tid; i < G * hd / 4; i += kThreads) q4[i] = qsrc[i];
-    if (tid < G) sm.qs[tid] = sq[qbase + tid];
+    for (int i = tid; i < Gl * hd / 4; i += kThreads) q4[i] = qsrc[i];
+    if (tid < Gl) sm.qs[tid] = sq[qbase + tid];
   } else {
-    for (int i = tid; i < G * hd; i += kThreads)
+    for (int i = tid; i < Gl * hd; i += kThreads)
       sm.qf[i] = Elem<QT>::f(q[qbase * hd + i]);
   }
   // exact pool + quant, the last rank, when the table has dead entries:
   // page 0's rows (read there by the reference's gather) for the |V| max,
-  // thread (part, d), loaded 8 rows at a time while the copies fly
-  float fold = 0.f;
+  // (part, d) pairs idx = tid and tid + kThreads (vparts parts of the rows
+  // where hd < kThreads, each d once where hd > kThreads), loaded 8 rows
+  // at a time while the copies fly
+  const int vparts = hd < kThreads ? kThreads / hd : 1;
+  const int vpairs = vparts * hd;         // <= max(kThreads, hd)
+  float fold[2] = {0.f, 0.f};
   if constexpr (VMAX) {
     if (r == C - 1 && last >= 0 && last < P - 1) {
-      const int parts = kThreads / hd, d = tid % hd;
-      for (int j0 = tid / hd; j0 < ps; j0 += 8 * parts) {
-        float f8[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int j = j0 + u * parts;
-          f8[u] = j < ps ? fabsf(Elem<PT>::f(
-                               vpool[((long)j * KV + kvh) * hd + d]))
-                         : 0.f;
+      for (int k = 0; k < 2; ++k) {
+        const int idx = tid + k * kThreads, d = idx % hd;
+        if (idx >= vpairs) continue;
+        for (int j0 = idx / hd; j0 < ps; j0 += 8 * vparts) {
+          float f8[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int j = j0 + u * vparts;
+            f8[u] = j < ps ? fabsf(Elem<PT>::f(
+                                 vpool[((long)j * KV + kvh) * hd + d]))
+                           : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) fold[k] = fmaxf(fold[k], f8[u]);
         }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) fold = fmaxf(fold, f8[u]);
       }
     }
   }
   copy_wait<1>();                         // own K copies of chunk 0
   __syncthreads();
 
-  // 1. scores: under quantized attention TPL threads per lane, one
-  // 16-byte unit of the K row each; one thread per lane otherwise.
-  const int tpl = QUANT ? rb / 16 : 1;
+  // 1. scores: under quantized attention TPL threads per lane, thread u
+  // taking the K row's 16-byte units u, u + TPL, ...; one thread per lane
+  // otherwise.
+  const int units = rb / 16;
+  const int tpl = QUANT ? threads_per_row(units) : 1;
   const int lpp = kThreads / tpl;         // lanes per pass
   for (int c = 0; c < n_chunks && c * chunk < nv; ++c) {
     if (c > 0) {
@@ -421,56 +460,64 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
     for (int base = 0; base < nr; base += lpp) {
       const int i = base + tid / tpl, u = tid % tpl;
       const bool act = i < nr;
-      const unsigned char* kr = sm.kbuf + (size_t)(act ? i : 0) * rb + u * 16;
+      const unsigned char* kr = sm.kbuf + (size_t)(act ? i : 0) * rb;
       if constexpr (QUANT) {
         int acc[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) acc[g] = 0;
         float sk;
         if constexpr (INT8_POOL) {
-          const int4 k4 = *reinterpret_cast<const int4*>(kr);
           const int32_t* q4 = reinterpret_cast<const int32_t*>(sm.qf);
+          for (int w = u; w < units; w += tpl) {
+            const int4 k4 = *reinterpret_cast<const int4*>(kr + w * 16);
 #pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            acc[g] = 0;
-            if (g < G) {
-              const int32_t* qg = q4 + (g * hd) / 4 + u * 4;
-              acc[g] = __dp4a(qg[0], k4.x, acc[g]);
-              acc[g] = __dp4a(qg[1], k4.y, acc[g]);
-              acc[g] = __dp4a(qg[2], k4.z, acc[g]);
-              acc[g] = __dp4a(qg[3], k4.w, acc[g]);
+            for (int g = 0; g < NG; ++g) {
+              if (g < Gl) {
+                const int32_t* qg = q4 + (g * hd) / 4 + w * 4;
+                acc[g] = __dp4a(qg[0], k4.x, acc[g]);
+                acc[g] = __dp4a(qg[1], k4.y, acc[g]);
+                acc[g] = __dp4a(qg[2], k4.z, acc[g]);
+                acc[g] = __dp4a(qg[3], k4.w, acc[g]);
+              }
             }
           }
           sk = sm.ksc[act ? i : 0];
         } else {
-          // quantize_per_token of the K row in the pool dtype
-          float kf[E];
-          load_f<PT, E>(kr, kf);
+          // quantize_per_token of the K row in the pool dtype: the row's
+          // |max| over the lane's threads, then its codes
           float amax = 0.f;
+          for (int w = u; w < units; w += tpl) {
+            float kf[E];
+            load_f<PT, E>(kr + w * 16, kf);
 #pragma unroll
-          for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(kf[e]));
+            for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(kf[e]));
+          }
           for (int o = tpl / 2; o > 0; o >>= 1)
             amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
           sk = Elem<PT>::rd(Elem<PT>::rd(fmaxf(amax, 1e-8f)) / 127.f);
           const int8_t* q8 = reinterpret_cast<const int8_t*>(sm.qf);
+          for (int w = u; w < units; w += tpl) {
+            float kf[E];
+            load_f<PT, E>(kr + w * 16, kf);
 #pragma unroll
-          for (int g = 0; g < NG; ++g) acc[g] = 0;
+            for (int e = 0; e < E; ++e) {
+              const int kc = (int)fminf(
+                  fmaxf(rintf(Elem<PT>::rd(kf[e] / sk)), -128.f), 127.f);
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            const int kc = (int)fminf(
-                fmaxf(rintf(Elem<PT>::rd(kf[e] / sk)), -128.f), 127.f);
-#pragma unroll
-            for (int g = 0; g < NG; ++g)
-              if (g < G) acc[g] += (int)q8[g * hd + u * E + e] * kc;
+              for (int g = 0; g < NG; ++g)
+                if (g < Gl) acc[g] += (int)q8[g * hd + w * E + e] * kc;
+            }
           }
         }
 #pragma unroll
         for (int g = 0; g < NG; ++g)
-          if (g < G)
+          if (g < Gl)
             for (int o = tpl / 2; o > 0; o >>= 1)
               acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], o);
         if (act && u == 0)
 #pragma unroll
           for (int g = 0; g < NG; ++g)
-            if (g < G)
+            if (g < Gl)
               sm.row[g * lanes + r0 + i] =
                   (float)acc[g] * scale * sm.qs[g] * sk;
       } else {
@@ -489,7 +536,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
             for (int e = 0; e < E; ++e) kf[e] = kf[e] * sk;
 #pragma unroll
           for (int g = 0; g < NG; ++g)
-            if (g < G)
+            if (g < Gl)
 #pragma unroll
               for (int e = 0; e < E; ++e)
                 acc[g] = fmaf(sm.qf[g * hd + w * E + e], kf[e], acc[g]);
@@ -497,7 +544,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         if (act)
 #pragma unroll
           for (int g = 0; g < NG; ++g)
-            if (g < G) {
+            if (g < Gl) {
               if constexpr (INT8_POOL)
                 sm.row[g * lanes + r0 + i] = acc[g] * scale;
               else
@@ -509,10 +556,10 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   copy_wait<0>();                         // V of chunk 0, the V scales
   __syncthreads();
 
-  // exact pool + quant: this rank's |V| max per d, thread (part, d)
+  // exact pool + quant: this rank's |V| max per d, per (part, d) pair as
+  // the page-0 fold above
   if constexpr (VMAX) {
-    const int parts = kThreads / hd, d = tid % hd, pi = tid / hd;
-    float m = 0.f;
+    float m[2] = {0.f, 0.f};
     for (int c = 0; c < n_chunks; ++c) {
       if (c != vcur) {
         __syncthreads();
@@ -523,11 +570,19 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         vcur = c;
       }
       const int nr = min(chunk, ns - c * chunk);
-      for (int i = pi; i < nr; i += parts)
-        m = fmaxf(m, fabsf(Elem<PT>::f(
-                         reinterpret_cast<const PT*>(sm.vbuf)[i * hd + d])));
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int idx = tid + k * kThreads, d = idx % hd;
+        if (idx < vpairs)
+          for (int i = idx / hd; i < nr; i += vparts)
+            m[k] = fmaxf(m[k], fabsf(Elem<PT>::f(reinterpret_cast<const PT*>(
+                                   sm.vbuf)[i * hd + d])));
+      }
     }
-    sm.vmxp[pi * hd + d] = fmaxf(m, fold);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (tid + k * kThreads < vpairs)
+        sm.vmxp[tid + k * kThreads] = fmaxf(m[k], fold[k]);
   }
 
   // a. the row max per head (and the |V| max per d)
@@ -535,33 +590,32 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     v[g] = kNegInf;
-    if (g < G)
+    if (g < Gl)
       for (int li = tid; li < nv; li += kThreads)
         v[g] = fmaxf(v[g], sm.row[g * lanes + li]);
   }
-  block_reduce<true>(v, G, sm.red, sm.stat);
+  block_reduce<true>(v, Gl, sm.red, sm.stat);
   if constexpr (VMAX) {
-    if (tid < hd) {
-      float m = sm.vmxp[tid];
-      for (int p = 1; p < kThreads / hd; ++p)
-        m = fmaxf(m, sm.vmxp[p * hd + tid]);
-      sm.vmxr[tid] = m;
+    for (int d = tid; d < hd; d += kThreads) {
+      float m = sm.vmxp[d];
+      for (int p = 1; p < vparts; ++p) m = fmaxf(m, sm.vmxp[p * hd + d]);
+      sm.vmxr[d] = m;
     }
   }
   cluster.sync();
   float pv_[kMaxCluster];
-  if (tid < G) {
+  if (tid < Gl) {
     from_peers(cluster, sm.stat, tid, C, pv_);
     float m = kNegInf;
     for (int p = 0; p < C; ++p) m = fmaxf(m, pv_[p]);
     sm.gst[tid] = m;
   }
   if constexpr (VMAX) {
-    if (tid < hd) {
-      from_peers(cluster, sm.vmxr, tid, C, pv_);
+    for (int d = tid; d < hd; d += kThreads) {
+      from_peers(cluster, sm.vmxr, d, C, pv_);
       float m = 0.f;
       for (int p = 0; p < C; ++p) m = fmaxf(m, pv_[p]);
-      sm.vsc[tid] = Elem<PT>::rd(Elem<PT>::rd(m / 127.f) + 1e-8f);
+      sm.vsc[d] = Elem<PT>::rd(Elem<PT>::rd(m / 127.f) + 1e-8f);
     }
   }
   __syncthreads();
@@ -570,7 +624,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     v[g] = 0.f;
-    if (g < G) {
+    if (g < Gl) {
       const float m = sm.gst[g];
       for (int li = tid; li < nv; li += kThreads) {
         const float e = expf(sm.row[g * lanes + li] - m);
@@ -579,9 +633,9 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
       }
     }
   }
-  block_reduce<false>(v, G, sm.red, sm.stat + kMaxG);
+  block_reduce<false>(v, Gl, sm.red, sm.stat + kMaxG);
   cluster.sync();
-  if (tid < G) {
+  if (tid < Gl) {
     from_peers(cluster, sm.stat, kMaxG + tid, C, pv_);
     float s = 0.f;
     for (int p = 0; p < C; ++p) s += pv_[p];
@@ -594,7 +648,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       v[g] = 0.f;
-      if (g < G) {
+      if (g < Gl) {
         const float sum = sm.gst[kMaxG + g];
         for (int li = tid; li < nv; li += kThreads) {
           float pv = sm.row[g * lanes + li] / sum;
@@ -604,16 +658,16 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         }
       }
     }
-    block_reduce<true>(v, G, sm.red, sm.stat + 2 * kMaxG);
+    block_reduce<true>(v, Gl, sm.red, sm.stat + 2 * kMaxG);
     cluster.sync();
-    if (tid < G) {
+    if (tid < Gl) {
       from_peers(cluster, sm.stat, 2 * kMaxG + tid, C, pv_);
       float a = 0.f;
       for (int p = 0; p < C; ++p) a = fmaxf(a, pv_[p]);
       sm.gst[2 * kMaxG + tid] = fmaxf(a, 1e-8f) / 127.0f;
     }
     __syncthreads();
-    for (int i = tid; i < G * nv; i += kThreads) {
+    for (int i = tid; i < Gl * nv; i += kThreads) {
       const int g = i / nv, li = i - g * nv;
       const float c = fminf(
           fmaxf(rintf(sm.row[g * lanes + li] / sm.gst[2 * kMaxG + g]),
@@ -622,7 +676,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
       sm.codes[g * lanes + li] = (int8_t)c;
     }
   } else {
-    for (int i = tid; i < G * nv; i += kThreads) {
+    for (int i = tid; i < Gl * nv; i += kThreads) {
       const int g = i / nv, li = i - g * nv;
       const float p = sm.row[g * lanes + li] / sm.gst[kMaxG + g];
       if constexpr (INT8_POOL) sm.row[g * lanes + li] = p;
@@ -631,9 +685,12 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   }
   __syncthreads();
 
-  // d. P.V over the rank's live lanes: thread (part, 4 consecutive d).
+  // d. P.V over the rank's live lanes: thread (part, 4 consecutive d);
+  // where hd / 4 does not divide kThreads the threads past the last whole
+  // part (pi == parts) sit this out.
   const int dq = hd / 4, parts = kThreads / dq;
   const int d0 = (tid % dq) * 4, pi = tid / dq;
+  const bool pv_on = pi < parts;
   using Acc = typename std::conditional<QUANT, int, float>::type;
   Acc acc[NG][4];
 #pragma unroll
@@ -656,7 +713,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
       vcur = c;
     }
     const int r0 = c * chunk, nr = min(chunk, nv - r0);
-    for (int i = pi; i < nr; i += parts) {
+    for (int i = pv_on ? pi : nr; i < nr; i += parts) {
       const int li = r0 + i;
       float vf[4];
       load_f<PT, 4>(sm.vbuf + (size_t)i * rb + d0 * ESZ, vf);
@@ -672,7 +729,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         }
 #pragma unroll
         for (int g = 0; g < NG; ++g)
-          if (g < G) {
+          if (g < Gl) {
             const int pc = sm.codes[g * lanes + li];
 #pragma unroll
             for (int k = 0; k < 4; ++k) acc[g][k] += pc * vc[k];
@@ -685,7 +742,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         }
 #pragma unroll
         for (int g = 0; g < NG; ++g)
-          if (g < G) {
+          if (g < Gl) {
             const float p = sm.row[g * lanes + li];
 #pragma unroll
             for (int k = 0; k < 4; ++k) acc[g][k] = fmaf(p, vf[k], acc[g][k]);
@@ -694,30 +751,32 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
     }
   }
   // The K buffer is free (the last scores are behind several barriers):
-  // it takes the partial sums per part, parts * G * hd values (16 *
-  // kThreads * G bytes), which the block adds in part order.
+  // it takes the partial sums per part, parts * Gl * hd values (at most
+  // 16 * kThreads * GB bytes), which the block adds in part order.
   Acc* tmp = reinterpret_cast<Acc*>(sm.kbuf);
+  if (pv_on)
 #pragma unroll
-  for (int g = 0; g < NG; ++g)
-    if (g < G)
+    for (int g = 0; g < NG; ++g)
+      if (g < Gl)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) tmp[(pi * G + g) * hd + d0 + k] = acc[g][k];
+        for (int k = 0; k < 4; ++k)
+          tmp[(pi * Gl + g) * hd + d0 + k] = acc[g][k];
   __syncthreads();
   // Each output's sum goes to the rank that owns it (rank e / share),
   // into that rank's inbox slot for this rank. After the barrier each
   // rank adds its inbox in rank order, scales and stores: no rank reads
   // another's shared memory after it, so none has to wait at the end.
-  const int share = (G * hd + C - 1) / C;
-  for (int i = tid; i < G * hd; i += kThreads) {
+  const int share = (Gl * hd + C - 1) / C;
+  for (int i = tid; i < Gl * hd; i += kThreads) {
     Acc s = tmp[i];
-    for (int p = 1; p < parts; ++p) s += tmp[p * G * hd + i];
+    for (int p = 1; p < parts; ++p) s += tmp[p * Gl * hd + i];
     const int q = i / share;
     cluster.map_shared_rank(reinterpret_cast<Acc*>(sm.part), q)
         [r * share + i - q * share] = s;
   }
   cluster.sync();
   const Acc* inbox = reinterpret_cast<const Acc*>(sm.part);
-  const int e0 = r * share, e_hi = min(e0 + share, G * hd);
+  const int e0 = r * share, e_hi = min(e0 + share, Gl * hd);
   for (int e = e0 + tid; e < e_hi; e += kThreads) {
     Acc s = 0;
     for (int p = 0; p < C; ++p) s += inbox[p * share + e - e0];
@@ -737,12 +796,13 @@ int launch(const void* q, const void* sq, const void* kpool,
            const void* table, const void* steps, int grid_x, int KV, int G,
            int hd, int ps, int P, float scale, int C, int ppr, int chunk,
            void* out, cudaStream_t st) {
-  auto* kernel = G == 1   ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 1>
-                 : G == 2 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 2>
-                 : G == 3 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 3>
-                 : G == 4 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 4>
-                          : paged_decode<QUANT, INT8_POOL, PT, QT, OT, 8>;
-  const size_t smem = smem_bytes(G, hd, (int)sizeof(PT), INT8_POOL, QUANT,
+  const int GB = heads_per_block(G), nb = (G + GB - 1) / GB;
+  auto* kernel = GB == 1   ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 1>
+                 : GB == 2 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 2>
+                 : GB == 3 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 3>
+                 : GB == 4 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 4>
+                           : paged_decode<QUANT, INT8_POOL, PT, QT, OT, 8>;
+  const size_t smem = smem_bytes(GB, hd, (int)sizeof(PT), INT8_POOL, QUANT,
                                  ppr * ps, chunk, nullptr, nullptr);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -751,7 +811,7 @@ int launch(const void* q, const void* sq, const void* kpool,
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid_x, (unsigned)KV, 1);
+  cfg.gridDim = dim3((unsigned)grid_x, (unsigned)(KV * nb), 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -765,8 +825,8 @@ int launch(const void* q, const void* sq, const void* kpool,
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, (const QT*)q, (const float*)sq, (const PT*)kpool,
       (const PT*)vpool, (const float*)kscale, (const float*)vscale,
-      (const int32_t*)table, (const int32_t*)steps, KV, G, hd, ps, P, C, ppr,
-      chunk, scale, (OT*)out);
+      (const int32_t*)table, (const int32_t*)steps, KV, G, GB, hd, ps, P, C,
+      ppr, chunk, scale, (OT*)out);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -777,7 +837,8 @@ extern "C" {
 int paged_attention_threads() { return kThreads; }
 
 // The dynamic shared memory of one block for a layout (see
-// paged_attention_launch), or 0 for an unknown layout / pool dtype.
+// paged_attention_launch; G query heads per KV head, of which a block
+// serves heads_per_block(G)), or 0 for an unknown layout / pool dtype.
 size_t paged_attention_smem(int layout, int pool_dtype, int G, int hd,
                             int ps, int pages_per_rank, int chunk_rows) {
   const bool quant = layout == 0 || layout == 1;
@@ -786,8 +847,8 @@ size_t paged_attention_smem(int layout, int pool_dtype, int G, int hd,
                                    pool_dtype != 1))
     return 0;
   const int esz = int8_pool ? 1 : pool_dtype == 0 ? 4 : 2;
-  return smem_bytes(G, hd, esz, int8_pool, quant, pages_per_rank * ps,
-                    chunk_rows, nullptr, nullptr);
+  return smem_bytes(heads_per_block(G), hd, esz, int8_pool, quant,
+                    pages_per_rank * ps, chunk_rows, nullptr, nullptr);
 }
 
 // layout: 0 int8 pool + quantized attention, 1 exact pool + quantized
@@ -799,9 +860,11 @@ size_t paged_attention_smem(int layout, int pool_dtype, int G, int hd,
 // (n_pages, ps, KV, hd) int8 or the pool dtype, 16-byte aligned; ks/vs
 // (n_pages, ps, KV) f32 in the int8 pool (else unused). table (B, P)
 // int32; steps (B,) int32; out (B, KV, G, hd) f32, or the pool dtype in
-// layout 2. Needs hd % 16 == 0, 128 % hd == 0, G <= 8. cluster: blocks
-// per (slot, KV head), 1..min(8, P); grid_x = cluster * B (block x serves
-// slot x / cluster); pages_per_rank * cluster >= P; chunk_rows in
+// layout 2. Needs hd % 16 == 0, hd <= 256, G >= 1 (any; a block serves
+// heads_per_block(G) of them, KV * ceil(G / that) <= 65535). cluster:
+// blocks per (slot, KV head, block of heads), 1..min(8, P); grid_x =
+// cluster * B (block x serves slot x / cluster); pages_per_rank * cluster
+// >= P; chunk_rows in
 // 1..pages_per_rank * ps (kernels/paged_attention.py::launch_plan chooses
 // them).
 int paged_attention_launch(int layout, int pool_dtype, const void* q,
@@ -812,8 +875,11 @@ int paged_attention_launch(int layout, int pool_dtype, const void* q,
                            int hd, int ps, int P, float scale, int cluster,
                            int pages_per_rank, int chunk_rows, void* out,
                            void* stream) {
-  if (grid_x <= 0 || KV <= 0 || G <= 0 || G > kMaxG || hd % 16 ||
-      128 % hd || ps <= 0 || P <= 0 || cluster < 1 ||
+  if (grid_x <= 0 || KV <= 0 || G <= 0 || hd <= 0 || hd % 16 ||
+      hd > kMaxHd ||
+      (long)KV * ((G + heads_per_block(G) - 1) / heads_per_block(G)) >
+          65535 ||
+      ps <= 0 || P <= 0 || cluster < 1 ||
       cluster > kMaxCluster || cluster > P || grid_x % cluster ||
       (long)pages_per_rank * cluster < P || chunk_rows < 1 ||
       chunk_rows > pages_per_rank * ps)

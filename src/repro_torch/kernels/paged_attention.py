@@ -14,14 +14,21 @@ instance of the kernel each (:data:`LAYOUTS`):
 :func:`paged_attention` prepares q as the reference's wrapper does (per
 token int8 codes in q's own dtype under quantized attention; f32 in the
 int8 pool's float layout; as it is in the exact pool's), then on CUDA
-tensors launches one thread block cluster per (slot, KV head), whose
-ranks split the slot's live pages and reduce the row statistics through
-distributed shared memory (:func:`launch_plan` chooses the cluster size,
-the pages per rank and the rows staged at once); on CPU tensors it runs
+tensors launches one thread block cluster per (slot, KV head, block of at
+most 8 of its query heads), whose ranks split the slot's live pages and
+reduce the row statistics through distributed shared memory
+(:func:`launch_plan` chooses the cluster size, the pages per rank, the
+rows staged at once and the blocks of heads); on CPU tensors it runs
 :func:`paged_attention_plain`, the gather + ``attend_cached`` path. Each
 launch adds one to ``paged_attention.launches``. The kernel's softmax and
 float dots sum in another order than the plain version, so the two agree
 within the bounds of :func:`agreement`, not bit for bit.
+
+The kernel takes any number G of query heads per KV head (more than 8
+are served by ``ceil(G / 8)`` clusters of heads, each staging the KV
+head's pages again) and any head dimension that is a multiple of 16 up
+to 256. The reference's kernel takes any head dimension; no architecture
+of either package has one outside that range.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from repro_torch.quant.quantize import quantize_per_token
 
 __all__ = ["paged_attention", "paged_attention_plain", "agreement",
            "float_roundings", "bf16_neighbours", "launch_plan", "smem_bytes",
-           "LaunchPlan", "LAYOUTS", "ROW_BUDGET"]
+           "heads_per_block", "LaunchPlan", "LAYOUTS", "ROW_BUDGET"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,9 +57,9 @@ _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # The kernel's constants (csrc/paged_attention.cu): threads per block,
-# query heads per KV head at most, blocks per cluster at most (the
-# portable size) and the shared memory a block may use.
-THREADS, MAX_G, MAX_CLUSTER = 128, 8, 8
+# query heads per block at most, blocks per cluster at most (the portable
+# size), the largest head dimension and the shared memory a block may use.
+THREADS, MAX_G, MAX_CLUSTER, MAX_HD = 128, 8, 8, 256
 SMEM_LIMIT = 232448
 
 
@@ -60,17 +67,29 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def heads_per_block(g: int) -> int:
+    """The query heads one block serves out of ``g`` per KV head: ``g`` cut
+    into ceil(g / MAX_G) blocks as even as they come (16: 8 and 8; 9: 5
+    and 4)."""
+    n = -(-g // MAX_G)
+    return -(-g // n)
+
+
 def smem_bytes(g: int, hd: int, itemsize: int, int8_pool: bool,
                quant: bool, lanes: int, chunk_rows: int) -> int:
-    """A block's dynamic shared memory, as the kernel carves it
-    (``smem_bytes`` in the CUDA source): the K chunk (which later holds the
-    P.V partial sums of the block's parts, 16 * THREADS * G bytes), the V
-    chunk, the chunk's K scales and every lane's V scale (int8 pool), the
-    score row (G * lanes f32), the inbox of the P.V sums this rank adds
-    (G * hd + 8 words), q (G * hd words), the statistics, the P codes
-    (quantized attention)."""
+    """A block's dynamic shared memory for ``g`` query heads per KV head,
+    as the kernel carves it (``smem_bytes`` in the CUDA source) for the
+    block's gb = :func:`heads_per_block` (g) heads: the K chunk (which
+    later holds the P.V partial sums of the block's parts, 16 * THREADS *
+    gb bytes), the V chunk, the chunk's K scales and every lane's V scale
+    (int8 pool), the score row (gb * lanes f32), the inbox of the P.V sums
+    this rank adds (gb * hd + 8 words), q (gb * hd words), the statistics
+    (with max(THREADS, hd) words of |V| maxima), the P codes (quantized
+    attention)."""
+    g = heads_per_block(g)
     rb = hd * itemsize
-    small = (7 * MAX_G + (THREADS // 32) * MAX_G + THREADS + 2 * hd) * 4
+    small = (7 * MAX_G + (THREADS // 32) * MAX_G + max(THREADS, hd)
+             + 2 * hd) * 4
     sizes = (max(chunk_rows * rb, 16 * THREADS * g), chunk_rows * rb,
              chunk_rows * 4 if int8_pool else 0, lanes * 4 if int8_pool else 0,
              g * lanes * 4, (g * hd + MAX_CLUSTER) * 4, g * hd * 4, small,
@@ -79,14 +98,17 @@ def smem_bytes(g: int, hd: int, itemsize: int, int8_pool: bool,
 
 
 class LaunchPlan(NamedTuple):
-    """How one call is spread: ``cluster`` blocks per (slot, KV head);
-    rank r owns pages r, r + cluster, ... (``pages_per_rank`` at most);
-    ``chunk_rows`` pool rows are staged at once; ``smem`` bytes per
+    """How one call is spread: ``cluster`` blocks per (slot, KV head,
+    block of ``heads`` query heads; ``head_blocks`` such blocks per KV
+    head); rank r owns pages r, r + cluster, ... (``pages_per_rank`` at
+    most); ``chunk_rows`` pool rows are staged at once; ``smem`` bytes per
     block."""
     cluster: int
     pages_per_rank: int
     chunk_rows: int
     smem: int
+    heads: int
+    head_blocks: int
 
     def pages(self, rank: int, n_pages: int) -> list[int]:
         """The page indices (of a table ``n_pages`` wide) rank owns."""
@@ -94,21 +116,24 @@ class LaunchPlan(NamedTuple):
 
     def grid(self, slots: int, kv_heads: int) -> tuple[int, int]:
         """The launch's grid: block x serves slot x // cluster as rank
-        x % cluster (the cluster dims are (cluster, 1, 1)), block y the
-        KV head."""
-        return self.cluster * slots, kv_heads
+        x % cluster (the cluster dims are (cluster, 1, 1)), block y KV
+        head y // head_blocks and its query heads from heads * (y %
+        head_blocks)."""
+        return self.cluster * slots, kv_heads * self.head_blocks
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(n_pages: int, page_size: int, g: int, hd: int,
                 itemsize: int, int8_pool: bool, quant: bool) -> LaunchPlan:
-    """The launch for a table of ``n_pages`` pages of ``page_size`` rows:
-    the portable cluster of min(8, n_pages) blocks (one grid column of
-    cluster blocks per slot, so the cluster divides the grid), each owning
-    every cluster-th page, and the most rows per staged chunk that keep a
-    block within 227 KiB of shared memory (the whole of a rank's rows at
-    every serving shape). Raises when not even one row fits. Cached: the
-    serving loop asks for the same few shapes on every call."""
+    """The launch for a table of ``n_pages`` pages of ``page_size`` rows
+    and ``g`` query heads per KV head: the portable cluster of min(8,
+    n_pages) blocks (one grid column of cluster blocks per slot, so the
+    cluster divides the grid), each owning every cluster-th page;
+    :func:`heads_per_block` query heads per cluster; and the most rows per
+    staged chunk that keep a block within 227 KiB of shared memory (the
+    whole of a rank's rows at every serving shape). Raises when not even
+    one row fits. Cached: the serving loop asks for the same few shapes on
+    every call."""
     cluster = min(MAX_CLUSTER, n_pages)
     ppr = -(-n_pages // cluster)
     lanes = ppr * page_size
@@ -124,7 +149,9 @@ def launch_plan(n_pages: int, page_size: int, g: int, hd: int,
             lo = mid
         else:
             hi = mid - 1
-    return LaunchPlan(cluster, ppr, lo, smem_bytes(*args, lo))
+    heads = heads_per_block(g)
+    return LaunchPlan(cluster, ppr, lo, smem_bytes(*args, lo), heads,
+                      -(-g // heads))
 
 
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -336,19 +363,22 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool, page_indices, steps, cfg,
                                      scale)
-    lib = _library()
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on CUDA or CPU tensors, "
-                         f"got {q.device}")
     b, sq_len, h, hd = q.shape
     if sq_len != 1:
         raise ValueError(f"decode kernel expects Sq == 1, got {sq_len}")
     n_pages, ps, kvh = pool["k"].shape[:3]
     g = h // kvh
+    if hd % 16 or hd > MAX_HD or g < 1 or h % kvh:
+        raise ValueError(
+            f"the paged-attention kernel takes a head dimension that is a "
+            f"multiple of 16 up to {MAX_HD} (the reference kernel takes any) "
+            f"and whole query heads per KV head; got hd={hd}, {h} heads "
+            f"over {kvh} KV heads")
+    lib = _library()
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
     pages = page_indices.shape[1]
-    if hd % 16 or 128 % hd or g > 8:
-        raise ValueError(f"kernel needs hd % 16 == 0, 128 % hd == 0 and "
-                         f"<= 8 query heads per KV head; got hd={hd}, G={g}")
     int8_pool = pool["k"].dtype == torch.int8
     layout = LAYOUTS[(bool(cfg.quant_attention), int8_pool)][0]
     names = ("k", "v", "ks", "vs") if int8_pool else ("k", "v")

@@ -1,14 +1,17 @@
 """Where the time of the port's main serving path goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--backend engine_cuda|lut_cuda | --fp] [--steps 8]
+        [--arch smollm_135m] [--backend engine_cuda|lut_cuda | --fp] \
+        [--steps 8]
 
-Builds the serving path (smollm-135m at full width unless ``--reduced``,
+Builds the serving path (``--arch``, smollm-135m by default, at full
+width unless ``--reduced``,
 W4A8 linears through ``--backend``: the forest kernel with ``engine_cuda``,
 the default, which first plans every linear, or the doubling-LUT kernel
 with ``lut_cuda``; or, with ``--fp``, the base config unquantized: bf16
 linears, float attention over an exact pool; the paged-attention kernel,
-bf16, random weights from ``--seed``), admits ``--slots`` requests of
+bf16, random weights from ``--seed`` drawn on the card), admits
+``--slots`` requests of
 ``--prompt-len`` tokens, then:
 
   * times ``--steps`` packed decode steps with the host clock around
@@ -42,8 +45,10 @@ PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "paged_decode": "B2 paged attention",
                 "forest_fused16": "B1 forest, int16 plan (9 <= T <= 15)",
                 "forest_dense": "B1 forest from a dense plan (T >= 16)",
+                "forest_sparse": "B1 forest, sparse plan (T >= 16)",
                 "tgemm_lut": "B3 doubling-LUT transitive GEMM",
                 "w4a8_dot": "B4 group-dequant GEMM",
+                "w4a8_wgmma": "B4 group-dequant GEMM, tensor cores",
                 "rg_lru_ring": "B5 linear recurrence, TMA ring",
                 "rg_lru_regs": "B5 linear recurrence, unaligned rows"}
 
@@ -67,6 +72,7 @@ def _device_events(prof):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm_135m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--backend", default="engine_cuda",
                     choices=list_backends(),
@@ -80,12 +86,13 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
-    base = get_reduced("smollm_135m") if args.reduced else \
-        get_config("smollm_135m")
+    base = get_reduced(args.arch) if args.reduced else \
+        get_config(args.arch)
     cfg = base if args.fp else serve_config(base, backend=args.backend)
     cfg = cfg.replace(paged_kernel=True)
     model = Model(cfg, device="cuda")
-    params = model.attach_device_plans(model.init(args.seed))
+    params = model.attach_device_plans(model.init(args.seed,
+                                                  on_device=True))
     max_len = 256
     eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
                       page_size=16, paged_kernel=True, device="cuda")

@@ -6,8 +6,12 @@ or (``--fp``) the base config unquantized.
       --continuous --backend lut_cuda --paged-kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --continuous --fp --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1-7b \
+      --continuous --backend lut_cuda --paged-kernel
 
-Runs on ``cuda`` unless ``--device cpu`` is given. Requests arrive
+Runs on ``cuda`` unless ``--device cpu`` is given; random weights from
+``--seed`` are drawn on that device (``Model.init(on_device=True)``: a
+full-width 7B model is made on the card in seconds). Requests arrive
 staggered (``--requests`` of them, one every ``--arrive-every`` host
 steps) into ``--slots`` packed decode slots over a paged KV pool of
 ``--page-size``-token pages; even requests repeat a base prompt and odd
@@ -145,7 +149,7 @@ def main(argv=None):
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
                                             backend=args.backend)
     model = Model(cfg, device=args.device)
-    params = model.init(args.seed)
+    params = model.init(args.seed, on_device=True)
     if not args.fp and get_backend(args.backend).needs_plan:
         from repro_torch.core import plancache
         cache = plancache.default_cache()

@@ -85,23 +85,28 @@ class Model:
                 p[f"m{i}"] = B.init_mlp(gen, self.cfg)
         return p
 
-    def init(self, seed: int = 0) -> Params:
-        """Random params from a CPU ``torch.Generator`` seeded with
-        ``seed`` (the same weights on every device), moved to the model's
-        device."""
+    def init(self, seed: int = 0, on_device: bool = False) -> Params:
+        """Random params from a ``torch.Generator`` seeded with ``seed``:
+        on the CPU (the same weights on every device), moved to the
+        model's device; or, with ``on_device``, on the model's device
+        itself (other numbers than the CPU's; no host copy and no f32
+        weight kept: each linear is drawn and quantized in turn, which is
+        how a full-width model is made on the card)."""
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(seed)
-        embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
-                 * 0.02).to(cfg.dtype)
+        where = self.device if on_device else torch.device("cpu")
+        gen = torch.Generator(device=where).manual_seed(seed)
+        embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             device=where) * 0.02).to(cfg.dtype)
         blocks = _stack([self._init_superblock(gen)
                          for _ in range(cfg.n_repeats)])
         params: Params = {
             "embed": embed, "blocks": blocks,
-            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32)}
+            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                     device=where)}
         if not cfg.tie_embeddings:
             params["unembed"] = (torch.randn(
-                (cfg.vocab, cfg.d_model), generator=gen) * 0.02
-            ).to(cfg.dtype)
+                (cfg.vocab, cfg.d_model), generator=gen, device=where)
+                * 0.02).to(cfg.dtype)
         return _to(params, self.device)
 
     # ---- serve-path plan warmup -------------------------------------------

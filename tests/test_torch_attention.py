@@ -283,6 +283,71 @@ def test_paged_attention_other_layouts_match_reference(quant, int8_pool,
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("g,hd,kv", [(16, 32, 1), (2, 256, 2)],
+                         ids=["G16-hd32", "G2-hd256"])
+@pytest.mark.parametrize("quant,int8_pool", [(True, True), (True, False),
+                                             (False, False), (False, True)],
+                         ids=["int8pool-int8attn", "exact-int8attn",
+                              "exact-float", "int8pool-float"])
+def test_paged_attention_wide_groups_and_heads_match_reference(
+        quant, int8_pool, g, hd, kv, cfgs, rng):
+    """The shapes the CUDA kernel takes since its head blocks and wide
+    heads (G > 8 query heads per KV head, as chatglm3-6b's 16; hd = 256,
+    as recurrentgemma-9b's): the port's plain version against the
+    reference's Pallas ``paged_attention`` (interpret mode) in all four
+    layouts, f32, with ragged steps and dead table entries at page 0.
+    Tolerances as the layout tests above: int8 attention one P step times
+    the V scale (int8 pool: max vs * 128 / 127; exact pool: max sv * 128
+    / 127, sv the |V| max over the gathered extent / 127); float attention
+    rtol and atol 1e-5 (f32 sums in other orders). The two agree within
+    the bounds the CUDA kernel is held to (``agreement``) as well."""
+    pt_cfg = cfgs[0].replace(quant_attention=quant)
+    ref_cfg = cfgs[1].replace(quant_attention=quant)
+    q, pool, table, steps = _layout_case(rng, 8, int8_pool, "float32",
+                                         kv=kv, g=g, hd=hd)
+    tpool = {n: T(a) for n, a in pool.items()}
+    scale = hd ** -0.5
+    got = paged_attention(T(q), tpool, T(table), T(steps), pt_cfg, scale)
+    want = np.array(ref_paged_attention(
+        jnp.asarray(q), {n: jnp.asarray(a) for n, a in pool.items()},
+        jnp.asarray(table), jnp.asarray(steps), ref_cfg, scale,
+        interpret=True))
+    assert got.shape == q.shape == want.shape
+    rtol = 0
+    if quant and int8_pool:
+        atol = float(pool["vs"].max()) / 127 * 128
+    elif quant:
+        cv = PA._gather_pages(tpool["v"], T(table))
+        atol = float((cv.abs().amax(1) / 127. + 1e-8).max()) * 128 / 127
+    else:
+        atol = rtol = 1e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+    agree = agreement(got, T(want), tpool, T(table), T(steps), pt_cfg,
+                      q=T(q), scale=scale)
+    assert agree["rows_beyond"] <= ROW_BUDGET, agree
+    assert agree["worst_loose"] <= 1, agree
+
+
+def test_paged_attention_refuses_a_head_dim_off_the_kernel(cfgs):
+    """The kernel takes head dimensions that are multiples of 16 up to 256
+    (the reference's takes any); outside them the wrapper raises for a
+    tensor off the CPU, naming the domain, before it builds or launches
+    anything. On the CPU the plain version takes any."""
+    from repro_torch.kernels import paged_attention as K
+    for hd in (8, 24, 272):
+        with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+            K.paged_attention(torch.zeros((1, 1, 2, hd), device="meta"),
+                              {"k": torch.zeros((3, 4, 1, hd),
+                                                dtype=torch.int8,
+                                                device="meta")},
+                              None, None, cfgs[0], 1.0)
+    q, pool, table, steps = _layout_case(np.random.default_rng(0), 8, True,
+                                         "float32", hd=24)
+    out = K.paged_attention(T(q), {n: T(a) for n, a in pool.items()},
+                            T(table), T(steps), cfgs[0], 24 ** -0.5)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("fault", ["page 0 left out", "live lanes only"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_agreement_flags_a_v_max_over_too_few_lanes(fault, dtype, cfgs,
@@ -476,20 +541,22 @@ def _one_block_smem(g, hd, s):
     return 5 * g * s + 512 * g + 128 + 4 * hd + 512 + 5 * g * hd
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256])
 @pytest.mark.parametrize("n_pages", [1, 2, 3, 7, 16, 128, 512])
 def test_launch_plan_owns_every_page_once_and_fits(n_pages, hd):
-    """The B2 launch (``launch_plan``): for every G <= 8, page size and
-    layout, each page index of the table belongs to exactly one rank, the
-    cluster has at most 8 blocks and divides the launch's grid, whose
-    blocks serve every (slot, rank) once, the chunk of staged rows fits
-    the rank's rows, the block's shared memory fits 227 KiB, and every
-    shape the one-block design took is still taken."""
+    """The B2 launch (``launch_plan``): for every G up to 32, page size
+    and layout, each page index of the table belongs to exactly one rank,
+    the cluster has at most 8 blocks and divides the launch's grid, whose
+    blocks serve every (slot, rank, KV head, query head) once with at most
+    8 query heads a block, the chunk of staged rows fits the rank's rows,
+    the block's shared memory fits 227 KiB, and every shape the one-block
+    design took (at most 8 heads a block) is still taken."""
     from repro_torch.kernels.paged_attention import (SMEM_LIMIT,
+                                                     heads_per_block,
                                                      launch_plan, smem_bytes)
     layouts = [(1, True, True), (1, True, False), (2, False, True),
                (4, False, True), (2, False, False), (4, False, False)]
-    for g in (1, 3, 8):
+    for g in (1, 3, 5, 8, 9, 16, 32):
         for page_size in (1, 16, 256):
             for itemsize, int8_pool, quant in layouts:
                 try:
@@ -497,16 +564,28 @@ def test_launch_plan_owns_every_page_once_and_fits(n_pages, hd):
                                        int8_pool, quant)
                 except ValueError:              # so did the one-block one
                     assert _one_block_smem(
-                        g, hd, n_pages * page_size) > SMEM_LIMIT
+                        heads_per_block(g), hd, n_pages * page_size) \
+                        > SMEM_LIMIT
                     continue
                 assert 1 <= plan.cluster <= min(8, n_pages)
+                assert 1 <= plan.heads <= 8
                 for b in (1, 4, 64):        # the grid the wrapper launches
                     grid_x, grid_y = plan.grid(b, 3)
-                    assert grid_x % plan.cluster == 0 and grid_y == 3
+                    assert grid_x % plan.cluster == 0
                     assert sorted((x // plan.cluster, x % plan.cluster)
                                   for x in range(grid_x)) == [
                         (s, r) for s in range(b)
                         for r in range(plan.cluster)]
+                    # grid row y: KV head y // head_blocks, its query
+                    # heads from heads * (y % head_blocks), as the kernel
+                    served = [(y // plan.head_blocks, h) for y in
+                              range(grid_y)
+                              for h in range((y % plan.head_blocks)
+                                             * plan.heads,
+                                             min((y % plan.head_blocks + 1)
+                                                 * plan.heads, g))]
+                    assert sorted(served) == [(kvh, h) for kvh in range(3)
+                                              for h in range(g)]
                 owned = [p for r in range(plan.cluster)
                          for p in plan.pages(r, n_pages)]
                 assert sorted(owned) == list(range(n_pages))
@@ -523,5 +602,8 @@ def test_launch_plan_owns_every_page_once_and_fits(n_pages, hd):
     for page_size in (8, 16, 32, 64):            # long tables, big heads
         for pages in (n_pages * 3, n_pages * 8):
             if _one_block_smem(8, hd, pages * page_size) <= SMEM_LIMIT:
-                plan = launch_plan(pages, page_size, 8, hd, 4, False, True)
-                assert plan.smem <= SMEM_LIMIT
+                for g in (8, 16):
+                    plan = launch_plan(pages, page_size, g, hd, 4, False,
+                                       True)
+                    assert plan.smem <= SMEM_LIMIT
+

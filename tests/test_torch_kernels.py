@@ -350,6 +350,42 @@ def test_paged_attention_cluster_cases(cuda, layout, case):
     _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 5, 9, 16, 32])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3])
+def test_paged_attention_head_blocks_and_wide_heads(cuda, layout, g, hd):
+    """Any number of query heads per KV head (above 8 in blocks of at most
+    8, each its own cluster) and head dimensions up to 256, in each pool
+    layout: B=3 slots over 2 KV heads at page size 16 and max_len 256,
+    random steps, against the plain version on CPU copies within the
+    bounds of ``agreement``; one launch per call over the grid
+    ``launch_plan`` gives; two calls bit-identical."""
+    from repro_torch.kernels.paged_attention import (LAYOUTS, launch_plan,
+                                                     paged_attention,
+                                                     paged_attention_plain)
+    case = (3, 2, g, hd, 16, (256,), "bfloat16", None)
+    q, pool, table, steps, cfg = _b2_inputs(layout, case,
+                                            1000 * layout + 10 * g + hd,
+                                            cuda)
+    quant, int8_pool = {v[0]: k for k, v in LAYOUTS.items()}[layout]
+    plan = launch_plan(16, 16, g, hd, pool["k"].element_size(), int8_pool,
+                       quant)
+    assert plan.heads * plan.head_blocks >= g
+    assert plan.heads * (plan.head_blocks - 1) < g and plan.heads <= 8
+    before = paged_attention.launches
+    got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    again = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    assert paged_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    cpu = {n: a.cpu() for n, a in pool.items()}
+    want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
+                                 hd ** -0.5)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
+
+
 def _b2_inputs(layout, case, seed, cuda):
     """(q, pool, table, steps, cfg) of a B2 cluster case in one layout,
     drawn from ``seed``."""
@@ -471,15 +507,17 @@ def test_paged_attention_bf16_rows_beyond_are_explained(cuda):
 
 def test_paged_attention_smem_matches_the_kernel(cuda):
     """``kernels.paged_attention.smem_bytes`` (what ``launch_plan`` sizes
-    the chunk by) equals the kernel's own carve-up for every layout."""
+    the chunk by) equals the kernel's own carve-up for every layout, at
+    G up to 32 query heads per KV head (blocks of at most 8) and head
+    dimensions up to 256."""
     from repro_torch.kernels.paged_attention import _library, smem_bytes
     lib = _library()
     for layout, pool_dtype in ((0, 0), (1, 0), (1, 1), (2, 0), (2, 1),
                                (3, 0)):
         int8_pool = layout in (0, 3)
         itemsize = 1 if int8_pool else (4, 2)[pool_dtype]
-        for g in (1, 3, 8):
-            for hd in (16, 32, 64, 128):
+        for g in (1, 3, 8, 9, 16, 32):
+            for hd in (16, 32, 48, 64, 128, 256):
                 for ps, ppr, chunk in ((16, 2, 32), (16, 16, 100), (1, 5, 1),
                                        (4, 2, 7)):
                     want = smem_bytes(g, hd, itemsize, int8_pool,
