@@ -42,7 +42,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      call (one device op per call, asserted) and the K split; then
      llama1-7b's three linear shapes (N, K) = (4096, 4096), (11008,
      4096), (4096, 11008) at M = 4 and 512, exact against the integer
-     GEMM, timed beside ``torch._int_mm`` (``check_tgemm_llama``);
+     GEMM, timed beside ``torch._int_mm`` (``check_tgemm_arch``; it runs
+     recurrentgemma-9b's four shapes, (4096, 4096), (256, 4096), (12288,
+     4096), (4096, 12288), at M = 4, 512 and 2100 just before phase 12);
   B3g. B3 at T outside {4, 8}, through the same kernel at its own
      subtile width (8, or 4 in the unaligned instance where K / groups is
      not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
@@ -125,6 +127,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      d_model / heads = 160) and chatglm3-6b (G=16, partial RoPE) at their
      published widths, depth cut to 4 layers, the same checks, each
      model freed before the next is built (``dense_paths``);
+  12. recurrentgemma-9b at full width and depth (38 layers: 12 x
+     (rglru, rglru, attn) + a tail of two rglru, d_model 4096, 16 heads
+     over 1 KV head, hd 256, d_ff 12288, vocab 256000 tied, local window
+     2048, bf16, random weights from seed 0 drawn on the card) served as
+     the reference serves it, through one-shot ``greedy_generate`` over
+     dense caches on ``lut_cuda`` (``recurrent_path``): (a) B = 4,
+     128-token prompts, 32 tokens; (b) B = 1, a 2,100-token prompt
+     (``attend_chunked`` with the window; decode wraps the 2048-slot
+     rolling caches), 16 tokens. B5 launches once per RG-LRU block of the
+     prefill (26), B3 launches, B1 and B2 do not, the plan cache sees no
+     lookup; ``int_dot`` gives every token equal; one block's (a, b) from
+     each run through B5 and its plain version, bit-equal, with B5's
+     device us per call there; prefill seconds, decode tokens/s and peak
+     GiB printed;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -138,7 +154,8 @@ that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
 B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; B2's int8 entry and B3's also list their launches in
-phases 11 and 11b under ``launches_in_other_phases``; launches made to
+phases 11 and 11b (B3's and B5's in phase 12's two runs too) under
+``launches_in_other_phases``; launches made to
 compare a kernel with its plain version are not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
 true, "device": {...}}``.
@@ -316,8 +333,8 @@ def check_forest(flush):
         p_ms = cuda_ms(lambda: forest_plan_plain(fplan, x), flush, iters=5,
                        warmup=1)
         if g == 1:
-            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
-                             device="cuda")
+            xm = torch.zeros((max(-(-m // 8) * 8, 32), k),
+                             dtype=torch.int8, device="cuda")
             xm[:m] = qx
             w8t = w.to(torch.int8).T
             lib_ms = cuda_ms(lambda: torch._int_mm(xm, w8t), flush)
@@ -672,8 +689,8 @@ def check_tgemm(flush):
             raise AssertionError(f"B3 at {tag} ran {ops} device ops per "
                                  f"call, not 1")
         if groups == 1 and n % 8 == 0 and k % 8 == 0:
-            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
-                             device="cuda")
+            xm = torch.zeros((max(-(-m // 8) * 8, 32), k),
+                             dtype=torch.int8, device="cuda")
             xm[:m] = x
             wt = w.T
             lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
@@ -702,15 +719,22 @@ def check_tgemm(flush):
 
 LLAMA_SHAPES = ((4096, 4096, "q/k/v/o"), (11008, 4096, "up/gate"),
                 (4096, 11008, "down"))
+# recurrentgemma-9b's linears: the RG-LRU block's five and the attention
+# block's q/o at 4096 x 4096, k/v over its one KV head of 256, the MLP's
+RGEMMA_SHAPES = ((4096, 4096, "rglru x/gate/r/i/out, attn q/o"),
+                 (256, 4096, "attn k/v"), (12288, 4096, "up/gate"),
+                 (4096, 12288, "down"))
 
 
-def check_tgemm_llama(flush):
-    """B3 at llama1-7b's three linear shapes, (N, K) = (4096, 4096),
-    (11008, 4096) and (4096, 11008), at M = 4 (decode) and 512 (a bucketed
-    prefill), w_bits 4, T=8: exact against the integer GEMM, one device op
-    per call, with kernel ms (event-timed, L2 flushed), the profiler's
-    device us, ``torch._int_mm`` (M padded to 32) and the bound
-    (``_tgemm_bound``). Returns {shape: numbers}."""
+def check_tgemm_arch(flush, arch="llama1-7b", shapes=LLAMA_SHAPES,
+                      ms=(4, 512)):
+    """B3 at an architecture's linear shapes: llama1-7b's three, (N, K) =
+    (4096, 4096), (11008, 4096) and (4096, 11008), at M = 4 (decode) and
+    512 (a bucketed prefill), or those given (recurrentgemma-9b's four at
+    its phase 12 prefills' M too), w_bits 4, T=8: exact against the
+    integer GEMM, one device op per call, with kernel ms (event-timed, L2
+    flushed), the profiler's device us, ``torch._int_mm`` (M padded to 32)
+    and the bound (``_tgemm_bound``). Returns {shape: numbers}."""
     import torch
     from repro_torch.core.backend import int_matmul
     from repro_torch.kernels.transitive_gemm import (k_split, lut_width,
@@ -718,10 +742,10 @@ def check_tgemm_llama(flush):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
-    for n, k, role in LLAMA_SHAPES:
+    for n, k, role in shapes:
         w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
                           dtype=torch.int8)
-        for m in (4, 512):
+        for m in ms:
             x = torch.randint(-128, 128, (m, k), generator=gen,
                               device="cuda", dtype=torch.int8)
             call = (lambda: transitive_gemm_cuda(x, w, w_bits=4))
@@ -729,7 +753,7 @@ def check_tgemm_llama(flush):
             err = int((got[:, 0].long() - int_matmul(x, w.T).long())
                       .abs().max())
             width = lut_width(k, 1)[0]
-            tag = (f"llama1-7b {role} N={n} K={k} M={m} w_bits=4 T=8 "
+            tag = (f"{arch} {role} N={n} K={k} M={m} w_bits=4 T=8 "
                    f"width={width} ksplit={k_split(m, n, k, 1, width, sms)}")
             if err:
                 raise AssertionError(f"B3 at {tag}: max |diff| {err} from "
@@ -739,15 +763,15 @@ def check_tgemm_llama(flush):
             if ops != 1:
                 raise AssertionError(f"B3 at {tag} ran {ops} device ops "
                                      f"per call, not 1")
-            xm = torch.zeros((max(m, 32), k), dtype=torch.int8,
-                             device="cuda")
+            xm = torch.zeros((max(-(-m // 8) * 8, 32), k),
+                             dtype=torch.int8, device="cuda")
             xm[:m] = x
             wt = w.T
             lib_ms = cuda_ms(lambda: torch._int_mm(xm, wt), flush)
             lib_us, _, _ = device_us(lambda: torch._int_mm(xm, wt),
                                      kernels=())
             b_ms, b_by, _, _ = _tgemm_bound(m, n, k, 4, 1)
-            print(f"[B3 llama1-7b] {tag}: exact | kernel_ms={k_ms:.4f} "
+            print(f"[B3 {arch}] {tag}: exact | kernel_ms={k_ms:.4f} "
                   f"device us/call {dev:.2f} (kernel {ker:.2f}, one op) "
                   f"library_ms={lib_ms:.4f} (_int_mm, device us "
                   f"{lib_us:.2f}) bound_ms={b_ms:.6f} ({b_by})")
@@ -2041,6 +2065,191 @@ def dense_paths():
     return out
 
 
+def recurrent_path(flush):
+    """Phase 12: recurrentgemma-9b at full width and depth (38 layers: 12
+    repeats of (rglru, rglru, attn) and a tail of two rglru, d_model 4096,
+    16 heads over 1 KV head, hd 256, d_ff 12288, vocab 256000 tied, local
+    window 2048, bf16, W4A8 per-channel linears on ``lut_cuda``, int8
+    attention, KV8 caches; random weights from seed 0 drawn on the card),
+    served as the reference serves it: one-shot ``greedy_generate`` over
+    dense, layer-stacked caches (the paged engine refuses the config). Two
+    runs: (a) B = 4, 128-token prompts, 32 tokens; (b) B = 1, one
+    2,100-token prompt, 16 tokens (its prefill takes ``attend_chunked``
+    with the window, its decode writes positions 2100-2115 into slots
+    52-67 of the 2048-slot rolling caches). Over each, with the counts set
+    to 0 just before: B5 launches once per RG-LRU block (26) in the
+    prefill and nowhere else, B3 launches, B1 and B2 do not, the plan
+    cache sees no lookup. Each run again on ``int_dot`` (float64 integer
+    GEMM, same params): every token equal. One block's (a, b) captured
+    from each run goes through B5 and its plain version: bit-equal; B5's
+    launch plan and the profiler's device us per call at those inputs.
+    Returns (launches by run, B5's numbers by run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import plancache
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rg_lru import (launch_plan, rg_lru_cuda,
+                                            rg_lru_plain)
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = serve_config(get_config("recurrentgemma_9b"), backend="lut_cuda")
+    kinds = cfg.block_pattern * cfg.n_repeats + cfg.block_tail
+    n_rglru = kinds.count("rglru")
+    if (cfg.n_layers, len(kinds), n_rglru) != (38, 38, 26):
+        raise AssertionError(f"phase 12: {cfg.n_layers} layers, "
+                             f"{n_rglru} RG-LRU blocks")
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, on_device=True)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    print(f"[phase 12] {cfg.name}: {cfg.n_layers} layers (full depth: "
+          f"{cfg.n_repeats} x {cfg.block_pattern} + tail "
+          f"{cfg.block_tail}; {n_rglru} RG-LRU, "
+          f"{kinds.count('attn')} local attention), d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab} tied window={cfg.local_window} "
+          f"dtype={cfg.dtype} | paged path: {model.supports_paged()} | "
+          f"init on the card {t_init:.2f}s, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
+    kernels = (transitive_gemm_cuda, rg_lru_cuda, paged_attention,
+               transitive_forest, transitive_forest_dense, launch_sparse)
+    icfg = cfg.replace(quant=cfg.quant.with_(backend="int_dot"))
+    launches, b5 = {}, {}
+    for run, (b, s, gen) in (("a", (4, 128, 32)), ("b", (1, 2100, 16))):
+        tokens = torch.from_numpy(np.random.default_rng(s).integers(
+            0, cfg.vocab, size=(b, s)))
+        max_len = s + gen + 8
+        captured, timing, steps = [], {}, []
+        scan, prefill, decode = ops.rg_lru, model.prefill, model.decode_step
+
+        def capture(x, a, h0):
+            if not captured:            # the first block of the body
+                captured.append((x.clone(), a.clone(), h0.clone()))
+            return scan(x, a, h0)
+
+        def timed_prefill(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = prefill(*args, **kw)
+            torch.cuda.synchronize()
+            timing["prefill"] = time.perf_counter() - t
+            return out
+
+        def timed_decode(*args, **kw):
+            t = time.perf_counter()
+            out = decode(*args, **kw)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+            return out
+        cache = plancache.default_cache().stats()
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ops.rg_lru, model.prefill = capture, timed_prefill
+        model.decode_step = timed_decode
+        try:
+            toks = greedy_generate(model, params, {"tokens": tokens},
+                                   max_len=max_len, n_steps=gen).cpu()
+        finally:
+            ops.rg_lru = scan
+            del model.prefill, model.decode_step
+        decode_s = sum(steps)
+        mid = sorted(steps)[len(steps) // 2]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k.__name__: k.launches for k in kernels}
+        after = plancache.default_cache().stats()
+        tag = f"phase 12 ({run}) B={b} S={s} -> {gen}"
+        print(f"[{tag}] lut_cuda: prefill {timing['prefill']:.3f}s, decode "
+              f"{len(steps)} steps in {decode_s:.3f}s -> "
+              f"{b * len(steps) / decode_s:.1f} tokens/s (first step "
+              f"{steps[0] * 1e3:.1f} ms, median {mid * 1e3:.1f} ms, host "
+              f"clock, synchronized a step) | {peak:.2f} GiB "
+              f"peak | launches: {got} (B5 want {n_rglru}, once per RG-LRU "
+              f"block of the prefill) | plan cache hits+misses "
+              f"{cache['hits'] + cache['misses']} -> "
+              f"{after['hits'] + after['misses']}")
+        if tuple(toks.shape) != (b, gen) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{tag}: output malformed: {toks}")
+        if got["rg_lru_cuda"] != n_rglru:
+            raise AssertionError(f"{tag}: B5 launched {got['rg_lru_cuda']} "
+                                 f"times, not once per RG-LRU block "
+                                 f"({n_rglru})")
+        if not got["transitive_gemm_cuda"]:
+            raise AssertionError(f"{tag}: B3 never launched")
+        if any(got[k.__name__] for k in kernels[2:]):
+            raise AssertionError(f"{tag}: B1 or B2 launched: {got}")
+        if (after["hits"], after["misses"]) != (cache["hits"],
+                                                cache["misses"]):
+            raise AssertionError(f"{tag}: lut_cuda touched the plan cache")
+        launches[tag] = got
+        before = transitive_gemm_cuda.launches
+        t0 = time.perf_counter()
+        itoks = greedy_generate(Model(icfg, device="cuda"), params,
+                                {"tokens": tokens}, max_len=max_len,
+                                n_steps=gen).cpu()
+        idt = time.perf_counter() - t0
+        same = int((itoks == toks).sum())
+        b3 = transitive_gemm_cuda.launches - before
+        print(f"[{tag}] int_dot (float64 integer GEMM): {idt:.3f}s | tokens "
+              f"equal to the lut_cuda run: {same}/{toks.numel()} | B3 "
+              f"launches {b3}")
+        if not torch.equal(itoks, toks) or b3:
+            raise AssertionError(f"{tag}: int_dot tokens differ from "
+                                 f"lut_cuda's ({same}/{toks.numel()} equal; "
+                                 f"B3 launched {b3} times there)")
+        x, a, h0 = captured[0]
+        want = rg_lru_plain(x, a, h0)
+        have = rg_lru_cuda(x, a, h0)
+        torch.cuda.synchronize()
+        if have.dtype != torch.float32 or not torch.equal(have, want):
+            raise AssertionError(
+                f"{tag}: B5 on the path's own (a, b) not bit-equal to its "
+                f"plain version, max |diff| "
+                f"{float((have - want).abs().max())}")
+        plan = launch_plan(b, s, cfg.d_model, 4, 4, 4, x.data_ptr(),
+                           a.data_ptr(), have.data_ptr())
+        dev, ker, n_ops = device_us(lambda: rg_lru_cuda(x, a, h0),
+                                    kernels=(plan.kernel,))
+        k_ms = cuda_ms(lambda: rg_lru_cuda(x, a, h0), flush)
+        p_ms = cuda_ms(lambda: rg_lru_plain(x, a, h0), flush, iters=3,
+                       warmup=1)
+        b_ms, b_by = bound_ms(b * s * cfg.d_model * 12 + b * cfg.d_model * 4,
+                              2 * b * s * cfg.d_model, SCALAR_OPS_PER_S)
+        if n_ops != 1 or plan.kernel != "rg_lru_ring":
+            raise AssertionError(f"{tag}: B5 ran {n_ops} device ops per "
+                                 f"call ({plan.kernel}), not one "
+                                 f"rg_lru_ring")
+        print(f"[{tag}] B5 on the path's (a, b) of the first RG-LRU block "
+              f"(B={b} S={s} D={cfg.d_model} f32, h0 = 0): bit-equal to "
+              f"its plain version | {plan.kernel} dt={plan.dt} st={plan.st}"
+              f" ns={plan.ns} blocks={plan.blocks} | device us/call "
+              f"{dev:.2f} (kernel {ker:.2f}) kernel_ms={k_ms:.4f} plain_ms="
+              f"{p_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
+        b5[tag] = {"device_us": dev, "kernel_us": ker, "ms": k_ms,
+                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "kernel": plan.kernel, "max_abs_err": 0.0,
+                   "prefill_s": timing["prefill"],
+                   "decode_tokens_per_s": b * len(steps) / decode_s,
+                   "decode_step_median_ms": mid * 1e3,
+                   "peak_gib": peak}
+        del captured, x, a, h0, want, have
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return launches, b5
+
+
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
@@ -2191,13 +2400,12 @@ def main() -> int:
     forest = check_forest(flush)
     attention = check_attention(flush)
     tgemm = check_tgemm(flush)
-    tgemm["llama1_7b"] = check_tgemm_llama(flush)
+    tgemm["llama1_7b"] = check_tgemm_arch(flush)
     generic = check_tgemm_generic(flush)
     dense = check_forest_dense(flush)
     sparse = check_forest_sparse(flush)
     w4a8 = check_w4a8(flush)
     rglru = check_rg_lru(flush)
-    del flush
     check_reduced_serve()
     launches, toks, raw, cfg = main_path()
     lut = lut_path(toks, raw, cfg)
@@ -2205,6 +2413,10 @@ def main() -> int:
     layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
     del raw
     archs = dense_paths()
+    tgemm["recurrentgemma_9b"] = check_tgemm_arch(
+        flush, "recurrentgemma-9b", RGEMMA_SHAPES, (4, 512, 2100))
+    recurrent, rglru["phase 12"] = recurrent_path(flush)
+    del flush
     ops = ops_path()
     kernels = [
         {"name": "transitive_forest", "route": "cuda",
@@ -2241,7 +2453,8 @@ def main() -> int:
          "launches": lut["transitive_gemm_cuda"],
          "launches_from": "phase 6 (lut_cuda serve)",
          "launches_in_other_phases": {
-             phase: n["transitive_gemm_cuda"] for phase, n in archs.items()},
+             phase: n["transitive_gemm_cuda"] for phase, n in
+             (archs | recurrent).items()},
          **tgemm},
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
@@ -2258,7 +2471,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rg_lru.cu",
          "replaces": "src/repro/kernels/rg_lru.py:51",
          "launches": ops["rg_lru_cuda"],
-         "launches_from": "phase 7 (kernels.ops)", **rglru},
+         "launches_from": "phase 7 (kernels.ops)",
+         "launches_in_other_phases": {
+             phase: n["rg_lru_cuda"] for phase, n in recurrent.items()},
+         **rglru},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
-"""Architecture config registry: the attention-only dense decoders the
-port serves.
+"""Architecture config registry: the dense decoders and the hybrid
+recurrent one (recurrentgemma-9b) the port serves.
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_reduced(name)`` the smoke-test-sized variant of the same family.
 The reference registers eleven architectures; the port registers the ones
-its model code runs (recurrent, MoE, cross-attention and enc-dec families
+its model code runs (MoE, xLSTM, cross-attention and enc-dec families
 come later).
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ ARCHS = [
     "qwen3_14b",
     "chatglm3_6b",
     "llama1_7b",          # the paper's own evaluation model
+    "recurrentgemma_9b",  # RG-LRU + local attention, one-shot serving only
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

@@ -1,8 +1,8 @@
-"""Where the time of the port's main serving path goes, on the card.
+"""Where the time of the port's serving paths goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch smollm_135m] [--backend engine_cuda|lut_cuda | --fp] \
-        [--steps 8]
+        [--steps 8] [--oneshot]
 
 Builds the serving path (``--arch``, smollm-135m by default, at full
 width unless ``--reduced``,
@@ -16,11 +16,18 @@ bf16, random weights from ``--seed`` drawn on the card), admits
 
   * times ``--steps`` packed decode steps with the host clock around
     ``step()`` + ``torch.cuda.synchronize()`` (ms per step);
-  * runs the same number of further steps under ``torch.profiler`` and
+  * runs the same number of further steps under ``torch.profiler`` (the
+    profile opened by ``device_events``' primer launches, left out) and
     reports device time per step by kernel (the port's CUDA kernels by
     their entry names, everything else grouped), and the device
     busy share = summed kernel time / wall time of the window (one
     stream, so kernels do not overlap).
+
+With ``--oneshot`` the step is ``greedy_generate``'s instead (the path
+of configs the paged engine does not cover, recurrentgemma-9b among
+them): a batch of ``--slots`` prompts is prefilled into dense caches
+(that prefill is profiled too: one call, its device time by kernel), and
+each step is one ``Model.decode_step`` and its argmax.
 
 If the profiler records no device events, the device columns read "not
 measured". CUDA only: a host without a card raises.
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.backend import list_backends
+from repro_torch.launch.device_events import PRIMER, PRIMER_LAUNCHES
 from repro_torch.launch.specs import serve_config
 from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
@@ -61,13 +69,89 @@ def _label(name: str) -> str:
 
 
 def _device_events(prof):
-    """(name, total device us, count) of every device-side event."""
+    """(name, total device us, count) of every device-side event but the
+    primer's."""
     from torch.autograd import DeviceType
     out = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and PRIMER not in e.key:
             out.append((e.key, e.self_device_time_total, e.count))
     return out
+
+
+def _profiled(fn, n: int):
+    """(profile, wall seconds) of ``n`` calls of ``fn``. The profile opens
+    with ``device_events``' primer (a profile can lose its first launches
+    after the card idled), outside the timed window."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRIMER_LAUNCHES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    return prof, window
+
+
+def _report(prof, window: float, n: int, what: str, top: int) -> None:
+    """Device busy share and time by kernel over ``n`` calls of ``what``
+    profiled in ``window`` seconds."""
+    events = _device_events(prof)
+    busy_us = sum(t for _, t, _ in events)
+    per = window * 1e3 / n
+    if busy_us <= 0:
+        print(f"[profile] {what}: window {per:.2f} ms each under the "
+              f"profiler; device time: not measured (no device events "
+              f"recorded)")
+        return
+    print(f"[profile] {what}: window {per:.2f} ms each under the profiler"
+          f" | device busy {busy_us / 1e3 / n:.3f} ms each = "
+          f"{busy_us / 1e6 / window:.3f} of wall (idle "
+          f"{1 - busy_us / 1e6 / window:.3f})")
+    grouped: dict[str, list] = {}
+    for name, t, c in events:
+        g = grouped.setdefault(_label(name), [0.0, 0])
+        g[0] += t
+        g[1] += c
+    rows = sorted(grouped.items(), key=lambda kv: -kv[1][0])
+    port_labels = set(PORT_KERNELS.values())
+    other = [(t, c) for label, (t, c) in rows if label not in port_labels]
+    print(f"[profile] {what}: {sum(c for _, _, c in events) // n} device "
+          f"launches each; outside the port's kernels: "
+          f"{sum(t for t, _ in other) / 1e3 / n:.4f} ms over "
+          f"{sum(c for _, c in other) // n} launches")
+    shown = rows[:top] + [r for r in rows[top:] if r[0] in port_labels]
+    for label, (t, c) in shown:        # the port's kernels always shown
+        print(f"  {t / 1e3 / n:9.4f} ms {t / busy_us:6.3f} of device | "
+              f"{c // n:5d} launches | {label[:90]}")
+
+
+def _oneshot(model, params, args):
+    """(admit, step) over dense caches: admit prefills ``--slots`` prompts;
+    each step is one decode step and its argmax, on the device."""
+    cfg = model.cfg
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(args.slots, args.prompt_len)))
+    max_len = args.prompt_len + 2 * args.steps + 10
+    state = {}
+
+    def admit():
+        logits, state["caches"] = model.prefill(params, {"tokens": tokens},
+                                                max_len)
+        state["tok"] = torch.argmax(logits[:, -1], -1)[:, None]
+        state["step"] = args.prompt_len
+
+    def step():
+        logits, _ = model.decode_step(params, state["caches"], state["tok"],
+                                      state["step"])
+        state["tok"] = torch.argmax(logits[:, -1], -1)[:, None]
+        state["step"] += 1
+    return admit, step
 
 
 def main(argv=None):
@@ -79,6 +163,9 @@ def main(argv=None):
                     help="integer-GEMM backend of the PTQ linears")
     ap.add_argument("--fp", action="store_true",
                     help="the base config unquantized (no backend)")
+    ap.add_argument("--oneshot", action="store_true",
+                    help="profile greedy_generate's decode step over dense "
+                    "caches (batch --slots) instead of ServeEngine's")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
@@ -93,73 +180,47 @@ def main(argv=None):
     model = Model(cfg, device="cuda")
     params = model.attach_device_plans(model.init(args.seed,
                                                   on_device=True))
-    max_len = 256
-    eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
-                      page_size=16, paged_kernel=True, device="cuda")
-    rng = np.random.default_rng(args.seed + 1)
-    gen = 1 + 3 * args.steps                    # never finishes in-window
-    for _ in range(args.slots):
-        eng.submit(rng.integers(0, cfg.vocab, size=args.prompt_len).tolist(),
-                   gen)
+    if args.oneshot:
+        admit, step = _oneshot(model, params, args)
+    else:
+        eng = ServeEngine(model, params, n_slots=args.slots, max_len=256,
+                          page_size=16, paged_kernel=True, device="cuda")
+        rng = np.random.default_rng(args.seed + 1)
+        gen = 1 + 3 * args.steps                # never finishes in-window
+        for _ in range(args.slots):
+            eng.submit(rng.integers(0, cfg.vocab,
+                                    size=args.prompt_len).tolist(), gen)
+        admit = step = eng.step                 # admission + 1st decode
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step()                                  # admission + 1st decode
+    admit()
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
-    eng.step()                                  # warm-up decode
+    step()                                      # warm-up decode
     torch.cuda.synchronize()
 
     walls = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        eng.step()
+        step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     step_ms = 1e3 * sum(walls) / len(walls)
+    mode = "one-shot (greedy_generate)" if args.oneshot else "ServeEngine"
     print(f"[profile] {cfg.name} ({cfg.n_layers} layers, "
-          f"{'fp' if args.fp else 'backend ' + args.backend}, "
+          f"{'fp' if args.fp else 'backend ' + args.backend}, {mode}, "
           f"{torch.cuda.get_device_name(0)}) | {args.slots} slots x "
-          f"{args.prompt_len}-token prompts | admission + first decode "
+          f"{args.prompt_len}-token prompts | "
+          f"{'prefill' if args.oneshot else 'admission + first decode'} "
           f"{t_admit * 1e3:.1f} ms | decode step {step_ms:.2f} ms "
           f"(host clock, mean of {args.steps}, min "
           f"{1e3 * min(walls):.2f}) -> {args.slots / step_ms * 1e3:.1f} "
           f"tokens/s")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    events = _device_events(prof)
-    busy_us = sum(t for _, t, _ in events)
-    per_step = window * 1e3 / args.steps
-    if busy_us <= 0:
-        print(f"[profile] window {per_step:.2f} ms/step under the profiler;"
-              f" device time: not measured (no device events recorded)")
-        return
-    print(f"[profile] window {per_step:.2f} ms/step under the profiler | "
-          f"device busy {busy_us / 1e3 / args.steps:.3f} ms/step = "
-          f"{busy_us / 1e6 / window:.3f} of wall (idle "
-          f"{1 - busy_us / 1e6 / window:.3f})")
-    grouped: dict[str, list] = {}
-    for name, t, n in events:
-        g = grouped.setdefault(_label(name), [0.0, 0])
-        g[0] += t
-        g[1] += n
-    rows = sorted(grouped.items(), key=lambda kv: -kv[1][0])
-    port_labels = set(PORT_KERNELS.values())
-    other = [(t, n) for label, (t, n) in rows if label not in port_labels]
-    print(f"[profile] {sum(n for _, _, n in events) // args.steps} device "
-          f"launches/step; outside the port's kernels: "
-          f"{sum(t for t, _ in other) / 1e3 / args.steps:.4f} ms/step over "
-          f"{sum(n for _, n in other) // args.steps} launches/step")
-    for label, (t, n) in rows[:args.top]:
-        print(f"  {t / 1e3 / args.steps:9.4f} ms/step {t / busy_us:6.3f} "
-              f"of device | {n // args.steps:5d} launches/step | "
-              f"{label[:90]}")
+    if args.oneshot:
+        _report(*_profiled(admit, 1), 1, "prefill", args.top)
+    _report(*_profiled(step, args.steps), args.steps, "decode step",
+            args.top)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Serving launcher of the port: continuous batching through the paged-KV
-serve engine, W4A8 TransitiveLinear + dynamic int8 attention + KV8 cache,
-or (``--fp``) the base config unquantized.
+"""Serving launcher of the port: one-shot batched greedy generation over
+dense caches, or continuous batching through the paged-KV serve engine
+(``--continuous``); W4A8 TransitiveLinear + dynamic int8 attention + KV8
+cache, or (``--fp``) the base config unquantized.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --continuous --backend lut_cuda --paged-kernel
@@ -8,10 +9,25 @@ or (``--fp``) the base config unquantized.
       --continuous --fp --paged-kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama1-7b \
       --continuous --backend lut_cuda --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --backend lut_cuda --batch 4 \
+      --prompt-len 128 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given; random weights from
 ``--seed`` are drawn on that device (``Model.init(on_device=True)``: a
-full-width 7B model is made on the card in seconds). Requests arrive
+full-width 7B model is made on the card in seconds).
+
+Without ``--continuous`` (the one-shot mode) ``--batch`` prompts of
+``--prompt-len`` tokens, drawn from ``--seed``, go through
+``greedy_generate``: one prefill into dense, layer-stacked caches of
+``max_len = prompt_len + gen + 8`` positions (rolling ones of the local
+window where the config has one), then ``--gen`` tokens. The report
+prints tokens, seconds, tokens/s and the kernel launch counts. This is
+how the reference serves configs the paged path does not cover
+(``Model.supports_paged``), recurrentgemma-9b among them: with
+``--continuous`` they are refused with its reason.
+
+With ``--continuous`` requests arrive
 staggered (``--requests`` of them, one every ``--arrive-every`` host
 steps) into ``--slots`` packed decode slots over a paged KV pool of
 ``--page-size``-token pages; even requests repeat a base prompt and odd
@@ -26,9 +42,8 @@ paged-attention kernel's exact-pool float layout. The report prints
 per-request TTFT and latency, tokens/s, the prefix-reuse counters and the
 kernel launch counts.
 
-Only the ``--continuous`` mode is ported; the one-shot batched generate,
-meshes, plan bundles, hot swap and the lint preflight of the reference
-launcher are not.
+Meshes, plan bundles, hot swap and the lint preflight of the reference
+launcher are not ported.
 """
 from __future__ import annotations
 
@@ -41,6 +56,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.backend import get_backend, list_backends
 from repro_torch.launch.specs import serve_config
 from repro_torch.models.model import Model
+from repro_torch.train.serve_step import greedy_generate
 
 
 def prefix_sharing_prompts(vocab: int, n: int, length: int,
@@ -53,6 +69,46 @@ def prefix_sharing_prompts(vocab: int, n: int, length: int,
     return [list(base) if i % 2 == 0 else
             base[:half] + rng.integers(0, vocab, size=length - half).tolist()
             for i in range(n)]
+
+
+def _mode(cfg) -> str:
+    if cfg.quant.mode == "ptq":
+        return (f"W{cfg.quant.w_bits}A8+KV{cfg.kv_cache_bits}/"
+                f"{cfg.quant.backend}")
+    return f"fp {str(cfg.dtype).removeprefix('torch.')}"
+
+
+def generate_oneshot(model, params, args):
+    """``--batch`` seeded prompts through ``greedy_generate`` over dense
+    caches; returns the (batch, gen) tokens on the host."""
+    import torch
+    from repro_torch.kernels.rg_lru import rg_lru_cuda
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+
+    cfg = model.cfg
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(args.batch, args.prompt_len)))
+    max_len = args.prompt_len + args.gen + 8
+    kernels = (transitive_forest, transitive_gemm_cuda, rg_lru_cuda)
+    launches0 = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, params, {"tokens": tokens},
+                           max_len=max_len, n_steps=args.gen).cpu()
+    dt = time.perf_counter() - t0
+    n = args.batch * args.gen
+    print(f"[{cfg.name} | {_mode(cfg)} | one-shot | {model.device}] "
+          f"generated {args.batch}x{args.gen} tokens from "
+          f"{args.prompt_len}-token prompts (max_len {max_len}) in "
+          f"{dt:.2f}s -> {n / dt:.1f} tok/s")
+    print(f"[kernels] transitive_forest launches="
+          f"{transitive_forest.launches - launches0[0]} transitive_gemm "
+          f"launches={transitive_gemm_cuda.launches - launches0[1]} rg_lru "
+          f"launches={rg_lru_cuda.launches - launches0[2]}")
+    for i, row in enumerate(toks.tolist()):
+        print(f"  row {i}: {row}")
+    return toks
 
 
 def serve_continuous(model, params, args):
@@ -83,12 +139,7 @@ def serve_continuous(model, params, args):
         host_step += 1
     dt = time.perf_counter() - t0
     rep = eng.report()
-    if cfg.quant.mode == "ptq":
-        mode = (f"W{cfg.quant.w_bits}A8+KV{cfg.kv_cache_bits}/"
-                f"{cfg.quant.backend}")
-    else:
-        mode = f"fp {str(cfg.dtype).removeprefix('torch.')}"
-    print(f"[{cfg.name} | {mode} | "
+    print(f"[{cfg.name} | {_mode(cfg)} | "
           f"continuous | {model.device}] {rep['n_requests']} requests x "
           f"{args.gen} tokens ({args.slots} slots, page_size={ps}) in "
           f"{dt:.2f}s -> {rep['tokens_per_s']:.1f} tok/s")
@@ -121,7 +172,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching through the paged-KV serve "
-                    "engine (the only mode ported)")
+                    "engine (default: one-shot greedy_generate)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="one-shot mode: prompts in the batch")
     ap.add_argument("--backend", default="int_dot", choices=list_backends(),
                     help="integer-GEMM backend for the PTQ linears")
     ap.add_argument("--w-bits", type=int, default=4, choices=(4, 8))
@@ -142,13 +195,14 @@ def main(argv=None):
                     help="torch device (default: cuda; pass cpu to run the "
                     "plain PyTorch path on the CPU)")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only --continuous serving is ported")
 
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
                                             backend=args.backend)
     model = Model(cfg, device=args.device)
+    reason = model.supports_paged()
+    if args.continuous and reason is not None:
+        ap.error(f"--continuous needs the paged serve path: {reason}")
     params = model.init(args.seed, on_device=True)
     if not args.fp and get_backend(args.backend).needs_plan:
         from repro_torch.core import plancache
@@ -159,6 +213,8 @@ def main(argv=None):
         print(f"[plan cache] {stats['plans']} plans over {stats['layers']} "
               f"stacked layer weights in {time.perf_counter() - t0:.2f}s | "
               f"{cache!r}")
+    if not args.continuous:
+        return generate_oneshot(model, params, args)
     return serve_continuous(model, params, args)
 
 

@@ -7,8 +7,10 @@ Integer products that the reference leaves to XLA (``_scores``/``_pv``,
 ``attend_cached``) go through :func:`repro_torch.core.backend.int_matmul`
 semantics: float64 einsums, exact for int8 operands, cast to int32.
 Pools and caches are updated in place where the reference donates its
-buffers. ``attend_chunked`` (sequences above ``CHUNK_THRESHOLD``),
-cross-attention and local-window caches are not part of this slice.
+buffers. Prefill over more than ``CHUNK_THRESHOLD`` positions takes
+``attend_chunked`` (float, query chunks of ``Q_CHUNK``), and a local
+window keeps a rolling dense cache of ``min(max_len, window)`` slots.
+Cross-attention is not part of the port yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.quant.quantize import true_div
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048        # direct softmax below, chunked above
+Q_CHUNK = 1024                # query-chunk size of attend_chunked
 
 
 def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,6 +100,38 @@ def attend_full(q, k, v, mask, scale, quant: bool = False):
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return _pv(p, v, quant)
+
+
+def attend_chunked(q, k, v, scale, causal: bool, window: int,
+                   q_offset=0, kv_len=None):
+    """Query-chunked float attention, the reference's path above
+    ``CHUNK_THRESHOLD``: each chunk of ``Q_CHUNK`` queries (the whole of
+    ``q`` when Sq is not a multiple of it) sees the full K/V, so the score
+    tile is (chunk, Sk) and no softmax state is carried. Masks: causal,
+    ``qpos - kpos < window`` where ``window``, ``kpos < kv_len`` where
+    given; queries sit at ``q_offset + i``.
+
+    q (B,Sq,H,D); k/v (B,Sk,H,D) already GQA-repeated."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    cq = Q_CHUNK if sq % Q_CHUNK == 0 else sq
+    kpos = torch.arange(sk, device=q.device)
+    outs = []
+    for c0 in range(0, sq, cq):
+        qpos = q_offset + c0 + torch.arange(cq, device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, c0:c0 + cq], k) \
+            .to(torch.float32) * scale
+        ok = torch.ones((cq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= qpos[:, None] >= kpos[None, :]
+        if window:
+            ok &= qpos[:, None] - kpos[None, :] < window
+        if kv_len is not None:
+            ok &= kpos[None, :] < kv_len
+        s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v))
+    return torch.cat(outs, dim=1)
 
 
 def attend_cached(q, ck, cv, cks, cvs, valid, cfg: ModelConfig, scale):
@@ -179,8 +214,11 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    device=None):
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+                    window: int = 0, device=None):
+    """One layer's dense cache: ``max_len`` slots, or a rolling cache of
+    ``min(max_len, window)`` slots for a local window."""
+    size = min(max_len, window) if window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
     if cfg.kv_cache_bits == 8:
         return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
@@ -222,12 +260,15 @@ def _kv_stores(k, v, int8: bool) -> dict:
 
 
 def apply_attn(params, x, cfg: ModelConfig, *, positions, cache=None,
-               step=None, prefill=False):
+               step=None, window=0, prefill=False):
     """Causal self-attention block body (pre-norm, residual outside).
 
     Modes: train (cache=None), prefill (cache given, filled in place with
     the prompt's K/V), decode (cache given, position ``step`` written in
-    place). Returns (out, cache)."""
+    place). With a local ``window`` prefill masks ``qpos - kpos <
+    window``, and the cache rolls: position p lives in slot p % size, the
+    prompt's last ``size`` positions are kept and decode attends over
+    the ``min(step + 1, size)`` filled slots. Returns (out, cache)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, sq, _ = x.shape
     q, k, v = _qkv(params, x, cfg, positions)
@@ -237,25 +278,32 @@ def apply_attn(params, x, cfg: ModelConfig, *, positions, cache=None,
     if cache is None or prefill:
         if cache is not None:
             size = cache["k"].shape[1]
-            if sq > size:
+            if sq > size and not window:
                 raise ValueError(f"prompt of {sq} exceeds the cache ({size})")
+            take = min(size, sq)
+            slots = (torch.arange(take, device=x.device) + (sq - take)) \
+                % size
             int8 = cache["k"].dtype == torch.int8
-            for name, val in _kv_stores(k, v, int8).items():
-                cache[name][:, :sq] = val.to(cache[name].dtype)
+            for name, val in _kv_stores(k[:, sq - take:], v[:, sq - take:],
+                                        int8).items():
+                cache[name][:, slots] = val.to(cache[name].dtype)
+        kf, vf = _repeat_kv(k, groups), _repeat_kv(v, groups)
         if sq > CHUNK_THRESHOLD:
-            raise NotImplementedError(
-                f"attention over {sq} > CHUNK_THRESHOLD={CHUNK_THRESHOLD} "
-                f"positions needs attend_chunked, not yet ported")
-        qp = positions[:, :, None]
-        kp = positions[:, None, :]
-        mask = qp >= kp
-        out = attend_full(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                          mask[:, None], scale, cfg.quant_attention)
+            out = attend_chunked(q, kf, vf, scale, True, window)
+        else:
+            qp = positions[:, :, None]
+            kp = positions[:, None, :]
+            mask = qp >= kp
+            if window:
+                mask &= qp - kp < window
+            out = attend_full(q, kf, vf, mask[:, None], scale,
+                              cfg.quant_attention)
     else:
         size = cache["k"].shape[1]
+        slot = step % size if window else step
         int8 = cache["k"].dtype == torch.int8
         for name, val in _kv_stores(k, v, int8).items():
-            cache[name][:, step] = val[:, 0].to(cache[name].dtype)
+            cache[name][:, slot] = val[:, 0].to(cache[name].dtype)
         lanes = torch.arange(size, device=x.device)
         valid = (lanes < min(step + 1, size))[None, :]
         out = attend_cached(q, cache["k"], cache["v"], cache.get("ks"),
@@ -341,16 +389,16 @@ def apply_attn_paged_prefill(params, x, cfg: ModelConfig, *, pool,
         v_full = torch.cat([v_pre.to(v.dtype), v], dim=1)
     else:
         k_full, v_full = k, v
-    if total > CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"prefill over {total} > CHUNK_THRESHOLD={CHUNK_THRESHOLD} "
-            f"positions needs attend_chunked, not yet ported")
     groups = h // kvh
-    kpos = torch.arange(total, device=x.device)
-    mask = qpos[:, :, None] >= kpos[None, None, :]
-    out = attend_full(q, _repeat_kv(k_full, groups),
-                      _repeat_kv(v_full, groups), mask[:, None], scale,
-                      cfg.quant_attention)
+    kf, vf = _repeat_kv(k_full, groups), _repeat_kv(v_full, groups)
+    # the dense prefill's threshold, on the total length (prefix + suffix)
+    if total > CHUNK_THRESHOLD:
+        out = attend_chunked(q, kf, vf, scale, True, 0, q_offset=start)
+    else:
+        kpos = torch.arange(total, device=x.device)
+        mask = qpos[:, :, None] >= kpos[None, None, :]
+        out = attend_full(q, kf, vf, mask[:, None], scale,
+                          cfg.quant_attention)
     return _out_proj(params, out, x, cfg), pool
 
 

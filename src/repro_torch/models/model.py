@@ -1,16 +1,22 @@
-"""Model assembly (port of ``repro.models.model``) for attention-only
-decoders: embedding, a stack of pre-norm attention + SwiGLU blocks, tied
-or untied unembedding, with dense-cache and paged-pool serve entry points.
+"""Model assembly (port of ``repro.models.model``): embedding, a stack of
+pre-norm blocks, tied or untied unembedding, with dense-cache and
+paged-pool serve entry points. Block kinds: ``attn`` (GQA
+self-attention, global or over a local window) and ``rglru`` (the RG-LRU
+recurrent block), each followed by a SwiGLU MLP.
 
 A config's ``block_pattern`` defines one super-block, repeated
-``n_repeats`` times. Parameters keep the reference's stacked layout:
-every leaf under ``params["blocks"]`` has a leading ``n_repeats`` axis
-(that is what ``repro_torch.convert`` carries over), and the forward pass
-is a Python loop over that axis where the reference scans. Caches and
-page pools are stacked the same way and updated in place.
+``n_repeats`` times, and ``block_tail`` the blocks after them.
+Parameters keep the reference's layout: every leaf under
+``params["blocks"]`` has a leading ``n_repeats`` axis, ``params["tail"]``
+none (that is what ``repro_torch.convert`` carries over), and the forward
+pass is a Python loop over that axis where the reference scans. Caches
+and page pools are laid out the same way and updated in place.
 
-Recurrent, MoE, cross-attention, encoder-decoder and local-window configs
-are not part of this slice: :class:`Model` refuses them.
+The paged serve path covers attention-only configs with global attention
+(:meth:`Model.supports_paged`); the others serve through the dense
+caches of ``prefill`` / ``decode_step``. MoE, xLSTM, cross-attention and
+encoder-decoder configs are not part of the port yet: :class:`Model`
+refuses them.
 """
 from __future__ import annotations
 
@@ -58,13 +64,10 @@ class Model:
 
     @staticmethod
     def _unsupported(cfg: ModelConfig) -> str | None:
-        if any(k != "attn" for k in cfg.block_pattern):
-            return (f"block pattern {cfg.block_pattern} has non-attention "
-                    f"blocks (not ported yet)")
-        if cfg.block_tail:
-            return f"block_tail {cfg.block_tail} is not ported yet"
-        if cfg.local_window:
-            return "local-window (rolling) caches are not ported yet"
+        kinds = set(cfg.block_pattern) | set(cfg.block_tail)
+        if kinds - {"attn", "rglru"}:
+            return (f"blocks {sorted(kinds - {'attn', 'rglru'})} are not "
+                    f"ported yet")
         if cfg.n_context_tokens or cfg.is_encdec:
             return "cross-attention context is not ported yet"
         if cfg.family == "moe":
@@ -72,17 +75,14 @@ class Model:
         return None
 
     # ---- init --------------------------------------------------------------
-    def _wants_mlp(self, i: int) -> bool:
+    def _init_superblock(self, gen, pattern) -> Params:
         cfg = self.cfg
-        return bool(cfg.d_ff) and (cfg.mlp_after is None
-                                   or i in cfg.mlp_after)
-
-    def _init_superblock(self, gen) -> Params:
         p = {}
-        for i, _ in enumerate(self.pattern):
-            p[f"b{i}"] = A.init_attn(gen, self.cfg)
-            if self._wants_mlp(i):
-                p[f"m{i}"] = B.init_mlp(gen, self.cfg)
+        for i, kind in enumerate(pattern):
+            p[f"b{i}"] = (A.init_attn(gen, cfg) if kind == "attn"
+                          else B.init_rglru(gen, cfg))
+            if cfg.d_ff and (cfg.mlp_after is None or i in cfg.mlp_after):
+                p[f"m{i}"] = B.init_mlp(gen, cfg)
         return p
 
     def init(self, seed: int = 0, on_device: bool = False) -> Params:
@@ -97,7 +97,7 @@ class Model:
         gen = torch.Generator(device=where).manual_seed(seed)
         embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                              device=where) * 0.02).to(cfg.dtype)
-        blocks = _stack([self._init_superblock(gen)
+        blocks = _stack([self._init_superblock(gen, self.pattern)
                          for _ in range(cfg.n_repeats)])
         params: Params = {
             "embed": embed, "blocks": blocks,
@@ -107,6 +107,8 @@ class Model:
             params["unembed"] = (torch.randn(
                 (cfg.vocab, cfg.d_model), generator=gen, device=where)
                 * 0.02).to(cfg.dtype)
+        if cfg.block_tail:
+            params["tail"] = self._init_superblock(gen, cfg.block_tail)
         return _to(params, self.device)
 
     # ---- serve-path plan warmup -------------------------------------------
@@ -148,80 +150,114 @@ class Model:
         table = params.get("unembed", params["embed"])
         return torch.matmul(x, table.to(x.dtype).T).to(torch.float32)
 
-    def _blocks(self, params, x, layer_fn):
-        """Run every stacked super-block; ``layer_fn(bp_attn, x, r, i)``
-        applies attention block ``i`` of repeat ``r``."""
-        for r in range(self.cfg.n_repeats):
-            bp = _index(params["blocks"], r)
-            for i, _ in enumerate(self.pattern):
-                x = x + layer_fn(bp[f"b{i}"], x, r, i)
+    def _blocks(self, params, x, state, layer_fn):
+        """Run the stacked super-blocks, then the tail. ``layer_fn(kind,
+        bp, x, c)`` applies one block with its slice ``c`` of ``state``
+        (the caches or the page pool, laid out like the params)."""
+        def run(bp, st, pattern, x):
+            for i, kind in enumerate(pattern):
+                x = x + layer_fn(kind, bp[f"b{i}"], x, st[f"c{i}"])
                 if f"m{i}" in bp:
                     x = x + B.apply_mlp(bp[f"m{i}"], x, self.cfg)
+            return x
+        for r in range(self.cfg.n_repeats):
+            x = run(_index(params["blocks"], r), _index(state["body"], r),
+                    self.pattern, x)
+        if self.cfg.block_tail:
+            x = run(params["tail"], state["tail"], self.cfg.block_tail, x)
         return x
 
     # ---- dense cache serve -------------------------------------------------
-    def _stacked(self, one):
-        """One layer's cache/pool leaves (shapes only, on the meta device)
-        as zeros with a leading layer axis on the model's device."""
-        return {"body": {f"c{i}": {k: torch.zeros(
-            (self.cfg.n_repeats,) + v.shape, dtype=v.dtype,
-            device=self.device) for k, v in one.items()}
-            for i in range(len(self.pattern))}}
+    def _state(self, one):
+        """Zeros on the model's device shaped like ``one(kind)``'s leaves
+        (on the meta device) for every block: a leading layer axis under
+        ``body``, none under ``tail``."""
+        def zeros(tree, lead):
+            return {k: torch.zeros(lead + v.shape, dtype=v.dtype,
+                                   device=self.device)
+                    for k, v in tree.items()}
+        out = {"body": {f"c{i}": zeros(one(kind), (self.cfg.n_repeats,))
+                        for i, kind in enumerate(self.pattern)}}
+        if self.cfg.block_tail:
+            out["tail"] = {f"c{i}": zeros(one(kind), ())
+                           for i, kind in enumerate(self.cfg.block_tail)}
+        return out
 
     def init_cache(self, batch: int, max_len: int):
-        return self._stacked(A.init_attn_cache(self.cfg, batch, max_len,
-                                               device="meta"))
+        cfg = self.cfg
+
+        def one(kind):
+            if kind == "attn":
+                return A.init_attn_cache(cfg, batch, max_len,
+                                         cfg.local_window, device="meta")
+            return B.cache_rglru(cfg, batch, device="meta")
+        return self._state(one)
+
+    def _layer(self, positions, step=None):
+        """The dense-cache layer function of :meth:`_blocks`: prefill, or
+        the decode step writing position ``step``."""
+        cfg = self.cfg
+        prefill = step is None
+
+        def layer(kind, bp, x, c):
+            if kind == "attn":
+                return A.apply_attn(bp, x, cfg, positions=positions,
+                                    cache=c, step=step, prefill=prefill,
+                                    window=cfg.local_window)[0]
+            return B.apply_rglru(bp, x, cfg, cache=c, prefill=prefill)[0]
+        return layer
 
     def prefill(self, params: Params, batch: dict, max_len: int):
         """Process the prompt and fill fresh caches; returns (last-position
         logits (B, 1, V), caches)."""
-        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         b, s = tokens.shape
         caches = self.init_cache(b, max_len)
         pos = torch.arange(s, device=self.device).expand(b, s)
-
-        def layer(bp, x, r, i):
-            c = _index(caches["body"][f"c{i}"], r)
-            return A.apply_attn(bp, x, cfg, positions=pos, cache=c,
-                                prefill=True)[0]
-        x = self._blocks(params, self._embed_tokens(params, tokens), layer)
+        x = self._blocks(params, self._embed_tokens(params, tokens), caches,
+                         self._layer(pos))
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params: Params, caches, token, step: int):
         """One decode step. token (B, 1); step the position written."""
-        cfg = self.cfg
         token = self._tokens(token)
         b = token.shape[0]
         pos = torch.full((b, 1), int(step), device=self.device)
-
-        def layer(bp, x, r, i):
-            c = _index(caches["body"][f"c{i}"], r)
-            return A.apply_attn(bp, x, cfg, positions=pos, cache=c,
-                                step=int(step))[0]
-        x = self._blocks(params, self._embed_tokens(params, token), layer)
+        x = self._blocks(params, self._embed_tokens(params, token), caches,
+                         self._layer(pos, int(step)))
         return self._logits(params, x), caches
 
     # ---- paged serve (continuous batching, repro_torch.serve) --------------
     def supports_paged(self) -> str | None:
         """None when the paged serve path covers this config, else why not
-        (every config :class:`Model` accepts is covered)."""
+        (the reference's reasons, word for word)."""
+        cfg = self.cfg
+        if any(k != "attn" for k in self.pattern):
+            return f"block pattern {self.pattern} has non-attn blocks"
+        if cfg.block_tail:
+            return f"block_tail {cfg.block_tail} is not paged"
+        if cfg.local_window:
+            return "local-window (rolling) caches are not paged"
+        if cfg.n_context_tokens or cfg.is_encdec:
+            return "cross-attention context caches are not paged"
         return None
 
     def init_page_pool(self, n_pages: int, page_size: int):
         """Layer-stacked paged KV pool: leaves (n_repeats, n_pages,
         page_size, KV, D) (+ scale leaves under KV8)."""
-        return self._stacked(A.init_attn_page_pool(self.cfg, n_pages,
-                                                   page_size, device="meta"))
+        reason = self.supports_paged()
+        if reason is not None:
+            raise NotImplementedError(f"paged KV pool: {reason}")
+        return self._state(lambda kind: A.init_attn_page_pool(
+            self.cfg, n_pages, page_size, device="meta"))
 
     def _paged(self, params, tokens, pool, fn, **kw):
         cfg = self.cfg
 
-        def layer(bp, x, r, i):
-            pl = _index(pool["body"][f"c{i}"], r)
+        def layer(kind, bp, x, pl):
             return fn(bp, x, cfg, pool=pl, **kw)[0]
         return self._blocks(params, self._embed_tokens(params, tokens),
-                            layer)
+                            pool, layer)
 
     def prefill_paged(self, params: Params, tokens, pool, *,
                       prefix_page_ids, write_page_ids, write_offs,

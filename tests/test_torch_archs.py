@@ -59,7 +59,8 @@ def _case_id(case):
 
 
 def test_the_four_dense_archs_are_registered():
-    assert ARCHS[0] == "smollm_135m" and sorted(ARCHS[1:]) == sorted(DENSE)
+    assert ARCHS[0] == "smollm_135m" and sorted(ARCHS[1:]) == sorted(
+        DENSE + ["recurrentgemma_9b"])
     for arch in DENSE:
         assert get_config(arch.replace("_", "-")) == get_config(arch)
 

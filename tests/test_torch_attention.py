@@ -534,6 +534,101 @@ def test_paged_decode_layer_kernel_vs_gather(cfgs, rng):
         torch.testing.assert_close(pools[0][n], pools[1][n], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("window", [0, 64, 2048])
+@pytest.mark.parametrize("sq", [2100, 3072])
+@pytest.mark.parametrize("offset", [False, True],
+                         ids=["from-0", "q_offset-kv_len"])
+def test_attend_chunked_matches_reference(sq, window, offset, rng):
+    """``attend_chunked`` (the path above CHUNK_THRESHOLD) in f32: one
+    chunk of all 2,100 queries, or three of Q_CHUNK = 1024, causal, with a
+    local window or none, from position 0 or at ``q_offset`` 40 over 40
+    more keys with the last 7 masked by ``kv_len``: the same masks and a
+    softmax in another summation order, within atol 1e-5."""
+    b, h, d = 1, 2, 16
+    q_off, kv_len = (40, sq + 33) if offset else (0, None)
+    sk = sq + q_off
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    got = PA.attend_chunked(T(q), T(k), T(v), d ** -0.5, True, window,
+                            q_offset=q_off, kv_len=kv_len)
+    want = RA.attend_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             d ** -0.5, True, window, q_offset=q_off,
+                             kv_len=kv_len)
+    assert got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_dense_prefill_past_the_chunk_threshold_matches_reference():
+    """ROADMAP A2's gate: the reduced smollm in f32 (float linears and
+    attention) prefills 2,100 positions through ``attend_chunked`` in both
+    packages, from the reference's weights: last-position logits within
+    atol 2e-4 and the cached (RoPE'd) K/V within the RoPE test's rtol
+    2e-6 / atol 2e-5 (cos and sin of angles up to 2,100 differ by ulps)."""
+    import jax
+    from repro.configs import get_reduced as ref_get_reduced
+    from repro.models.model import Model as RefModel
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models.model import Model
+    ref_model = RefModel(ref_get_reduced("smollm_135m").replace(
+        dtype=jnp.float32))
+    raw = ref_model.init(jax.random.PRNGKey(0))
+    model = Model(get_reduced("smollm_135m").replace(dtype=torch.float32),
+                  device="cpu")
+    params = params_from_reference(jax.tree.map(np.asarray, raw), "cpu")
+    toks = np.random.default_rng(3).integers(0, 512, size=(1, 2100))
+    want, wc = ref_model.prefill(raw, {"tokens": jnp.asarray(toks)}, 2112)
+    got, gc = model.prefill(params, {"tokens": T(toks)}, 2112)
+    assert PA.CHUNK_THRESHOLD < 2100
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(gc["body"]["c0"][name].numpy(),
+                                   np.asarray(wc["body"]["c0"][name]),
+                                   rtol=2e-6, atol=2e-5)
+
+
+def test_paged_prefill_past_the_chunk_threshold_matches_reference(rng):
+    """Per-request paged prefill whose total passes CHUNK_THRESHOLD: a
+    1,040-position shared prefix (65 pages of 16, gathered from an exact
+    f32 pool) and a 1,060-position suffix take ``attend_chunked`` with
+    ``q_offset`` = 1,040 in both packages. The f32 block against the
+    reference's ``apply_attn_paged_prefill``: output within atol 2e-4
+    and the pool within rtol 1e-5 / atol 1e-6."""
+    import jax
+    from repro_torch.convert import params_from_reference
+    ref_cfg = ref_reduced("smollm_135m").replace(dtype=jnp.float32)
+    cfg = get_reduced("smollm_135m").replace(dtype=torch.float32)
+    raw = RA.init_attn(jax.random.PRNGKey(2), ref_cfg)
+    params = params_from_reference(jax.tree.map(np.asarray, raw), "cpu")
+    ps, n_pre, ls = 16, 65, 1060
+    n_suf = -(-ls // ps)
+    n_pages = 1 + n_pre + n_suf
+    shape = (n_pages, ps, cfg.n_kv_heads, cfg.hd)
+    pool = {n: rng.standard_normal(shape).astype(np.float32)
+            for n in ("k", "v")}
+    pre = np.arange(1, 1 + n_pre, dtype=np.int32)
+    wp = np.repeat(np.arange(1 + n_pre, n_pages, dtype=np.int32), ps)[:ls]
+    wo = np.tile(np.arange(ps, dtype=np.int32), n_suf)[:ls]
+    x = rng.standard_normal((1, ls, cfg.d_model)).astype(np.float32)
+    assert n_pre * ps + ls > PA.CHUNK_THRESHOLD
+    want, wpool = RA.apply_attn_paged_prefill(
+        raw, jnp.asarray(x), ref_cfg,
+        pool={n: jnp.asarray(a) for n, a in pool.items()},
+        prefix_page_ids=jnp.asarray(pre), write_page_ids=jnp.asarray(wp),
+        write_offs=jnp.asarray(wo), write_from=0)
+    tpool = {n: T(a.copy()) for n, a in pool.items()}
+    got, gpool = PA.apply_attn_paged_prefill(
+        params, T(x), cfg, pool=tpool, prefix_page_ids=T(pre),
+        write_page_ids=T(wp), write_offs=T(wo), write_from=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-4)
+    for n in pool:
+        np.testing.assert_allclose(gpool[n].numpy(), np.asarray(wpool[n]),
+                                   rtol=1e-5, atol=1e-6)
+
+
 def _one_block_smem(g, hd, s):
     """Shared memory of the previous one-block-per-(slot, KV head) design:
     the whole G x s score row (f32 + int8 codes) and its small arrays. It

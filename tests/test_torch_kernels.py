@@ -1155,6 +1155,25 @@ def test_rg_lru_kernel_mixed_dtypes_bit_equal(cuda, xdt, adt):
     torch.testing.assert_close(got, rg_lru_plain(x, a, h0), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("b,s", [(4, 128), (1, 2100)])
+def test_rg_lru_kernel_bit_equal_at_recurrentgemma_prefill(cuda, b, s):
+    """recurrentgemma-9b's prefill shapes (D = 4096, f32, h0 = 0: what
+    ``apply_rglru`` passes at a 128-token batch of 4 and a 2,100-token
+    prompt), a_t in (0.9, 1) and b_t = sqrt(1 - a_t^2) x_t as the block
+    forms them: one launch, bit-equal to the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_plain
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    a = torch.rand((b, s, 4096), generator=gen, device=cuda) * 0.1 + 0.9
+    x = torch.sqrt(1 - a * a) * torch.randn((b, s, 4096), generator=gen,
+                                            device=cuda)
+    h0 = torch.zeros((b, 4096), device=cuda)
+    before = rg_lru_cuda.launches
+    got = ops.rg_lru(x, a, h0)
+    assert rg_lru_cuda.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, rg_lru_plain(x, a, h0), rtol=0, atol=0)
+
+
 # (b, s, d, x dtype, a dtype, x one element off 16 bytes, kernel); s "st-1"
 # and "st+1" are one step either side of the plan's stage (or batch).
 _B5_CASES = [

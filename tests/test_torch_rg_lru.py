@@ -85,6 +85,21 @@ def test_ring_keeps_bytes_in_flight_at_recurrentgemma_width(b):
     assert (plan.ns - 2) * stage * per_sm >= 20 * 1024
 
 
+@pytest.mark.parametrize("b,s", [(4, 128), (1, 2100)])
+def test_launch_plan_takes_recurrentgemma_prefill_shapes(b, s):
+    """recurrentgemma-9b's RG-LRU prefills (f32 at D = 4096; a batch of 4
+    x 128 tokens, one prompt of 2,100) take the ring: the plan depends on
+    B and D, not on S, owns every chain once and fits; S = 2,100 leaves a
+    ragged last stage, which the kernel's TMA boxes fill with zeros past
+    S and its store clips (``_emulate`` walks such stages below)."""
+    plan = launch_plan(b, s, 4096, 4, 4, 4, 1 << 20, 1 << 21, 1 << 22)
+    assert plan == launch_plan(b, 2048, 4096, 4, 4, 4)
+    assert plan.kernel == "rg_lru_ring" and plan.blocks >= 128
+    _check_plan(plan, b, 4096, 4, 4)
+    stages = -(-s // plan.st)
+    assert (stages - 1) * plan.st < s <= stages * plan.st
+
+
 def _emulate(x, a, h0, plan):
     """The kernel's walk on the CPU: block by block (``plan.chains``), in
     tiles of ``plan.st`` steps over ``plan.dt`` lanes (the ring's TMA
