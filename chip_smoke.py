@@ -25,9 +25,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pool layouts (int8 or exact bf16 pool x int8 or float attention)
      against the gather + attend_cached path at B=4, page_size 16: KV=3,
      G=3, hd=64 (smollm-135m) at max_len 256 and 2048; G=1 hd=128 (KV 32,
-     llama1-7b), G=5 (KV 8, qwen3-14b), G=16 (KV 2, chatglm3-6b) and G=16
-     hd=256 (KV 1, recurrentgemma-9b's heads) at max_len 256; ragged
-     steps, two calls bit-identical, within the bounds of
+     llama1-7b), G=5 (KV 8, qwen3-14b), G=16 (KV 2, chatglm3-6b), G=16
+     hd=256 (KV 1, recurrentgemma-9b's heads) and, at KV 2, hd=72 and
+     hd=320 (rows not a multiple of 16 bytes, heads above 256) at G=1 and
+     G=4, at max_len 256; ragged steps, two calls bit-identical, within
+     the bounds of
      ``kernels.paged_attention.agreement``, with kernel / profiler /
      plain / library
      (``scaled_dot_product_attention``, exact float layout) / bound times;
@@ -44,7 +46,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      4096), (4096, 11008) at M = 4 and 512, exact against the integer
      GEMM, timed beside ``torch._int_mm`` (``check_tgemm_arch``; it runs
      recurrentgemma-9b's four shapes, (4096, 4096), (256, 4096), (12288,
-     4096), (4096, 12288), at M = 4, 512 and 2100 just before phase 12);
+     4096), (4096, 12288), at M = 4, 512 and 2100 just before phase 12;
+     moonshot-v1-16b-a3b's attention linears, (2048, 2048), at M = 4 and
+     512, and llama4-maverick-400b-a17b's attention linears, (5120,
+     5120) and (1024, 5120), and shared expert, (8192, 5120) and (5120,
+     8192), at M = 4, just before phase 13);
   B3g. B3 at T outside {4, 8}, through the same kernel at its own
      subtile width (8, or 4 in the unaligned instance where K / groups is
      not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
@@ -141,6 +147,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      each run through B5 and its plain version, bit-equal, with B5's
      device us per call there; prefill seconds, decode tokens/s and peak
      GiB printed;
+  13. moonshot-v1-16b-a3b (MoE: 64 experts top-6, d_ff 1408 each) at
+     full width and depth (48 layers, d_model 2048, 16/16 heads, hd 128,
+     vocab 163840 tied, bf16 experts, random weights from seed 0 drawn on
+     the card) through ``serve_arch`` on phase 5's workload: B3 (the
+     attention linears) and B2 (once per layer per decode step) launch,
+     B1 does not, the plan cache sees no lookup, ``int_dot`` gives every
+     token equal; the init's peak, tokens/s, mean TTFT, the distinct
+     experts hit per layer and decode step (with the expert bytes they
+     make a step read) and the host syncs inside the model's decode step
+     printed;
+  13b. llama4-maverick-400b-a17b (128 experts top-1 + a shared expert
+     whose W4A8 linears run on B3, 40/8 heads: G=5) at its published
+     widths, depth cut to 1 layer (400B parameters do not fit one card),
+     the same checks (``moe_paths``; moonshot freed first);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -154,8 +174,8 @@ that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
 B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; B2's int8 entry and B3's also list their launches in
-phases 11 and 11b (B3's and B5's in phase 12's two runs too) under
-``launches_in_other_phases``; launches made to
+phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too)
+under ``launches_in_other_phases``; launches made to
 compare a kernel with its plain version are not counted. The line before the last
 is that JSON object of per-kernel numbers; the last line is ``{"ok":
 true, "device": {...}}``.
@@ -469,7 +489,10 @@ def _sdpa_ms(q, pool, table, steps, max_len, scale, flush):
 # 256, the dense architectures' and recurrentgemma-9b's
 ATTN_SHAPES = ((3, 3, 64, "smollm-135m"), (32, 1, 128, "llama1-7b"),
                (8, 5, 128, "qwen3-14b"), (2, 16, 128, "chatglm3-6b"),
-               (1, 16, 256, "recurrentgemma-9b"))
+               (1, 16, 256, "recurrentgemma-9b"),
+               (2, 1, 72, "any hd: 72, G=1"), (2, 4, 72, "any hd: 72, G=4"),
+               (2, 1, 320, "any hd: 320, G=1"),
+               (2, 4, 320, "any hd: 320, G=4"))
 
 
 def check_attention(flush):
@@ -481,7 +504,8 @@ def check_attention(flush):
     at each of ``ATTN_SHAPES``: smollm-135m's (KV=3, G=3, hd=64) at
     max_len 256 and 2048; llama1-7b's G=1 hd=128 (KV 32), qwen3-14b's G=5
     (KV 8), chatglm3-6b's G=16 (KV 2, two blocks of 8 query heads per KV
-    head) and recurrentgemma-9b's G=16 hd=256 (KV 1) at max_len 256.
+    head), recurrentgemma-9b's G=16 hd=256 (KV 1) and hd=72 and hd=320
+    at G=1 and G=4 (KV 2) at max_len 256.
     Layout 0 is compared with the plain version on the card, the others
     with it on CPU copies. Each shape prints kernel ms (event-timed, L2
     flushed), the profiler's device us per call, plain ms, library ms
@@ -724,6 +748,12 @@ LLAMA_SHAPES = ((4096, 4096, "q/k/v/o"), (11008, 4096, "up/gate"),
 RGEMMA_SHAPES = ((4096, 4096, "rglru x/gate/r/i/out, attn q/o"),
                  (256, 4096, "attn k/v"), (12288, 4096, "up/gate"),
                  (4096, 12288, "down"))
+# moonshot-v1-16b-a3b's W4A8 linears (its experts are bf16, not B3's) and
+# llama4-maverick-400b-a17b's (attention and the shared expert)
+MOONSHOT_SHAPES = ((2048, 2048, "attn q/k/v/o"),)
+LLAMA4_SHAPES = ((5120, 5120, "attn q/o"), (1024, 5120, "attn k/v"),
+                 (8192, 5120, "shared expert up/gate"),
+                 (5120, 8192, "shared expert down"))
 
 
 def check_tgemm_arch(flush, arch="llama1-7b", shapes=LLAMA_SHAPES,
@@ -1929,10 +1959,31 @@ def _plan_one_linear(qcfg, layer):
             layer["qw"].numel())
 
 
-def serve_arch(arch, phase, n_layers=None):
-    """One dense architecture at its published widths (depth cut to
-    ``n_layers`` where given, printed) served on ``lut_cuda`` (B3) with the
-    paged-attention kernel (B2): W4A8 per-channel linears, int8 attention,
+def _moe_stats(cfg, routed, steps):
+    """Print the distinct experts each MoE layer's decode call hit (from
+    the expert ids of every decode step's ``n_layers`` calls, in order) and
+    the expert bytes that makes a step read, and their time at the card's
+    memory rate."""
+    hit = [int(e.unique().numel()) for e in routed]
+    if len(hit) != cfg.n_layers * steps:
+        raise AssertionError(f"{len(hit)} MoE decode calls, not {cfg.n_layers}"
+                             f" layers x {steps} steps")
+    per_expert = 3 * cfg.d_model * cfg.d_ff * cfg.dtype.itemsize
+    gb = sum(hit) * per_expert / steps / 1e9
+    print(f"  decode: {sum(hit) / len(hit):.2f} distinct experts per layer "
+          f"per step (max {max(hit)} of {cfg.n_experts}; top-{cfg.top_k} of "
+          f"each slot) -> {gb:.3f} GB of expert weights read per step "
+          f"({per_expert / 1e6:.1f} MB per expert), "
+          f"{gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
+def serve_arch(arch, phase, n_layers=None,
+               cut="the phase shares chip_smoke's time limit"):
+    """One architecture at its published widths (depth cut to ``n_layers``
+    where given, printed with ``cut``, the reason) served on ``lut_cuda``
+    (B3) with the paged-attention kernel (B2): W4A8 per-channel linears,
+    int8 attention,
     KV8 pool, bf16, random weights from seed 0 drawn on the card
     (``Model.init(on_device=True)``); phase 5's workload (4 slots,
     page_size 16, max_len 256, 8 requests of 128-token prompts sharing
@@ -1941,7 +1992,14 @@ def serve_arch(arch, phase, n_layers=None):
     the plan cache sees no lookup. Then the same requests on ``int_dot``
     (an exact float64 integer GEMM) with B2: every token equal, since both
     backends give the same int32 accumulators and the same attention
-    kernel runs. Returns ({kernel: launches}, cfg, params)."""
+    kernel runs. For an MoE config (the experts run in bf16 through
+    ``torch._grouped_mm`` in both runs) it also prints the distinct experts
+    hit per layer and decode step, with the bytes they make a step read,
+    and, in the ``int_dot`` run, the host syncs inside the model's decode
+    step (``torch.cuda``'s sync debug mode). Returns ({kernel: launches},
+    cfg, params)."""
+    import warnings
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import plancache
@@ -1953,6 +2011,7 @@ def serve_arch(arch, phase, n_layers=None):
     from repro_torch.kernels.transitive_forest_sparse import launch_sparse
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     from repro_torch.launch.specs import serve_config
+    from repro_torch.models import blocks as B
     from repro_torch.models.model import Model
     full = get_config(arch)
     cfg = serve_config(full, backend="lut_cuda").replace(paged_kernel=True)
@@ -1964,27 +2023,52 @@ def serve_arch(arch, phase, n_layers=None):
     params = model.init(0, on_device=True)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     g = cfg.n_heads // cfg.n_kv_heads
     plan = launch_plan(16, 16, g, cfg.hd, 1, True, True)
-    depth = (f"{cfg.n_layers} layers (cut from {full.n_layers}: the phase "
-             f"shares chip_smoke's time limit)" if n_layers is not None
+    depth = (f"{cfg.n_layers} layers (cut from {full.n_layers}: {cut})"
+             if n_layers is not None
              else f"{cfg.n_layers} layers (full depth)")
+    moe = cfg.family == "moe"
+    experts = (f"{cfg.n_experts} experts top-{cfg.top_k}"
+               f"{' + shared' if cfg.n_shared_experts else ''} ({cfg.dtype}) "
+               if moe else "")
     print(f"[{phase}] {cfg.name}: {depth}, d_model={cfg.d_model} heads="
           f"{cfg.n_heads}/{cfg.n_kv_heads} (G={g}: B2 in {plan.head_blocks} "
           f"block(s) of {plan.heads} query heads per KV head) hd={cfg.hd} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"d_ff={cfg.d_ff} {experts}vocab={cfg.vocab} "
           f"{'tied' if cfg.tie_embeddings else 'untied'} "
           f"qk_norm={cfg.qk_norm} rope_2d={cfg.rope_2d} dtype={cfg.dtype} | "
-          f"init on the card {t_init:.2f}s, "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
+          f"init on the card {t_init:.2f}s, {peak:.2f} GiB peak")
     prompts = _prompts(cfg.vocab, 8, 128)
     kw = dict(n_slots=4, max_len=256, page_size=16)
     kernels = (transitive_gemm_cuda, paged_attention, transitive_forest,
                transitive_forest_dense, launch_sparse)
+    routed, in_decode = [], [False]
+    local, step = B._moe_local, model.decode_step_paged
+
+    def record(x2, gates, eids, *w):        # keeps the ids: no sync here
+        if in_decode[0]:
+            routed.append(eids)
+        return local(x2, gates, eids, *w)
+
+    def decode(*a, **k):
+        in_decode[0] = True
+        try:
+            return step(*a, **k)
+        finally:
+            in_decode[0] = False
+    if moe:
+        B._moe_local, model.decode_step_paged = record, decode
     cache = plancache.default_cache().stats()
     for k in kernels:
         k.launches = 0
-    eng, dt = _serve(model, params, prompts, 32, paged_kernel=True, **kw)
+    try:
+        eng, dt = _serve(model, params, prompts, 32, paged_kernel=True, **kw)
+    finally:
+        B._moe_local = local
+        if moe:
+            del model.decode_step_paged
     launches = {k.__name__: k.launches for k in kernels}
     after = plancache.default_cache().stats()
     rep = eng.report()
@@ -2013,10 +2097,30 @@ def serve_arch(arch, phase, n_layers=None):
         raise AssertionError(f"{phase}: a B1 kernel launched: {launches}")
     if (after["hits"], after["misses"]) != (cache["hits"], cache["misses"]):
         raise AssertionError(f"{phase}: lut_cuda touched the plan cache")
+    if moe:
+        _moe_stats(cfg, routed, c["decode_steps"])
+        del routed
     icfg = cfg.replace(quant=cfg.quant.with_(backend="int_dot"))
+    imodel = Model(icfg, device="cuda")
+    syncs, sites, istep = [], {}, imodel.decode_step_paged
+
+    def counted(*a, **k):                   # host syncs inside the step
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return istep(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                hit = [x for x in w if "synchronizing" in str(x.message)]
+                syncs.append(len(hit))
+                for x in hit:               # the line that called the op
+                    site = f"{os.path.basename(x.filename)}:{x.lineno}"
+                    sites[site] = sites.get(site, 0) + 1
+    if moe:
+        imodel.decode_step_paged = counted
     before = [k.launches for k in kernels]
-    ieng, idt = _serve(Model(icfg, device="cuda"), params, prompts, 32,
-                       paged_kernel=True, **kw)
+    ieng, idt = _serve(imodel, params, prompts, 32, paged_kernel=True, **kw)
     b3 = transitive_gemm_cuda.launches - before[0]
     itoks = {r.rid: r.tokens for r in ieng.finished}
     same = sum(a == b for rid in toks for a, b in zip(toks[rid], itoks[rid]))
@@ -2024,6 +2128,14 @@ def serve_arch(arch, phase, n_layers=None):
           f"{idt:.3f}s -> {ieng.report()['total_tokens'] / idt:.1f} "
           f"tokens/s | tokens equal to the lut_cuda run: {same}/"
           f"{rep['total_tokens']} | B3 launches {b3}")
+    if moe:
+        print(f"  host syncs inside the model's decode step (sync debug "
+              f"mode, int_dot run): {sum(syncs) / len(syncs):.2f}"
+              f" per step, min {min(syncs)} max {max(syncs)} over "
+              f"{len(syncs)} steps ({cfg.n_layers} MoE layers); by the line "
+              f"that called the op, per step: " + ", ".join(
+                  f"{site} {n / len(syncs):.2f}" for site, n in
+                  sorted(sites.items(), key=lambda kv: -kv[1])))
     if itoks != toks or b3:
         raise AssertionError(f"{phase}: int_dot + B2 tokens differ from "
                              f"lut_cuda + B2 ({same}/{rep['total_tokens']} "
@@ -2060,6 +2172,28 @@ def dense_paths():
             raise AssertionError(f"{arch}: G={cfg.n_heads // cfg.n_kv_heads}"
                                  f", not the published {g}")
         out[f"phase 11b ({arch}, lut_cuda)"] = launches
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_paths():
+    """Phase 13: moonshot-v1-16b-a3b at full width and depth through
+    ``serve_arch`` (its 48 layers of 64 bf16 experts, 53.2 GB, fit the
+    card); phase 13b: llama4-maverick-400b-a17b at its published widths,
+    depth cut to 1 layer (128 experts of 5120 x 8192, 32.2 GB a layer,
+    and a shared expert on B3), moonshot freed first. Returns {phase:
+    launches}."""
+    import torch
+    out = {}
+    for arch, phase, layers, cut in (
+            ("moonshot_v1_16b_a3b", "phase 13", None, None),
+            ("llama4_maverick_400b_a17b", "phase 13b", 1,
+             "400B parameters do not fit one card's 80 GB; one layer "
+             "holds 32.2 GB of experts")):
+        kw = {} if layers is None else {"n_layers": layers, "cut": cut}
+        launches, cfg, params = serve_arch(arch, phase, **kw)
+        out[f"{phase} ({cfg.name}, lut_cuda)"] = launches
         del params
         torch.cuda.empty_cache()
     return out
@@ -2416,7 +2550,12 @@ def main() -> int:
     tgemm["recurrentgemma_9b"] = check_tgemm_arch(
         flush, "recurrentgemma-9b", RGEMMA_SHAPES, (4, 512, 2100))
     recurrent, rglru["phase 12"] = recurrent_path(flush)
+    tgemm["moonshot_v1_16b_a3b"] = check_tgemm_arch(
+        flush, "moonshot-v1-16b-a3b", MOONSHOT_SHAPES, (4, 512))
+    tgemm["llama4_maverick_400b_a17b"] = check_tgemm_arch(
+        flush, "llama4-maverick-400b-a17b", LLAMA4_SHAPES, (4,))
     del flush
+    archs |= moe_paths()
     ops = ops_path()
     kernels = [
         {"name": "transitive_forest", "route": "cuda",

@@ -1,11 +1,11 @@
-"""Architecture config registry: the dense decoders and the hybrid
-recurrent one (recurrentgemma-9b) the port serves.
+"""Architecture config registry: the dense decoders, the two MoE ones and
+the hybrid recurrent one (recurrentgemma-9b) the port serves.
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_reduced(name)`` the smoke-test-sized variant of the same family.
 The reference registers eleven architectures; the port registers the ones
-its model code runs (MoE, xLSTM, cross-attention and enc-dec families
-come later).
+its model code runs (xLSTM, cross-attention and enc-dec families come
+later).
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ ARCHS = [
     "chatglm3_6b",
     "llama1_7b",          # the paper's own evaluation model
     "recurrentgemma_9b",  # RG-LRU + local attention, one-shot serving only
+    "moonshot_v1_16b_a3b",        # MoE: 64 experts top-6
+    "llama4_maverick_400b_a17b",  # MoE: 128 experts top-1 + shared
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

@@ -3,10 +3,11 @@
 Only the fields the port's serving slice reads are kept, plus the ones
 that size a config and those the registered configs pass (``grad_accum``,
 inert until training is ported); JAX dtypes become torch dtypes. The
-reference's fields not kept here: ``n_experts``, ``top_k``,
-``n_shared_experts``, ``expert_capacity_factor`` (MoE), ``remat``,
-``seq_shard``, ``opt_state_dtype``, ``factored_second_moment`` and
-``compress_pod_grads`` (training), and the ``sub_quadratic`` property.
+reference's fields not kept here: ``expert_capacity_factor`` (read
+only by the expert-parallel dispatch, not ported yet: the single-device
+dispatch drops no token), ``remat``, ``seq_shard``, ``opt_state_dtype``,
+``factored_second_moment`` and ``compress_pod_grads`` (training), and the
+``sub_quadratic`` property.
 """
 from __future__ import annotations
 
@@ -31,6 +32,11 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
 
     # --- block pattern (super-block repeated n_layers/len(pattern) times) ---
     block_pattern: tuple[str, ...] = ("attn",)
@@ -83,7 +89,8 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test-sized variant of the same family (one super-block repeat
-    or two, tiny widths, small vocab) — the reference's ``reduced``."""
+    or two, tiny widths, few experts, small vocab) — the reference's
+    ``reduced``."""
     pat = cfg.block_pattern
     heads = min(cfg.n_heads, 4)
     kv = max(1, min(cfg.n_kv_heads, heads))
@@ -93,6 +100,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         n_layers=len(pat) * min(2, cfg.n_repeats) + len(cfg.block_tail),
         d_model=128, n_heads=heads, n_kv_heads=kv, head_dim=32,
         d_ff=256 if cfg.d_ff else 0, vocab=512,
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         n_context_tokens=64 if cfg.n_context_tokens else 0,
         encoder_layers=min(cfg.encoder_layers, 2),
         max_target_positions=64 if cfg.max_target_positions else 0,

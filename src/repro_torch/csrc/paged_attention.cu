@@ -44,8 +44,15 @@
 //
 //   0. staging: the rank's live rows of K and V for its KV head (and, in
 //      the int8 pool, their f32 scales) are copied into shared memory by
-//      cp.async in 16-byte units, in chunks of chunk_rows rows (one chunk
-//      at every serving shape; the wrapper sizes it to shared memory).
+//      cp.async, in chunks of chunk_rows rows (one chunk at every serving
+//      shape; the wrapper sizes it to shared memory). A row of hd
+//      elements (rb bytes) lands at a stride of srb = rb rounded up to 16
+//      bytes, its tail zero: every loop below runs over hdp = srb / esz
+//      elements in 16-byte units, and a zero K or V element (with a zero
+//      q element) adds nothing to a dot. The copy unit is the largest of
+//      16, 8 and 4 bytes that divides rb and both pools' bases (rows at
+//      hd = 72 in int8 are 8-byte aligned); below 4 (an odd or
+//      2-mod-4 row of int8 or bf16) the threads copy by plain loads.
 //   1. scores of the live lanes l < min(step + 1, P*ps): under quantized
 //      attention TPL threads per lane (TPL the largest power of two up to
 //      32 and the row's 16-byte units; thread u takes units u, u + TPL,
@@ -73,7 +80,10 @@
 //      true division: built without --use_fast_math).
 //   d. round 4: P.V partials over the rank's live lanes (int32 with the P
 //      codes, exact in any order; f32 in the float layouts, whose exact
-//      pool casts P to the pool dtype first and the sum to it last). Each
+//      pool casts P to the pool dtype first and the sum to it last), a
+//      thread per 4 consecutive d, in passes of 4 * kThreads d where hdp
+//      is wider than that (the V chunk restaged per pass when there are
+//      several). Each
 //      rank owns a share of the G x hd outputs: the others write their
 //      partials for it into its shared memory before the barrier, and it
 //      adds them in rank order, scales and stores them after. Nothing is
@@ -109,7 +119,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;                // query heads per block
-constexpr int kMaxHd = 256;             // head dimension, a multiple of 16
 constexpr int kMaxCluster = 8;          // the portable cluster size
 constexpr size_t kSmemLimit = 232448;   // 227 KiB a block may use
 constexpr float kNegInf = -1e30f;
@@ -161,6 +170,13 @@ __device__ __forceinline__ void copy16(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void copy8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void copy4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
@@ -198,24 +214,25 @@ __device__ __forceinline__ int threads_per_row(int units) {
 
 // The shared-memory carve-up (kernels/paged_attention.py::smem_bytes
 // mirrors it; a card test holds the two equal). G: the block's query heads
-// (heads_per_block); lanes = pages_per_rank * page_size: the rank's row
-// capacity; chunk: rows staged at once.
+// (heads_per_block); hdp: the staged row's elements (hd rounded up to 16
+// bytes); lanes = pages_per_rank * page_size: the rank's row capacity;
+// chunk: rows staged at once.
 struct Smem {
   unsigned char* kbuf;  // chunk K rows; then the P.V partials per part
   unsigned char* vbuf;  // chunk V rows
   float* ksc;           // chunk K rows' scales (int8 pool)
   float* vsa;           // every live lane's V scale (int8 pool)
   float* row;           // G * lanes: scores, exp, then P
-  float* part;          // C slots of ceil(G * hd / C): the P.V sums of
+  float* part;          // C slots of ceil(G * hdp / C): the P.V sums of
                         // this rank's outputs from each rank (int32/f32)
-  float* qf;            // G * hd: q in f32, or q's int8 codes
+  float* qf;            // G * hdp: q in f32, or q's int8 codes (tail 0)
   float* stat;          // 3 * kMaxG: this rank's max, exp-sum, |P| max
   float* gst;           // 3 * kMaxG: the cluster's max, exp-sum, P scale
   float* qs;            // kMaxG: q's scales (quantized layouts)
   float* red;           // kWarps * kMaxG: block reductions
-  float* vmxp;          // max(kThreads, hd): |V| max per (part, d)
-  float* vmxr;          // hd: this rank's |V| max per d
-  float* vsc;           // hd: the V scale per d (exact pool + quant)
+  float* vmxp;          // max(kThreads, hdp): |V| max per (part, d)
+  float* vmxr;          // hdp: this rank's |V| max per d
+  float* vsc;           // hdp: the V scale per d (exact pool + quant)
   int8_t* codes;        // G * lanes: P codes (quantized layouts)
 };
 
@@ -223,19 +240,22 @@ __host__ __device__ inline size_t smem_bytes(int G, int hd, int esz,
                                              bool int8_pool, bool quant,
                                              int lanes, int chunk,
                                              Smem* out, void* base) {
-  const size_t rb = (size_t)hd * esz;
-  const size_t small =
-      (size_t)(7 * kMaxG + kWarps * kMaxG + (hd > kThreads ? hd : kThreads) +
-               2 * hd) * 4;
-  const size_t pv_parts = (size_t)16 * kThreads * G;   // see paged_decode
-  const size_t kb = (size_t)chunk * rb;
+  const size_t srb = align16((size_t)hd * esz);   // staged row stride
+  const int hdp = (int)(srb / esz);
+  const int vw = hdp > kThreads ? hdp : kThreads;
+  const size_t small = (size_t)(7 * kMaxG + kWarps * kMaxG + vw + 2 * hdp) * 4;
+  // the P.V partials per part (see paged_decode): parts * hdp values per
+  // head, parts * hdp <= max(4 * kThreads, hdp)
+  const size_t pv_parts =
+      (size_t)4 * G * (hdp > 4 * kThreads ? hdp : 4 * kThreads);
+  const size_t kb = (size_t)chunk * srb;
   const size_t sizes[9] = {kb > pv_parts ? kb : pv_parts,
-                           (size_t)chunk * rb,
+                           (size_t)chunk * srb,
                            int8_pool ? (size_t)chunk * 4 : 0,
                            int8_pool ? (size_t)lanes * 4 : 0,
                            (size_t)G * lanes * 4,
-                           (size_t)(G * hd + kMaxCluster) * 4,
-                           (size_t)G * hd * 4,
+                           (size_t)(G * hdp + kMaxCluster) * 4,
+                           (size_t)G * hdp * 4,
                            small,
                            quant ? (size_t)G * lanes : 0};
   size_t offs[9];
@@ -252,8 +272,8 @@ __host__ __device__ inline size_t smem_bytes(int G, int hd, int esz,
                 (float*)(p + offs[4]), (float*)(p + offs[5]),
                 (float*)(p + offs[6]), s, s + 3 * kMaxG, s + 6 * kMaxG,
                 s + 7 * kMaxG, s + (7 + kWarps) * kMaxG,
-                s + (7 + kWarps) * kMaxG + (hd > kThreads ? hd : kThreads),
-                s + (7 + kWarps) * kMaxG + (hd > kThreads ? hd : kThreads) + hd,
+                s + (7 + kWarps) * kMaxG + vw,
+                s + (7 + kWarps) * kMaxG + vw + hdp,
                 (int8_t*)(p + offs[8])};
   }
   return off;
@@ -291,12 +311,14 @@ __device__ __forceinline__ void block_reduce(float (&v)[NG], int G,
 
 // Copy rows [r0, r0 + nr) of a rank's live rows (local row li: row
 // li % ps of page r + (li / ps) * C of the slot's table row trow, KV head
-// kvh) into shared memory: their rb bytes of pool into buf in 16-byte
-// units (when buf is given) and their f32 scales into sbuf (when given).
-// Not inlined: one copy of this code serves every staging site, and a
-// block runs its code once, so code size is fetch time.
+// kvh) into shared memory: their rb bytes of pool into buf at a stride of
+// srb bytes, in units of ub bytes (16, 8 or 4 by cp.async; 2 or 1 by plain
+// loads, seen by the block after the barrier that follows every staging),
+// when buf is given, and their f32 scales into sbuf (when given). Not
+// inlined: one copy of this code serves every staging site, and a block
+// runs its code once, so code size is fetch time.
 __device__ __noinline__ void stage_rows(const unsigned char* pool, int rb,
-                                        unsigned char* buf,
+                                        int srb, int ub, unsigned char* buf,
                                         const float* scl, float* sbuf,
                                         const int32_t* trow, int r, int C,
                                         int ps, int KV, int kvh, int r0,
@@ -306,11 +328,21 @@ __device__ __noinline__ void stage_rows(const unsigned char* pool, int rb,
     return ((long)__ldg(trow + page) * ps + li % ps) * KV + kvh;
   };
   if (buf) {
-    const int units = rb / 16;
+    const int units = rb / ub;
     for (int i = threadIdx.x; i < nr * units; i += kThreads) {
-      const int li = i / units;
-      copy16(buf + (size_t)i * 16,
-             pool + row_pos(r0 + li) * rb + (i - li * units) * 16);
+      const int li = i / units, o = (i - li * units) * ub;
+      unsigned char* dst = buf + (size_t)li * srb + o;
+      const unsigned char* src = pool + row_pos(r0 + li) * rb + o;
+      switch (ub) {
+        case 16: copy16(dst, src); break;
+        case 8: copy8(dst, src); break;
+        case 4: copy4(dst, src); break;
+        case 2:
+          *reinterpret_cast<uint16_t*>(dst) =
+              __ldg(reinterpret_cast<const unsigned short*>(src));
+          break;
+        default: *dst = __ldg(src);
+      }
     }
   }
   if (sbuf)
@@ -348,8 +380,8 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
              const float* __restrict__ vscale,
              const int32_t* __restrict__ table,
              const int32_t* __restrict__ steps, int KV, int G, int GB,
-             int hd, int ps, int P, int C, int ppr, int chunk, float scale,
-             OT* __restrict__ out) {
+             int hd, int ps, int P, int C, int ppr, int chunk, int ub,
+             float scale, OT* __restrict__ out) {
   constexpr int ESZ = (int)sizeof(PT);
   constexpr int E = 16 / ESZ;             // pool elements per 16-byte unit
   constexpr bool VMAX = QUANT && !INT8_POOL;
@@ -362,6 +394,8 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   const int Gl = min(GB, G - g0);         // and how many it serves
   const int lanes = ppr * ps;
   const int rb = hd * ESZ;                // bytes of one pool row
+  const int srb = (int)align16(rb);       // a staged row's stride
+  const int hdp = srb / ESZ;              // and its elements (tail 0)
   Smem sm;
   smem_bytes(GB, hd, ESZ, INT8_POOL, QUANT, lanes, chunk, &sm, smem4);
 
@@ -385,10 +419,18 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   // scales into sbuf, when given) into buf.
   auto stage = [&](const PT* pool, unsigned char* buf, const float* scl,
                    float* sbuf, int c) {
-    stage_rows(reinterpret_cast<const unsigned char*>(pool), rb, buf, scl,
-               sbuf, trow, r, C, ps, KV, kvh, c * chunk,
+    stage_rows(reinterpret_cast<const unsigned char*>(pool), rb, srb, ub,
+               buf, scl, sbuf, trow, r, C, ps, KV, kvh, c * chunk,
                min(chunk, ns - c * chunk));
   };
+
+  // the staged rows' tails past hd: zero once, never written by staging
+  if (srb > rb)
+    for (int i = tid; i < chunk * (srb - rb); i += kThreads) {
+      const int o = i / (srb - rb) * srb + rb + i % (srb - rb);
+      sm.kbuf[o] = 0;
+      sm.vbuf[o] = 0;
+    }
 
   // 0. staging: K (and its scales) of chunk 0 in one group, V of chunk 0
   // (and every live lane's V scale) in a second; q meanwhile.
@@ -397,34 +439,38 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   copy_commit();
   if (n_chunks > 0) stage(vpool, sm.vbuf, nullptr, nullptr, 0);
   if constexpr (INT8_POOL)
-    stage_rows(nullptr, rb, nullptr, vscale, sm.vsa, trow, r, C, ps, KV, kvh,
-               0, nv);
+    stage_rows(nullptr, rb, srb, ub, nullptr, vscale, sm.vsa, trow, r, C, ps,
+               KV, kvh, 0, nv);
   copy_commit();
   int vcur = 0;                           // the V chunk in vbuf
+  // q at a stride of hdp, its tail zero (int8 codes under quantization)
   if constexpr (QUANT) {
-    const int32_t* qsrc = reinterpret_cast<const int32_t*>(q + qbase * hd);
-    int32_t* q4 = reinterpret_cast<int32_t*>(sm.qf);
-    for (int i = tid; i < Gl * hd / 4; i += kThreads) q4[i] = qsrc[i];
+    int8_t* q8 = reinterpret_cast<int8_t*>(sm.qf);
+    for (int i = tid; i < Gl * hdp; i += kThreads) {
+      const int g = i / hdp, d = i - g * hdp;
+      q8[i] = d < hd ? q[(qbase + g) * hd + d] : 0;
+    }
     if (tid < Gl) sm.qs[tid] = sq[qbase + tid];
   } else {
-    for (int i = tid; i < Gl * hd; i += kThreads)
-      sm.qf[i] = Elem<QT>::f(q[qbase * hd + i]);
+    for (int i = tid; i < Gl * hdp; i += kThreads) {
+      const int g = i / hdp, d = i - g * hdp;
+      sm.qf[i] = d < hd ? Elem<QT>::f(q[(qbase + g) * hd + d]) : 0.f;
+    }
   }
-  // exact pool + quant, the last rank, when the table has dead entries:
-  // page 0's rows (read there by the reference's gather) for the |V| max,
-  // (part, d) pairs idx = tid and tid + kThreads (vparts parts of the rows
-  // where hd < kThreads, each d once where hd > kThreads), loaded 8 rows
-  // at a time while the copies fly
-  const int vparts = hd < kThreads ? kThreads / hd : 1;
-  const int vpairs = vparts * hd;         // <= max(kThreads, hd)
-  float fold[2] = {0.f, 0.f};
+  // exact pool + quant: the |V| max per (part, d) pair idx (vparts parts
+  // of the rows where hdp < kThreads, each d once where hdp >= kThreads),
+  // kept in vmxp by the thread that owns idx; it starts from, on the last
+  // rank when the table has dead entries, page 0's rows (read there by the
+  // reference's gather), loaded 8 rows at a time while the copies fly
+  const int vparts = hdp < kThreads ? kThreads / hdp : 1;
+  const int vpairs = vparts * hdp;        // <= max(kThreads, hdp)
   if constexpr (VMAX) {
-    if (r == C - 1 && last >= 0 && last < P - 1) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int idx = tid + k * kThreads, d = idx % hd;
-        if (idx >= vpairs) continue;
-        for (int j0 = idx / hd; j0 < ps; j0 += 8 * vparts) {
+    const bool fold = r == C - 1 && last >= 0 && last < P - 1;
+    for (int idx = tid; idx < vpairs; idx += kThreads) {
+      const int d = idx % hdp;
+      float m = 0.f;
+      if (fold && d < hd)
+        for (int j0 = idx / hdp; j0 < ps; j0 += 8 * vparts) {
           float f8[8];
 #pragma unroll
           for (int u = 0; u < 8; ++u) {
@@ -434,9 +480,9 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
                            : 0.f;
           }
 #pragma unroll
-          for (int u = 0; u < 8; ++u) fold[k] = fmaxf(fold[k], f8[u]);
+          for (int u = 0; u < 8; ++u) m = fmaxf(m, f8[u]);
         }
-      }
+      sm.vmxp[idx] = m;
     }
   }
   copy_wait<1>();                         // own K copies of chunk 0
@@ -445,7 +491,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   // 1. scores: under quantized attention TPL threads per lane, thread u
   // taking the K row's 16-byte units u, u + TPL, ...; one thread per lane
   // otherwise.
-  const int units = rb / 16;
+  const int units = srb / 16;
   const int tpl = QUANT ? threads_per_row(units) : 1;
   const int lpp = kThreads / tpl;         // lanes per pass
   for (int c = 0; c < n_chunks && c * chunk < nv; ++c) {
@@ -460,7 +506,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
     for (int base = 0; base < nr; base += lpp) {
       const int i = base + tid / tpl, u = tid % tpl;
       const bool act = i < nr;
-      const unsigned char* kr = sm.kbuf + (size_t)(act ? i : 0) * rb;
+      const unsigned char* kr = sm.kbuf + (size_t)(act ? i : 0) * srb;
       if constexpr (QUANT) {
         int acc[NG];
 #pragma unroll
@@ -473,7 +519,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
 #pragma unroll
             for (int g = 0; g < NG; ++g) {
               if (g < Gl) {
-                const int32_t* qg = q4 + (g * hd) / 4 + w * 4;
+                const int32_t* qg = q4 + (g * hdp) / 4 + w * 4;
                 acc[g] = __dp4a(qg[0], k4.x, acc[g]);
                 acc[g] = __dp4a(qg[1], k4.y, acc[g]);
                 acc[g] = __dp4a(qg[2], k4.z, acc[g]);
@@ -505,7 +551,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
                   fmaxf(rintf(Elem<PT>::rd(kf[e] / sk)), -128.f), 127.f);
 #pragma unroll
               for (int g = 0; g < NG; ++g)
-                if (g < Gl) acc[g] += (int)q8[g * hd + w * E + e] * kc;
+                if (g < Gl) acc[g] += (int)q8[g * hdp + w * E + e] * kc;
             }
           }
         }
@@ -528,7 +574,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
 #pragma unroll
         for (int g = 0; g < NG; ++g) acc[g] = 0.f;
         const float sk = INT8_POOL ? sm.ksc[act ? i : 0] : 1.f;
-        for (int w = 0; w < rb / 16; ++w) {
+        for (int w = 0; w < units; ++w) {
           float kf[E];
           load_f<PT, E>(kr + w * 16, kf);
           if constexpr (INT8_POOL)
@@ -539,7 +585,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
             if (g < Gl)
 #pragma unroll
               for (int e = 0; e < E; ++e)
-                acc[g] = fmaf(sm.qf[g * hd + w * E + e], kf[e], acc[g]);
+                acc[g] = fmaf(sm.qf[g * hdp + w * E + e], kf[e], acc[g]);
         }
         if (act)
 #pragma unroll
@@ -559,7 +605,6 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   // exact pool + quant: this rank's |V| max per d, per (part, d) pair as
   // the page-0 fold above
   if constexpr (VMAX) {
-    float m[2] = {0.f, 0.f};
     for (int c = 0; c < n_chunks; ++c) {
       if (c != vcur) {
         __syncthreads();
@@ -570,19 +615,15 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
         vcur = c;
       }
       const int nr = min(chunk, ns - c * chunk);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int idx = tid + k * kThreads, d = idx % hd;
-        if (idx < vpairs)
-          for (int i = idx / hd; i < nr; i += vparts)
-            m[k] = fmaxf(m[k], fabsf(Elem<PT>::f(reinterpret_cast<const PT*>(
-                                   sm.vbuf)[i * hd + d])));
+      for (int idx = tid; idx < vpairs; idx += kThreads) {
+        const int d = idx % hdp;
+        const PT* vrow = reinterpret_cast<const PT*>(sm.vbuf);
+        float m = sm.vmxp[idx];
+        for (int i = idx / hdp; i < nr; i += vparts)
+          m = fmaxf(m, fabsf(Elem<PT>::f(vrow[i * hdp + d])));
+        sm.vmxp[idx] = m;
       }
     }
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (tid + k * kThreads < vpairs)
-        sm.vmxp[tid + k * kThreads] = fmaxf(m[k], fold[k]);
   }
 
   // a. the row max per head (and the |V| max per d)
@@ -596,9 +637,9 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   }
   block_reduce<true>(v, Gl, sm.red, sm.stat);
   if constexpr (VMAX) {
-    for (int d = tid; d < hd; d += kThreads) {
+    for (int d = tid; d < hdp; d += kThreads) {
       float m = sm.vmxp[d];
-      for (int p = 1; p < vparts; ++p) m = fmaxf(m, sm.vmxp[p * hd + d]);
+      for (int p = 1; p < vparts; ++p) m = fmaxf(m, sm.vmxp[p * hdp + d]);
       sm.vmxr[d] = m;
     }
   }
@@ -611,7 +652,7 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
     sm.gst[tid] = m;
   }
   if constexpr (VMAX) {
-    for (int d = tid; d < hd; d += kThreads) {
+    for (int d = tid; d < hdp; d += kThreads) {
       from_peers(cluster, sm.vmxr, d, C, pv_);
       float m = 0.f;
       for (int p = 0; p < C; ++p) m = fmaxf(m, pv_[p]);
@@ -685,102 +726,110 @@ paged_decode(const QT* __restrict__ q, const float* __restrict__ sq,
   }
   __syncthreads();
 
-  // d. P.V over the rank's live lanes: thread (part, 4 consecutive d);
-  // where hd / 4 does not divide kThreads the threads past the last whole
-  // part (pi == parts) sit this out.
-  const int dq = hd / 4, parts = kThreads / dq;
-  const int d0 = (tid % dq) * 4, pi = tid / dq;
-  const bool pv_on = pi < parts;
+  // d. P.V over the rank's live lanes: thread (part, 4 consecutive d), in
+  // passes of 4 * kThreads d where hdp is wider (one part then); where
+  // hdp / 4 does not divide kThreads the threads past the last whole part
+  // (pi == parts) sit this out. The K buffer is free (the last scores are
+  // behind several barriers): it takes the partial sums per part, parts *
+  // Gl * hdp values (at most 4 * GB * max(4 * kThreads, hdp) bytes), which
+  // the block adds in part order.
+  const int quads = hdp / 4;
+  const int dq = min(quads, kThreads), parts = kThreads / dq;
+  const int pi = tid / dq;
   using Acc = typename std::conditional<QUANT, int, float>::type;
-  Acc acc[NG][4];
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[g][k] = 0;
-  float vs4[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (VMAX)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) vs4[k] = sm.vsc[d0 + k];
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int c = (vcur + ci) % n_chunks;   // the staged chunk first
-    if (c * chunk >= nv) continue;
-    if (c != vcur) {
-      __syncthreads();
-      stage(vpool, sm.vbuf, nullptr, nullptr, c);
-      copy_commit();
-      copy_wait<0>();
-      __syncthreads();
-      vcur = c;
-    }
-    const int r0 = c * chunk, nr = min(chunk, nv - r0);
-    for (int i = pv_on ? pi : nr; i < nr; i += parts) {
-      const int li = r0 + i;
-      float vf[4];
-      load_f<PT, 4>(sm.vbuf + (size_t)i * rb + d0 * ESZ, vf);
-      if constexpr (QUANT) {
-        int vc[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if constexpr (INT8_POOL)
-            vc[k] = (int)vf[k];
-          else
-            vc[k] = (int)fminf(
-                fmaxf(rintf(Elem<PT>::rd(vf[k] / vs4[k])), -128.f), 127.f);
-        }
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          if (g < Gl) {
-            const int pc = sm.codes[g * lanes + li];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) acc[g][k] += pc * vc[k];
-          }
-      } else {
-        if constexpr (INT8_POOL) {
-          const float s = sm.vsa[li];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) vf[k] = vf[k] * s;
-        }
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          if (g < Gl) {
-            const float p = sm.row[g * lanes + li];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) acc[g][k] = fmaf(p, vf[k], acc[g][k]);
-          }
-      }
-    }
-  }
-  // The K buffer is free (the last scores are behind several barriers):
-  // it takes the partial sums per part, parts * Gl * hd values (at most
-  // 16 * kThreads * GB bytes), which the block adds in part order.
   Acc* tmp = reinterpret_cast<Acc*>(sm.kbuf);
-  if (pv_on)
+  for (int pass = 0; pass * kThreads < quads; ++pass) {
+    const int d0 = (pass * kThreads + tid % dq) * 4;
+    const bool pv_on = pi < parts && d0 < hdp;
+    Acc acc[NG][4];
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      if (g < Gl)
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          tmp[(pi * Gl + g) * hd + d0 + k] = acc[g][k];
+      for (int k = 0; k < 4; ++k) acc[g][k] = 0;
+    float vs4[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (VMAX)
+      if (pv_on)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) vs4[k] = sm.vsc[d0 + k];
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int c = (vcur + ci) % n_chunks;   // the staged chunk first
+      if (c * chunk >= nv) continue;
+      if (c != vcur) {
+        __syncthreads();
+        stage(vpool, sm.vbuf, nullptr, nullptr, c);
+        copy_commit();
+        copy_wait<0>();
+        __syncthreads();
+        vcur = c;
+      }
+      const int r0 = c * chunk, nr = min(chunk, nv - r0);
+      for (int i = pv_on ? pi : nr; i < nr; i += parts) {
+        const int li = r0 + i;
+        float vf[4];
+        load_f<PT, 4>(sm.vbuf + (size_t)i * srb + d0 * ESZ, vf);
+        if constexpr (QUANT) {
+          int vc[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if constexpr (INT8_POOL)
+              vc[k] = (int)vf[k];
+            else
+              vc[k] = (int)fminf(
+                  fmaxf(rintf(Elem<PT>::rd(vf[k] / vs4[k])), -128.f), 127.f);
+          }
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            if (g < Gl) {
+              const int pc = sm.codes[g * lanes + li];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[g][k] += pc * vc[k];
+            }
+        } else {
+          if constexpr (INT8_POOL) {
+            const float s = sm.vsa[li];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) vf[k] = vf[k] * s;
+          }
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            if (g < Gl) {
+              const float p = sm.row[g * lanes + li];
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                acc[g][k] = fmaf(p, vf[k], acc[g][k]);
+            }
+        }
+      }
+    }
+    if (pv_on)
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        if (g < Gl)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            tmp[(pi * Gl + g) * hdp + d0 + k] = acc[g][k];
+  }
   __syncthreads();
   // Each output's sum goes to the rank that owns it (rank e / share),
   // into that rank's inbox slot for this rank. After the barrier each
   // rank adds its inbox in rank order, scales and stores: no rank reads
   // another's shared memory after it, so none has to wait at the end.
-  const int share = (Gl * hd + C - 1) / C;
-  for (int i = tid; i < Gl * hd; i += kThreads) {
+  const int share = (Gl * hdp + C - 1) / C;
+  for (int i = tid; i < Gl * hdp; i += kThreads) {
     Acc s = tmp[i];
-    for (int p = 1; p < parts; ++p) s += tmp[p * Gl * hd + i];
+    for (int p = 1; p < parts; ++p) s += tmp[p * Gl * hdp + i];
     const int q = i / share;
     cluster.map_shared_rank(reinterpret_cast<Acc*>(sm.part), q)
         [r * share + i - q * share] = s;
   }
   cluster.sync();
   const Acc* inbox = reinterpret_cast<const Acc*>(sm.part);
-  const int e0 = r * share, e_hi = min(e0 + share, Gl * hd);
+  const int e0 = r * share, e_hi = min(e0 + share, Gl * hdp);
   for (int e = e0 + tid; e < e_hi; e += kThreads) {
+    const int g = e / hdp, d = e - g * hdp;
+    if (d >= hd) continue;                // the staged rows' zero tail
     Acc s = 0;
     for (int p = 0; p < C; ++p) s += inbox[p * share + e - e0];
-    const int g = e / hd, d = e - g * hd;
     OT* dst = out + (qbase + g) * hd + d;
     if constexpr (QUANT && INT8_POOL) *dst = (float)s * sm.gst[2 * kMaxG + g];
     else if constexpr (QUANT)
@@ -797,6 +846,12 @@ int launch(const void* q, const void* sq, const void* kpool,
            int hd, int ps, int P, float scale, int C, int ppr, int chunk,
            void* out, cudaStream_t st) {
   const int GB = heads_per_block(G), nb = (G + GB - 1) / GB;
+  // the staging unit: the largest of 16, 8, 4, 2, 1 bytes dividing a row
+  // and both pools' bases
+  const uintptr_t bits = (uintptr_t)hd * sizeof(PT) | (uintptr_t)kpool |
+                         (uintptr_t)vpool;
+  int ub = 16;
+  while (bits % ub) ub /= 2;
   auto* kernel = GB == 1   ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 1>
                  : GB == 2 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 2>
                  : GB == 3 ? paged_decode<QUANT, INT8_POOL, PT, QT, OT, 3>
@@ -826,7 +881,7 @@ int launch(const void* q, const void* sq, const void* kpool,
       &cfg, kernel, (const QT*)q, (const float*)sq, (const PT*)kpool,
       (const PT*)vpool, (const float*)kscale, (const float*)vscale,
       (const int32_t*)table, (const int32_t*)steps, KV, G, GB, hd, ps, P, C,
-      ppr, chunk, scale, (OT*)out);
+      ppr, chunk, ub, scale, (OT*)out);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -857,11 +912,12 @@ size_t paged_attention_smem(int layout, int pool_dtype, int G, int hd,
 //
 // q (B, KV, G, hd): int8 codes with sq (B, KV, G) f32 under quantized
 // attention; f32 in layout 3; the pool dtype in layout 2. k/v pools
-// (n_pages, ps, KV, hd) int8 or the pool dtype, 16-byte aligned; ks/vs
+// (n_pages, ps, KV, hd) int8 or the pool dtype, element-aligned; ks/vs
 // (n_pages, ps, KV) f32 in the int8 pool (else unused). table (B, P)
 // int32; steps (B,) int32; out (B, KV, G, hd) f32, or the pool dtype in
-// layout 2. Needs hd % 16 == 0, hd <= 256, G >= 1 (any; a block serves
-// heads_per_block(G) of them, KV * ceil(G / that) <= 65535). cluster:
+// layout 2. Any hd >= 1 whose block fits shared memory, G >= 1 (any; a
+// block serves heads_per_block(G) of them, KV * ceil(G / that) <= 65535).
+// cluster:
 // blocks per (slot, KV head, block of heads), 1..min(8, P); grid_x =
 // cluster * B (block x serves slot x / cluster); pages_per_rank * cluster
 // >= P; chunk_rows in
@@ -875,8 +931,7 @@ int paged_attention_launch(int layout, int pool_dtype, const void* q,
                            int hd, int ps, int P, float scale, int cluster,
                            int pages_per_rank, int chunk_rows, void* out,
                            void* stream) {
-  if (grid_x <= 0 || KV <= 0 || G <= 0 || hd <= 0 || hd % 16 ||
-      hd > kMaxHd ||
+  if (grid_x <= 0 || KV <= 0 || G <= 0 || hd <= 0 ||
       (long)KV * ((G + heads_per_block(G) - 1) / heads_per_block(G)) >
           65535 ||
       ps <= 0 || P <= 0 || cluster < 1 ||

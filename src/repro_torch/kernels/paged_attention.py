@@ -26,9 +26,12 @@ within the bounds of :func:`agreement`, not bit for bit.
 
 The kernel takes any number G of query heads per KV head (more than 8
 are served by ``ceil(G / 8)`` clusters of heads, each staging the KV
-head's pages again) and any head dimension that is a multiple of 16 up
-to 256. The reference's kernel takes any head dimension; no architecture
-of either package has one outside that range.
+head's pages again) and any head dimension, as the reference's does: a
+row is staged at a stride rounded up to 16 bytes with a zero tail, in
+the widest copy unit that divides the row and the pools' bases (a view
+at any offset is read in place), and P.V runs in passes of 512 elements
+of the head. :func:`launch_plan` refuses only a block that would not fit
+shared memory with a single staged row.
 """
 from __future__ import annotations
 
@@ -58,8 +61,8 @@ _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernel's constants (csrc/paged_attention.cu): threads per block,
 # query heads per block at most, blocks per cluster at most (the portable
-# size), the largest head dimension and the shared memory a block may use.
-THREADS, MAX_G, MAX_CLUSTER, MAX_HD = 128, 8, 8, 256
+# size) and the shared memory a block may use.
+THREADS, MAX_G, MAX_CLUSTER = 128, 8, 8
 SMEM_LIMIT = 232448
 
 
@@ -79,20 +82,23 @@ def smem_bytes(g: int, hd: int, itemsize: int, int8_pool: bool,
                quant: bool, lanes: int, chunk_rows: int) -> int:
     """A block's dynamic shared memory for ``g`` query heads per KV head,
     as the kernel carves it (``smem_bytes`` in the CUDA source) for the
-    block's gb = :func:`heads_per_block` (g) heads: the K chunk (which
-    later holds the P.V partial sums of the block's parts, 16 * THREADS *
-    gb bytes), the V chunk, the chunk's K scales and every lane's V scale
-    (int8 pool), the score row (gb * lanes f32), the inbox of the P.V sums
-    this rank adds (gb * hd + 8 words), q (gb * hd words), the statistics
-    (with max(THREADS, hd) words of |V| maxima), the P codes (quantized
-    attention)."""
+    block's gb = :func:`heads_per_block` (g) heads, with rows staged at
+    srb = ``hd * itemsize`` rounded up to 16 bytes (hdp = srb / itemsize
+    elements): the K chunk (which later holds the P.V partial sums of the
+    block's parts, 4 * gb * max(4 * THREADS, hdp) bytes), the V chunk, the
+    chunk's K scales and every lane's V scale (int8 pool), the score row
+    (gb * lanes f32), the inbox of the P.V sums this rank adds (gb * hdp +
+    8 words), q (gb * hdp words), the statistics (with max(THREADS, hdp)
+    words of |V| maxima), the P codes (quantized attention)."""
     g = heads_per_block(g)
-    rb = hd * itemsize
-    small = (7 * MAX_G + (THREADS // 32) * MAX_G + max(THREADS, hd)
-             + 2 * hd) * 4
-    sizes = (max(chunk_rows * rb, 16 * THREADS * g), chunk_rows * rb,
+    srb = _align16(hd * itemsize)
+    hdp = srb // itemsize
+    small = (7 * MAX_G + (THREADS // 32) * MAX_G + max(THREADS, hdp)
+             + 2 * hdp) * 4
+    sizes = (max(chunk_rows * srb, 4 * g * max(4 * THREADS, hdp)),
+             chunk_rows * srb,
              chunk_rows * 4 if int8_pool else 0, lanes * 4 if int8_pool else 0,
-             g * lanes * 4, (g * hd + MAX_CLUSTER) * 4, g * hd * 4, small,
+             g * lanes * 4, (g * hdp + MAX_CLUSTER) * 4, g * hdp * 4, small,
              g * lanes if quant else 0)
     return sum(_align16(n) for n in sizes)
 
@@ -356,10 +362,9 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
     dtype; ``page_indices`` (B, P) int32; ``steps`` (B,) int32, the
     position written this step. Returns (B, 1, H, hd): the pool dtype in
     the exact pool's float layout, else f32 (what ``attend_cached`` gives
-    for the layout). The kernel stages K and V rows in 16-byte units: a
-    ``k`` or ``v`` leaf that does not start on a 16-byte boundary (a view
-    at an odd offset; the serve pool's layers always do) is copied on
-    each call, outside the launch count and the kernel's device time."""
+    for the layout). Raises, as the reference does, for more than one
+    query position, and for heads that are not whole groups per KV
+    head."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool, page_indices, steps, cfg,
                                      scale)
@@ -368,12 +373,10 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
         raise ValueError(f"decode kernel expects Sq == 1, got {sq_len}")
     n_pages, ps, kvh = pool["k"].shape[:3]
     g = h // kvh
-    if hd % 16 or hd > MAX_HD or g < 1 or h % kvh:
+    if g < 1 or h % kvh:
         raise ValueError(
-            f"the paged-attention kernel takes a head dimension that is a "
-            f"multiple of 16 up to {MAX_HD} (the reference kernel takes any) "
-            f"and whole query heads per KV head; got hd={hd}, {h} heads "
-            f"over {kvh} KV heads")
+            f"the paged-attention kernel takes whole query heads per KV "
+            f"head; got {h} heads over {kvh} KV heads")
     lib = _library()
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, "
@@ -387,9 +390,6 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
         if a.device != q.device or not a.is_contiguous():
             raise ValueError(f"pool leaf {name} must be contiguous on "
                              f"{q.device}")
-    for name in ("k", "v"):                     # staged in 16-byte units
-        if leaves[name].data_ptr() % 16:
-            leaves[name] = leaves[name].clone()
     pool_dtype = pool["k"].dtype
     if not int8_pool and (pool_dtype not in _POOL_DTYPE
                           or pool["v"].dtype != pool_dtype):

@@ -21,7 +21,10 @@ bf16, random weights from ``--seed`` drawn on the card), admits
     reports device time per step by kernel (the port's CUDA kernels by
     their entry names, everything else grouped), and the device
     busy share = summed kernel time / wall time of the window (one
-    stream, so kernels do not overlap).
+    stream, so kernels do not overlap). For an MoE config it also gives
+    the device time and launches of the kernels run inside the MoE
+    block's profiler ranges (``models.blocks.apply_moe``: the router;
+    the experts' products and their combine) apart from the rest.
 
 With ``--oneshot`` the step is ``greedy_generate``'s instead (the path
 of configs the paged engine does not cover, recurrentgemma-9b among
@@ -61,6 +64,12 @@ PORT_KERNELS = {"forest_narrow": "B1 forest, narrow blocks (M <= 8)",
                 "rg_lru_regs": "B5 linear recurrence, unaligned rows"}
 
 
+# profiler ranges of the port's blocks (record_function names) -> label
+PORT_RANGES = {"moe.router": "MoE router (norm, f32 product, softmax, top-k)",
+               "moe.experts": "MoE experts (sorted dispatch, three "
+                              "grouped products, combine)"}
+
+
 def _label(name: str) -> str:
     for key, label in PORT_KERNELS.items():
         if key in name:
@@ -74,9 +83,33 @@ def _device_events(prof):
     from torch.autograd import DeviceType
     out = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and PRIMER not in e.key:
+        if (e.device_type == DeviceType.CUDA and PRIMER not in e.key
+                and e.key not in PORT_RANGES):
             out.append((e.key, e.self_device_time_total, e.count))
     return out
+
+
+def _range_events(prof):
+    """(label, device us of the kernels launched inside, device launches
+    inside, calls) of every profiler range of ``PORT_RANGES`` the profile
+    holds (the host-side range: its kernels and its children's)."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in PORT_RANGES:
+            out.append(e)
+    rows = {}
+    for e in out:
+        r = rows.setdefault(e.name, [0.0, 0, 0])
+        r[0] += e.device_time_total
+        r[1] += _launches(e)
+        r[2] += 1
+    return [(PORT_RANGES[k], *v) for k, v in rows.items()]
+
+
+def _launches(e) -> int:
+    """Device kernels of a host event and its children."""
+    return len(e.kernels) + sum(_launches(c) for c in e.cpu_children)
 
 
 def _profiled(fn, n: int):
@@ -128,6 +161,16 @@ def _report(prof, window: float, n: int, what: str, top: int) -> None:
     for label, (t, c) in shown:        # the port's kernels always shown
         print(f"  {t / 1e3 / n:9.4f} ms {t / busy_us:6.3f} of device | "
               f"{c // n:5d} launches | {label[:90]}")
+    ranges = _range_events(prof)
+    if ranges:
+        inside = sum(t for _, t, _, _ in ranges)
+        print(f"[profile] {what}: by the port's profiler ranges (device "
+              f"time of the kernels launched inside)")
+        for label, t, c, calls in ranges:
+            print(f"  {t / 1e3 / n:9.4f} ms {t / busy_us:6.3f} of device | "
+                  f"{c // n:5d} launches | {calls // n} calls | {label}")
+        print(f"  {(busy_us - inside) / 1e3 / n:9.4f} ms "
+              f"{1 - inside / busy_us:6.3f} of device | the rest")
 
 
 def _oneshot(model, params, args):

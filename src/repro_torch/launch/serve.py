@@ -12,6 +12,9 @@ cache, or (``--fp``) the base config unquantized.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-9b --backend lut_cuda --batch 4 \
       --prompt-len 128 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --continuous --backend lut_cuda \
+      --paged-kernel
 
 Runs on ``cuda`` unless ``--device cpu`` is given; random weights from
 ``--seed`` are drawn on that device (``Model.init(on_device=True)``: a

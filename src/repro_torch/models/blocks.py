@@ -1,9 +1,11 @@
 """Non-attention blocks (port of ``repro.models.blocks``): the dense
-SwiGLU MLP and the RG-LRU recurrent block (recurrentgemma). The MoE and
-xLSTM blocks are not part of the port yet. Residuals live in model.py;
-blocks are pre-norm bodies.
+SwiGLU MLP, the top-k MoE block and the RG-LRU recurrent block
+(recurrentgemma). The xLSTM blocks are not part of the port yet.
+Residuals live in model.py; blocks are pre-norm bodies.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +33,100 @@ def apply_mlp(params, x, cfg: ModelConfig):
     gate = linear_apply(params["gate"], xn, cfg.quant)
     h = F.silu(gate) * up
     return linear_apply(params["down"], h, cfg.quant).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MoE: top-k routing, sorted dispatch, per-expert products
+# --------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig):
+    """The reference's MoE leaves: an f32 ``norm``; the ``router`` (d, E)
+    and the experts ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d)
+    as plain ``cfg.dtype`` tensors (the experts are not quantized, as in
+    the reference: only attention and the shared expert's linears go
+    through the integer GEMM); a ``shared`` SwiGLU MLP when the config
+    has shared experts. Each (E, d, f) leaf is drawn in f32 and cast, one
+    at a time (the peak of a draw is one f32 leaf)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    lim = 1.0 / math.sqrt(d)
+
+    def draw(shape, s):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=gen.device).mul_(s).to(cfg.dtype)
+    p = {"norm": torch.ones((d,), dtype=torch.float32, device=gen.device),
+         "router": draw((d, e), lim),
+         "w_gate": draw((e, d, f), lim),
+         "w_up": draw((e, d, f), lim),
+         "w_down": draw((e, f, d), 1.0 / math.sqrt(f))}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg)
+    return p
+
+
+def _moe_local(x2, gates, eids, w_gate, w_up, w_down):
+    """The experts' products for tokens ``x2`` (N, D) routed to ``eids``
+    (N, K) with ``gates`` (N, K) in x2's dtype. The N * K assignments are
+    sorted by expert (a stable argsort, as the reference's), so each
+    expert's rows are one contiguous group; the groups' ends are found on
+    the device (``searchsorted`` over the sorted ids: no host read), and
+    the three products, ``silu(x W_gate) * (x W_up)`` then ``W_down``, are
+    one ``torch._grouped_mm`` each over all experts in the working dtype
+    (the reference's ``ragged_dot``, an XLA op, not a Pallas kernel; an
+    expert with no rows reads no weights). Each output row is scaled by
+    its gate and put back in (token, slot) order, and a token's K outputs
+    are added in slot order: no atomics, so the sum is the same on every
+    run. Every assignment is kept (the reference's single-device capacity,
+    N * K); the expert-parallel dispatch across devices, with its capacity
+    factor, is not ported yet."""
+    n, k = eids.shape
+    flat_e = eids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    xs = x2[order // k]                                  # (N * K, D)
+    experts = torch.arange(w_gate.shape[0], dtype=flat_e.dtype,
+                           device=flat_e.device)
+    offs = torch.searchsorted(flat_e[order], experts,
+                              right=True).to(torch.int32)
+    h = F.silu(torch._grouped_mm(xs, w_gate, offs=offs)) * torch._grouped_mm(
+        xs, w_up, offs=offs)
+    out = torch._grouped_mm(h.to(w_down.dtype), w_down, offs=offs)
+    scaled = out * gates.reshape(-1)[order, None]
+    y = torch.empty_like(scaled)
+    y[order] = scaled                                    # (token, slot)
+    y = y.view(n, k, -1)
+    acc = y[:, 0]
+    for j in range(1, k):
+        acc = acc + y[:, j]
+    return acc
+
+
+def route(params, x, cfg: ModelConfig):
+    """The MoE router: (the normed x, gates (B, S, K) f32, expert ids
+    (B, S, K)): the f32 router product, softmax, the top ``cfg.top_k``
+    experts and their gates renormalized (floor 1e-9)."""
+    xn = rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = torch.matmul(xn.to(torch.float32),
+                          params["router"].to(torch.float32))
+    gates, eids = torch.topk(torch.softmax(logits, -1), cfg.top_k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return xn, gates, eids
+
+
+def apply_moe(params, x, cfg: ModelConfig):
+    """Top-k MoE on one device: :func:`route`, the experts through
+    :func:`_moe_local`, plus the shared expert's MLP of x where the config
+    has one. The router and the experts run under the profiler ranges
+    ``moe.router`` and ``moe.experts``."""
+    b, s, d = x.shape
+    with torch.profiler.record_function("moe.router"):
+        xn, gates, eids = route(params, x, cfg)
+    with torch.profiler.record_function("moe.experts"):
+        y = _moe_local(xn.reshape(b * s, d),
+                       gates.reshape(b * s, -1).to(x.dtype),
+                       eids.reshape(b * s, -1), params["w_gate"],
+                       params["w_up"], params["w_down"]).reshape(b, s, d)
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], x, cfg)
+    return y.to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 pre-norm blocks, tied or untied unembedding, with dense-cache and
 paged-pool serve entry points. Block kinds: ``attn`` (GQA
 self-attention, global or over a local window) and ``rglru`` (the RG-LRU
-recurrent block), each followed by a SwiGLU MLP.
+recurrent block), each followed by a SwiGLU MLP, or, after an ``attn``
+block of a ``moe`` family config, by the top-k MoE block.
 
 A config's ``block_pattern`` defines one super-block, repeated
 ``n_repeats`` times, and ``block_tail`` the blocks after them.
@@ -13,10 +14,10 @@ pass is a Python loop over that axis where the reference scans. Caches
 and page pools are laid out the same way and updated in place.
 
 The paged serve path covers attention-only configs with global attention
-(:meth:`Model.supports_paged`); the others serve through the dense
-caches of ``prefill`` / ``decode_step``. MoE, xLSTM, cross-attention and
-encoder-decoder configs are not part of the port yet: :class:`Model`
-refuses them.
+(:meth:`Model.supports_paged`), the MoE ones among them; the others
+serve through the dense caches of ``prefill`` / ``decode_step``. xLSTM,
+cross-attention and encoder-decoder configs are not part of the port
+yet: :class:`Model` refuses them.
 """
 from __future__ import annotations
 
@@ -42,12 +43,31 @@ def _index(tree, i):
     return tree[i]
 
 
-def _stack(trees):
-    """Stack same-structured trees of tensors along a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked(draw, n: int):
+    """The ``n`` trees of tensors that ``draw()`` makes, in turn, stacked
+    along a new leading axis: each leaf is allocated once, on the device
+    of the first tree's, and filled entry by entry, so no more than one
+    drawn tree is held beside the stack (``torch.stack`` of all n would
+    hold the model twice); one tree is its own stack, a view."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.unsqueeze(0) if n == 1 else t.new_empty((n,) + t.shape)
+
+    def fill(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                fill(dst[k], v, i)
+        else:
+            dst[i].copy_(src)
+    first = draw()
+    out = alloc(first)
+    if n > 1:
+        fill(out, first, 0)
+        del first
+        for i in range(1, n):
+            fill(out, draw(), i)
+    return out
 
 
 class Model:
@@ -70,9 +90,11 @@ class Model:
                     f"ported yet")
         if cfg.n_context_tokens or cfg.is_encdec:
             return "cross-attention context is not ported yet"
-        if cfg.family == "moe":
-            return "MoE blocks are not ported yet"
         return None
+
+    def _moe(self, kind: str) -> bool:
+        """Whether the MLP after a block of ``kind`` is the MoE block."""
+        return self.cfg.family == "moe" and kind == "attn"
 
     # ---- init --------------------------------------------------------------
     def _init_superblock(self, gen, pattern) -> Params:
@@ -82,7 +104,8 @@ class Model:
             p[f"b{i}"] = (A.init_attn(gen, cfg) if kind == "attn"
                           else B.init_rglru(gen, cfg))
             if cfg.d_ff and (cfg.mlp_after is None or i in cfg.mlp_after):
-                p[f"m{i}"] = B.init_mlp(gen, cfg)
+                p[f"m{i}"] = (B.init_moe(gen, cfg) if self._moe(kind)
+                              else B.init_mlp(gen, cfg))
         return p
 
     def init(self, seed: int = 0, on_device: bool = False) -> Params:
@@ -91,14 +114,16 @@ class Model:
         model's device; or, with ``on_device``, on the model's device
         itself (other numbers than the CPU's; no host copy and no f32
         weight kept: each linear is drawn and quantized in turn, which is
-        how a full-width model is made on the card)."""
+        how a full-width model is made on the card). The stacked blocks
+        are filled repeat by repeat (:func:`_stacked`): the peak is the
+        model plus one super-block and its largest f32 draw."""
         cfg = self.cfg
         where = self.device if on_device else torch.device("cpu")
         gen = torch.Generator(device=where).manual_seed(seed)
         embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                              device=where) * 0.02).to(cfg.dtype)
-        blocks = _stack([self._init_superblock(gen, self.pattern)
-                         for _ in range(cfg.n_repeats)])
+        blocks = _stacked(lambda: self._init_superblock(gen, self.pattern),
+                          cfg.n_repeats)
         params: Params = {
             "embed": embed, "blocks": blocks,
             "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
@@ -158,7 +183,8 @@ class Model:
             for i, kind in enumerate(pattern):
                 x = x + layer_fn(kind, bp[f"b{i}"], x, st[f"c{i}"])
                 if f"m{i}" in bp:
-                    x = x + B.apply_mlp(bp[f"m{i}"], x, self.cfg)
+                    mlp = B.apply_moe if self._moe(kind) else B.apply_mlp
+                    x = x + mlp(bp[f"m{i}"], x, self.cfg)
             return x
         for r in range(self.cfg.n_repeats):
             x = run(_index(params["blocks"], r), _index(state["body"], r),

@@ -60,7 +60,8 @@ def _case_id(case):
 
 def test_the_four_dense_archs_are_registered():
     assert ARCHS[0] == "smollm_135m" and sorted(ARCHS[1:]) == sorted(
-        DENSE + ["recurrentgemma_9b"])
+        DENSE + ["recurrentgemma_9b", "moonshot_v1_16b_a3b",
+                 "llama4_maverick_400b_a17b"])
     for arch in DENSE:
         assert get_config(arch.replace("_", "-")) == get_config(arch)
 

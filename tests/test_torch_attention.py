@@ -283,8 +283,10 @@ def test_paged_attention_other_layouts_match_reference(quant, int8_pool,
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("g,hd,kv", [(16, 32, 1), (2, 256, 2)],
-                         ids=["G16-hd32", "G2-hd256"])
+@pytest.mark.parametrize("g,hd,kv", [(16, 32, 1), (2, 256, 2), (1, 72, 2),
+                                     (4, 72, 1), (1, 320, 2), (4, 320, 1)],
+                         ids=["G16-hd32", "G2-hd256", "G1-hd72", "G4-hd72",
+                              "G1-hd320", "G4-hd320"])
 @pytest.mark.parametrize("quant,int8_pool", [(True, True), (True, False),
                                              (False, False), (False, True)],
                          ids=["int8pool-int8attn", "exact-int8attn",
@@ -293,7 +295,9 @@ def test_paged_attention_wide_groups_and_heads_match_reference(
         quant, int8_pool, g, hd, kv, cfgs, rng):
     """The shapes the CUDA kernel takes since its head blocks and wide
     heads (G > 8 query heads per KV head, as chatglm3-6b's 16; hd = 256,
-    as recurrentgemma-9b's): the port's plain version against the
+    as recurrentgemma-9b's) and since it takes any head dimension (hd = 72,
+    not a multiple of 16; hd = 320, above 256): the port's plain version
+    against the
     reference's Pallas ``paged_attention`` (interpret mode) in all four
     layouts, f32, with ragged steps and dead table entries at page 0.
     Tolerances as the layout tests above: int8 attention one P step times
@@ -329,18 +333,26 @@ def test_paged_attention_wide_groups_and_heads_match_reference(
 
 
 def test_paged_attention_refuses_a_head_dim_off_the_kernel(cfgs):
-    """The kernel takes head dimensions that are multiples of 16 up to 256
-    (the reference's takes any); outside them the wrapper raises for a
-    tensor off the CPU, naming the domain, before it builds or launches
-    anything. On the CPU the plain version takes any."""
+    """No head dimension is off the kernel any more: as the reference's, it
+    takes any, and ``launch_plan`` sizes a block for hd = 8, 24, 72, 272,
+    320 and 512 in every layout within 227 KiB of shared memory. The
+    wrapper still raises, before it builds or launches anything, for what
+    the reference refuses too: more than one query position, and heads
+    that are not whole groups per KV head. On the CPU the plain version
+    takes any hd."""
     from repro_torch.kernels import paged_attention as K
-    for hd in (8, 24, 272):
-        with pytest.raises(ValueError, match="multiple of 16 up to 256"):
-            K.paged_attention(torch.zeros((1, 1, 2, hd), device="meta"),
-                              {"k": torch.zeros((3, 4, 1, hd),
-                                                dtype=torch.int8,
-                                                device="meta")},
-                              None, None, cfgs[0], 1.0)
+    for hd in (8, 24, 72, 272, 320, 512):
+        for itemsize, int8_pool, quant in ((1, True, True), (2, False, True),
+                                           (4, False, False),
+                                           (1, True, False)):
+            plan = K.launch_plan(16, 16, 16, hd, itemsize, int8_pool, quant)
+            assert plan.chunk_rows >= 1 and plan.smem <= K.SMEM_LIMIT
+    pool = {"k": torch.zeros((3, 4, 2, 72), dtype=torch.int8, device="meta")}
+    for q, match in ((torch.zeros((1, 2, 4, 72), device="meta"), "Sq == 1"),
+                     (torch.zeros((1, 1, 3, 72), device="meta"),
+                      "whole query heads")):
+        with pytest.raises(ValueError, match=match):
+            K.paged_attention(q, pool, None, None, cfgs[0], 1.0)
     q, pool, table, steps = _layout_case(np.random.default_rng(0), 8, True,
                                          "float32", hd=24)
     out = K.paged_attention(T(q), {n: T(a) for n, a in pool.items()},

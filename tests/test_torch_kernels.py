@@ -386,6 +386,61 @@ def test_paged_attention_head_blocks_and_wide_heads(cuda, layout, g, hd):
     _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
 
 
+@pytest.mark.parametrize("hd", [8, 9, 34, 40, 72, 320, 512])
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3])
+def test_paged_attention_any_head_dim(cuda, layout, g, hd):
+    """Any head dimension, as the reference's kernel takes: rows that are
+    not a multiple of 16 bytes (staged at a 16-byte stride with a zero
+    tail, copied in 8-, 4-, 2- or 1-byte units: hd 8, 40 and 72 in int8
+    rows of 8-byte units, 34 in 2-byte ones, 9 in single bytes) and heads
+    above 256 (P.V in passes of 512), in each pool layout at G = 1, 4 and
+    16: B=3 slots over 2 KV heads at page size 16 and max_len 256 against
+    the plain version on CPU copies within the bounds of ``agreement``;
+    one launch per call; two calls bit-identical."""
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    case = (3, 2, g, hd, 16, (256,), "bfloat16", None)
+    q, pool, table, steps, cfg = _b2_inputs(layout, case,
+                                            1000 * layout + 10 * g + hd,
+                                            cuda)
+    before = paged_attention.launches
+    got = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    again = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+    assert paged_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    cpu = {n: a.cpu() for n, a in pool.items()}
+    want = paged_attention_plain(q.cpu(), cpu, table.cpu(), steps.cpu(), cfg,
+                                 hd ** -0.5)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    _assert_agree(got, want, q, cpu, table, steps, cfg, hd ** -0.5)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("layout", [0, 2])
+def test_paged_attention_reads_pool_views_in_place(cuda, layout, offset):
+    """K and V leaves that are contiguous views starting ``offset``
+    elements into their storage (bases off a 16-byte boundary) are read
+    where they lie, in the widest copy unit that divides the row and the
+    bases: the same bits as on freshly allocated copies of them."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    case = (3, 2, 4, 64, 16, (256,), "bfloat16", None)
+    q, pool, table, steps, cfg = _b2_inputs(layout, case, 77 + offset, cuda)
+    views = dict(pool)
+    for name in ("k", "v"):
+        a = pool[name]
+        flat = torch.empty(a.numel() + offset, dtype=a.dtype, device=cuda)
+        views[name] = flat[offset:].view(a.shape)
+        views[name].copy_(a)
+        assert views[name].data_ptr() % 16
+    got = paged_attention(q, views, table, steps, cfg, 64 ** -0.5)
+    want = paged_attention(q, pool, table, steps, cfg, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _b2_inputs(layout, case, seed, cuda):
     """(q, pool, table, steps, cfg) of a B2 cluster case in one layout,
     drawn from ``seed``."""
@@ -509,7 +564,7 @@ def test_paged_attention_smem_matches_the_kernel(cuda):
     """``kernels.paged_attention.smem_bytes`` (what ``launch_plan`` sizes
     the chunk by) equals the kernel's own carve-up for every layout, at
     G up to 32 query heads per KV head (blocks of at most 8) and head
-    dimensions up to 256."""
+    dimensions from 8 to 1024, multiples of 16 or not."""
     from repro_torch.kernels.paged_attention import _library, smem_bytes
     lib = _library()
     for layout, pool_dtype in ((0, 0), (1, 0), (1, 1), (2, 0), (2, 1),
@@ -517,7 +572,8 @@ def test_paged_attention_smem_matches_the_kernel(cuda):
         int8_pool = layout in (0, 3)
         itemsize = 1 if int8_pool else (4, 2)[pool_dtype]
         for g in (1, 3, 8, 9, 16, 32):
-            for hd in (16, 32, 48, 64, 128, 256):
+            for hd in (8, 9, 16, 32, 34, 48, 64, 72, 128, 256, 320, 512,
+                       1024):
                 for ps, ppr, chunk in ((16, 2, 32), (16, 16, 100), (1, 5, 1),
                                        (4, 2, 7)):
                     want = smem_bytes(g, hd, itemsize, int8_pool,
