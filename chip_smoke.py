@@ -44,13 +44,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      call (one device op per call, asserted) and the K split; then
      llama1-7b's three linear shapes (N, K) = (4096, 4096), (11008,
      4096), (4096, 11008) at M = 4 and 512, exact against the integer
-     GEMM, timed beside ``torch._int_mm`` (``check_tgemm_arch``; it runs
-     recurrentgemma-9b's four shapes, (4096, 4096), (256, 4096), (12288,
-     4096), (4096, 12288), at M = 4, 512 and 2100 just before phase 12;
+     GEMM, timed beside ``torch._int_mm`` (``check_tgemm_arch``; after
+     phase 11b it runs recurrentgemma-9b's four shapes, (4096, 4096),
+     (256, 4096), (12288, 4096), (4096, 12288), at M = 4, 512 and 2100;
      moonshot-v1-16b-a3b's attention linears, (2048, 2048), at M = 4 and
-     512, and llama4-maverick-400b-a17b's attention linears, (5120,
-     5120) and (1024, 5120), and shared expert, (8192, 5120) and (5120,
-     8192), at M = 4, just before phase 13);
+     512; llama4-maverick-400b-a17b's attention linears, (5120, 5120) and
+     (1024, 5120), and shared expert, (8192, 5120) and (5120, 8192), at M
+     = 4; xlstm-125m's (768, 768) and its mLSTM gate projection (8, 768)
+     at M = 4 and 512; whisper-tiny's (384, 384), (1536, 384) and (384,
+     1536) at M = 4 and 6,000 (the encoder's 4 x 1,500 frames); and
+     llama-3.2-vision-90b's (8192, 8192), (1024, 8192), (28672, 8192) and
+     (8192, 28672) at M = 4; then B1 at xlstm-125m's two shapes, M = 4
+     and 512, exact against its plain versions and the integer GEMM and
+     timed as in phase 2 (``check_forest_arch``: the shapes phase 14's
+     ``engine_cuda`` run sends through B1));
   B3g. B3 at T outside {4, 8}, through the same kernel at its own
      subtile width (8, or 4 in the unaligned instance where K / groups is
      not a multiple of 4): T in {1, 2, 3, 5, 6, 7, 9, 12, 16, 32} x w_bits
@@ -161,6 +168,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      whose W4A8 linears run on B3, 40/8 heads: G=5) at its published
      widths, depth cut to 1 layer (400B parameters do not fit one card),
      the same checks (``moe_paths``; moonshot freed first);
+  14. xlstm-125m at full width and depth (12 layers: 6 x (mlstm,
+     slstm), d_model 768, 4 heads of 192, no MLP, vocab 50304 tied, bf16,
+     random weights from seed 0 drawn on the card) through one-shot
+     ``greedy_generate`` (``xlstm_path``): (a) B = 4, 128-token prompts
+     (two chunks of the chunkwise mLSTM), 32 tokens on ``lut_cuda``: B3
+     launches 6,180 times in the prefill (6 x (5 mLSTM linears + 8 sLSTM
+     linears a position + ``w_out``)) and 84 a decode step, B1, B2, B5 do
+     not, the plan cache sees no lookup; again on ``engine_cuda`` (84
+     linears planned on the host, timed; B1 launches, B3 does not) and
+     on ``int_dot``: tokens equal; (b) B = 1, a 200-token prompt (one
+     chunk of 200, the reference's fallback), 16 tokens on ``lut_cuda``
+     and ``int_dot``: tokens equal;
+  15. whisper-tiny at full width and depth (4 encoder layers over 1,500
+     seeded frame embeddings, 4 decoder layers of (attn, cross) with the
+     GELU MLP after the cross block; float attention, bf16 caches) and
+  15b. llama-3.2-vision-90b at its published widths with one super-block
+     (4 attn + 1 cross of 100 layers: 90B parameters do not fit one
+     card; 1,024 seeded patch embeddings; int8 attention, KV8 self
+     caches, bf16 cross caches), both through one-shot ``greedy_generate``
+     (``cross_paths``): B = 4, 128-token prompts, 32 tokens on
+     ``lut_cuda``, B3 asserted (64 in the prefill and 32 a step; 35 and
+     33), B1, B2, B5 not launched, and on ``int_dot``: tokens equal; the
+     init peak printed;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -174,11 +204,14 @@ that drives the kernel (B1: phase 5; B2: phase 6 for the int8 pool with
 int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
 B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; B2's int8 entry and B3's also list their launches in
-phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too)
-under ``launches_in_other_phases``; launches made to
-compare a kernel with its plain version are not counted. The line before the last
-is that JSON object of per-kernel numbers; the last line is ``{"ok":
-true, "device": {...}}``.
+phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
+B3's in phases 14-15b, B1's in phase 14's ``engine_cuda`` run) under
+``launches_in_other_phases``, and B3's entry the one-shot phases'
+prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
+launches made to compare a kernel with its plain version are not
+counted. Each phase's seconds are printed (``[seconds]``). The line
+before the last is that JSON object of per-kernel numbers; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -290,6 +323,36 @@ def _forest_bound(fplan, m, x_bytes):
     return bound_ms(n_bytes, _forest_ops(fplan, m), SCALAR_OPS_PER_S)
 
 
+def _forest_exact(w, dplan, fplan, x, qx, g=1):
+    """Both entries of B1 on ``x`` (K, M) int32 and its int8 rows ``qx``
+    against the dense plan's plain version (``run_device``), the compact
+    plan's (``forest_plan_plain``) and the integer GEMM (per group where
+    ``g`` > 1): (the (K, M) entry's output, max |diff|)."""
+    import torch
+    from repro_torch.core.backend import int_matmul
+    from repro_torch.core.engine import forest_plan_plain
+    from repro_torch.kernels.transitive_forest import (
+        forest_plain, transitive_forest, transitive_forest_rows)
+    got = transitive_forest(fplan, x)
+    got_rows = transitive_forest_rows(fplan, qx)
+    want = forest_plain(dplan, x)
+    want_compact = forest_plan_plain(fplan, x)
+    if g == 1:
+        gemm = int_matmul(w, x)
+        rows_as_km = got_rows.T
+    else:
+        k = x.shape[0]
+        kg = k // g
+        gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
+                                       x[i * kg:(i + 1) * kg])
+                            for i in range(g)], dim=1)
+        rows_as_km = got_rows.permute(2, 1, 0)
+    torch.cuda.synchronize()
+    return got, max(int((a.long() - b.long()).abs().max())
+                    for a, b in ((got, want), (got, want_compact),
+                                 (got, gemm), (rows_as_km, want)))
+
+
 def check_forest(flush):
     """B1, the fused kernel from a compact ForestPlan, against the dense
     plan's plain version (``run_device``), the compact plan's
@@ -302,13 +365,12 @@ def check_forest(flush):
     route of ``kernels.ops``: packed at its first call)."""
     import numpy as np
     import torch
-    from repro_torch.core.backend import int_matmul
     from repro_torch.core.engine import (FOREST_DIRECT, FOREST_UNUSED,
                                          BatchedTransitiveEngine,
                                          compile_plan, forest_plan_plain,
                                          pack_forest_plan)
     from repro_torch.kernels.transitive_forest import (
-        forest_plain, transitive_forest, transitive_forest_rows)
+        transitive_forest, transitive_forest_rows)
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     rng = np.random.default_rng(0)
     cases = [(n, k, m, 1, "random") for n, k in SHAPES for m in MS]
@@ -327,23 +389,7 @@ def check_forest(flush):
         x = torch.randint(-128, 128, (k, m), dtype=torch.int32,
                           device="cuda")
         qx = x.T.to(torch.int8).contiguous()
-        got = transitive_forest(fplan, x)
-        got_rows = transitive_forest_rows(fplan, qx)
-        want = forest_plain(dplan, x)
-        want_compact = forest_plan_plain(fplan, x)
-        if g == 1:
-            gemm = int_matmul(w, x)
-            rows_as_km = got_rows.T
-        else:
-            kg = k // g
-            gemm = torch.stack([int_matmul(w[:, i * kg:(i + 1) * kg],
-                                           x[i * kg:(i + 1) * kg])
-                                for i in range(g)], dim=1)
-            rows_as_km = got_rows.permute(2, 1, 0)
-        torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in ((got, want), (got, want_compact),
-                               (got, gemm), (rows_as_km, want)))
+        got, err = _forest_exact(w, dplan, fplan, x, qx, g)
         worst = max(worst, err)
         if err:
             raise AssertionError(f"forest kernel != plain at N={n} K={k} "
@@ -407,6 +453,61 @@ def check_forest(flush):
                               "row entry"}
     entry["max_abs_err"] = worst
     return entry
+
+
+def check_forest_arch(flush, arch, shapes, ms):
+    """B1 at an architecture's linear shapes ((N, K, role), T=8, w_bits 4,
+    ungrouped, as ``engine_cuda`` plans them) x ``ms``: both entries exact
+    against the dense plan's ``forest_plain``, the compact plan's
+    ``forest_plan_plain`` and the integer GEMM, as in :func:`check_forest`;
+    the row entry timed (kernel ms, L2 flushed; plain ms; the profiler's
+    device us beside ``torch._int_mm``'s) with the bound from the compact
+    plan's bytes. Returns ({shape: numbers}, worst |diff|)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import (BatchedTransitiveEngine,
+                                         compile_plan, forest_plan_plain,
+                                         pack_forest_plan)
+    from repro_torch.kernels.transitive_forest import transitive_forest_rows
+    rng = np.random.default_rng(5)
+    out, worst = {}, 0
+    for n, k, role in shapes:
+        wn = _forest_weights("random", n, k, rng)
+        dplan = compile_plan(BatchedTransitiveEngine(4, 8).plan(wn),
+                             device="cuda")
+        fplan = pack_forest_plan(dplan)
+        w = torch.from_numpy(wn).cuda()
+        for m in ms:
+            x = torch.randint(-128, 128, (k, m), dtype=torch.int32,
+                              device="cuda")
+            qx = x.T.to(torch.int8).contiguous()
+            _, err = _forest_exact(w, dplan, fplan, x, qx)
+            worst = max(worst, err)
+            tag = f"{arch} {role} N={n} K={k} M={m} T=8"
+            if err:
+                raise AssertionError(f"B1 at {tag}: max |diff| {err} from "
+                                     f"its plain versions")
+            call = (lambda: transitive_forest_rows(fplan, qx))
+            r_ms = cuda_ms(call, flush)
+            p_ms = cuda_ms(lambda: forest_plan_plain(fplan, x), flush,
+                           iters=5, warmup=1)
+            dev, ker, _ = device_us(call)
+            xm = torch.zeros((max(-(-m // 8) * 8, 32), k), dtype=torch.int8,
+                             device="cuda")
+            xm[:m] = qx
+            w8t = w.to(torch.int8).T
+            lib_ms = cuda_ms(lambda: torch._int_mm(xm, w8t), flush)
+            b_ms, b_by = _forest_bound(fplan, m, qx.numel())
+            print(f"[B1 {arch}] {tag}: exact | kernel_ms={r_ms:.4f} (row "
+                  f"entry) device us/call {dev:.2f} (kernel {ker:.2f}) "
+                  f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} (_int_mm) "
+                  f"bound_ms={b_ms:.6f} ({b_by}; compact plan "
+                  f"{fplan.nbytes()} B)")
+            out[f"N={n} K={k} M={m}"] = {
+                "ms": r_ms, "device_us": dev, "kernel_us": ker,
+                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+    return out, worst
 
 
 # B2's four pool layouts (kernels/paged_attention.py LAYOUTS): the JSON
@@ -748,6 +849,17 @@ LLAMA_SHAPES = ((4096, 4096, "q/k/v/o"), (11008, 4096, "up/gate"),
 RGEMMA_SHAPES = ((4096, 4096, "rglru x/gate/r/i/out, attn q/o"),
                  (256, 4096, "attn k/v"), (12288, 4096, "up/gate"),
                  (4096, 12288, "down"))
+# xlstm-125m's: the mLSTM's q/k/v/o and the sLSTM's nine at 768 x 768, the
+# mLSTM's gate projection w_if at N = 2 x heads = 8; whisper-tiny's three
+# (the encoder's and the cross blocks' context K/V at M = 4 x 1,500
+# frames); llama-3.2-vision's four
+XLSTM_SHAPES = ((768, 768, "mLSTM q/k/v/o, sLSTM w_*/r_*/w_out"),
+                (8, 768, "mLSTM w_if"))
+WHISPER_SHAPES = ((384, 384, "attn and cross q/k/v/o"), (1536, 384, "MLP up"),
+                  (384, 1536, "MLP down"))
+VISION_SHAPES = ((8192, 8192, "attn and cross q/o"),
+                 (1024, 8192, "attn and cross k/v"),
+                 (28672, 8192, "MLP up/gate"), (8192, 28672, "MLP down"))
 # moonshot-v1-16b-a3b's W4A8 linears (its experts are bf16, not B3's) and
 # llama4-maverick-400b-a17b's (attention and the shared expert)
 MOONSHOT_SHAPES = ((2048, 2048, "attn q/k/v/o"),)
@@ -2221,19 +2333,11 @@ def recurrent_path(flush):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import plancache
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.rg_lru import (launch_plan, rg_lru_cuda,
                                             rg_lru_plain)
-    from repro_torch.kernels.transitive_forest import transitive_forest
-    from repro_torch.kernels.transitive_forest_dense import (
-        transitive_forest_dense)
-    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
-    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
     from repro_torch.launch.specs import serve_config
     from repro_torch.models.model import Model
-    from repro_torch.train.serve_step import greedy_generate
     cfg = serve_config(get_config("recurrentgemma_9b"), backend="lut_cuda")
     kinds = cfg.block_pattern * cfg.n_repeats + cfg.block_tail
     n_rglru = kinds.count("rglru")
@@ -2255,93 +2359,41 @@ def recurrent_path(flush):
           f"dtype={cfg.dtype} | paged path: {model.supports_paged()} | "
           f"init on the card {t_init:.2f}s, "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
-    kernels = (transitive_gemm_cuda, rg_lru_cuda, paged_attention,
-               transitive_forest, transitive_forest_dense, launch_sparse)
+    kernels = _oneshot_kernels()
     icfg = cfg.replace(quant=cfg.quant.with_(backend="int_dot"))
     launches, b5 = {}, {}
     for run, (b, s, gen) in (("a", (4, 128, 32)), ("b", (1, 2100, 16))):
         tokens = torch.from_numpy(np.random.default_rng(s).integers(
             0, cfg.vocab, size=(b, s)))
-        max_len = s + gen + 8
-        captured, timing, steps = [], {}, []
-        scan, prefill, decode = ops.rg_lru, model.prefill, model.decode_step
+        tag = f"phase 12 ({run}) B={b} S={s} -> {gen}"
+        captured, scan = [], ops.rg_lru
 
         def capture(x, a, h0):
             if not captured:            # the first block of the body
                 captured.append((x.clone(), a.clone(), h0.clone()))
             return scan(x, a, h0)
-
-        def timed_prefill(*args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = prefill(*args, **kw)
-            torch.cuda.synchronize()
-            timing["prefill"] = time.perf_counter() - t
-            return out
-
-        def timed_decode(*args, **kw):
-            t = time.perf_counter()
-            out = decode(*args, **kw)
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t)
-            return out
-        cache = plancache.default_cache().stats()
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        ops.rg_lru, model.prefill = capture, timed_prefill
-        model.decode_step = timed_decode
+        ops.rg_lru = capture
         try:
-            toks = greedy_generate(model, params, {"tokens": tokens},
-                                   max_len=max_len, n_steps=gen).cpu()
+            toks, got, _, nums = _oneshot_run(tag, model, params,
+                                              {"tokens": tokens}, gen,
+                                              kernels)
         finally:
             ops.rg_lru = scan
-            del model.prefill, model.decode_step
-        decode_s = sum(steps)
-        mid = sorted(steps)[len(steps) // 2]
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        got = {k.__name__: k.launches for k in kernels}
-        after = plancache.default_cache().stats()
-        tag = f"phase 12 ({run}) B={b} S={s} -> {gen}"
-        print(f"[{tag}] lut_cuda: prefill {timing['prefill']:.3f}s, decode "
-              f"{len(steps)} steps in {decode_s:.3f}s -> "
-              f"{b * len(steps) / decode_s:.1f} tokens/s (first step "
-              f"{steps[0] * 1e3:.1f} ms, median {mid * 1e3:.1f} ms, host "
-              f"clock, synchronized a step) | {peak:.2f} GiB "
-              f"peak | launches: {got} (B5 want {n_rglru}, once per RG-LRU "
-              f"block of the prefill) | plan cache hits+misses "
-              f"{cache['hits'] + cache['misses']} -> "
-              f"{after['hits'] + after['misses']}")
-        if tuple(toks.shape) != (b, gen) or not bool(
-                ((toks >= 0) & (toks < cfg.vocab)).all()):
-            raise AssertionError(f"{tag}: output malformed: {toks}")
         if got["rg_lru_cuda"] != n_rglru:
             raise AssertionError(f"{tag}: B5 launched {got['rg_lru_cuda']} "
                                  f"times, not once per RG-LRU block "
                                  f"({n_rglru})")
         if not got["transitive_gemm_cuda"]:
             raise AssertionError(f"{tag}: B3 never launched")
-        if any(got[k.__name__] for k in kernels[2:]):
+        if any(got[k.__name__] for k in kernels[1:5]):
             raise AssertionError(f"{tag}: B1 or B2 launched: {got}")
-        if (after["hits"], after["misses"]) != (cache["hits"],
-                                                cache["misses"]):
-            raise AssertionError(f"{tag}: lut_cuda touched the plan cache")
         launches[tag] = got
-        before = transitive_gemm_cuda.launches
-        t0 = time.perf_counter()
-        itoks = greedy_generate(Model(icfg, device="cuda"), params,
-                                {"tokens": tokens}, max_len=max_len,
-                                n_steps=gen).cpu()
-        idt = time.perf_counter() - t0
-        same = int((itoks == toks).sum())
-        b3 = transitive_gemm_cuda.launches - before
-        print(f"[{tag}] int_dot (float64 integer GEMM): {idt:.3f}s | tokens "
-              f"equal to the lut_cuda run: {same}/{toks.numel()} | B3 "
-              f"launches {b3}")
-        if not torch.equal(itoks, toks) or b3:
-            raise AssertionError(f"{tag}: int_dot tokens differ from "
-                                 f"lut_cuda's ({same}/{toks.numel()} equal; "
-                                 f"B3 launched {b3} times there)")
+        itoks, igot, _, _ = _oneshot_run(tag, Model(icfg, device="cuda"),
+                                         params, {"tokens": tokens}, gen,
+                                         kernels)
+        if igot["transitive_gemm_cuda"]:
+            raise AssertionError(f"{tag}: int_dot launched B3: {igot}")
+        _same_tokens(tag, toks, itoks, "int_dot (float64 integer GEMM)")
         x, a, h0 = captured[0]
         want = rg_lru_plain(x, a, h0)
         have = rg_lru_cuda(x, a, h0)
@@ -2372,16 +2424,271 @@ def recurrent_path(flush):
               f"{p_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
         b5[tag] = {"device_us": dev, "kernel_us": ker, "ms": k_ms,
                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "kernel": plan.kernel, "max_abs_err": 0.0,
-                   "prefill_s": timing["prefill"],
-                   "decode_tokens_per_s": b * len(steps) / decode_s,
-                   "decode_step_median_ms": mid * 1e3,
-                   "peak_gib": peak}
+                   "kernel": plan.kernel, "max_abs_err": 0.0, **nums}
         del captured, x, a, h0, want, have
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return launches, b5
+
+
+def _oneshot_run(tag, model, params, batch, gen, kernels, want=None):
+    """``greedy_generate`` of ``batch`` for ``gen`` tokens, counts of
+    ``kernels`` set to 0 just before; the prefill and each decode step
+    timed on the host clock (synchronized). Checks the tokens' shape and
+    range, that the plan cache saw no lookup and, with ``want`` = (B3
+    launches in the prefill, per decode step), B3's counts. Returns (tokens
+    on the host, {kernel: launches}, {kernel: launches in the prefill},
+    numbers)."""
+    import torch
+    from repro_torch.core import plancache
+    from repro_torch.train.serve_step import greedy_generate
+    prefill, decode = model.prefill, model.decode_step
+    timing, steps, after_prefill = {}, [], {}
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(*a, **k)
+        torch.cuda.synchronize()
+        timing["prefill"] = time.perf_counter() - t
+        after_prefill.update({k_.__name__: k_.launches for k_ in kernels})
+        return out
+
+    def timed_decode(*a, **k):
+        t = time.perf_counter()
+        out = decode(*a, **k)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        return out
+    b, s = batch["tokens"].shape
+    cache = plancache.default_cache().stats()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    model.prefill, model.decode_step = timed_prefill, timed_decode
+    try:
+        toks = greedy_generate(model, params, batch, max_len=s + gen + 8,
+                               n_steps=gen).cpu()
+    finally:
+        del model.prefill, model.decode_step
+    got = {k.__name__: k.launches for k in kernels}
+    after = plancache.default_cache().stats()
+    decode_s = sum(steps)
+    mid = sorted(steps)[len(steps) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{tag}] {model.cfg.quant.backend}: prefill "
+          f"{timing['prefill']:.3f}s, decode {len(steps)} steps in "
+          f"{decode_s:.3f}s -> {b * len(steps) / decode_s:.1f} tokens/s "
+          f"(first step {steps[0] * 1e3:.1f} ms, median {mid * 1e3:.1f} ms, "
+          f"host clock, synchronized a step) | {peak:.2f} GiB peak | "
+          f"launches: {got}, in the prefill {after_prefill} | plan cache "
+          f"hits+misses {cache['hits'] + cache['misses']} -> "
+          f"{after['hits'] + after['misses']}")
+    if tuple(toks.shape) != (b, gen) or not bool(
+            ((toks >= 0) & (toks < model.cfg.vocab)).all()):
+        raise AssertionError(f"{tag}: output malformed: {toks}")
+    if (after["hits"], after["misses"]) != (cache["hits"], cache["misses"]):
+        raise AssertionError(f"{tag}: the run touched the plan cache")
+    if want is not None:
+        pre, per = after_prefill["transitive_gemm_cuda"], \
+            got["transitive_gemm_cuda"] - after_prefill["transitive_gemm_cuda"]
+        if (pre, per) != (want[0], want[1] * (gen - 1)):
+            raise AssertionError(
+                f"{tag}: B3 launched {pre} times in the prefill and {per} "
+                f"in {gen - 1} decode steps, not {want[0]} and {want[1]} a "
+                f"step")
+    numbers = {"prefill_s": timing["prefill"],
+               "decode_tokens_per_s": b * len(steps) / decode_s,
+               "decode_step_median_ms": mid * 1e3, "peak_gib": peak}
+    return toks, got, after_prefill, numbers
+
+
+def _oneshot_kernels():
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rg_lru import rg_lru_cuda
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_forest_dense import (
+        transitive_forest_dense)
+    from repro_torch.kernels.transitive_forest_sparse import launch_sparse
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    return (transitive_gemm_cuda, transitive_forest, transitive_forest_dense,
+            launch_sparse, paged_attention, rg_lru_cuda)
+
+
+def _same_tokens(tag, toks, other, what):
+    import torch
+    same = int((other == toks).sum())
+    print(f"[{tag}] {what}: tokens equal to the lut_cuda run: {same}/"
+          f"{toks.numel()}")
+    if not torch.equal(other, toks):
+        raise AssertionError(f"{tag}: {what} tokens differ from lut_cuda's "
+                             f"({same}/{toks.numel()} equal)")
+
+
+def xlstm_path():
+    """Phase 14: xlstm-125m at full width and depth (12 layers: 6 x
+    (mlstm, slstm), d_model 768, 4 heads of 192, no MLP, vocab 50304 tied,
+    bf16, W4A8 per-channel linears, random weights from seed 0 drawn on
+    the card), served as the reference serves it: one-shot
+    ``greedy_generate`` over dense caches (the paged engine refuses the
+    config). (a) B = 4, 128-token prompts (two chunks of the chunkwise
+    mLSTM), 32 tokens on ``lut_cuda``: B3 launches 6 x (5 + 8 x 128 + 1) =
+    6,180 times in the prefill (the mLSTM's five linears, the sLSTM's
+    eight a position and its ``w_out``) and 84 a decode step, B1, B2 and
+    B5 not at all, the plan cache sees no lookup; then on ``engine_cuda``
+    (every linear planned for B1 on the host and its ForestPlan attached,
+    planning timed): B1 launches, B3 does not, the tokens are equal; then
+    on ``int_dot``: equal. (b) B = 1, a 200-token prompt (one chunk of
+    200: the reference's fallback where S is not a multiple of 64), 16
+    tokens on ``lut_cuda`` (B3 6 x (6 + 8 x 200) in the prefill, 84 a
+    step) and ``int_dot``: equal. Returns ({run: launches}, {run:
+    numbers})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import oneshot_batch
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    cfg = serve_config(get_config("xlstm_125m"), backend="lut_cuda")
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, on_device=True)
+    torch.cuda.synchronize()
+    print(f"[phase 14] {cfg.name}: {cfg.n_layers} layers (full depth: "
+          f"{cfg.n_repeats} x {cfg.block_pattern}), d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab} tied dtype={cfg.dtype} | paged path: "
+          f"{model.supports_paged()} | init on the card "
+          f"{time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
+    kernels = _oneshot_kernels()
+    per_step = cfg.n_repeats * (5 + 9)
+    launches, numbers = {}, {}
+    for run, (b, s, gen) in (("a", (4, 128, 32)), ("b", (1, 200, 16))):
+        tag = f"phase 14 ({run}) B={b} S={s} -> {gen}"
+        batch = oneshot_batch(model, b, s, s)
+        want = (cfg.n_repeats * (5 + 8 * s + 1), per_step)
+        toks, got, pre, nums = _oneshot_run(tag, model, params, batch, gen,
+                                            kernels, want)
+        if any(got[k.__name__] for k in kernels[1:]):
+            raise AssertionError(f"{tag}: B1, B2 or B5 launched: {got}")
+        launches[f"{tag}, lut_cuda"] = got
+        numbers[tag] = nums
+        if run == "a":
+            from repro_torch.core import plancache
+            from repro_torch.core.plancache import _iter_ptq_layers
+            ecfg = cfg.replace(quant=cfg.quant.with_(backend="engine_cuda"))
+            emodel = Model(ecfg, device="cuda")
+            t0 = time.perf_counter()
+            stats = emodel.precompile_plans(params)
+            t_plan = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eparams = emodel.attach_device_plans(params)
+            torch.cuda.synchronize()
+            t_attach = time.perf_counter() - t0
+            fbytes = sum(layer["dplan"].nbytes()
+                         for layer in _iter_ptq_layers(eparams))
+            print(f"[{tag}] engine_cuda planning on the host: "
+                  f"{stats['plans']} plans over {stats['layers']} stacked "
+                  f"linears in {t_plan:.2f}s, attach (lower, pack, upload) "
+                  f"{t_attach:.2f}s | ForestPlans {fbytes} B on the card | "
+                  f"{plancache.default_cache()!r}")
+            etoks, egot, _, enums = _oneshot_run(tag, emodel, eparams, batch,
+                                                 gen, kernels)
+            if not egot["transitive_forest"] or any(
+                    egot[k.__name__] for k in kernels if
+                    k.__name__ != "transitive_forest"):
+                raise AssertionError(f"{tag}: engine_cuda ran {egot}, not B1 "
+                                     f"alone")
+            _same_tokens(tag, toks, etoks, "engine_cuda (B1)")
+            launches[f"{tag}, engine_cuda"] = egot
+            numbers[tag]["engine_cuda"] = dict(
+                enums, plan_s=t_plan, attach_s=t_attach, plans=stats["plans"])
+            del eparams, emodel
+        imodel = Model(cfg.replace(quant=cfg.quant.with_(backend="int_dot")),
+                       device="cuda")
+        itoks, igot, _, _ = _oneshot_run(tag, imodel, params, batch, gen,
+                                         kernels)
+        if any(igot.values()):
+            raise AssertionError(f"{tag}: int_dot launched {igot}")
+        _same_tokens(tag, toks, itoks, "int_dot (float64 integer GEMM)")
+    del params
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def cross_paths():
+    """Phase 15: whisper-tiny at full width and depth (an encoder of 4
+    non-causal attention layers with GELU MLPs over 1,500 seeded frame
+    embeddings; 4 decoder layers of (attn, cross) with the GELU MLP after
+    the cross block; d_model 384, 6 heads of 64, d_ff 1536, vocab 51865
+    tied, its ``serve_config``: W4A8 linears, float attention, bf16
+    caches). Phase 15b: llama-3.2-vision-90b at its published widths
+    (d_model 8192, 64/8 heads, d_ff 28672, vocab 128256 untied, 1,024
+    seeded patch embeddings) with one super-block, 4 attn + 1 cross of
+    100 layers (90B parameters do not fit one card): W4A8, int8 attention,
+    KV8 self caches, the cross cache bf16. Each: bf16, random weights from
+    seed 0 drawn on the card, one-shot ``greedy_generate`` of B = 4
+    128-token prompts -> 32 tokens with the launcher's seeded context
+    (``launch.serve.oneshot_batch``) on ``lut_cuda``, B3 asserted (whisper
+    64 in the prefill, 4 x 6 in the encoder and 4 x 10 in the decoder, 32
+    a decode step; vision 35 and 33), B1, B2, B5 not launched, no plan
+    cache lookup; then on ``int_dot``: every token equal. Returns ({run:
+    launches}, {run: numbers})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import oneshot_batch
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    kernels = _oneshot_kernels()
+    launches, numbers = {}, {}
+    for arch, phase, n_layers, want in (
+            ("whisper_tiny", "phase 15", None, (64, 32)),
+            ("llama_3_2_vision_90b", "phase 15b", 5, (35, 33))):
+        full = get_config(arch)
+        cfg = serve_config(full, backend="lut_cuda")
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        model = Model(cfg, device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(0, on_device=True)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers (one super-"
+                 f"block: 90B parameters do not fit one card)"
+                 if n_layers else f"{cfg.n_layers} decoder layers (full "
+                 f"depth) + {cfg.encoder_layers} encoder layers")
+        print(f"[{phase}] {cfg.name}: {depth}, pattern {cfg.block_pattern} "
+              f"mlp_after={cfg.mlp_after}, d_model={cfg.d_model} heads="
+              f"{cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab} "
+              f"{'tied' if cfg.tie_embeddings else 'untied'} context "
+              f"{cfg.n_context_tokens} tokens | quant_attention="
+              f"{cfg.quant_attention} kv_cache_bits={cfg.kv_cache_bits} | "
+              f"paged path: {model.supports_paged()} | init on the card "
+              f"{t_init:.2f}s, {init_peak:.2f} GiB peak")
+        tag = f"{phase} B=4 S=128 -> 32"
+        batch = oneshot_batch(model, 4, 128, 0)
+        toks, got, _, nums = _oneshot_run(tag, model, params, batch, 32,
+                                          kernels, want)
+        if any(got[k.__name__] for k in kernels[1:]):
+            raise AssertionError(f"{tag}: B1, B2 or B5 launched: {got}")
+        imodel = Model(cfg.replace(quant=cfg.quant.with_(backend="int_dot")),
+                       device="cuda")
+        itoks, igot, _, _ = _oneshot_run(tag, imodel, params, batch, 32,
+                                         kernels)
+        if any(igot.values()):
+            raise AssertionError(f"{tag}: int_dot launched {igot}")
+        _same_tokens(tag, toks, itoks, "int_dot (float64 integer GEMM)")
+        launches[f"{tag} ({cfg.name}), lut_cuda"] = got
+        numbers[tag] = dict(nums, init_peak_gib=init_peak)
+        del params, batch
+        torch.cuda.empty_cache()
+    return launches, numbers
 
 
 def ops_path():
@@ -2531,38 +2838,61 @@ def main() -> int:
     for name in build.SOURCES:
         print(f"[ptxas {name}] {build.ptxas_report(name)}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    forest = check_forest(flush)
-    attention = check_attention(flush)
-    tgemm = check_tgemm(flush)
-    tgemm["llama1_7b"] = check_tgemm_arch(flush)
-    generic = check_tgemm_generic(flush)
-    dense = check_forest_dense(flush)
-    sparse = check_forest_sparse(flush)
-    w4a8 = check_w4a8(flush)
-    rglru = check_rg_lru(flush)
-    check_reduced_serve()
-    launches, toks, raw, cfg = main_path()
-    lut = lut_path(toks, raw, cfg)
-    layouts = layout_paths(raw, cfg)
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+    forest = timed("B1", check_forest, flush)
+    attention = timed("B2", check_attention, flush)
+    tgemm = timed("B3", check_tgemm, flush)
+    tgemm["llama1_7b"] = timed("B3 llama1-7b", check_tgemm_arch, flush)
+    generic = timed("B3g", check_tgemm_generic, flush)
+    dense = timed("B1d", check_forest_dense, flush)
+    sparse = timed("B1s", check_forest_sparse, flush)
+    w4a8 = timed("B4", check_w4a8, flush)
+    rglru = timed("B5", check_rg_lru, flush)
+    timed("4", check_reduced_serve)
+    launches, toks, raw, cfg = timed("5", main_path)
+    lut = timed("6", lut_path, toks, raw, cfg)
+    layouts = timed("8-10", layout_paths, raw, cfg)
     layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
     del raw
-    archs = dense_paths()
-    tgemm["recurrentgemma_9b"] = check_tgemm_arch(
-        flush, "recurrentgemma-9b", RGEMMA_SHAPES, (4, 512, 2100))
-    recurrent, rglru["phase 12"] = recurrent_path(flush)
-    tgemm["moonshot_v1_16b_a3b"] = check_tgemm_arch(
-        flush, "moonshot-v1-16b-a3b", MOONSHOT_SHAPES, (4, 512))
-    tgemm["llama4_maverick_400b_a17b"] = check_tgemm_arch(
-        flush, "llama4-maverick-400b-a17b", LLAMA4_SHAPES, (4,))
+    archs = timed("11, 11b", dense_paths)
+    for arch, shapes, ms in (
+            ("recurrentgemma-9b", RGEMMA_SHAPES, (4, 512, 2100)),
+            ("moonshot-v1-16b-a3b", MOONSHOT_SHAPES, (4, 512)),
+            ("llama4-maverick-400b-a17b", LLAMA4_SHAPES, (4,)),
+            ("xlstm-125m", XLSTM_SHAPES, (4, 512)),
+            ("whisper-tiny", WHISPER_SHAPES, (4, 6000)),
+            ("llama-3.2-vision-90b", VISION_SHAPES, (4,))):
+        tgemm[arch.replace("-", "_").replace(".", "_")] = timed(
+            f"B3 {arch}", check_tgemm_arch, flush, arch, shapes, ms)
+    forest["xlstm_125m"], worst = timed(
+        "B1 xlstm-125m", check_forest_arch, flush, "xlstm-125m",
+        XLSTM_SHAPES, (4, 512))
+    forest["max_abs_err"] = max(forest["max_abs_err"], worst)
+    recurrent, rglru["phase 12"] = timed("12", recurrent_path, flush)
     del flush
-    archs |= moe_paths()
-    ops = ops_path()
+    archs |= timed("13, 13b", moe_paths)
+    xlstm, oneshot = timed("14", xlstm_path)
+    cross, cross_numbers = timed("15, 15b", cross_paths)
+    oneshot |= cross_numbers
+    oneshot_launches = xlstm | cross
+    ops = timed("7", ops_path)
+    print(f"[seconds] by phase: {phase_s}")
     kernels = [
         {"name": "transitive_forest", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
          "launches": launches["transitive_forest"],
-         "launches_from": "phase 5 (engine_cuda serve)", **forest},
+         "launches_from": "phase 5 (engine_cuda serve)",
+         "launches_in_other_phases": {
+             phase: n["transitive_forest"] for phase, n in
+             oneshot_launches.items() if n["transitive_forest"]},
+         **forest},
         {"name": "transitive_forest_dense", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
@@ -2593,8 +2923,8 @@ def main() -> int:
          "launches_from": "phase 6 (lut_cuda serve)",
          "launches_in_other_phases": {
              phase: n["transitive_gemm_cuda"] for phase, n in
-             (archs | recurrent).items()},
-         **tgemm},
+             (archs | recurrent | oneshot_launches).items()},
+         "oneshot_phases": oneshot, **tgemm},
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",

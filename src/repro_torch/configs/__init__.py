@@ -1,11 +1,9 @@
-"""Architecture config registry: the dense decoders, the two MoE ones and
-the hybrid recurrent one (recurrentgemma-9b) the port serves.
+"""Architecture config registry: the reference's eleven architectures
+(dense decoders, two MoE ones, the hybrid recurrent one, xLSTM, a
+vision-language one with cross-attention and an encoder-decoder one).
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_reduced(name)`` the smoke-test-sized variant of the same family.
-The reference registers eleven architectures; the port registers the ones
-its model code runs (xLSTM, cross-attention and enc-dec families come
-later).
 """
 from __future__ import annotations
 
@@ -22,6 +20,9 @@ ARCHS = [
     "recurrentgemma_9b",  # RG-LRU + local attention, one-shot serving only
     "moonshot_v1_16b_a3b",        # MoE: 64 experts top-6
     "llama4_maverick_400b_a17b",  # MoE: 128 experts top-1 + shared
+    "xlstm_125m",         # mLSTM + sLSTM, one-shot serving only
+    "whisper_tiny",       # encoder-decoder, one-shot serving only
+    "llama_3_2_vision_90b",       # cross-attention to patch embeddings
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

@@ -44,7 +44,7 @@ class ModelConfig:
     mlp_after: tuple[int, ...] | None = None   # pattern idxs with MLP (None=all)
     local_window: int = 0            # 0 -> global attention
 
-    # --- modality frontends (the port serves text-only configs) ---
+    # --- modality frontends (stubs: context embeddings come as given) ---
     n_context_tokens: int = 0
     encoder_layers: int = 0
     max_target_positions: int = 0

@@ -27,10 +27,12 @@ bf16, random weights from ``--seed`` drawn on the card), admits
     the experts' products and their combine) apart from the rest.
 
 With ``--oneshot`` the step is ``greedy_generate``'s instead (the path
-of configs the paged engine does not cover, recurrentgemma-9b among
-them): a batch of ``--slots`` prompts is prefilled into dense caches
-(that prefill is profiled too: one call, its device time by kernel), and
-each step is one ``Model.decode_step`` and its argmax.
+of configs the paged engine does not cover: recurrentgemma-9b,
+xlstm-125m, whisper-tiny): a batch of ``--slots`` prompts (with the
+launcher's seeded context where the config attends to one,
+``launch.serve.oneshot_batch``) is prefilled into dense caches (that
+prefill is profiled too: one call, its device time by kernel), and each
+step is one ``Model.decode_step`` and its argmax.
 
 If the profiler records no device events, the device columns read "not
 measured". CUDA only: a host without a card raises.
@@ -46,6 +48,7 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.backend import list_backends
 from repro_torch.launch.device_events import PRIMER, PRIMER_LAUNCHES
+from repro_torch.launch.serve import oneshot_batch
 from repro_torch.launch.specs import serve_config
 from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
@@ -176,16 +179,12 @@ def _report(prof, window: float, n: int, what: str, top: int) -> None:
 def _oneshot(model, params, args):
     """(admit, step) over dense caches: admit prefills ``--slots`` prompts;
     each step is one decode step and its argmax, on the device."""
-    cfg = model.cfg
-    rng = np.random.default_rng(args.seed + 1)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, size=(args.slots, args.prompt_len)))
+    batch = oneshot_batch(model, args.slots, args.prompt_len, args.seed)
     max_len = args.prompt_len + 2 * args.steps + 10
     state = {}
 
     def admit():
-        logits, state["caches"] = model.prefill(params, {"tokens": tokens},
-                                                max_len)
+        logits, state["caches"] = model.prefill(params, batch, max_len)
         state["tok"] = torch.argmax(logits[:, -1], -1)[:, None]
         state["step"] = args.prompt_len
 

@@ -15,6 +15,10 @@ cache, or (``--fp``) the base config unquantized.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --continuous --backend lut_cuda \
       --paged-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --backend lut_cuda --batch 4 --prompt-len 128 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --backend lut_cuda --batch 4 --prompt-len 128 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given; random weights from
 ``--seed`` are drawn on that device (``Model.init(on_device=True)``: a
@@ -27,8 +31,12 @@ Without ``--continuous`` (the one-shot mode) ``--batch`` prompts of
 window where the config has one), then ``--gen`` tokens. The report
 prints tokens, seconds, tokens/s and the kernel launch counts. This is
 how the reference serves configs the paged path does not cover
-(``Model.supports_paged``), recurrentgemma-9b among them: with
-``--continuous`` they are refused with its reason.
+(``Model.supports_paged``), recurrentgemma-9b, xlstm-125m, whisper-tiny
+and llama-3.2-vision-90b among them: with ``--continuous`` they are
+refused with its reason. A config with cross blocks gets seeded context
+embeddings (:func:`oneshot_batch`): whisper-tiny's 1,500 frames go
+through its encoder, llama-3.2-vision-90b's 1,024 patches straight to
+its cross blocks.
 
 With ``--continuous`` requests arrive
 staggered (``--requests`` of them, one every ``--arrive-every`` host
@@ -81,24 +89,41 @@ def _mode(cfg) -> str:
     return f"fp {str(cfg.dtype).removeprefix('torch.')}"
 
 
+def oneshot_batch(model, batch: int, prompt_len: int, seed: int) -> dict:
+    """The one-shot mode's batch: ``batch`` prompts of ``prompt_len``
+    tokens drawn by numpy from ``seed + 1``, and, for a config with cross
+    blocks, the frontend stub's context, ``(batch, n_context_tokens,
+    d_model)`` standard normals x 0.02 in f32, drawn on the model's device
+    from ``seed + 1`` (frame embeddings for an encoder-decoder, patch
+    embeddings otherwise), as the reference's launcher makes them."""
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 1)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(batch, prompt_len)))}
+    if cfg.n_context_tokens or cfg.is_encdec:
+        gen = torch.Generator(device=model.device).manual_seed(seed + 1)
+        out["context"] = torch.randn(
+            (batch, cfg.n_context_tokens, cfg.d_model), generator=gen,
+            device=model.device) * 0.02
+    return out
+
+
 def generate_oneshot(model, params, args):
     """``--batch`` seeded prompts through ``greedy_generate`` over dense
     caches; returns the (batch, gen) tokens on the host."""
-    import torch
     from repro_torch.kernels.rg_lru import rg_lru_cuda
     from repro_torch.kernels.transitive_forest import transitive_forest
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
 
     cfg = model.cfg
-    rng = np.random.default_rng(args.seed + 1)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, size=(args.batch, args.prompt_len)))
+    batch = oneshot_batch(model, args.batch, args.prompt_len, args.seed)
     max_len = args.prompt_len + args.gen + 8
     kernels = (transitive_forest, transitive_gemm_cuda, rg_lru_cuda)
     launches0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
-    toks = greedy_generate(model, params, {"tokens": tokens},
-                           max_len=max_len, n_steps=args.gen).cpu()
+    toks = greedy_generate(model, params, batch, max_len=max_len,
+                           n_steps=args.gen).cpu()
     dt = time.perf_counter() - t0
     n = args.batch * args.gen
     print(f"[{cfg.name} | {_mode(cfg)} | one-shot | {model.device}] "

@@ -10,7 +10,10 @@ Pools and caches are updated in place where the reference donates its
 buffers. Prefill over more than ``CHUNK_THRESHOLD`` positions takes
 ``attend_chunked`` (float, query chunks of ``Q_CHUNK``), and a local
 window keeps a rolling dense cache of ``min(max_len, window)`` slots.
-Cross-attention is not part of the port yet.
+Cross-attention (:func:`apply_cross`) attends from the decoder's
+positions to context embeddings (an encoder's output or a frontend's
+stub): no RoPE, a dense cache of the context's K/V in the working dtype
+(never int8) written at prefill and read alone at decode.
 """
 from __future__ import annotations
 
@@ -214,13 +217,15 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    window: int = 0, device=None):
+                    window: int = 0, cross: bool = False, device=None):
     """One layer's dense cache: ``max_len`` slots, or a rolling cache of
-    ``min(max_len, window)`` slots for a local window."""
+    ``min(max_len, window)`` slots for a local window. KV8 configs keep
+    int8 codes and per-position scales, except in a ``cross`` cache,
+    which always holds the working dtype."""
     size = min(max_len, window) if window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.hd)
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
-    if cfg.kv_cache_bits == 8:
+    if cfg.kv_cache_bits == 8 and not cross:
         return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
                 "ks": z(shape[:-1] + (1,), torch.float32),
                 "vs": z(shape[:-1] + (1,), torch.float32)}
@@ -259,9 +264,60 @@ def _kv_stores(k, v, int8: bool) -> dict:
     return {"k": k, "v": v}
 
 
+def _write_prompt(cache, k, v, allow_roll: bool) -> None:
+    """Write a prompt's (or a context's) K/V (B, S, KV, D) into a dense
+    cache in place: its last ``min(size, S)`` positions, position p at
+    slot p % size (int8 codes and scales for a KV8 cache)."""
+    size, sq = cache["k"].shape[1], k.shape[1]
+    if sq > size and not allow_roll:
+        raise ValueError(f"prompt of {sq} exceeds the cache ({size})")
+    take = min(size, sq)
+    slots = (torch.arange(take, device=k.device) + (sq - take)) % size
+    int8 = cache["k"].dtype == torch.int8
+    for name, val in _kv_stores(k[:, sq - take:], v[:, sq - take:],
+                                int8).items():
+        cache[name][:, slots] = val.to(cache[name].dtype)
+
+
+def apply_cross(params, x, cfg: ModelConfig, *, context=None, cache=None):
+    """Cross-attention block body (pre-norm, residual outside): queries
+    from x, no RoPE. With ``context`` (B, Sc, d) its K/V are projected,
+    written in place to ``cache`` where one is given (prefill), and every
+    query attends to every context position; without it (decode) the K/V
+    come from the cache alone, over all of its positions. Returns (out,
+    cache)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, sq, _ = x.shape
+    xn = rms_norm(x, params["norm"], cfg.norm_eps)
+    q = linear_apply(params["wq"], xn, cfg.quant).reshape(b, sq, h, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    scale = hd ** -0.5
+    if context is None:
+        size = cache["k"].shape[1]
+        valid = torch.ones((1, size), dtype=torch.bool, device=x.device)
+        out = attend_cached(q, cache["k"], cache["v"], None, None, valid,
+                            cfg, scale)
+        return _out_proj(params, out, x, cfg), cache
+    sc = context.shape[1]
+    k = linear_apply(params["wk"], context, cfg.quant).reshape(b, sc, kv, hd)
+    v = linear_apply(params["wv"], context, cfg.quant).reshape(b, sc, kv, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if cache is not None:
+        _write_prompt(cache, k, v, allow_roll=True)
+    groups = h // kv
+    mask = torch.ones((b, 1, sq, sc), dtype=torch.bool, device=x.device)
+    out = attend_full(q, _repeat_kv(k, groups), _repeat_kv(v, groups), mask,
+                      scale, cfg.quant_attention)
+    return _out_proj(params, out, x, cfg), cache
+
+
 def apply_attn(params, x, cfg: ModelConfig, *, positions, cache=None,
-               step=None, window=0, prefill=False):
-    """Causal self-attention block body (pre-norm, residual outside).
+               step=None, window=0, prefill=False, causal=True):
+    """Self-attention block body (pre-norm, residual outside), causal
+    unless ``causal=False`` (the encoder's; cross-attention is
+    :func:`apply_cross`).
 
     Modes: train (cache=None), prefill (cache given, filled in place with
     the prompt's K/V), decode (cache given, position ``step`` written in
@@ -277,23 +333,15 @@ def apply_attn(params, x, cfg: ModelConfig, *, positions, cache=None,
 
     if cache is None or prefill:
         if cache is not None:
-            size = cache["k"].shape[1]
-            if sq > size and not window:
-                raise ValueError(f"prompt of {sq} exceeds the cache ({size})")
-            take = min(size, sq)
-            slots = (torch.arange(take, device=x.device) + (sq - take)) \
-                % size
-            int8 = cache["k"].dtype == torch.int8
-            for name, val in _kv_stores(k[:, sq - take:], v[:, sq - take:],
-                                        int8).items():
-                cache[name][:, slots] = val.to(cache[name].dtype)
+            _write_prompt(cache, k, v, allow_roll=bool(window))
         kf, vf = _repeat_kv(k, groups), _repeat_kv(v, groups)
         if sq > CHUNK_THRESHOLD:
-            out = attend_chunked(q, kf, vf, scale, True, window)
+            out = attend_chunked(q, kf, vf, scale, causal, window)
         else:
             qp = positions[:, :, None]
             kp = positions[:, None, :]
-            mask = qp >= kp
+            mask = qp >= kp if causal else torch.ones(
+                (b, sq, sq), dtype=torch.bool, device=x.device)
             if window:
                 mask &= qp - kp < window
             out = attend_full(q, kf, vf, mask[:, None], scale,

@@ -1,23 +1,35 @@
 """Model assembly (port of ``repro.models.model``): embedding, a stack of
 pre-norm blocks, tied or untied unembedding, with dense-cache and
-paged-pool serve entry points. Block kinds: ``attn`` (GQA
-self-attention, global or over a local window) and ``rglru`` (the RG-LRU
-recurrent block), each followed by a SwiGLU MLP, or, after an ``attn``
-block of a ``moe`` family config, by the top-k MoE block.
+paged-pool serve entry points, for all eleven reference architectures.
+Block kinds:
+
+  attn   GQA self-attention, global or over a local window (+ MLP)
+  cross  cross-attention to context embeddings (+ MLP)
+  rglru  the RG-LRU recurrent block (+ MLP)
+  mlstm / slstm  the xLSTM blocks (self-contained, no MLP)
+
+The MLP is SwiGLU, GELU for the ``audio`` family (whisper), or, after an
+``attn`` block of a ``moe`` family config, the top-k MoE block; where
+``mlp_after`` is set, only the blocks it names have one. An
+encoder-decoder config (whisper) runs a separate non-causal stack of
+``("attn",)`` super-blocks over its frames (``params["encoder"]``) whose
+normed output is the cross blocks' context; other cross configs
+(llama-3.2-vision) take the context embeddings as given.
 
 A config's ``block_pattern`` defines one super-block, repeated
 ``n_repeats`` times, and ``block_tail`` the blocks after them.
 Parameters keep the reference's layout: every leaf under
-``params["blocks"]`` has a leading ``n_repeats`` axis, ``params["tail"]``
-none (that is what ``repro_torch.convert`` carries over), and the forward
-pass is a Python loop over that axis where the reference scans. Caches
-and page pools are laid out the same way and updated in place.
+``params["blocks"]`` (and ``params["encoder"]``) has a leading repeat
+axis, ``params["tail"]`` none (that is what ``repro_torch.convert``
+carries over), and the forward pass is a Python loop over that axis
+where the reference scans. Caches and page pools are laid out the same
+way and updated in place.
 
 The paged serve path covers attention-only configs with global attention
-(:meth:`Model.supports_paged`), the MoE ones among them; the others
-serve through the dense caches of ``prefill`` / ``decode_step``. xLSTM,
-cross-attention and encoder-decoder configs are not part of the port
-yet: :class:`Model` refuses them.
+and no context (:meth:`Model.supports_paged`), the MoE ones among them;
+the others (recurrent, xLSTM, cross-attention and encoder-decoder
+configs) serve through the dense caches of ``prefill`` /
+``decode_step``, as in the reference.
 """
 from __future__ import annotations
 
@@ -70,42 +82,44 @@ def _stacked(draw, n: int):
     return out
 
 
+KINDS = ("attn", "cross", "rglru", "mlstm", "slstm")
+
+
 class Model:
     """Functional decoder: init / prefill / decode_step and the paged serve
     entry points. Runs on ``cuda`` unless ``device="cpu"`` is passed."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        reason = self._unsupported(cfg)
-        if reason is not None:
-            raise NotImplementedError(f"{cfg.name}: {reason}")
+        unknown = set(cfg.block_pattern + cfg.block_tail) - set(KINDS)
+        if unknown:
+            raise ValueError(f"{cfg.name}: unknown block kinds "
+                             f"{sorted(unknown)}")
         self.cfg = cfg
         self.pattern = cfg.block_pattern
         self.device = resolve_device(device)
-
-    @staticmethod
-    def _unsupported(cfg: ModelConfig) -> str | None:
-        kinds = set(cfg.block_pattern) | set(cfg.block_tail)
-        if kinds - {"attn", "rglru"}:
-            return (f"blocks {sorted(kinds - {'attn', 'rglru'})} are not "
-                    f"ported yet")
-        if cfg.n_context_tokens or cfg.is_encdec:
-            return "cross-attention context is not ported yet"
-        return None
 
     def _moe(self, kind: str) -> bool:
         """Whether the MLP after a block of ``kind`` is the MoE block."""
         return self.cfg.family == "moe" and kind == "attn"
 
     # ---- init --------------------------------------------------------------
-    def _init_superblock(self, gen, pattern) -> Params:
-        cfg = self.cfg
+    def _init_superblock(self, gen, pattern, cfg=None) -> Params:
+        cfg = cfg or self.cfg
         p = {}
         for i, kind in enumerate(pattern):
-            p[f"b{i}"] = (A.init_attn(gen, cfg) if kind == "attn"
-                          else B.init_rglru(gen, cfg))
-            if cfg.d_ff and (cfg.mlp_after is None or i in cfg.mlp_after):
+            if kind in ("attn", "cross"):
+                p[f"b{i}"] = A.init_attn(gen, cfg)
+            elif kind == "rglru":
+                p[f"b{i}"] = B.init_rglru(gen, cfg)
+            elif kind == "mlstm":
+                p[f"b{i}"] = B.init_mlstm(gen, cfg)
+            else:
+                p[f"b{i}"] = B.init_slstm(gen, cfg)
+            if (kind in ("attn", "cross", "rglru") and cfg.d_ff
+                    and (cfg.mlp_after is None or i in cfg.mlp_after)):
                 p[f"m{i}"] = (B.init_moe(gen, cfg) if self._moe(kind)
-                              else B.init_mlp(gen, cfg))
+                              else B.init_mlp(gen, cfg,
+                                              gelu=cfg.family == "audio"))
         return p
 
     def init(self, seed: int = 0, on_device: bool = False) -> Params:
@@ -134,6 +148,14 @@ class Model:
                 * 0.02).to(cfg.dtype)
         if cfg.block_tail:
             params["tail"] = self._init_superblock(gen, cfg.block_tail)
+        if cfg.is_encdec:
+            ecfg = cfg.replace(mlp_after=None)
+            params["encoder"] = _stacked(
+                lambda: self._init_superblock(gen, ("attn",), ecfg),
+                cfg.encoder_layers)
+            params["enc_norm"] = torch.ones((cfg.d_model,),
+                                            dtype=torch.float32,
+                                            device=where)
         return _to(params, self.device)
 
     # ---- serve-path plan warmup -------------------------------------------
@@ -175,23 +197,63 @@ class Model:
         table = params.get("unembed", params["embed"])
         return torch.matmul(x, table.to(x.dtype).T).to(torch.float32)
 
+    def _run(self, bp, st, pattern, x, layer_fn):
+        """One super-block: each block of ``pattern`` (``layer_fn(kind,
+        bp, x, c)`` with its slice ``c`` of the state, or None) and its
+        MLP, residuals added."""
+        for i, kind in enumerate(pattern):
+            c = None if st is None else st[f"c{i}"]
+            x = x + layer_fn(kind, bp[f"b{i}"], x, c)
+            if f"m{i}" in bp:
+                mlp = B.apply_moe if self._moe(kind) else B.apply_mlp
+                x = x + mlp(bp[f"m{i}"], x, self.cfg)
+        return x
+
     def _blocks(self, params, x, state, layer_fn):
         """Run the stacked super-blocks, then the tail. ``layer_fn(kind,
         bp, x, c)`` applies one block with its slice ``c`` of ``state``
         (the caches or the page pool, laid out like the params)."""
-        def run(bp, st, pattern, x):
-            for i, kind in enumerate(pattern):
-                x = x + layer_fn(kind, bp[f"b{i}"], x, st[f"c{i}"])
-                if f"m{i}" in bp:
-                    mlp = B.apply_moe if self._moe(kind) else B.apply_mlp
-                    x = x + mlp(bp[f"m{i}"], x, self.cfg)
-            return x
         for r in range(self.cfg.n_repeats):
-            x = run(_index(params["blocks"], r), _index(state["body"], r),
-                    self.pattern, x)
+            x = self._run(_index(params["blocks"], r),
+                          _index(state["body"], r), self.pattern, x,
+                          layer_fn)
         if self.cfg.block_tail:
-            x = run(params["tail"], state["tail"], self.cfg.block_tail, x)
+            x = self._run(params["tail"], state["tail"], self.cfg.block_tail,
+                          x, layer_fn)
         return x
+
+    def _encode(self, params, frames):
+        """The encoder: ``encoder_layers`` non-causal ``("attn",)``
+        super-blocks (each with its MLP) over the frame embeddings at
+        positions 0..n-1 (RoPE included), then ``enc_norm``."""
+        cfg = self.cfg.replace(mlp_after=None)
+        x = frames.to(cfg.dtype)
+        b, n = x.shape[:2]
+        pos = torch.arange(n, device=self.device).expand(b, n)
+
+        def layer(kind, bp, x, c):
+            return A.apply_attn(bp, x, cfg, positions=pos, causal=False,
+                                window=cfg.local_window)[0]
+        for r in range(cfg.encoder_layers):
+            x = self._run(_index(params["encoder"], r), None, ("attn",), x,
+                          layer)
+        return A.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _context(self, params, batch):
+        """The cross blocks' context: the encoder's output over
+        ``batch["context"]`` (frame embeddings) for an encoder-decoder
+        config, else ``batch["context"]`` cast to the working dtype; None
+        for a config without one."""
+        cfg = self.cfg
+        if not (cfg.n_context_tokens or cfg.is_encdec):
+            return None
+        if "context" not in batch:
+            raise ValueError(f"{cfg.name} attends to context embeddings: "
+                             f"the batch needs 'context' (B, n, d_model)")
+        ctx = torch.as_tensor(batch["context"], device=self.device)
+        if cfg.is_encdec:
+            return self._encode(params, ctx)
+        return ctx.to(cfg.dtype)
 
     # ---- dense cache serve -------------------------------------------------
     def _state(self, one):
@@ -210,18 +272,34 @@ class Model:
         return out
 
     def init_cache(self, batch: int, max_len: int):
+        """Dense caches for ``batch`` rows of ``max_len`` positions (capped
+        at ``max_target_positions`` where the config has one): K/V (rolling
+        over a local window), the cross blocks' context K/V
+        (``n_context_tokens`` positions, working dtype), the recurrent
+        blocks' states."""
         cfg = self.cfg
+        if cfg.max_target_positions:
+            max_len = min(max_len, cfg.max_target_positions)
 
         def one(kind):
             if kind == "attn":
                 return A.init_attn_cache(cfg, batch, max_len,
                                          cfg.local_window, device="meta")
-            return B.cache_rglru(cfg, batch, device="meta")
+            if kind == "cross":
+                return A.init_attn_cache(cfg, batch,
+                                         cfg.n_context_tokens or 1,
+                                         cross=True, device="meta")
+            if kind == "rglru":
+                return B.cache_rglru(cfg, batch, device="meta")
+            if kind == "mlstm":
+                return B.cache_mlstm(cfg, batch, device="meta")
+            return B.cache_slstm(cfg, batch, device="meta")
         return self._state(one)
 
-    def _layer(self, positions, step=None):
-        """The dense-cache layer function of :meth:`_blocks`: prefill, or
-        the decode step writing position ``step``."""
+    def _layer(self, positions, step=None, context=None):
+        """The dense-cache layer function of :meth:`_blocks`: prefill
+        (cross blocks attend to ``context``), or the decode step writing
+        position ``step`` (cross blocks read their caches)."""
         cfg = self.cfg
         prefill = step is None
 
@@ -230,18 +308,27 @@ class Model:
                 return A.apply_attn(bp, x, cfg, positions=positions,
                                     cache=c, step=step, prefill=prefill,
                                     window=cfg.local_window)[0]
-            return B.apply_rglru(bp, x, cfg, cache=c, prefill=prefill)[0]
+            if kind == "cross":
+                return A.apply_cross(bp, x, cfg, cache=c,
+                                     context=context)[0]
+            if kind == "rglru":
+                return B.apply_rglru(bp, x, cfg, cache=c, prefill=prefill)[0]
+            if kind == "mlstm":
+                return B.apply_mlstm(bp, x, cfg, cache=c, prefill=prefill)[0]
+            return B.apply_slstm(bp, x, cfg, cache=c, prefill=prefill)[0]
         return layer
 
     def prefill(self, params: Params, batch: dict, max_len: int):
-        """Process the prompt and fill fresh caches; returns (last-position
-        logits (B, 1, V), caches)."""
+        """Process the prompt (and the context, for a config with cross
+        blocks: ``batch["context"]``) and fill fresh caches; returns
+        (last-position logits (B, 1, V), caches)."""
         tokens = self._tokens(batch["tokens"])
         b, s = tokens.shape
+        context = self._context(params, batch)
         caches = self.init_cache(b, max_len)
         pos = torch.arange(s, device=self.device).expand(b, s)
         x = self._blocks(params, self._embed_tokens(params, tokens), caches,
-                         self._layer(pos))
+                         self._layer(pos, context=context))
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params: Params, caches, token, step: int):

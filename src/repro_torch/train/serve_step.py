@@ -17,7 +17,9 @@ def greedy_generate(model: Model, params, batch, max_len: int,
     the argmax over the prefill logits at the last prompt position; tokens
     1..n_steps-1 come from ``n_steps - 1`` decode steps. ``n_steps=0``
     returns an empty ``(B, 0)`` tensor without running the model; negative
-    ``n_steps`` raises.
+    ``n_steps`` raises. A config with cross blocks takes its context
+    embeddings from ``batch["context"]`` at the prefill; decode reads
+    them from the cross caches.
     """
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
@@ -25,7 +27,8 @@ def greedy_generate(model: Model, params, batch, max_len: int,
     b, prompt_len = tokens.shape
     if n_steps == 0:
         return torch.zeros((b, 0), dtype=torch.int32, device=model.device)
-    logits, caches = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, caches = model.prefill(params, {**batch, "tokens": tokens},
+                                   max_len)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     toks = [tok]
     for i in range(n_steps - 1):

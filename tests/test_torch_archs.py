@@ -2,8 +2,10 @@
 (``llama1_7b``, ``qwen3_14b``, ``mistral_nemo_12b``, ``chatglm3_6b``)
 against the JAX reference.
 
-Each arch's registered config equals the reference's on every field the
-port keeps. Its reduced ``serve_config`` (W4A8 per-channel PTQ, dynamic
+The port registers all eleven reference architectures. Each dense arch's
+registered config, and each of the xLSTM, encoder-decoder and
+cross-attention ones', equals the reference's on every field the port
+keeps. Its reduced ``serve_config`` (W4A8 per-channel PTQ, dynamic
 int8 attention, KV8 pool) in float32 is built in both packages with the
 reference's weights carried over by ``repro_torch.convert``; the
 reference runs its ``int_dot`` backend and the gather decode path, the
@@ -31,6 +33,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import get_reduced as ref_reduced  # noqa: E402
 from repro.launch.specs import serve_config as ref_serve_config  # noqa: E402
@@ -45,7 +48,11 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 DENSE = ["llama1_7b", "qwen3_14b", "mistral_nemo_12b", "chatglm3_6b"]
+# the xLSTM, encoder-decoder and cross-attention families
+NEW = ["xlstm_125m", "whisper_tiny", "llama_3_2_vision_90b"]
 # (arch, heads, KV heads): the published query heads per KV head
 VARIANTS = [("mistral_nemo_12b", 8, 2), ("qwen3_14b", 10, 2),
             ("chatglm3_6b", 16, 1)]
@@ -59,31 +66,40 @@ def _case_id(case):
 
 
 def test_the_four_dense_archs_are_registered():
-    assert ARCHS[0] == "smollm_135m" and sorted(ARCHS[1:]) == sorted(
-        DENSE + ["recurrentgemma_9b", "moonshot_v1_16b_a3b",
-                 "llama4_maverick_400b_a17b"])
-    for arch in DENSE:
-        assert get_config(arch.replace("_", "-")) == get_config(arch)
+    """The port registers the reference's eleven architectures (the four
+    dense ones among them), each under its hyphenated name too, and
+    ``Model`` takes every one."""
+    assert ARCHS[0] == "smollm_135m" and sorted(ARCHS) == sorted(REF_ARCHS)
+    assert len(ARCHS) == 11 and set(DENSE + NEW) < set(ARCHS)
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        assert get_config(cfg.name) == get_config(arch.replace("_", "-")) \
+            == cfg
+        Model(get_reduced(arch), device="cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + NEW)
 def test_config_equals_reference(arch):
     """Every field of the port's ModelConfig (the quant config's too) equals
-    the reference's; dtypes compared by name."""
-    got, want = get_config(arch), ref_get_config(arch)
-    for f in dataclasses.fields(got):
-        a, b = getattr(got, f.name), getattr(want, f.name)
-        if f.name == "dtype":
-            assert str(a).removeprefix("torch.") == jnp.dtype(b).name
-        elif f.name == "quant":
-            for q in dataclasses.fields(a):
-                assert getattr(a, q.name) == getattr(b, q.name), q.name
-        else:
-            assert a == b, f.name
+    the reference's, full and reduced; dtypes compared by name."""
+    for got, want in ((get_config(arch), ref_get_config(arch)),
+                      (get_reduced(arch), ref_reduced(arch))):
+        for f in dataclasses.fields(got):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "dtype":
+                assert str(a).removeprefix("torch.") == jnp.dtype(b).name
+            elif f.name == "quant":
+                for q in dataclasses.fields(a):
+                    assert getattr(a, q.name) == getattr(b, q.name), q.name
+            else:
+                assert a == b, f.name
+        assert (got.n_repeats, got.hd, got.is_encdec) == (
+            want.n_repeats, want.hd, want.is_encdec)
     for reduce in (get_reduced, ref_reduced):
         r = reduce(arch)
-        assert (r.n_layers, r.d_model, r.head_dim, r.grad_accum) == (
-            2, 128, 32, 1)
+        assert (r.d_model, r.head_dim, r.grad_accum) == (128, 32, 1)
+        assert r.n_layers == (2 if arch in DENSE
+                              else 2 * len(r.block_pattern))
 
 
 @pytest.fixture(scope="module", params=CASES, ids=_case_id)

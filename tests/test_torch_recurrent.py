@@ -46,7 +46,6 @@ from repro.configs import get_reduced as ref_reduced  # noqa: E402
 from repro.launch.specs import serve_config as ref_serve_config  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 from repro.models import blocks as RB  # noqa: E402
-import repro.quant.quantize as RQ  # noqa: E402
 from repro.models.model import Model as RefModel  # noqa: E402
 from repro.train.serve_step import (  # noqa: E402
     greedy_generate as ref_greedy_generate)
@@ -56,9 +55,11 @@ from repro_torch.launch.specs import serve_config  # noqa: E402
 from repro_torch.models import attention as PA  # noqa: E402
 from repro_torch.models import blocks as PB  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-import repro_torch.quant.quantize as PQ  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+
+from _shared_codes import greedy_on_shared_codes  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "recurrentgemma_9b"
 # (batch, prompt length, generated tokens)
@@ -246,20 +247,6 @@ def test_greedy_generate_tokens_equal_reference(cell, run):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _greedy_logits(model, params, toks, max_len, gen):
-    """``greedy_generate``'s loop, keeping each step's logits and token."""
-    logits, caches = model.prefill(params, {"tokens": torch.from_numpy(toks)},
-                                   max_len)
-    out = []
-    for i in range(gen):
-        tok = torch.argmax(logits[:, -1], -1)
-        out.append((logits, tok))
-        if i + 1 < gen:
-            logits, caches = model.decode_step(params, caches, tok[:, None],
-                                               toks.shape[1] + i)
-    return out
-
-
 @pytest.fixture(scope="module")
 def int_dot_cell():
     ref_cfg, cfg = _pair("int_dot")
@@ -282,50 +269,9 @@ def test_int_dot_matches_reference_on_shared_codes(int_dot_cell, run,
     within atol 2e-4 and every greedy token is equal."""
     ref_model, raw, model, params = int_dot_cell
     b, s, gen = run
-    toks = _prompt(b, s)
-    codes, want_logits, want_toks = [], [], []
-    ref_quantize = RQ.quantize_per_token
-
-    def record(x, bits=8):
-        q, scale = ref_quantize(x, bits)
-        codes.append((np.asarray(q), np.asarray(scale)))
-        return q, scale
-    monkeypatch.setattr(RQ, "quantize_per_token", record)
-    monkeypatch.setattr(RA, "quantize_per_token", record)
-    with jax.disable_jit():
-        logits, caches = ref_model.prefill(raw, {"tokens": jnp.asarray(toks)},
-                                           s + gen + 8)
-        for i in range(gen):
-            want_logits.append(np.asarray(logits))
-            want_toks.append(np.asarray(jnp.argmax(logits[:, -1], -1)))
-            if i + 1 < gen:
-                logits, caches = ref_model.decode_step(
-                    raw, caches, jnp.asarray(want_toks[-1][:, None],
-                                             jnp.int32), jnp.int32(s + i))
-    monkeypatch.undo()
-
-    port_quantize = PQ.quantize_per_token
-    seen = {"calls": 0, "off": 0, "codes": 0}
-
-    def shared(x, bits=8):
-        q, scale = port_quantize(x, bits)
-        rq, rs = codes[seen["calls"]]
-        seen["calls"] += 1
-        assert tuple(q.shape) == rq.shape and tuple(scale.shape) == rs.shape
-        off = np.abs(q.numpy().astype(np.int64) - rq.astype(np.int64))
-        assert off.max() <= 1
-        seen["off"] += int((off > 0).sum())
-        seen["codes"] += off.size
-        np.testing.assert_allclose(scale.float().numpy(), rs, rtol=1e-4,
-                                   atol=0)
-        return torch.from_numpy(rq.copy()), torch.from_numpy(
-            rs.copy()).to(scale.dtype)
-    monkeypatch.setattr(PQ, "quantize_per_token", shared)
-    monkeypatch.setattr(PA, "quantize_per_token", shared)
-    got = _greedy_logits(model, params, toks, s + gen + 8, gen)
-    monkeypatch.undo()
-    assert seen["calls"] == len(codes) > 0
-    assert seen["off"] <= 1e-4 * seen["codes"], seen
+    got, want_logits, want_toks, _ = greedy_on_shared_codes(
+        ref_model, raw, model, params, {"tokens": _prompt(b, s)},
+        s + gen + 8, gen, monkeypatch)
     for (logits, tok), want, want_tok in zip(got, want_logits, want_toks):
         np.testing.assert_allclose(logits.numpy(), want, rtol=0, atol=2e-4)
         np.testing.assert_array_equal(tok.numpy(), want_tok)
