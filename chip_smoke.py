@@ -191,6 +191,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      ``lut_cuda``, B3 asserted (64 in the prefill and 32 a step; 35 and
      33), B1, B2, B5 not launched, and on ``int_dot``: tokens equal; the
      init peak printed;
+  16. training: smollm-135m at full width and depth (bf16, grad_accum 4,
+     remat "block", weights drawn on the card) through ``train.loop.train``
+     at global batch 32 x 512 tokens: (a) 8 steps straight; (b) the same
+     job checkpointing every 2 steps, crashed at step 5 under
+     ``run_with_restarts``, resumed at step 4: its last loss within 2e-4
+     of (a)'s; no B1-B5 launch (mode ``none`` trains on plain products);
+     step time (median of three steps timed after (a)), tokens/s, peak
+     memory, losses and one profiled step printed (``train_path``);
+  16b. recurrentgemma-9b at its published widths with one super-block and
+     the tail (5 of 38 layers: the full depth with AdamW state does not
+     fit one card), two train steps at seq 256, batch 8, grad_accum 8: B5
+     launches forward (4 a microbatch, + 2 recomputed by remat) and
+     backward (``rg_lru_grad``, 4 a microbatch), counted apart; one
+     profiled step (B5's device time in it) and B5's forward and backward
+     apart at the step's shape; then B5's gradient at the path's shapes (B=4 S=128, B=1 S=2100, D=4096, f32)
+     against autograd through its plain version, timed
+     (``train_recurrent_path``);
+  17. the accuracy example (``examples.quantize_eval``) on the card:
+     reduced smollm trained 60 steps (the loss falls by more than 0.5),
+     then W8A8 and W4A8 perplexities on ``lut_cuda`` (B3) and
+     ``engine_cuda`` (B1) equal to ``int_dot``'s bit for bit, both
+     kernels launched (``accuracy_path``);
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -205,7 +227,8 @@ int8 attention, phases 8-10 for the other layouts; B3: phase 6; B4, B5,
 B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; B2's int8 entry and B3's also list their launches in
 phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
-B3's in phases 14-15b, B1's in phase 14's ``engine_cuda`` run) under
+B3's in phases 14-15b and 17, B1's in phase 14's ``engine_cuda`` run and
+phase 17, B5's forward and backward in phase 16b) under
 ``launches_in_other_phases``, and B3's entry the one-shot phases'
 prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
 launches made to compare a kernel with its plain version are not
@@ -2691,6 +2714,374 @@ def cross_paths():
     return launches, numbers
 
 
+def _train_kernels():
+    """The kernels that mode-``none`` training must not launch (B1-B5 and
+    B5's backward), for the counts of phases 16 and 16b."""
+    from repro_torch.kernels.rg_lru import rg_lru_grad
+    return _oneshot_kernels() + (rg_lru_grad,)
+
+
+def train_path():
+    """Phase 16: smollm-135m trained at full width and depth (30 layers,
+    d_model 576, 9/3 heads, d_ff 1536, vocab 49152 tied, bf16, f32 AdamW
+    moments, grad_accum 4, remat "block"; weights drawn on the card from
+    seed 0) through ``train.loop.train`` at the reference launcher's
+    defaults, global batch 32 of 512 tokens, lr 3e-4: (a) 8 steps
+    straight; (b) the same job with ``ckpt_every=2`` and a failure
+    injected at step 5 under ``run_with_restarts``: it resumes from the
+    step-4 checkpoint, and its last loss must be within 2e-4 of (a)'s
+    (the reference's bar). Mode ``none`` trains on plain products, as the
+    reference trains on XLA dots: no B1-B5 launch over either run
+    (counts set to 0 just before). Prints the step time (median of the
+    three steps that :func:`_profile_train_step` times from (a)'s final
+    state), tokens/s, the peak memory and the losses. Returns the
+    numbers."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import run_with_restarts
+    from repro_torch.train.loop import train
+    cfg = get_config("smollm_135m")
+    if (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.grad_accum, cfg.remat,
+            cfg.dtype) != (30, 576, 49152, 4, "block", torch.bfloat16):
+        raise AssertionError(f"phase 16: {cfg}")
+    kernels = _train_kernels()
+    kw = dict(seq_len=512, global_batch=32, steps=8, lr=3e-4, device="cuda")
+    ckpt = os.path.join(ROOT, "build", "phase16_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, straight = train(cfg, **kw)
+    t_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profiled = _profile_train_step("phase 16", cfg, state, kw, timed=3)
+    mid = profiled["step_s_median"]
+    del state
+    torch.cuda.empty_cache()
+    starts = []
+
+    def job(attempt):
+        _, hist = train(cfg, ckpt_dir=ckpt, ckpt_every=2,
+                        fail_at_step=5 if attempt == 0 else None, **kw)
+        starts.append(hist[0]["step"])
+        return hist
+    t0 = time.perf_counter()
+    resumed, restarts = run_with_restarts(job, max_restarts=2)
+    t_b = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    got = {k.__name__: k.launches for k in kernels}
+    tokens = kw["global_batch"] * kw["seq_len"]
+    losses = [round(h["loss"], 5) for h in straight]
+    diff = abs(resumed[-1]["loss"] - straight[-1]["loss"])
+    print(f"[phase 16] {cfg.name} trained at full width and depth: "
+          f"{cfg.n_layers} layers d_model={cfg.d_model} vocab={cfg.vocab} "
+          f"{cfg.dtype} grad_accum={cfg.grad_accum} remat={cfg.remat}, "
+          f"batch {kw['global_batch']} x {kw['seq_len']} | (a) "
+          f"{len(straight)} steps in {t_a:.1f}s, then a step "
+          f"{mid:.4f}s (median of {len(profiled['step_s'])}) -> "
+          f"{tokens / mid:.0f} tokens/s | peak {peak:.2f} GiB | losses "
+          f"{losses} | (b) crashed at 5, {restarts} restart, resumed at "
+          f"step {starts[-1]}: losses "
+          f"{[round(h['loss'], 5) for h in resumed]} in {t_b:.1f}s | last "
+          f"loss (a) {straight[-1]['loss']:.6f} (b) "
+          f"{resumed[-1]['loss']:.6f}, |diff| {diff:.2e} (bar 2e-4) | "
+          f"launches {got}")
+    if restarts != 1 or starts != [4] or [h["step"] for h in resumed] != [
+            4, 5, 6, 7]:
+        raise AssertionError(f"phase 16: (b) did not resume at step 4: "
+                             f"{restarts} restarts, starts {starts}")
+    if diff > 2e-4 or not all(math.isfinite(h["loss"]) for h in straight):
+        raise AssertionError(f"phase 16: resumed last loss off by {diff}")
+    if straight[-1]["loss"] >= straight[0]["loss"]:
+        raise AssertionError(f"phase 16: the loss did not fall: {losses}")
+    if any(got.values()):
+        raise AssertionError(f"phase 16: a kernel launched in mode none: "
+                             f"{got}")
+    return {"step_s_median": mid, "tokens_per_s": tokens / mid,
+            "peak_gib": peak, "run_a_s": t_a,
+            "losses": losses, "resumed_last_loss_diff": diff,
+            "resumed_run_s": t_b, "profiled_step": profiled}
+
+
+def _profile_train_step(tag, cfg, state, kw, timed, kernels=()):
+    """More train steps from a run's final state: after a warm-up step,
+    ``timed`` steps each on the host clock (ending with the loss read;
+    their median is the step time), then one profiled
+    (``launch/device_events.py``): device ms (every device op's self
+    time), launches, the idle share 1 - device / host median, and, for
+    each name in ``kernels``, that kernel's device ms and launches in the
+    step."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.device_events import device_events
+    from repro_torch.models.model import Model
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train.train_step import make_optimizer, make_train_step
+    model = Model(cfg, device="cuda")
+    step_fn = make_train_step(model, make_optimizer(cfg),
+                              cosine_schedule(kw["lr"], 2, kw["steps"]))
+    batch = SyntheticLM(cfg, kw["seq_len"], kw["global_batch"],
+                        device="cuda").batch(kw["steps"], cfg.grad_accum)
+
+    def one():
+        return float(step_fn(state, batch)[1]["loss"])
+    one()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        one()
+        times.append(time.perf_counter() - t0)
+    mid = sorted(times)[len(times) // 2]
+    host = mid * 1e3
+    events = device_events(one)
+    dev = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    named = {k: {"device_ms": sum(e.self_device_time_total for e in events
+                                  if k in e.key) / 1e3,
+                 "launches": sum(e.count for e in events if k in e.key)}
+             for k in kernels}
+    print(f"[{tag}] {timed} train steps: "
+          f"{', '.join(f'{t:.4f}s' for t in times)}; one profiled: host "
+          f"{host:.2f} ms (median), device {dev:.3f} ms, idle "
+          f"{1 - dev / host:.3f}, {launches} launches; "
+          + "".join(f"{k} {v['device_ms']:.3f} ms x{v['launches']}; "
+                    for k, v in named.items())
+          + "top: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top))
+    return {"step_s": times, "step_s_median": mid, "host_ms": host,
+            "device_ms": dev, "idle": 1 - dev / host, "launches": launches,
+            "kernels": named}
+
+
+def _rg_lru_grad_check(flush):
+    """B5's backward (``rg_lru_grad``: the kernel over time reversed) at
+    recurrentgemma-9b's path shapes, B=4 S=128 and B=1 S=2100, D=4096,
+    f32, against autograd through the plain version on the same (x, a,
+    h0, dh): dx, da, dh0 within atol 1e-5 x max |want| (the same f32
+    products and sums; the tolerance covers another order of the
+    elementwise tail). Times: the function's call (kernel ms, L2 flushed),
+    the profiler's device us (every op, and the kernel alone), autograd
+    through the plain version, and the bytes bound (dh, a, h read once;
+    dx, da written once; h0, dh0). Returns the entries by shape."""
+    import torch
+    from repro_torch.kernels.rg_lru import (launch_plan, rg_lru_cuda,
+                                            rg_lru_grad, rg_lru_plain)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = []
+    for b, s in ((4, 128), (1, 2100)):
+        d = 4096
+        x = torch.randn((b, s, d), generator=gen, device="cuda")
+        a = torch.rand((b, s, d), generator=gen, device="cuda") * 0.199 + 0.8
+        h0 = torch.randn((b, d), generator=gen, device="cuda")
+        dh = torch.randn((b, s, d), generator=gen, device="cuda")
+        h = rg_lru_cuda(x, a, h0)
+        before = rg_lru_grad.launches
+        dx, da, dh0 = rg_lru_grad(dh, a, h, h0)
+        if rg_lru_grad.launches != before + 1:
+            raise AssertionError("B5 grad: one launch a call expected")
+        args = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+        want = torch.autograd.grad(rg_lru_plain(*args), args, dh)
+        torch.cuda.synchronize()
+        errs, bits = [], True
+        for name, g, w in zip(("dx", "da", "dh0"), (dx, da, dh0), want):
+            err = float((g - w).abs().max())
+            errs.append(err)
+            bits &= torch.equal(g, w)
+            if g.dtype != w.dtype or err > 1e-5 * float(w.abs().max()):
+                raise AssertionError(f"B5 grad B={b} S={s}: {name} off by "
+                                     f"{err} (max |want| "
+                                     f"{float(w.abs().max())})")
+        plan = launch_plan(b, s, d, 4, 4, 4, 0, 0, 0)
+        dev, ker, n_ops = device_us(lambda: rg_lru_grad(dh, a, h, h0),
+                                    kernels=(plan.kernel,))
+        k_ms = cuda_ms(lambda: rg_lru_grad(dh, a, h, h0), flush)
+
+        def plain():
+            ins = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+            torch.autograd.grad(rg_lru_plain(*ins), ins, dh)
+        p_ms = cuda_ms(plain, flush, iters=2, warmup=1)
+        n_bytes = 5 * b * s * d * 4 + 2 * b * d * 4
+        b_ms, b_by = bound_ms(n_bytes, 3 * b * s * d, SCALAR_OPS_PER_S)
+        shape = f"B={b} S={s} D={d} f32"
+        print(f"[B5 grad] {shape}: dx, da, dh0 max |diff| "
+              f"{', '.join(f'{e:.3g}' for e in errs)} against autograd "
+              f"through the plain version (atol 1e-5 x max |want|; "
+              f"bit-equal: {bits}) | {plan.kernel} | kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms=null bound_ms={b_ms:.6f} "
+              f"({b_by}) | device us/call {dev:.2f} (kernel {ker:.2f}, "
+              f"{n_ops:g} ops)")
+        out.append({"shape": shape, "kernel": plan.kernel, "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                    "bound_by": b_by, "device_us": dev, "kernel_us": ker,
+                    "device_ops": n_ops, "max_abs_err": max(errs),
+                    "bit_equal": bool(bits), "tolerance": "atol 1e-5 x "
+                    "max |autograd through the plain version|"})
+        del x, a, h0, dh, h, dx, da, dh0, want, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_recurrent_path(flush):
+    """Phase 16b: recurrentgemma-9b at its published widths (d_model 4096,
+    16 heads over 1 KV head, hd 256, d_ff 12288, vocab 256000 tied, bf16,
+    remat "block") with one super-block plus the tail, (rglru, rglru,
+    attn) + (rglru, rglru): 5 of 38 layers, since a 9B model with AdamW
+    state does not fit one card. Two train steps through
+    ``train.loop.train`` at seq 256, global batch 8, grad_accum 8: the
+    RG-LRU's recurrence runs on B5 forward and backward (counts set to 0
+    just before): per microbatch 4 forward launches, 2 more where remat
+    recomputes the super-block, and 4 backward. Then three more steps
+    from the final state, timed, and one profiled
+    (:func:`_profile_train_step`: B5's device time in the step, forward
+    and backward together, as both run one kernel), and B5's forward and
+    backward apart at the step's shape (:func:`_rg_lru_step_calls`).
+    Then B5's gradient at the serving path's shapes against autograd
+    through its plain version (:func:`_rg_lru_grad_check`). Returns
+    (launches, numbers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rg_lru import launch_plan
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.loop import train
+    cfg = get_config("recurrentgemma_9b").replace(n_layers=5)
+    kinds = cfg.block_pattern * cfg.n_repeats + cfg.block_tail
+    if (kinds, cfg.d_model, cfg.grad_accum, cfg.remat) != (
+            ("rglru", "rglru", "attn", "rglru", "rglru"), 4096, 8, "block"):
+        raise AssertionError(f"phase 16b: {kinds} {cfg}")
+    kernels = _train_kernels()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(seq_len=256, global_batch=8, steps=2, lr=3e-4, device="cuda")
+    t0 = time.perf_counter()
+    state, hist = train(cfg, **kw)
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {k.__name__: k.launches for k in kernels}
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    mb = kw["global_batch"] // cfg.grad_accum
+    b5 = launch_plan(mb, kw["seq_len"], cfg.d_model, 4, 4, 4).kernel
+    profiled = _profile_train_step("phase 16b", cfg, state, kw, timed=3,
+                                   kernels=(b5,))
+    del state
+    torch.cuda.empty_cache()
+    body = cfg.block_pattern.count("rglru") * cfg.n_repeats
+    n_rglru = body + cfg.block_tail.count("rglru")
+    micro = kw["steps"] * cfg.grad_accum
+    want_fwd, want_bwd = micro * (n_rglru + body), micro * n_rglru
+    print(f"[phase 16b] {cfg.name} at published widths, 5 of 38 layers "
+          f"({kinds}; the full depth with AdamW state does not fit one "
+          f"card), {n_params / 1e9:.3f}B params, bf16, f32 moments, seq "
+          f"256, batch 8, grad_accum 8, remat {cfg.remat} | 2 steps in "
+          f"{t_run:.1f}s, losses "
+          f"{[round(h['loss'], 5) for h in hist]}, grad_norm "
+          f"{[round(h['grad_norm'], 4) for h in hist]} | peak {peak:.2f} "
+          f"GiB | B5 forward {got['rg_lru_cuda']} (want {want_fwd}), "
+          f"backward {got['rg_lru_grad']} (want {want_bwd}) | launches "
+          f"{got}")
+    if (got["rg_lru_cuda"], got["rg_lru_grad"]) != (want_fwd, want_bwd):
+        raise AssertionError(f"phase 16b: B5 forward/backward launches "
+                             f"{got['rg_lru_cuda']}/{got['rg_lru_grad']}, "
+                             f"not {want_fwd}/{want_bwd}")
+    if any(v for k, v in got.items() if k not in ("rg_lru_cuda",
+                                                  "rg_lru_grad")):
+        raise AssertionError(f"phase 16b: B1-B4 launched: {got}")
+    in_step = profiled["kernels"][b5]["launches"]
+    if in_step != (want_fwd + want_bwd) // kw["steps"]:
+        raise AssertionError(f"phase 16b: the profiled step ran {b5} "
+                             f"{in_step} times, not "
+                             f"{(want_fwd + want_bwd) // kw['steps']}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in hist):
+        raise AssertionError(f"phase 16b: non-finite or zero: {hist}")
+    launches = {"phase 16b forward": got["rg_lru_cuda"],
+                "phase 16b backward": got["rg_lru_grad"]}
+    calls = _rg_lru_step_calls(mb, kw["seq_len"], cfg.d_model, b5)
+    grads = _rg_lru_grad_check(flush)
+    return launches, {"phase_16b": {"run_s": t_run, "peak_gib": peak,
+                                    "params": n_params,
+                                    "profiled_step": profiled,
+                                    "b5_calls": calls},
+                      "grad": grads}
+
+
+def _rg_lru_step_calls(b, s, d, kernel):
+    """B5's forward (``rg_lru_cuda``) and backward (``rg_lru_grad``) calls
+    at one microbatch's shape in phase 16b's step (x, a, dh (b, s, d)
+    f32, h0 zero), apart: device us a call of the whole function and of
+    ``kernel`` alone, from ``torch.profiler``. The launches that this
+    makes are left out of every count (the counts were read before)."""
+    import torch
+    from repro_torch.kernels.rg_lru import rg_lru_cuda, rg_lru_grad
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((b, s, d), generator=gen, device="cuda")
+    a = torch.rand((b, s, d), generator=gen, device="cuda") * 0.199 + 0.8
+    dh = torch.randn((b, s, d), generator=gen, device="cuda")
+    h0 = torch.zeros((b, d), device="cuda")
+    h = rg_lru_cuda(x, a, h0)
+    out = {}
+    for name, fn in (("forward", lambda: rg_lru_cuda(x, a, h0)),
+                     ("backward", lambda: rg_lru_grad(dh, a, h, h0))):
+        dev, ker, n_ops = device_us(fn, kernels=(kernel,))
+        out[name] = {"device_us": dev, "kernel_us": ker, "ops": n_ops}
+    print(f"[phase 16b] B5 at the step's shape B={b} S={s} D={d} f32, a "
+          f"call: " + "; ".join(
+              f"{k} {v['device_us']:.2f} us ({kernel} {v['kernel_us']:.2f} "
+              f"us, {v['ops']:g} ops)" for k, v in out.items()))
+    return out
+
+
+def accuracy_path():
+    """Phase 17: the accuracy example (``repro_torch.examples.
+    quantize_eval``) on the card: reduced smollm (2 layers, f32) trained
+    60 steps at lr 5e-3 (the loss must fall by more than 0.5, the mean of
+    the last 3 against the first 3: the reference's bar), then the
+    perplexity of a held-out batch under fp32, and W8A8 and W4A8 (group
+    64) on ``int_dot``, ``lut_cuda`` (B3) and ``engine_cuda`` (B1, plans
+    built on the host): the three give the same int32 accumulators, so
+    the transitive perplexities must equal int_dot's bit for bit. B3 and
+    B1 must launch (counts set to 0 just before). Returns (launches,
+    numbers)."""
+    from repro_torch.examples import quantize_eval
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    kernels = _train_kernels()
+    for k in kernels:
+        k.launches = 0
+    lines = []
+    out = quantize_eval.evaluate("cuda", log=lines.append)
+    got = {k.__name__: k.launches for k in kernels}
+    for line in lines:
+        print(f"[phase 17] {line}")
+    hist = out["hist"]
+    first = sum(h["loss"] for h in hist[:3]) / 3
+    last = sum(h["loss"] for h in hist[-3:]) / 3
+    print(f"[phase 17] loss {first:.4f} -> {last:.4f} (mean of the first "
+          f"and last 3 of {len(hist)} steps; bar: a fall > 0.5) | "
+          f"launches {got}")
+    if not last < first - 0.5:
+        raise AssertionError(f"phase 17: the loss fell {first - last}")
+    for bits in ("W8A8", "W4A8"):
+        res = out[bits]
+        if set(res) != {"int_dot", "lut_cuda", "engine_cuda"} or len(
+                set(res.values())) != 1:
+            raise AssertionError(f"phase 17: {bits} perplexities differ: "
+                                 f"{res}")
+    if not (got[transitive_gemm_cuda.__name__]
+            and got[transitive_forest.__name__]):
+        raise AssertionError(f"phase 17: B3 or B1 did not launch: {got}")
+    if any(v for k, v in got.items() if k not in (
+            transitive_gemm_cuda.__name__, transitive_forest.__name__)):
+        raise AssertionError(f"phase 17: another kernel launched: {got}")
+    return got, {"loss_first3": first, "loss_last3": last,
+                 "ppl": {k: out[k] for k in ("fp32", "W8A8", "W4A8")}}
+
+
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
@@ -2875,12 +3266,15 @@ def main() -> int:
         XLSTM_SHAPES, (4, 512))
     forest["max_abs_err"] = max(forest["max_abs_err"], worst)
     recurrent, rglru["phase 12"] = timed("12", recurrent_path, flush)
-    del flush
     archs |= timed("13, 13b", moe_paths)
     xlstm, oneshot = timed("14", xlstm_path)
     cross, cross_numbers = timed("15, 15b", cross_paths)
     oneshot |= cross_numbers
     oneshot_launches = xlstm | cross
+    timed("16", train_path)
+    b5_train, rglru["training"] = timed("16b", train_recurrent_path, flush)
+    del flush
+    accuracy, accuracy_numbers = timed("17", accuracy_path)
     ops = timed("7", ops_path)
     print(f"[seconds] by phase: {phase_s}")
     kernels = [
@@ -2890,8 +3284,10 @@ def main() -> int:
          "launches": launches["transitive_forest"],
          "launches_from": "phase 5 (engine_cuda serve)",
          "launches_in_other_phases": {
-             phase: n["transitive_forest"] for phase, n in
-             oneshot_launches.items() if n["transitive_forest"]},
+             **{phase: n["transitive_forest"] for phase, n in
+                oneshot_launches.items() if n["transitive_forest"]},
+             "phase 17 (quantize_eval, engine_cuda)":
+                 accuracy["transitive_forest"]},
          **forest},
         {"name": "transitive_forest_dense", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
@@ -2922,9 +3318,12 @@ def main() -> int:
          "launches": lut["transitive_gemm_cuda"],
          "launches_from": "phase 6 (lut_cuda serve)",
          "launches_in_other_phases": {
-             phase: n["transitive_gemm_cuda"] for phase, n in
-             (archs | recurrent | oneshot_launches).items()},
-         "oneshot_phases": oneshot, **tgemm},
+             **{phase: n["transitive_gemm_cuda"] for phase, n in
+                (archs | recurrent | oneshot_launches).items()},
+             "phase 17 (quantize_eval, lut_cuda)":
+                 accuracy["transitive_gemm_cuda"]},
+         "oneshot_phases": oneshot, "accuracy_phase": accuracy_numbers,
+         **tgemm},
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
          "replaces": "src/repro/kernels/transitive_gemm.py:84",
@@ -2942,7 +3341,8 @@ def main() -> int:
          "launches": ops["rg_lru_cuda"],
          "launches_from": "phase 7 (kernels.ops)",
          "launches_in_other_phases": {
-             phase: n["rg_lru_cuda"] for phase, n in recurrent.items()},
+             **{phase: n["rg_lru_cuda"] for phase, n in recurrent.items()},
+             **b5_train},
          **rglru},
     ]
     print(json.dumps({"kernels": kernels}))

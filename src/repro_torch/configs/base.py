@@ -1,13 +1,13 @@
 """Model / run configuration dataclasses (port of ``repro.configs.base``).
 
-Only the fields the port's serving slice reads are kept, plus the ones
-that size a config and those the registered configs pass (``grad_accum``,
-inert until training is ported); JAX dtypes become torch dtypes. The
-reference's fields not kept here: ``expert_capacity_factor`` (read
+The fields the port's serving and training paths read, plus the ones
+that size a config; JAX dtypes become torch dtypes (``opt_state_dtype``
+keeps the reference's values: a dtype, or the string ``"bfloat16"``).
+The reference's fields not kept here: ``expert_capacity_factor`` (read
 only by the expert-parallel dispatch, not ported yet: the single-device
-dispatch drops no token), ``remat``, ``seq_shard``, ``opt_state_dtype``,
-``factored_second_moment`` and ``compress_pod_grads`` (training), and the
-``sub_quadratic`` property.
+dispatch drops no token), ``seq_shard`` and ``compress_pod_grads`` (the
+multi-device training paths, not ported yet), and the ``sub_quadratic``
+property.
 """
 from __future__ import annotations
 
@@ -63,8 +63,15 @@ class ModelConfig:
     paged_kernel: bool = False       # paged decode through the live-page
                                      # CUDA kernel (kernels/paged_attention)
 
+    # --- training knobs ---
     dtype: Any = torch.bfloat16
-    grad_accum: int = 1              # training knob; inert in serving
+    remat: str = "block"             # none | block (recompute each
+                                     # super-block in the backward)
+    grad_accum: int = 1              # microbatches a train step
+    opt_state_dtype: Any = torch.float32   # AdamW moments (and the
+                                           # gradient sum) in bf16 if
+                                           # "bfloat16"
+    factored_second_moment: bool = False   # Adafactor-style v (huge models)
 
     @property
     def hd(self) -> int:
@@ -107,5 +114,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         max_target_positions=64 if cfg.max_target_positions else 0,
         local_window=min(cfg.local_window, 64) if cfg.local_window else 0,
         quant=cfg.quant.with_(group=64),
-        grad_accum=1,
+        grad_accum=1, remat="none",
     )

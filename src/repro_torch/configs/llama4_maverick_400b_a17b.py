@@ -1,10 +1,6 @@
 """llama4-maverick-400b-a17b [moe] — 128 experts top-1 + shared expert,
 early-fusion frontend out of scope (text backbone).
-[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]
-
-The reference's config also sets ``factored_second_moment`` and a
-bfloat16 ``opt_state_dtype`` (its optimizer state at 400B parameters);
-those are training fields the port does not keep."""
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]"""
 from repro_torch.configs.base import ModelConfig
 
 
@@ -16,4 +12,8 @@ def config() -> ModelConfig:
         n_experts=128, top_k=1, n_shared_experts=1,
         block_pattern=("attn",),
         grad_accum=16,
+        factored_second_moment=True,
+        opt_state_dtype="bfloat16",   # + factored 2nd moment (Adafactor):
+                                      # ~790B params cannot hold full f32
+                                      # moments
     )

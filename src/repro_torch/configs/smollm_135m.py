@@ -7,4 +7,5 @@ def config() -> ModelConfig:
         name="smollm-135m", family="dense",
         n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
         d_ff=1536, vocab=49152,
+        grad_accum=4,
     )

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rg_lru import rg_lru_cuda
+from repro_torch.kernels.rg_lru import rg_lru as _rg_lru
 from repro_torch.kernels.transitive_forest import transitive_forest
 from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
 from repro_torch.kernels.w4a8_gemm import w4a8_gemm_cuda
@@ -54,5 +54,7 @@ def w4a8_gemm(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
 
 def rg_lru(x: torch.Tensor, a: torch.Tensor,
            h0: torch.Tensor) -> torch.Tensor:
-    """Linear recurrence h_t = a_t h_{t-1} + x_t over (B, S, D)."""
-    return rg_lru_cuda(x, a, h0)
+    """Linear recurrence h_t = a_t h_{t-1} + x_t over (B, S, D),
+    differentiable in x, a and h0 (the backward runs the kernel over time
+    reversed, ``kernels.rg_lru.rg_lru_grad``)."""
+    return _rg_lru(x, a, h0)

@@ -5,7 +5,10 @@ Replaces the Pallas kernel ``repro/kernels/rg_lru.py`` (``rg_lru_pallas``).
 (B, S, D) from h0 (B, D) with an f32 carry, h (B, S, D) in x's dtype. On
 CPU tensors it runs the plain version (``kernels/ref.py::rg_lru_ref``, a
 sequential f32 loop); on CUDA tensors it launches the kernel or raises.
-Each launch adds one to ``rg_lru_cuda.launches``. x and a may each be
+Each launch adds one to ``rg_lru_cuda.launches``. :func:`rg_lru` is the
+same function under autograd: its backward, :func:`rg_lru_grad`, runs the
+kernel once more over time reversed (``rg_lru_grad.launches``), so the
+RG-LRU trains through B5 on the card. x and a may each be
 float32, bfloat16, float16 or float64; both compute in f32 and round h
 once to x's dtype. Kernel and plain version round the same operations in
 the same order, so they agree bit for bit; the reference's doubling scan
@@ -34,8 +37,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["rg_lru_cuda", "rg_lru_plain", "launch_plan", "LaunchPlan",
-           "SMS", "SMEM_LIMIT"]
+__all__ = ["rg_lru", "rg_lru_cuda", "rg_lru_grad", "rg_lru_plain",
+           "launch_plan", "LaunchPlan", "SMS", "SMEM_LIMIT"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -156,17 +159,9 @@ def rg_lru_plain(x, a, h0) -> torch.Tensor:
     return ref.rg_lru_ref(x, a, h0)
 
 
-def rg_lru_cuda(x, a, h0) -> torch.Tensor:
-    """h (B, S, D) in x's dtype.
-
-    CPU tensors take the plain version. Anything else must be CUDA
-    tensors on one device, x and a each float32, bfloat16, float16 or
-    float64;
-    the kernel is built at first use, and a build or launch failure
-    raises."""
-    _check(x, a, h0)
-    if x.device.type == "cpu":
-        return rg_lru_plain(x, a, h0)
+def _scan(x, a, h0) -> torch.Tensor:
+    """One launch of the kernel over CUDA x, a, h0 (no count); h (B, S, D)
+    in x's dtype."""
     lib = _library()
     dev = x.device
     if dev.type != "cuda" or a.device != dev or h0.device != dev:
@@ -185,8 +180,78 @@ def rg_lru_cuda(x, a, h0) -> torch.Tensor:
                        out.element_size(), xc.data_ptr(), ac.data_ptr(),
                        out.data_ptr())
     _launch(lib, xc, ac, h0c, out, plan)
+    return out
+
+
+def rg_lru_cuda(x, a, h0) -> torch.Tensor:
+    """h (B, S, D) in x's dtype.
+
+    CPU tensors take the plain version. Anything else must be CUDA
+    tensors on one device, x and a each float32, bfloat16, float16 or
+    float64;
+    the kernel is built at first use, and a build or launch failure
+    raises."""
+    _check(x, a, h0)
+    if x.device.type == "cpu":
+        return rg_lru_plain(x, a, h0)
+    out = _scan(x, a, h0)
     rg_lru_cuda.launches += 1
     return out
+
+
+def rg_lru_grad(dh, a, h, h0):
+    """The gradient of ``h = rg_lru(x, a, h0)``: (dx, da, dh0) from ``dh``
+    (B, S, D), the forward's a and h and h0.
+
+    The sum carried back, g_t = dh_t + a_{t+1} g_{t+1} (g past the last
+    step is 0), is the same recurrence run backward in time: the kernel
+    over flip(dh) with coefficients flip(a) shifted one step (the first
+    multiplies h0 = 0, so it is 0 too) in one launch, each adding one to
+    ``rg_lru_grad.launches`` (on CPU tensors the plain version, no
+    count). Then dx = g, da_t = g_t h_{t-1} (h_0 = h0) and dh0 = a_1 g_1.
+    g takes dh's dtype, dx that too; da and dh0 are computed in f32 and
+    take a's and h0's dtypes. The flips are fresh contiguous copies, so
+    the backward launch takes the instance the forward took at the same
+    row size: ``rg_lru_ring`` where ``D * elem`` is a multiple of 16 bytes
+    for dh, a and g, else ``rg_lru_regs``."""
+    _check(dh, a, h0)
+    a_next = torch.zeros_like(a, memory_format=torch.contiguous_format)
+    a_next[:, :-1] = a[:, 1:]
+    rev_dh, rev_a = dh.flip(1), a_next.flip(1)
+    zero = torch.zeros_like(h0, dtype=torch.float32)
+    if dh.device.type == "cpu":
+        g = rg_lru_plain(rev_dh, rev_a, zero)
+    else:
+        g = _scan(rev_dh, rev_a, zero)
+        rg_lru_grad.launches += 1
+    g = g.flip(1)
+    h_prev = torch.cat([h0[:, None].to(h.dtype), h[:, :-1]], 1)
+    gf = g.to(torch.float32)
+    da = (gf * h_prev.to(torch.float32)).to(a.dtype)
+    dh0 = (a[:, 0].to(torch.float32) * gf[:, 0]).to(h0.dtype)
+    return g, da, dh0
+
+
+class _RGLRU(torch.autograd.Function):
+    """:func:`rg_lru_cuda` with :func:`rg_lru_grad` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        h = rg_lru_cuda(x, a, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        return rg_lru_grad(dh.contiguous(), a, h, h0)
+
+
+def rg_lru(x, a, h0) -> torch.Tensor:
+    """:func:`rg_lru_cuda` under autograd: the gradients of x, a and h0
+    come from :func:`rg_lru_grad` (the kernel again on CUDA tensors, the
+    plain version on CPU ones)."""
+    return _RGLRU.apply(x, a, h0)
 
 
 def _launch(lib, x, a, h0, out, plan: LaunchPlan) -> None:
@@ -205,3 +270,4 @@ def _launch(lib, x, a, h0, out, plan: LaunchPlan) -> None:
 
 
 rg_lru_cuda.launches = 0
+rg_lru_grad.launches = 0

@@ -1,6 +1,7 @@
 """Model assembly (port of ``repro.models.model``): embedding, a stack of
-pre-norm blocks, tied or untied unembedding, with dense-cache and
-paged-pool serve entry points, for all eleven reference architectures.
+pre-norm blocks, tied or untied unembedding, with the training loss and
+dense-cache and paged-pool serve entry points, for all eleven reference
+architectures.
 Block kinds:
 
   attn   GQA self-attention, global or over a local window (+ MLP)
@@ -36,6 +37,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import DevicePlan, ForestPlan, SparseForestPlan
@@ -53,6 +55,18 @@ def _index(tree, i):
     if isinstance(tree, (DevicePlan, ForestPlan, SparseForestPlan)):
         return tree.index(i)
     return tree[i]
+
+
+def _repeats(tree, n: int) -> list:
+    """The ``n`` entries of every stacked leaf, as ``n`` trees of views
+    (one ``unbind`` a leaf, whose backward stacks the n gradients once;
+    device plans sliced)."""
+    if isinstance(tree, dict):
+        per_key = {k: _repeats(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, (DevicePlan, ForestPlan, SparseForestPlan)):
+        return [tree.index(i) for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stacked(draw, n: int):
@@ -86,8 +100,9 @@ KINDS = ("attn", "cross", "rglru", "mlstm", "slstm")
 
 
 class Model:
-    """Functional decoder: init / prefill / decode_step and the paged serve
-    entry points. Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    """Functional decoder: init / loss / prefill / decode_step and the paged
+    serve entry points. Runs on ``cuda`` unless ``device="cpu"`` is
+    passed."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         unknown = set(cfg.block_pattern + cfg.block_tail) - set(KINDS)
@@ -209,17 +224,28 @@ class Model:
                 x = x + mlp(bp[f"m{i}"], x, self.cfg)
         return x
 
-    def _blocks(self, params, x, state, layer_fn):
+    def _blocks(self, params, x, state, layer_fn, remat: bool = False):
         """Run the stacked super-blocks, then the tail. ``layer_fn(kind,
         bp, x, c)`` applies one block with its slice ``c`` of ``state``
-        (the caches or the page pool, laid out like the params)."""
-        for r in range(self.cfg.n_repeats):
-            x = self._run(_index(params["blocks"], r),
-                          _index(state["body"], r), self.pattern, x,
-                          layer_fn)
+        (the caches or the page pool, laid out like the params), or with
+        ``c = None`` where ``state`` is None (the loss: nothing written).
+        With ``remat`` each stacked super-block runs under
+        ``torch.utils.checkpoint`` (recomputed in the backward, as the
+        reference's ``jax.checkpoint`` of its scan body; the tail is not)."""
+        n = self.cfg.n_repeats
+        body = _repeats(params["blocks"], n)
+        for r in range(n):
+            st = None if state is None else _index(state["body"], r)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._run, body[r], st, self.pattern, x, layer_fn,
+                    use_reentrant=False)
+            else:
+                x = self._run(body[r], st, self.pattern, x, layer_fn)
         if self.cfg.block_tail:
-            x = self._run(params["tail"], state["tail"], self.cfg.block_tail,
-                          x, layer_fn)
+            x = self._run(params["tail"],
+                          None if state is None else state["tail"],
+                          self.cfg.block_tail, x, layer_fn)
         return x
 
     def _encode(self, params, frames):
@@ -234,9 +260,8 @@ class Model:
         def layer(kind, bp, x, c):
             return A.apply_attn(bp, x, cfg, positions=pos, causal=False,
                                 window=cfg.local_window)[0]
-        for r in range(cfg.encoder_layers):
-            x = self._run(_index(params["encoder"], r), None, ("attn",), x,
-                          layer)
+        for bp in _repeats(params["encoder"], cfg.encoder_layers):
+            x = self._run(bp, None, ("attn",), x, layer)
         return A.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _context(self, params, batch):
@@ -254,6 +279,29 @@ class Model:
         if cfg.is_encdec:
             return self._encode(params, ctx)
         return ctx.to(cfg.dtype)
+
+    # ---- train -------------------------------------------------------------
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy (f32 scalar) of ``batch["tokens"]``
+        (B, S) against ``batch["labels"]`` (B, S) over every position: the
+        forward without caches (every block, the tail, and for a config
+        with cross blocks the context of ``batch["context"]``), then
+        ``logsumexp(logits) - logits[label]``. The label's logit is
+        gathered, the one term the reference's one-hot product picks.
+        ``cfg.remat == "block"`` recomputes each stacked super-block in the
+        backward; loss and gradients are the same either way."""
+        tokens = self._tokens(batch["tokens"])
+        labels = self._tokens(batch["labels"])
+        b, s = tokens.shape
+        context = self._context(params, batch)
+        pos = torch.arange(s, device=self.device).expand(b, s)
+        x = self._blocks(params, self._embed_tokens(params, tokens), None,
+                         self._layer(pos, context=context),
+                         remat=self.cfg.remat == "block")
+        logits = self._logits(params, x)
+        lse = torch.logsumexp(logits, -1)
+        ll = logits.gather(-1, labels[..., None])[..., 0]
+        return (lse - ll).mean()
 
     # ---- dense cache serve -------------------------------------------------
     def _state(self, one):

@@ -1,11 +1,13 @@
 """TransitiveLinear — the paper's technique as a linear layer (port of
 ``repro.quant.qlinear``).
 
-Two operating modes in this slice: ``none`` (dense matmul in the working
-dtype) and ``ptq`` (weights stored as int8 codes + f32 scales, activations
-quantized per token at run time, the integer GEMM through a registered
-backend of :mod:`repro_torch.core.backend`). The reference's ``qat`` mode
-belongs to the training slice.
+Three operating modes, the reference's: ``none`` (dense matmul in the
+working dtype), ``qat`` (the same product of the weight's group-wise fake
+quantization, :func:`~repro_torch.quant.quantize.fake_quant`, whose
+gradient passes straight through) and ``ptq`` (weights stored as int8
+codes + f32 scales, activations quantized per token at run time, the
+integer GEMM through a registered backend of
+:mod:`repro_torch.core.backend`).
 
 Layers are functional: ``linear_init`` builds a params dict,
 ``linear_apply`` consumes it. Weight layout is (d_out, d_in), reduction
@@ -26,7 +28,7 @@ __all__ = ["QuantConfig", "linear_init", "linear_apply"]
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    mode: str = "none"        # none | ptq
+    mode: str = "none"        # none | qat | ptq
     w_bits: int = 8
     a_bits: int = 8
     group: int = 128          # group size along d_in (0: per-channel)
@@ -112,7 +114,13 @@ def _ptq_apply(params, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
         xg = qx.reshape(qx.shape[:-1] + (n_groups, g))
         wg = qw.reshape(d_out, n_groups, g)
         part = backend.execute(xg, wg, None, dplan, ecfg)    # (..., G, N)
-        y = torch.einsum("...gn,ng->...n", part.to(torch.float32), sg) * sx
+        # one layout for every backend (the int32 partials are copied
+        # once, into contiguous f32): the einsum's f32 sum over the
+        # groups then runs in one order, so equal int32 partials give
+        # equal outputs bit for bit, whichever backend made them
+        part = part.to(torch.float32,
+                       memory_format=torch.contiguous_format)
+        y = torch.einsum("...gn,ng->...n", part, sg) * sx
     return y.to(x.dtype)
 
 
@@ -121,8 +129,10 @@ def linear_apply(params: dict[str, Any], x: torch.Tensor,
     """y = x @ W^T under the configured quantization mode."""
     if cfg.mode == "ptq":
         return _ptq_apply(params, x, cfg)
-    if cfg.mode != "none":
+    w = params["w"]
+    if cfg.mode == "qat":
+        w = Q.fake_quant(w, cfg.w_bits, _effective_group(cfg, w.shape[-1]))
+    elif cfg.mode != "none":
         raise NotImplementedError(
-            f"quant mode {cfg.mode!r} is not part of the port yet "
-            f"(none | ptq)")
-    return torch.matmul(x, params["w"].to(x.dtype).T)
+            f"unknown quant mode {cfg.mode!r} (none | qat | ptq)")
+    return torch.matmul(x, w.to(x.dtype).T)

@@ -86,7 +86,7 @@ def test_config_equals_reference(arch):
                       (get_reduced(arch), ref_reduced(arch))):
         for f in dataclasses.fields(got):
             a, b = getattr(got, f.name), getattr(want, f.name)
-            if f.name == "dtype":
+            if f.name in ("dtype", "opt_state_dtype"):
                 assert str(a).removeprefix("torch.") == jnp.dtype(b).name
             elif f.name == "quant":
                 for q in dataclasses.fields(a):

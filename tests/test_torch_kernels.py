@@ -1335,3 +1335,155 @@ def test_quantizer_divides_truly_on_the_card(cuda, dtype):
     amax = x.abs().amax(dim=0, keepdim=True)
     torch.testing.assert_close(true_div(amax.to(cuda), 127.).cpu(),
                                true_div(amax, 127.), rtol=0, atol=0)
+
+
+# ---- B5's backward (training) ----------------------------------------------
+
+@pytest.mark.parametrize("d,dt,kernel", [(4096, "float32", "rg_lru_ring"),
+                                         (257, "float32", "rg_lru_regs"),
+                                         (256, "float64", "rg_lru_ring"),
+                                         (129, "float64", "rg_lru_regs")])
+def test_rg_lru_backward_equals_autograd_through_plain(cuda, d, dt, kernel):
+    """``rg_lru_grad`` (the kernel over time reversed, one launch) against
+    autograd through the plain version on the same (x, a, h0, dh), at
+    aligned rows (the TMA ring) and unaligned ones (register prefetch), f32
+    and f64 (the kernel computes in f32: a float64 input is rounded to it,
+    as the plain version's ``.to(float32)`` does): dx, da, dh0 within atol
+    1e-5 x max |want|; the autograd Function's gradients equal it."""
+    from repro_torch.kernels.rg_lru import (launch_plan, rg_lru, rg_lru_cuda,
+                                            rg_lru_grad, rg_lru_plain)
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, s = 3, 200
+    x = torch.randn((b, s, d), generator=gen, device=cuda, dtype=dtype)
+    a = torch.rand((b, s, d), generator=gen, device=cuda,
+                   dtype=dtype) * 0.199 + 0.8
+    h0 = torch.randn((b, d), generator=gen, device=cuda, dtype=dtype)
+    dh = torch.randn((b, s, d), generator=gen, device=cuda, dtype=dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert launch_plan(b, s, d, size, size, size).kernel == kernel
+    h = rg_lru_cuda(x, a, h0)
+    before = rg_lru_grad.launches
+    got = rg_lru_grad(dh, a, h, h0)
+    assert rg_lru_grad.launches == before + 1
+    args = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+    want = torch.autograd.grad(rg_lru_plain(*args), args, dh)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        tol = 1e-5 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    args = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+    fwd = rg_lru_cuda.launches
+    out = rg_lru(*args)
+    assert rg_lru_cuda.launches == fwd + 1 and out.grad_fn is not None
+    via = torch.autograd.grad(out, args, dh)
+    assert rg_lru_grad.launches == before + 2
+    for g, w in zip(via, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_rglru_training_on_the_card_never_takes_the_plain_version(
+        cuda, monkeypatch):
+    """The reduced recurrentgemma's loss and gradients on the card: B5
+    forward and backward launch (remat recomputes the body's two blocks),
+    the plain version is never reached, and every RG-LRU weight (lam, w_r,
+    w_i, w_x, which reach the loss only through B5's output) gets a
+    gradient within 1e-3 (norm-relative) of the same model's on the CPU.
+    A cut graph would leave them None or zero."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import rg_lru as K
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    cfg = get_reduced("recurrentgemma_9b").replace(dtype=torch.float32,
+                                                   remat="block")
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(0)
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48)))
+             for k in ("tokens", "labels")}
+    names = ["lam", "w_r", "w_i", "w_x"]
+
+    def grads(model, p):
+        rg = {n: p["blocks"]["b0"][n] if n == "lam"
+              else p["blocks"]["b0"][n]["w"] for n in names}
+        for t in leaves(p):
+            t.requires_grad_(True)
+        loss = model.loss(p, batch)
+        return loss, dict(zip(names, torch.autograd.grad(
+            loss, list(rg.values()))))
+    want_loss, want = grads(cpu_model, params)
+
+    def never(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    card = _to_device(params, cuda)
+    monkeypatch.setattr(K, "rg_lru_plain", never)
+    monkeypatch.setattr(K.ref, "rg_lru_ref", never)
+    fwd, bwd = K.rg_lru_cuda.launches, K.rg_lru_grad.launches
+    loss, got = grads(Model(cfg, device=cuda), card)
+    n_body = cfg.block_pattern.count("rglru") * cfg.n_repeats
+    n_all = n_body + cfg.block_tail.count("rglru")
+    assert K.rg_lru_cuda.launches - fwd == n_all + n_body
+    assert K.rg_lru_grad.launches - bwd == n_all
+    assert abs(float(loss) - float(want_loss)) <= 2e-4
+    for n in names:
+        g, w = got[n].cpu(), want[n]
+        assert g is not None and float(g.abs().sum()) > 0, n
+        assert float((g - w).norm()) <= 1e-3 * float(w.norm()), n
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b",
+                                  "llama4_maverick_400b_a17b"])
+def test_moe_backward_on_the_card_in_bf16(cuda, arch):
+    """The MoE experts' ``torch._grouped_mm`` has a backward on the card at
+    the MoE configs' dtype (bf16). On a fixed routing (the reduced
+    config's experts and top-k, gates and expert ids drawn from a seed),
+    the gradients of ``_moe_local`` in x and the three expert weights
+    agree with float32 on the CPU from the same bf16 values within 2e-2
+    (norm-relative: bf16 products and sums). Then the reduced model's loss
+    in bf16 on the card: every expert leaf's gradient is finite and
+    nonzero (the routing itself may differ from float32's there, so the
+    values are not compared)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.blocks import _moe_local
+    from repro_torch.models.model import Model
+    cfg = get_reduced(arch)
+    assert cfg.dtype == torch.bfloat16
+    e, k, d, f, n = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff, 96
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((n, d), generator=gen).to(torch.bfloat16)
+    ws = [(torch.randn(shape, generator=gen) / shape[1] ** 0.5).to(
+        torch.bfloat16) for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    eids = torch.stack([torch.randperm(e, generator=gen)[:k]
+                        for _ in range(n)])
+    gates = torch.softmax(torch.randn((n, k), generator=gen), -1)
+    dy = torch.randn((n, d), generator=gen)
+
+    def grads(device, dtype):
+        ins = [t.to(device, dtype).requires_grad_(True) for t in [x] + ws]
+        y = _moe_local(ins[0], gates.to(device, dtype), eids.to(device),
+                       *ins[1:])
+        return torch.autograd.grad(y, ins, dy.to(device, dtype))
+    want = grads("cpu", torch.float32)
+    got = grads(cuda, torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        err = float((g.float().cpu() - w).norm())
+        assert err <= 2e-2 * float(w.norm())
+    params = _to_device(Model(cfg, device="cpu").init(0), cuda)
+    rng = np.random.default_rng(3)
+    batch = {key: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+             for key in ("tokens", "labels")}
+    moe = params["blocks"]["m0"]
+    leaves = [moe[name] for name in ("w_gate", "w_up", "w_down")]
+    for t in leaves:
+        t.requires_grad_(True)
+    for g in torch.autograd.grad(Model(cfg, device=cuda).loss(params, batch),
+                                 leaves):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert float(g.float().abs().sum()) > 0

@@ -63,7 +63,7 @@ def test_config_equals_reference(arch):
     assert got.family == "moe"
     for f in dataclasses.fields(got):
         a, b = getattr(got, f.name), getattr(want, f.name)
-        if f.name == "dtype":
+        if f.name in ("dtype", "opt_state_dtype"):
             assert str(a).removeprefix("torch.") == jnp.dtype(b).name
         elif f.name == "quant":
             for q in dataclasses.fields(a):
@@ -85,8 +85,10 @@ def test_reduced_shapes(arch, experts, top_k, shared):
                                                                32)
     got, want = get_reduced(arch), ref_reduced(arch)
     for f in dataclasses.fields(got):
-        if f.name not in ("dtype", "quant"):
+        if f.name not in ("dtype", "quant", "opt_state_dtype"):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert str(got.opt_state_dtype).removeprefix("torch.") == jnp.dtype(
+        want.opt_state_dtype).name
     params = Model(get_reduced(arch), device="cpu").init(0)
     moe = params["blocks"]["m0"]
     assert moe["w_gate"].shape == moe["w_up"].shape == (2, experts, 128, 256)

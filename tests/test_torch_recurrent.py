@@ -96,7 +96,7 @@ def test_config_equals_reference():
                       (get_reduced(ARCH), ref_reduced(ARCH))):
         for f in dataclasses.fields(got):
             a, b = getattr(got, f.name), getattr(want, f.name)
-            if f.name == "dtype":
+            if f.name in ("dtype", "opt_state_dtype"):
                 assert str(a).removeprefix("torch.") == jnp.dtype(b).name
             elif f.name == "quant":
                 for q in dataclasses.fields(a):
