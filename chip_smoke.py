@@ -213,6 +213,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      then W8A8 and W4A8 perplexities on ``lut_cuda`` (B3) and
      ``engine_cuda`` (B1) equal to ``int_dot``'s bit for bit, both
      kernels launched (``accuracy_path``);
+  18. the live-weight fleet on phase 5's model, plans and workload
+     (``fleet_path``, run right after phases 8-10): (a) the 210 linears
+     planned into plan bundles (``fleet.write_bundles``, a fresh plan
+     cache; seconds, files, bytes), loaded by ``fleet.load_bundles`` with
+     no plan-cache lookup, the packed ForestPlans equal phase 5's leaf for
+     leaf, phase 5's requests served from them (all 256 tokens equal
+     phase 5's), a stale bundle (one weight byte changed) and a damaged
+     file (one byte flipped, forced) refused; (b) a hot swap under load:
+     4 requests admitted on generation 0, seed-1234 weights written as a
+     checkpoint after 3 host steps, a ``WeightWatcher`` + ``ReplanWorker``
+     planning all 210 linears off the serving thread while decode goes
+     on, 4 requests on generation 1; every request's tokens equal its
+     generation served alone on a fresh engine with the same admission
+     schedule (``launch.serve.replay``), no plan build, plan-cache build
+     or pack on the serving thread, B1 and B2 launched on both
+     generations, one generation retired; the host decode step's median
+     before, during and after the replan (and served alone), the
+     worker's ``build_s``; (c) a structurally different params tree
+     raises ``SwapMismatchError`` and a replan whose build raises fires
+     ``on_error``: generation 0 serves on, its tokens phase 5's;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -228,8 +248,9 @@ B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 0 just before it; B2's int8 entry and B3's also list their launches in
 phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
 B3's in phases 14-15b and 17, B1's in phase 14's ``engine_cuda`` run and
-phase 17, B5's forward and backward in phase 16b) under
-``launches_in_other_phases``, and B3's entry the one-shot phases'
+phase 17, B5's forward and backward in phase 16b, B1's and B2's int8
+entry in phase 18's three runs) under ``launches_in_other_phases``
+(phase 18's numbers under B1's ``fleet_phase``), and B3's entry the one-shot phases'
 prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
 launches made to compare a kernel with its plain version are not
 counted. Each phase's seconds are printed (``[seconds]``). The line
@@ -241,6 +262,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1704,9 +1726,9 @@ def _serve(model, params, prompts, gen, trace=None, **kw):
     if trace is not None:
         decode, step = eng._decode, model.decode_step_paged
 
-        def traced_decode(packed):
+        def traced_decode(cell, packed):
             trace.append([[(s, r.rid, len(r.out)) for s, r in packed]])
-            decode(packed)
+            decode(cell, packed)
 
         def traced_step(*a, **k):
             logits, pool = step(*a, **k)
@@ -1899,7 +1921,349 @@ def main_path():
           f"{peng.report()['total_tokens'] / pdt:.1f} tokens/s | tokens "
           f"agreeing with the kernel path: {same}/{rep['total_tokens']} "
           f"({same / rep['total_tokens']:.3f}); first tokens {first}/8")
-    return launches, toks, raw, cfg
+    return launches, toks, raw, params, cfg
+
+
+def _thread_counts(main):
+    """Count plan-cache builds (misses' builds), plan builds and packs made
+    on the thread ``main`` while ``counts["on"]`` is set; returns (counts,
+    undo)."""
+    import repro_torch.core.backend as B
+    from repro_torch.core import plancache
+    from repro_torch.core.engine import BatchedTransitiveEngine
+    counts = {"on": False, "cache_builds": 0, "plans": 0, "packs": 0}
+    patched = [(plancache.PlanCache, "_build", "cache_builds"),
+               (BatchedTransitiveEngine, "plan", "plans"),
+               (B, "pack_forest_plan", "packs"),
+               (B, "pack_sparse_forest_plan", "packs")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in
+             patched]
+
+    def counted(real, key):
+        def fn(*a, **kw):
+            if counts["on"] and threading.current_thread() is main:
+                counts[key] += 1
+            return real(*a, **kw)
+        return fn
+    for (owner, name, key), (_, _, real) in zip(patched, saved):
+        setattr(owner, name, counted(real, key))
+
+    def undo():
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return counts, undo
+
+
+def fleet_path(raw, params0, cfg, toks5, device="cuda"):
+    """Phase 18: the live-weight fleet on phase 5's model and workload
+    (smollm-135m at full width and depth, W4A8 ``engine_cuda`` (B1) + B2,
+    4 slots, page_size 16, max_len 256, 8 requests of 128-token prompts
+    sharing prefixes, 32 tokens each).
+
+    (a) Bundles: plan the model into ``write_bundles`` (a fresh plan
+    cache: the planning is timed), load them on a fresh cache with zero
+    lookups, the packed ForestPlans equal phase 5's leaf for leaf, serve
+    phase 5's requests: all 256 tokens equal; a stale bundle (one weight
+    byte changed) and a damaged file (one byte flipped, even forced) are
+    refused. (b) Hot swap under load: 4 requests admitted on generation 0,
+    seed-1234 weights written as a checkpoint after 3 host steps, a
+    ``WeightWatcher`` + ``ReplanWorker`` plan all 210 linears off the
+    serving thread while decode goes on, 4 requests after the swap; each
+    request's tokens equal its generation served alone on a fresh engine
+    with the same admission schedule (``launch.serve.replay``); no plan
+    build, cache miss or pack on the serving thread; B1 and B2 launch on
+    both generations; one generation retired; host decode step times
+    before, during and after the replan. (c) Refusals: a structurally
+    different params tree raises ``SwapMismatchError``, a replan whose
+    build raises fires ``on_error``; generation 0 serves on, its tokens
+    phase 5's. Returns {run: {kernel: launches}} and the numbers."""
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.core import plancache
+    from repro_torch.core.engine import BundleMismatchError, ForestPlan
+    from repro_torch.core.plancache import _iter_ptq_layers
+    from repro_torch.distributed import checkpoint
+    from repro_torch.fleet import (ReplanWorker, WeightWatcher,
+                                   fingerprint_params, load_bundles,
+                                   write_bundles)
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.launch.serve import replay
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import SwapMismatchError
+
+    model = Model(cfg, device=device)
+    kw = dict(n_slots=4, max_len=256, page_size=16, paged_kernel=True)
+    prompts = _prompts(cfg.vocab, 8, 128)
+    kernels = (transitive_forest, paged_attention)
+    work = os.path.join(ROOT, "build", "phase18")
+    shutil.rmtree(work, ignore_errors=True)
+    launches, numbers = {}, {}
+    counts, undo = _thread_counts(threading.current_thread())
+    try:
+        # -- (a) bundles ----------------------------------------------------
+        bdir = os.path.join(work, "bundles")
+        t0 = time.perf_counter()
+        manifest = write_bundles(raw, cfg.quant, bdir,
+                                 cache=plancache.PlanCache())
+        t_plan = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(bdir, f))
+                      for f in os.listdir(bdir))
+        cache = plancache.PlanCache()
+        prev = plancache.set_default_cache(cache)
+        try:
+            t0 = time.perf_counter()
+            params = load_bundles(raw, cfg.quant, bdir)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            looked = cache.stats()
+        finally:
+            plancache.set_default_cache(prev)
+        print(f"[phase 18a] write_bundles: {manifest['n_files']} files "
+              f"over {manifest['n_layers']} stacked layers, {n_bytes} B, "
+              f"planned in {t_plan:.2f}s | load_bundles in {t_load:.2f}s "
+              f"(read, SHA-256, checks, pack into ForestPlans, upload), "
+              f"cache lookups {looked['hits'] + looked['misses']}")
+        if manifest["n_files"] != 7 * cfg.n_layers or looked["misses"] \
+                or looked["hits"]:
+            raise AssertionError(f"phase 18a: {manifest['n_files']} files, "
+                                 f"cache {looked}")
+        got = list(_iter_ptq_layers(params))
+        want = list(_iter_ptq_layers(params0))
+        for a, b in zip(got, want):
+            if not isinstance(a["dplan"], ForestPlan) or not all(
+                    torch.equal(x, y) for x, y in zip(
+                        a["dplan"].leaves().values(),
+                        b["dplan"].leaves().values())):
+                raise AssertionError("phase 18a: a loaded ForestPlan "
+                                     "differs from attach_device_plans'")
+        for k in kernels:
+            k.launches = 0
+        eng, dt = _serve(model, params, prompts, 32, **kw)
+        launches["phase 18a (bundle server)"] = {
+            k.__name__: k.launches for k in kernels}
+        toks = {r.rid: r.tokens for r in eng.finished}
+        same = sum(a == b for rid in toks
+                   for a, b in zip(toks[rid], toks5[rid]))
+        print(f"[phase 18a] bundle server: 8 requests x 32 tokens in "
+              f"{dt:.3f}s, tokens equal to phase 5's: {same}/256 | "
+              f"launches {launches['phase 18a (bundle server)']}")
+        if toks != toks5:
+            raise AssertionError(f"phase 18a: {same}/256 tokens equal")
+        del eng
+        stale = {**raw, "blocks": {**raw["blocks"], "b0": {
+            **raw["blocks"]["b0"], "wq": {**raw["blocks"]["b0"]["wq"]}}}}
+        qw = stale["blocks"]["b0"]["wq"]["qw"].clone()
+        qw.view(-1)[0] ^= 1
+        stale["blocks"]["b0"]["wq"]["qw"] = qw
+        bad = os.path.join(work, "damaged")
+        shutil.copytree(bdir, bad)
+        victim = os.path.join(bad, manifest["layers"]["blocks/b0/wq"][
+            "files"][0]["file"])
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        refused = []
+        for name, fn in (
+                ("stale", lambda: load_bundles(stale, cfg.quant, bdir)),
+                ("damaged", lambda: load_bundles(raw, cfg.quant, bad,
+                                                 force=True))):
+            try:
+                fn()
+            except BundleMismatchError as e:
+                refused.append(f"{name}: {str(e)[:90]}")
+            else:
+                raise AssertionError(f"phase 18a: a {name} bundle loaded")
+        print(f"[phase 18a] refused: {refused}")
+        del params, stale
+        shutil.rmtree(bdir)
+        shutil.rmtree(bad)
+
+        # -- (b) hot swap under load ----------------------------------------
+        raw1 = model.init(1234)
+        ckpt = os.path.join(work, "weights")
+        eng = ServeEngine(model, params0, device=device, **kw)
+        staged, errors = threading.Event(), []
+
+        def on_ready(g):
+            eng.swap_params(g.params, tag=g.tag)
+            staged.set()
+        worker = ReplanWorker(model, reference=params0, on_ready=on_ready,
+                              on_error=errors.append)
+        watcher = WeightWatcher(ckpt, raw, worker)
+        by_gen = {0: [0, 0], 1: [0, 0]}
+        decode = eng._decode
+
+        def counted(cell, packed):
+            before = [k.launches for k in kernels]
+            decode(cell, packed)
+            for i, k in enumerate(kernels):
+                by_gen[cell.gen][i] += k.launches - before[i]
+        eng._decode = counted
+        steps = {"before": [], "during": [], "after": []}
+        admitted, ticket, t_poll = {}, None, None
+        submitted = host_step = 0
+        counts["on"] = True
+        try:
+            while (submitted < 8 or eng.queue or eng.active
+                   or (eng.generation == 0 and not errors)):
+                if eng.generation == 0 and submitted < 4:
+                    for p in prompts[:4]:           # 4 at once on gen 0
+                        eng.submit(p, 32)
+                    submitted = 4
+                elif eng.generation == 1 and submitted < 8:
+                    eng.submit(prompts[submitted], 32)   # one a step
+                    submitted += 1
+                if host_step == 3:
+                    checkpoint.save(ckpt, 1, raw1)
+                    t0 = time.perf_counter()
+                    ticket = watcher.poll()
+                    t_poll = time.perf_counter() - t0
+                when = ("before" if ticket is None else "after"
+                        if eng.generation == 1 else
+                        "during" if not ticket.done else None)
+                c = dict(eng.counters)
+                t0 = time.perf_counter()
+                eng.step()
+                dt = time.perf_counter() - t0
+                if (when and eng.counters["decode_steps"] > c["decode_steps"]
+                        and eng.counters["admitted"] == c["admitted"]):
+                    steps[when].append(dt)
+                for r in [*eng.active.values(), *eng.finished]:
+                    admitted.setdefault(r.rid, host_step)
+                host_step += 1
+                if (ticket is not None and eng.generation == 0
+                        and not eng.active and not eng.queue):
+                    # idle until the swap: no spinning beside the planner
+                    if not (ticket.wait(timeout=600) and (
+                            ticket.error is not None
+                            or staged.wait(timeout=60))):
+                        raise AssertionError("phase 18b: the replan never "
+                                             "staged a swap")
+        finally:
+            counts["on"] = False
+            worker.stop()
+        if errors or ticket is None or ticket.error is not None:
+            raise AssertionError(f"phase 18b: the replan failed: {errors}")
+        gen1 = ticket.generation
+        s = eng.stats()
+        med = {k: statistics.median(v) * 1e3 if v else float("nan")
+               for k, v in steps.items()}
+        print(f"[phase 18b] hot swap under load: checkpoint restored and "
+              f"submitted on the serving thread in {t_poll:.2f}s; worker "
+              f"build_s {gen1.build_s:.2f}s, {gen1.plans_built} plans; swap "
+              f"applied at decode step {eng.swap_steps}; host decode step "
+              f"ms, median (n): before the replan {med['before']:.2f} "
+              f"({len(steps['before'])}), during {med['during']:.2f} "
+              f"({len(steps['during'])}), after the swap "
+              f"{med['after']:.2f} ({len(steps['after'])}) | launches by "
+              f"generation (B1, B2) {by_gen} | serving-thread plan builds "
+              f"{counts['plans']}, cache builds {counts['cache_builds']}, "
+              f"packs {counts['packs']} | swaps {s['swaps']} retired "
+              f"{s['generations_retired']} drift {s['swap_shape_drift']}")
+        if gen1.plans_built != 7 * cfg.n_layers or gen1.fingerprint != \
+                fingerprint_params(raw1):
+            raise AssertionError(f"phase 18b: generation 1 {gen1.plans_built}"
+                                 f" plans, fingerprint {gen1.fingerprint}")
+        if counts["plans"] or counts["cache_builds"] or counts["packs"]:
+            raise AssertionError(f"phase 18b: the serving thread built or "
+                                 f"packed: {counts}")
+        if not all(all(v) for v in by_gen.values()):
+            raise AssertionError(f"phase 18b: B1/B2 not launched on both "
+                                 f"generations: {by_gen}")
+        if (s["generation"], s["swaps"], s["generations_retired"]) != \
+                (1, 1, 1):
+            raise AssertionError(f"phase 18b: {s}")
+        gens = {g: [r for r in eng.finished if r.gen == g] for g in (0, 1)}
+        if sorted(len(v) for v in gens.values()) != [4, 4]:
+            raise AssertionError(f"phase 18b: requests by generation "
+                                 f"{ {g: len(v) for g, v in gens.items()} }")
+        alone, base = {}, {0: [], 1: []}
+        real_step = ServeEngine.step
+        for g, gparams in ((0, params0), (1, gen1.params)):
+            def timed_step(self, _g=g):
+                c = dict(self.counters)
+                t0 = time.perf_counter()
+                out = real_step(self)
+                if (self.counters["decode_steps"] > c["decode_steps"]
+                        and self.counters["admitted"] == c["admitted"]):
+                    base[_g].append(time.perf_counter() - t0)
+                return out
+            ServeEngine.step = timed_step
+            try:
+                alone |= replay(model, gparams, gens[g], admitted, **kw)
+            finally:
+                ServeEngine.step = real_step
+        alone_ms = {g: statistics.median(v) * 1e3 for g, v in base.items()}
+        toks = {r.rid: r.tokens for r in eng.finished}
+        same = sum(a == b for rid in toks
+                   for a, b in zip(toks[rid], alone[rid]))
+        print(f"[phase 18b] each generation served alone on a fresh engine "
+              f"with the same admission schedule (no replan running): host "
+              f"decode step ms, median (n): gen 0 {alone_ms[0]:.2f} "
+              f"({len(base[0])}), gen 1 {alone_ms[1]:.2f} ({len(base[1])}) "
+              f"| tokens equal to the swap run's: {same}/256")
+        if toks != alone or any(len(t) != 32 for t in toks.values()):
+            raise AssertionError(f"phase 18b: {same}/256 tokens equal")
+        launches["phase 18b (hot swap)"] = {
+            k.__name__: sum(v[i] for v in by_gen.values())
+            for i, k in enumerate(kernels)}
+        numbers["hot_swap"] = {
+            "plan_s": t_plan, "bundle_load_s": t_load,
+            "bundle_bytes": n_bytes, "worker_build_s": gen1.build_s,
+            "poll_s": t_poll, "step_ms_median": med,
+            "step_counts": {k: len(v) for k, v in steps.items()},
+            "alone_step_ms_median": alone_ms,
+            "launches_by_generation": by_gen}
+        del eng, gen1, raw1, worker, watcher
+
+        # -- (c) refusals ---------------------------------------------------
+        eng = ServeEngine(model, params0, device=device, **kw)
+        try:
+            eng.swap_params(raw)                # no plans attached
+        except SwapMismatchError:
+            pass
+        else:
+            raise AssertionError("phase 18c: a mismatched swap staged")
+        errors = []
+        bad = {**raw, "blocks": {**raw["blocks"], "b0": {
+            **raw["blocks"]["b0"], "wq": {**raw["blocks"]["b0"]["wq"]}}}}
+        bad["blocks"]["b0"]["wq"]["qw"] = bad["blocks"]["b0"]["wq"][
+            "qw"].to(torch.int32) * 1000       # outside int8: cannot plan
+        with ReplanWorker(model, reference=params0,
+                          on_ready=lambda g: eng.swap_params(g.params),
+                          on_error=errors.append) as w:
+            ticket = w.submit(bad)
+            for k in kernels:
+                k.launches = 0
+            for p in prompts:
+                eng.submit(p, 32)
+            eng.run()
+            if not ticket.wait(timeout=120):
+                raise AssertionError("phase 18c: the replan never ended")
+        launches["phase 18c (refusals)"] = {
+            k.__name__: k.launches for k in kernels}
+        toks = {r.rid: r.tokens for r in eng.finished}
+        print(f"[phase 18c] SwapMismatchError raised, staged "
+              f"{eng.counters['swaps_staged']}; failed replan: on_error "
+              f"{[type(e).__name__ for e in errors]}; generation "
+              f"{eng.generation} served on, tokens equal to phase 5's: "
+              f"{toks == toks5}")
+        if (len(errors) != 1 or ticket.error is not errors[0]
+                or eng.generation or eng.counters["swaps_staged"]
+                or toks != toks5):
+            raise AssertionError(f"phase 18c: errors {errors}, generation "
+                                 f"{eng.generation}, {eng.counters}")
+    finally:
+        undo()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
 
 
 def lut_path(toks_engine, raw, cfg):
@@ -3246,11 +3610,12 @@ def main() -> int:
     w4a8 = timed("B4", check_w4a8, flush)
     rglru = timed("B5", check_rg_lru, flush)
     timed("4", check_reduced_serve)
-    launches, toks, raw, cfg = timed("5", main_path)
+    launches, toks, raw, params, cfg = timed("5", main_path)
     lut = timed("6", lut_path, toks, raw, cfg)
     layouts = timed("8-10", layout_paths, raw, cfg)
     layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
-    del raw
+    fleet, fleet_numbers = timed("18", fleet_path, raw, params, cfg, toks)
+    del raw, params
     archs = timed("11, 11b", dense_paths)
     for arch, shapes, ms in (
             ("recurrentgemma-9b", RGEMMA_SHAPES, (4, 512, 2100)),
@@ -3287,8 +3652,10 @@ def main() -> int:
              **{phase: n["transitive_forest"] for phase, n in
                 oneshot_launches.items() if n["transitive_forest"]},
              "phase 17 (quantize_eval, engine_cuda)":
-                 accuracy["transitive_forest"]},
-         **forest},
+                 accuracy["transitive_forest"],
+             **{phase: n["transitive_forest"] for phase, n in
+                fleet.items()}},
+         "fleet_phase": fleet_numbers, **forest},
         {"name": "transitive_forest_dense", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
@@ -3310,7 +3677,7 @@ def main() -> int:
          "launches": layouts[code][0], "launches_from": layouts[code][1],
          **attention[code]} for code in sorted(ATTN_LAYOUTS)]
     kernels[3]["launches_in_other_phases"] = {      # int8 pool + int8 attn
-        phase: n["paged_attention"] for phase, n in archs.items()}
+        phase: n["paged_attention"] for phase, n in (archs | fleet).items()}
     kernels += [
         {"name": "transitive_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",

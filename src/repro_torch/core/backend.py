@@ -262,8 +262,13 @@ class EngineCudaBackend(EngineTorchBackend):
     name = "engine_cuda"
 
     def compile(self, plan, device=None):
+        return self.lower(super().compile(plan), device)   # on the host
+
+    def lower(self, dplan: DevicePlan, device=None):
+        """The kernel's plan from a host DevicePlan (stacked or not): what
+        :meth:`compile` places on ``device``, and what a loaded plan
+        bundle's DevicePlan is packed into. Packing is not planning."""
         from repro_torch.kernels.transitive_forest_sparse import sparse_fits
-        dplan = super().compile(plan)                # on the host
         if dplan.t <= FOREST_WIDE_MAX_T:
             return pack_forest_plan(dplan, device=device)
         if sparse_fits(dplan.t, dplan.bits, sparse_forest_slots(dplan)):

@@ -22,8 +22,14 @@ kernels' plain version. From T = 16 a node no longer fits int16:
 :class:`SparseForestPlan` that keeps only the nodes the plan makes,
 renumbered per tile in level order (slots), for the CUDA kernel of
 ``csrc/transitive_forest_sparse.cu``; :func:`sparse_forest_plain` is its
-plain version. Plan persistence (``save``/``load``/bundles) is not part of
-this slice.
+plain version.
+
+Plans persist as the reference's ``.npz`` (:meth:`ExecutionPlan.save`,
+:meth:`ExecutionPlan.load`, :meth:`ExecutionPlan.load_bundle`): the same
+keys, a DevicePlan lowering under ``device_<field>`` for the same
+``DEVICE_DATA_FIELDS``, so a file written by either package loads in the
+other bit for bit; :class:`BundleMismatchError` refuses a file that does
+not match the weights or the config it is loaded for.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from repro_torch.core.scoreboard import (MAX_DISTANCE, ScoreboardInfo,
                                          dynamic_scoreboard)
 
 __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
-           "DevicePlan", "DEVICE_DATA_FIELDS", "compile_plan",
+           "DevicePlan", "PlanBundle", "BundleMismatchError",
+           "DEVICE_DATA_FIELDS", "compile_plan",
            "compile_plans", "pad_device_plan", "check_tile_local",
            "forest_body", "run_device", "ForestPlan", "FOREST_DATA_FIELDS",
            "FOREST_DIRECT", "FOREST_UNUSED", "FOREST_MAX_T",
@@ -46,12 +53,21 @@ __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "SPARSE_DIRECT", "SPARSE_MAX_T", "SPARSE_MAX_SLOT",
            "sparse_forest_slots", "complete_forest_plan",
            "check_sparse_forest_plan",
-           "pack_sparse_forest_plan", "sparse_forest_plain"]
+           "pack_sparse_forest_plan", "sparse_forest_plain", "check_plan"]
 
 
 # DevicePlan's array leaves, in the reference's order.
 DEVICE_DATA_FIELDS = ("level_src", "level_xsrc", "direct_idx",
                       "direct_x_idx", "direct_bits", "gather_idx", "signs")
+
+
+class BundleMismatchError(ValueError):
+    """A persisted plan bundle does not match what it is being attached to:
+    raised by :meth:`ExecutionPlan.load_bundle` (weight fingerprint, shape
+    or engine config) and by ``repro_torch.fleet.bundles`` (manifest-level
+    refusals). A plan is a function of the weight bit-patterns, so a stale
+    bundle would compute the old weights' GEMM; ``force=True`` on the
+    loading API is the explicit escape hatch."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +98,147 @@ class ExecutionPlan:
     @property
     def n_tiles(self) -> int:
         return self.k // self.t
+
+    # -- persistence (npz, the reference's keys) ----------------------------
+    def save(self, path, *, device=None, backend: str | None = None,
+             fingerprint: str | None = None) -> None:
+        """Write the whole plan (schedule + scoreboard) to an ``.npz``.
+
+        ``device=`` adds a compiled :class:`DevicePlan` (possibly stacked)
+        tagged with the ``backend`` that lowered it; ``fingerprint=`` the
+        content hash of the weights the plan was built from
+        (``plancache.weight_fingerprint`` of the canonical int8 bytes),
+        which :meth:`load_bundle` checks."""
+        extra = {}
+        if backend is not None and device is None:
+            raise ValueError(
+                "backend= tags the persisted device lowering; pass "
+                "device= as well (a backend tag alone would be dropped "
+                "silently on load)")
+        if fingerprint is not None:
+            extra["weight_fp"] = np.array(fingerprint)
+        if device is not None:
+            extra["device_meta"] = np.array(
+                [device.t, device.bits, device.n, device.k, device.groups],
+                np.int64)
+            extra["device_backend"] = np.array(backend or "")
+            for f in DEVICE_DATA_FIELDS:
+                a = getattr(device, f)
+                extra[f"device_{f}"] = (a.detach().cpu().numpy()
+                                        if isinstance(a, torch.Tensor)
+                                        else np.asarray(a))
+        cat = (np.concatenate if self.steps else
+               lambda _: np.zeros(0, np.int64))
+        np.savez(
+            path,
+            **extra,
+            meta=np.array([self.t, self.bits, self.n, self.k, self.groups,
+                           self.si.t, self.si.n_rows], np.int64),
+            rows=self.rows,
+            steps_len=np.array([s.tile.size for s in self.steps], np.int64),
+            steps_tile=cat([s.tile for s in self.steps]),
+            steps_node=cat([s.node for s in self.steps]),
+            steps_prefix=cat([s.prefix for s in self.steps]),
+            steps_bit=cat([s.bit for s in self.steps]),
+            direct_tile=self.direct_tile, direct_node=self.direct_node,
+            direct_bits=self.direct_bits, signs=self.signs,
+            si_counts=self.si.counts, si_exec_counts=self.si.exec_counts,
+            si_bridge=self.si.bridge, si_distance=self.si.distance,
+            si_prefix=self.si.prefix, si_lane=self.si.lane,
+            si_outlier=self.si.outlier, si_wl_ppe=self.si.wl_ppe,
+            si_wl_ape=self.si.wl_ape)
+
+    @staticmethod
+    def load(path) -> "ExecutionPlan":
+        """Inverse of :meth:`save`, bit for bit."""
+        with np.load(path) as z:
+            return ExecutionPlan._from_npz(z)
+
+    @staticmethod
+    def _from_npz(z) -> "ExecutionPlan":
+        t, bits, n, k, groups, si_t, si_n_rows = (int(v) for v in z["meta"])
+        lens = z["steps_len"]
+        bounds = np.cumsum(lens)[:-1]
+        fields = (np.split(z[f"steps_{f}"], bounds) if lens.size else []
+                  for f in ("tile", "node", "prefix", "bit"))
+        steps = tuple(LevelStep(tile=tl, node=nd, prefix=pre, bit=bit)
+                      for tl, nd, pre, bit in zip(*fields))
+        si = ScoreboardInfo(
+            t=si_t, n_rows=si_n_rows, counts=z["si_counts"],
+            exec_counts=z["si_exec_counts"], bridge=z["si_bridge"],
+            distance=z["si_distance"], prefix=z["si_prefix"],
+            lane=z["si_lane"], outlier=z["si_outlier"],
+            wl_ppe=z["si_wl_ppe"], wl_ape=z["si_wl_ape"])
+        return ExecutionPlan(t=t, bits=bits, n=n, k=k, rows=z["rows"],
+                             si=si, steps=steps,
+                             direct_tile=z["direct_tile"],
+                             direct_node=z["direct_node"],
+                             direct_bits=z["direct_bits"],
+                             signs=z["signs"], groups=groups)
+
+    @staticmethod
+    def load_bundle(path, *, qw=None, cfg=None,
+                    force: bool = False) -> "PlanBundle":
+        """Load a plan and, where the file carries one, its DevicePlan
+        lowering (host tensors, tile locality checked once) and the
+        backend name that made it.
+
+        ``cfg=`` (``w_bits`` / ``t`` / ``groups``) and ``qw=`` (the weights
+        the plan is about to serve) opt into the reference's checks, in
+        its order: config, then shape (refused even with ``force``: such a
+        plan could never run), then the stored fingerprint (a file without
+        one refuses too). ``force=True`` skips the config and fingerprint
+        refusals."""
+        with np.load(path) as z:
+            plan = ExecutionPlan._from_npz(z)
+            stored_fp = (str(z["weight_fp"]) if "weight_fp" in z.files
+                         else None)
+            if "device_meta" not in z.files:
+                device, backend = None, None
+            else:
+                t, bits, n, k, groups = (int(v) for v in z["device_meta"])
+                leaves = {f: z[f"device_{f}"] for f in DEVICE_DATA_FIELDS}
+                local = check_tile_local(
+                    t, k, leaves["level_src"], leaves["level_xsrc"],
+                    leaves["direct_idx"], leaves["direct_x_idx"],
+                    leaves["gather_idx"])
+                device = DevicePlan(
+                    t=t, bits=bits, n=n, k=k, groups=groups,
+                    tile_local=local, **{f: torch.from_numpy(
+                        np.ascontiguousarray(a)) for f, a in leaves.items()})
+                backend = str(z["device_backend"]) or None
+        if cfg is not None:
+            got = (plan.bits, plan.t, plan.groups)
+            want = (cfg.w_bits, cfg.t, cfg.groups)
+            if got != want and not force:
+                raise BundleMismatchError(
+                    f"{path}: plan (bits, t, groups)={got} does not match "
+                    f"the serving config {want}; pass force=True to "
+                    f"attach anyway")
+        if qw is not None:
+            from repro_torch.core.plancache import (_canonical,
+                                                    weight_fingerprint)
+            qw_c = _canonical(qw)
+            if qw_c.shape != (plan.n, plan.k):
+                raise BundleMismatchError(
+                    f"{path}: plan is for weights (n, k)=({plan.n}, "
+                    f"{plan.k}), got {qw_c.shape}")
+            if not force:
+                if stored_fp is None:
+                    raise BundleMismatchError(
+                        f"{path}: bundle carries no weight fingerprint "
+                        f"(written without fingerprint=), so it cannot be "
+                        f"validated against these weights; pass "
+                        f"force=True to attach anyway")
+                fp = weight_fingerprint(qw_c)
+                if fp != stored_fp:
+                    raise BundleMismatchError(
+                        f"{path}: bundle was planned from weights "
+                        f"{stored_fp}, but these weights hash to {fp} — "
+                        f"a stale plan would compute the old weights' "
+                        f"GEMM; pass force=True to attach anyway")
+        return PlanBundle(plan=plan, device=device, backend=backend,
+                          fingerprint=stored_fp)
 
 
 class BatchedTransitiveEngine:
@@ -253,6 +410,18 @@ class DevicePlan:
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size()
                    for a in self.leaves().values())
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanBundle:
+    """What :meth:`ExecutionPlan.load_bundle` returns: the host plan, its
+    persisted DevicePlan lowering and the backend name that made it (None
+    for a plan-only file), and the fingerprint of the weights the plan was
+    built from (None for a file written without one)."""
+    plan: ExecutionPlan
+    device: DevicePlan | None
+    backend: str | None
+    fingerprint: str | None = None
 
 
 def check_tile_local(t: int, k: int, level_src, level_xsrc, direct_idx,
@@ -1008,3 +1177,31 @@ def sparse_forest_plain(splan: SparseForestPlan, x: torch.Tensor
             1, dtype=torch.int64)
     out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
     return out[:, 0] if g == 1 else out.contiguous()
+
+
+def check_plan(plan) -> None:
+    """Raise ``ValueError`` unless an attached device plan holds what its
+    executor relies on: a :class:`ForestPlan`'s dtypes, contiguity and one
+    device (its ``__post_init__``); a :class:`SparseForestPlan`'s as well
+    and :func:`check_sparse_forest_plan`; a :class:`DevicePlan`'s int32
+    leaves and :func:`check_tile_local` (every plan ``compile_plan``
+    makes is tile-local). The checks the port runs where a plan enters a
+    server from outside its own planner: a plan bundle's load and a
+    swap's staging. Works on stacked plans."""
+    if isinstance(plan, (ForestPlan, SparseForestPlan)):
+        plan.__post_init__()
+        if isinstance(plan, SparseForestPlan):
+            check_sparse_forest_plan(plan)
+        return
+    if not isinstance(plan, DevicePlan):
+        raise ValueError(f"not a device plan: {type(plan).__name__}")
+    leaves = {f: a.detach().cpu().numpy() for f, a in plan.leaves().items()}
+    for name, a in leaves.items():
+        if a.dtype != np.int32:
+            raise ValueError(f"DevicePlan.{name} must be int32, got "
+                             f"{a.dtype}")
+    if not check_tile_local(plan.t, plan.k, leaves["level_src"],
+                            leaves["level_xsrc"], leaves["direct_idx"],
+                            leaves["direct_x_idx"], leaves["gather_idx"]):
+        raise ValueError(f"DevicePlan (t={plan.t}, n={plan.n}, k={plan.k}) "
+                         f"is not tile-local: not a compile_plan lowering")

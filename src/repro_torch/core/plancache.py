@@ -6,15 +6,23 @@ weight, not once per forward call. :class:`PlanCache` is an LRU map from
 ``(weight fingerprint, EngineConfig)`` to an :class:`ExecutionPlan` and
 its lazily compiled device lowering (a :class:`DevicePlan`, or the
 compact :class:`ForestPlan` / :class:`SparseForestPlan` of
-``engine_cuda``), with hit / miss / eviction
-counters (per backend too) so a serve run can show each plan was built
-once. :func:`precompile` warms it from a params tree and
+``engine_cuda``), with hit / miss / eviction / invalidation counters (per
+backend too) so a serve run can show each plan was built once.
+:func:`precompile` warms it from a params tree and
 :func:`attach_device_plans` embeds compiled plans next to every PTQ
 weight, stacked along the stacked-block leading axes.
 
-Not in this slice: the reference's build coalescing for concurrent misses
-(``_Pending``), invalidation (and its tombstone), version-keyed lookups,
-the offline host ``run`` and the plan-IR verifier gates.
+The cache is thread-safe the reference's way: plans build outside the
+lock, and concurrent misses of one key coalesce on a ``_Pending`` slot
+(one build, one miss; the other callers wait and count hits), so a replan
+worker thread and the scheduling thread never build the same weight
+twice. ``version=`` keys a lookup by the caller's tag instead of the
+weight bytes; :meth:`PlanCache.invalidate` (by content),
+:meth:`PlanCache.invalidate_version` and :meth:`PlanCache.clear`
+tombstone builds still in flight so they cannot repopulate the cache.
+
+Not in this slice: the reference's plan-IR verifier gates at publish and
+lowering (``repro.analysis.planlint``; ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ import dataclasses
 import hashlib
 import threading
 from collections import OrderedDict
-from typing import Any, Iterator
+from typing import Any, Hashable, Iterator
 
 import numpy as np
 import torch
@@ -39,10 +47,25 @@ __all__ = ["PlanCache", "weight_fingerprint", "default_cache",
 
 @dataclasses.dataclass
 class _Entry:
-    """One cached weight: host plan + device lowerings keyed by (compile
-    hook, device)."""
+    """One cached weight: host plan, the content hash of the weight it was
+    built from (``invalidate`` finds version-keyed entries by it) and the
+    device lowerings keyed by (compile hook, device)."""
     plan: ExecutionPlan
+    fingerprint: str
     device: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class _Pending:
+    """An in-flight plan build. The first thread to miss a key builds
+    outside the cache lock; concurrent lookups of the key wait on
+    ``event``. ``dead`` is the invalidation tombstone: an invalidation
+    that lands while the build runs marks it, and the builder then hands
+    the plan to its waiters without publishing it."""
+    event: threading.Event
+    entry: _Entry | None = None
+    error: BaseException | None = None
+    dead: bool = False
 
 
 def _as_numpy(qw) -> np.ndarray:
@@ -82,63 +105,117 @@ def _backend_tag(backend) -> str | None:
 
 
 class PlanCache:
-    """LRU cache of weight-only execution plans keyed by
-    ``(weight fingerprint, w_bits, T, groups)``."""
+    """LRU cache of weight-only execution plans keyed by ``("fp", weight
+    fingerprint, w_bits, T, groups)``, or ``("v", version tag, w_bits, T,
+    groups)`` for lookups with ``version=``. Every operation is
+    lock-protected; builds run outside the lock and coalesce per key."""
 
     def __init__(self, capacity: int = 256):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._plans: OrderedDict[tuple, _Entry] = OrderedDict()
-        self._lock = threading.Lock()
+        self._pending: dict[tuple, _Pending] = {}
+        self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.invalidations = 0
         self._backend_stats: dict[str, dict[str, int]] = {}
 
     def _count(self, backend: str | None, field: str) -> None:
+        """Caller holds the lock. Bumps global + per-backend counters."""
         setattr(self, field, getattr(self, field) + 1)
         if backend is not None:
             per = self._backend_stats.setdefault(
                 backend, {"hits": 0, "misses": 0})
             per[field] += 1
 
-    def _entry(self, qw, cfg: EngineConfig, backend: str | None) -> _Entry:
-        qw = _canonical(qw)
+    def _entry(self, qw, cfg: EngineConfig, version: Hashable | None,
+               backend: str | None) -> _Entry:
+        """The shared lookup: one hit or one miss per call. The thread
+        that misses a key builds it (:meth:`_build`); threads that miss
+        the same key meanwhile wait for that build and count a hit, so
+        ``misses`` is the number of builds under any interleaving."""
+        if version is not None:
+            qw = _as_numpy(qw)          # the bytes are read on a build only
+            key = ("v", version) + cfg.key()
+            fp = None
+        else:
+            qw = _canonical(qw)
+            fp = weight_fingerprint(qw)
+            key = ("fp", fp) + cfg.key()
         if qw.ndim != 2:
             raise ValueError(f"qw must be 2-D (N, K), got {qw.shape}")
-        fp = weight_fingerprint(qw)
-        key = (fp,) + cfg.key()
+        while True:
+            with self._lock:
+                entry = self._plans.get(key)
+                if entry is not None:
+                    self._count(backend, "hits")
+                    self._plans.move_to_end(key)
+                    return entry
+                pending = self._pending.get(key)
+                builder = pending is None
+                if builder:
+                    pending = _Pending(threading.Event())
+                    self._pending[key] = pending
+                    self._count(backend, "misses")
+            if builder:
+                return self._build(pending, key, qw, cfg, fp)
+            pending.event.wait()
+            if pending.entry is not None:
+                with self._lock:
+                    self._count(backend, "hits")
+                return pending.entry
+            # the builder failed (its caller got the error): build anew
+
+    def _build(self, pending: _Pending, key: tuple, qw, cfg: EngineConfig,
+               fp: str | None) -> _Entry:
+        """Build outside the lock, then publish unless tombstoned."""
+        try:
+            qw = _canonical(qw)
+            plan = BatchedTransitiveEngine(bits=cfg.w_bits, t=cfg.t).plan(
+                qw.astype(np.int64), groups=cfg.groups)
+            entry = _Entry(plan=plan, fingerprint=fp or weight_fingerprint(qw))
+        except BaseException as e:
+            with self._lock:
+                self._pending.pop(key, None)
+            pending.error = e
+            pending.event.set()
+            raise
         with self._lock:
-            entry = self._plans.get(key)
-            if entry is not None:
-                self._count(backend, "hits")
-                self._plans.move_to_end(key)
-                return entry
-            self._count(backend, "misses")
-        plan = BatchedTransitiveEngine(bits=cfg.w_bits, t=cfg.t).plan(
-            qw.astype(np.int64), groups=cfg.groups)
-        entry = _Entry(plan=plan)
-        with self._lock:
-            entry = self._plans.setdefault(key, entry)
-            while len(self._plans) > self.capacity:
-                self._plans.popitem(last=False)
-                self.evictions += 1
+            if pending.dead:
+                self.invalidations += 1     # discarded, never published
+            else:
+                self._plans[key] = entry
+                while len(self._plans) > self.capacity:
+                    self._plans.popitem(last=False)
+                    self.evictions += 1
+            self._pending.pop(key, None)
+        pending.entry = entry
+        pending.event.set()
         return entry
 
     def get_or_build(self, qw, cfg: EngineConfig, *,
+                     version: Hashable | None = None,
                      backend=None) -> ExecutionPlan:
-        """The cached plan for ``qw`` (N, K), built on a miss."""
-        return self._entry(qw, cfg, _backend_tag(backend)).plan
+        """The cached plan for ``qw`` (N, K), built on a miss. With
+        ``version=`` the caller's tag is the key and the weight is hashed
+        only when the plan is built: bump the tag (or
+        :meth:`invalidate_version`) on every weight update, since a reused
+        tag returns the old plan."""
+        return self._entry(qw, cfg, version, _backend_tag(backend)).plan
 
-    def get_or_build_device(self, qw, cfg: EngineConfig, *, backend=None,
+    def get_or_build_device(self, qw, cfg: EngineConfig, *,
+                            version: Hashable | None = None, backend=None,
                             device=None
                             ) -> DevicePlan | ForestPlan | SparseForestPlan:
         """The cached plan's device lowering, compiled once per (entry,
         compile hook, device) through the requesting backend's hook
-        (``engine_torch``'s when the tag names no device lowering)."""
+        (``engine_torch``'s when the tag names no device lowering),
+        outside the lock; a racing compile keeps the first result."""
         tag = _backend_tag(backend)
-        entry = self._entry(qw, cfg, tag)
+        entry = self._entry(qw, cfg, version, tag)
         if isinstance(backend, TransitiveBackend):
             bk = backend
         else:
@@ -147,19 +224,83 @@ class PlanCache:
             bk = get_backend("engine_torch")
         memo = (type(bk).compile, str(torch.device(device or "cpu")))
         if memo not in entry.device:
-            entry.device[memo] = bk.compile(entry.plan, device=device)
+            lowered = bk.compile(entry.plan, device=device)
+            with self._lock:
+                entry.device.setdefault(memo, lowered)
         return entry.device[memo]
+
+    def run(self, qw, x, cfg: EngineConfig, *,
+            version: Hashable | None = None, backend=None) -> np.ndarray:
+        """Cached host GEMM: plan on the first sight of ``qw``, run only
+        after (int64 numpy, :meth:`BatchedTransitiveEngine.run`)."""
+        plan = self.get_or_build(qw, cfg, version=version, backend=backend)
+        return BatchedTransitiveEngine(bits=plan.bits, t=plan.t).run(
+            plan, _as_numpy(x))
+
+    # -- invalidation -------------------------------------------------------
+    def invalidate(self, qw) -> int:
+        """Drop every cached plan built from this weight content (any
+        bits/T/groups, version-keyed entries included). Pass the bytes the
+        stale plans were built from, the *old* weights. In-flight builds
+        of the same content key are tombstoned. Returns the number of
+        published entries removed now."""
+        fp = weight_fingerprint(_canonical(qw))
+        with self._lock:
+            stale = [k for k, e in self._plans.items()
+                     if e.fingerprint == fp]
+            for k in stale:
+                del self._plans[k]
+            self.invalidations += len(stale)
+            for k, p in self._pending.items():
+                if k[0] == "fp" and k[1] == fp:
+                    p.dead = True
+            return len(stale)
+
+    def invalidate_version(self, version: Hashable) -> int:
+        """Drop every version-keyed entry with this tag (any bits/T/groups)
+        and tombstone its in-flight builds; returns the entries removed."""
+        with self._lock:
+            stale = [k for k in self._plans
+                     if k[0] == "v" and k[1] == version]
+            for k in stale:
+                del self._plans[k]
+            self.invalidations += len(stale)
+            for k, p in self._pending.items():
+                if k[0] == "v" and k[1] == version:
+                    p.dead = True
+            return len(stale)
+
+    def clear(self) -> None:
+        """Drop all entries (counted as invalidations); in-flight builds
+        are tombstoned so they cannot repopulate the cache."""
+        with self._lock:
+            self.invalidations += len(self._plans)
+            self._plans.clear()
+            for p in self._pending.values():
+                p.dead = True
 
     def reserve(self, n_plans: int) -> None:
         """Grow capacity to hold at least ``n_plans`` entries."""
         with self._lock:
             self.capacity = max(self.capacity, int(n_plans))
 
+    def reset_stats(self) -> None:
+        with self._lock:
+            self.hits = self.misses = 0
+            self.evictions = self.invalidations = 0
+            self._backend_stats = {}
+
+    # -- introspection ------------------------------------------------------
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._plans)
+
     def stats(self) -> dict[str, Any]:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
-                    "evictions": self.evictions, "size": len(self._plans),
-                    "capacity": self.capacity,
+                    "evictions": self.evictions,
+                    "invalidations": self.invalidations,
+                    "size": len(self._plans), "capacity": self.capacity,
                     "backends": {b: dict(s)
                                  for b, s in self._backend_stats.items()}}
 
@@ -167,7 +308,8 @@ class PlanCache:
         s = self.stats()
         return (f"PlanCache(size={s['size']}/{s['capacity']} "
                 f"hits={s['hits']} misses={s['misses']} "
-                f"evictions={s['evictions']})")
+                f"evictions={s['evictions']} "
+                f"invalidations={s['invalidations']})")
 
 
 class _Default:

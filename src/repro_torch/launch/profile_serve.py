@@ -47,7 +47,8 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.backend import list_backends
-from repro_torch.launch.device_events import PRIMER, PRIMER_LAUNCHES
+from repro_torch.launch.device_events import (PRIMER, close_window,
+                                              open_window)
 from repro_torch.launch.serve import oneshot_batch
 from repro_torch.launch.specs import serve_config
 from repro_torch.models.model import Model
@@ -117,19 +118,18 @@ def _launches(e) -> int:
 
 def _profiled(fn, n: int):
     """(profile, wall seconds) of ``n`` calls of ``fn``. The profile opens
-    with ``device_events``' primer (a profile can lose its first launches
-    after the card idled), outside the timed window."""
+    and closes with ``device_events``' primer and spins (a profile can lose
+    launches near either edge of its window), outside the timed window."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PRIMER_LAUNCHES):
-            torch.cuda._sleep(100)
-        torch.cuda.synchronize()
+        open_window()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
+        close_window()
     return prof, window
 
 

@@ -53,8 +53,35 @@ paged-attention kernel's exact-pool float layout. The report prints
 per-request TTFT and latency, tokens/s, the prefix-reuse counters and the
 kernel launch counts.
 
-Meshes, plan bundles, hot swap and the lint preflight of the reference
-launcher are not ported.
+The fleet flags (``repro_torch.fleet``):
+
+  * ``--role planner --bundle-dir D`` plans every linear once, writes
+    fingerprinted plan bundles to ``D`` and exits; ``--role server
+    --bundle-dir D`` attaches those bundles instead of planning and exits
+    non-zero if any plan was built on it, or if the bundles do not match
+    its weights, config or backend.
+  * ``--watch-weights D`` (with ``--continuous``) serves through a live
+    weight update: half the requests are admitted on generation 0, the
+    launcher writes new weights (``--swap-seed``) as a checkpoint in ``D``
+    after ``--swap-after`` host steps, a ``WeightWatcher`` hands them to a
+    ``ReplanWorker`` that plans them on its own thread while the engine
+    keeps stepping, and the engine swaps at a step boundary: in-flight
+    requests finish on the weights that admitted them, the rest run on
+    generation 1. ``--assert-swap-identity`` then exits non-zero unless
+    every finished request equals its generation's requests served alone
+    on a fresh engine with the same admission schedule.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --backend engine_cuda --role planner --bundle-dir B \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --backend engine_cuda --role server --bundle-dir B \
+      --continuous --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --backend engine_cuda --continuous --watch-weights W \
+      --assert-swap-identity --device cpu
+
+Meshes and the lint preflight of the reference launcher are not ported.
 """
 from __future__ import annotations
 
@@ -139,8 +166,17 @@ def generate_oneshot(model, params, args):
     return toks
 
 
-def serve_continuous(model, params, args):
-    """Staggered arrivals through ServeEngine; returns the engine."""
+def serve_continuous(model, params, args, raw_params=None):
+    """Staggered arrivals through ServeEngine; returns the engine.
+
+    With ``--watch-weights`` a live weight update lands mid-run: the first
+    half of the requests is admitted on generation 0, the new weights are
+    written as a checkpoint after ``--swap-after`` host steps, the
+    ``WeightWatcher`` / ``ReplanWorker`` pair plans them off-thread while
+    the engine keeps stepping, and the rest of the requests wait for
+    generation 1. While the engine has nothing to decode it waits on the
+    replan instead of spinning, so the planner is not starved of the
+    interpreter."""
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.transitive_forest import transitive_forest
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
@@ -156,15 +192,67 @@ def serve_continuous(model, params, args):
                                      args.prompt_len, args.seed + 1)
     kernels = (transitive_forest, transitive_gemm_cuda, paged_attention)
     launches0 = [k.launches for k in kernels]
+
+    hot = args.watch_weights
+    worker = watcher = ticket = None
+    gen_raw = {0: raw_params}
+    failures = []
+    if hot:
+        from repro_torch.distributed import checkpoint
+        from repro_torch.fleet import ReplanWorker, WeightWatcher
+
+        def _on_ready(g):
+            new_gen = eng.swap_params(g.params, tag=g.tag)
+            print(f"[hotswap] generation {new_gen} staged (checkpoint step "
+                  f"{g.tag}, build {g.build_s:.2f}s, {g.plans_built} plan "
+                  f"builds, off-thread)")
+
+        def _on_error(e):
+            failures.append(e)
+            print(f"[hotswap] replan FAILED — previous generation keeps "
+                  f"serving (rollback): {e}")
+
+        worker = ReplanWorker(model, reference=params, on_ready=_on_ready,
+                              on_error=_on_error)
+        watcher = WeightWatcher(hot, raw_params, worker)
+        # react only to checkpoints newer than what the directory holds
+        watcher.seen_step = checkpoint.latest_step(hot)
+        new_raw = model.init(args.swap_seed, on_device=True)
+        gen_raw[1] = new_raw
+        ckpt_written = False
+
+    # with a staged swap, the second half of the requests waits for gen 1
+    first = (args.requests + 1) // 2 if hot else args.requests
     submitted = host_step = 0
+    admitted = {}                      # request id -> host step admitted
     t0 = time.perf_counter()
-    while submitted < args.requests or eng.queue or eng.active:
-        if (submitted < args.requests
-                and host_step >= submitted * args.arrive_every):
-            eng.submit(prompts[submitted], args.gen)
-            submitted += 1
-        eng.step()
-        host_step += 1
+    try:
+        while (submitted < args.requests or eng.queue or eng.active
+               or (hot and eng.generation == 0 and not failures)):
+            limit = (first if (hot and eng.generation == 0)
+                     else args.requests)
+            if (submitted < limit
+                    and host_step >= submitted * args.arrive_every):
+                eng.submit(prompts[submitted], args.gen)
+                submitted += 1
+            if hot:
+                if not ckpt_written and host_step >= args.swap_after:
+                    step = (watcher.seen_step or 0) + 1
+                    checkpoint.save(hot, step, new_raw)
+                    ckpt_written = True
+                    print(f"[hotswap] new weights written as checkpoint "
+                          f"step {step} at host step {host_step}")
+                ticket = watcher.poll() or ticket
+            eng.step()
+            for r in [*eng.active.values(), *eng.finished]:
+                admitted.setdefault(r.rid, host_step)
+            host_step += 1
+            if (ticket is not None and not ticket.done and not eng.active
+                    and not eng.queue):
+                ticket.wait(0.05)
+    finally:
+        if worker is not None:
+            worker.stop()
     dt = time.perf_counter() - t0
     rep = eng.report()
     print(f"[{cfg.name} | {_mode(cfg)} | "
@@ -190,8 +278,84 @@ def serve_continuous(model, params, args):
           f"{paged_attention.launches - launches0[2]} | decode="
           f"{'paged-kernel' if args.paged_kernel else 'gather'}")
     for r in eng.finished:
-        print(f"  req {r.rid}: {r.tokens}")
+        gen = f" gen={r.gen}" if hot else ""
+        print(f"  req {r.rid}:{gen} {r.tokens}")
+    if hot:
+        _hotswap_report(model, eng, args, failures, gen_raw, worker,
+                        admitted)
     return eng
+
+
+def replay(model, params, requests, admitted: dict, **engine_kw) -> dict:
+    """Serve ``requests`` (one generation's, from a run) again on a fresh
+    ``ServeEngine`` over ``params``, each submitted at the host step it was
+    admitted at in that run, counted from the first: ``{request id:
+    tokens}``. A cell of a multi-generation run sees the same admissions
+    and packed decodes as this single-generation engine, so its requests'
+    tokens must equal these."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, params, device=model.device, **engine_kw)
+    order = sorted(requests, key=lambda r: (admitted[r.rid], r.rid))
+    start = admitted[order[0].rid]
+    rid_of = {}
+    host_step = i = 0
+    while i < len(order) or eng.queue or eng.active:
+        while i < len(order) and admitted[order[i].rid] - start <= host_step:
+            r = order[i]
+            rid_of[eng.submit(r.prompt, r.max_new_tokens, r.eos_id)] = r.rid
+            i += 1
+        eng.step()
+        host_step += 1
+    return {rid_of[r.rid]: r.tokens for r in eng.finished}
+
+
+def _hotswap_report(model, eng, args, failures, gen_raw, worker,
+                    admitted):
+    """Print the swap's outcome; with --assert-swap-identity, hold every
+    finished request to its own generation served alone
+    (SystemExit on any difference or a failed build).
+
+    The reference compares each request with ``greedy_generate``, which
+    the serve engine does not always equal (a prefix recomputed at
+    another batch shape can round otherwise); the port replays each
+    generation's requests on a fresh engine over that generation's
+    weights with the run's admission schedule (:func:`replay`), which
+    the engine must equal bit for bit."""
+    s = eng.stats()
+    print(f"[hotswap] generation={s['generation']} "
+          f"swaps={s['swaps']} retired={s['generations_retired']} "
+          f"swap_shape_drift={s['swap_shape_drift']} | worker: "
+          f"{worker.stats()}")
+    if failures:
+        if args.assert_swap_identity:
+            raise SystemExit(f"[hotswap] replan failed: {failures[0]}")
+        return
+    if not args.assert_swap_identity:
+        return
+    # plans attached anew from the raw weights (cache hits: the worker
+    # built them)
+    ps = args.page_size
+    kw = dict(n_slots=args.slots, page_size=ps,
+              max_len=-(-(args.prompt_len + args.gen) // ps) * ps,
+              paged_kernel=args.paged_kernel)
+    gens = sorted({r.gen for r in eng.finished})
+    bad = 0
+    for g in gens:
+        reqs = [r for r in eng.finished if r.gen == g]
+        want = replay(model, model.attach_device_plans(gen_raw[g]), reqs,
+                      admitted, **kw)
+        for r in reqs:
+            if r.tokens != want[r.rid]:
+                bad += 1
+                print(f"[hotswap] MISMATCH req {r.rid} (gen {g}): "
+                      f"{r.tokens} != {want[r.rid]}")
+    if bad or s["generation"] < 1:
+        raise SystemExit(
+            f"[hotswap] identity check FAILED: {bad} mismatching "
+            f"request(s), final generation {s['generation']}")
+    print(f"[hotswap] identity OK: {len(eng.finished)} request(s) across "
+          f"generations {gens} each equal their generation served alone "
+          f"on a fresh engine")
 
 
 def main(argv=None):
@@ -222,7 +386,35 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run the "
                     "plain PyTorch path on the CPU)")
+    ap.add_argument("--bundle-dir", default=None, metavar="DIR",
+                    help="plan-bundle directory for --role")
+    ap.add_argument("--role", default=None, choices=("planner", "server"),
+                    help="planner: plan once, write bundles to --bundle-dir "
+                    "and exit; server: attach plans from --bundle-dir "
+                    "instead of planning (zero plan builds, "
+                    "fingerprint-checked)")
+    ap.add_argument("--watch-weights", default=None, metavar="DIR",
+                    help="(--continuous) hot-swap drill: watch DIR for new "
+                    "weight checkpoints, re-plan off-thread and swap at a "
+                    "step boundary; the launcher writes the new checkpoint "
+                    "itself after --swap-after host steps")
+    ap.add_argument("--swap-after", type=int, default=3,
+                    help="(--watch-weights) host steps before the new "
+                    "weights' checkpoint is written")
+    ap.add_argument("--swap-seed", type=int, default=1234,
+                    help="(--watch-weights) seed of the new weights")
+    ap.add_argument("--assert-swap-identity", action="store_true",
+                    help="(--watch-weights) exit non-zero unless every "
+                    "finished request equals its generation served alone "
+                    "on a fresh engine")
     args = ap.parse_args(argv)
+    if args.role is not None and not args.bundle_dir:
+        ap.error(f"--role {args.role} needs --bundle-dir")
+    if args.watch_weights and not args.continuous:
+        ap.error("--watch-weights needs --continuous (the hot-swap "
+                 "protocol lives on the serve engine)")
+    if args.role is not None and args.fp:
+        ap.error("plan bundles carry quantized-weight plans; drop --fp")
 
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
@@ -232,9 +424,46 @@ def main(argv=None):
     if args.continuous and reason is not None:
         ap.error(f"--continuous needs the paged serve path: {reason}")
     params = model.init(args.seed, on_device=True)
-    if not args.fp and get_backend(args.backend).needs_plan:
-        from repro_torch.core import plancache
-        cache = plancache.default_cache()
+    raw_params = params
+    backend = get_backend(args.backend)
+    planned = not args.fp and backend.needs_plan
+
+    if args.role == "planner":
+        from repro_torch.fleet import write_bundles
+        try:
+            manifest = write_bundles(params, cfg.quant, args.bundle_dir)
+        except ValueError as e:
+            ap.error(str(e))
+        print(f"[planner] {args.bundle_dir}: {manifest['n_files']} bundle "
+              f"file(s) over {manifest['n_layers']} layer(s), backend="
+              f"{manifest['backend']}, weights="
+              f"{manifest['weights_fingerprint'][:12]} "
+              f"({manifest['plan_wall_s']:.2f}s plan+compile)")
+        return manifest
+
+    from repro_torch.core import plancache
+    cache = plancache.default_cache()
+    if args.role == "server":
+        if not (planned and backend.device_resident):
+            ap.error(f"--role server attaches device plan bundles; backend "
+                     f"'{args.backend}' does not execute from them")
+        from repro_torch.core.engine import BundleMismatchError
+        from repro_torch.fleet import load_bundles, read_manifest
+        cache.reset_stats()
+        t0 = time.perf_counter()
+        try:
+            params = load_bundles(params, cfg.quant, args.bundle_dir)
+        except (FileNotFoundError, BundleMismatchError) as e:
+            raise SystemExit(f"[server] bundle refused: {e}")
+        builds = cache.stats()["misses"]
+        print(f"[server] attached "
+              f"{read_manifest(args.bundle_dir)['n_files']} bundle(s) from "
+              f"{args.bundle_dir} in {time.perf_counter() - t0:.2f}s | "
+              f"plan builds on this cell: {builds}")
+        if builds:
+            raise SystemExit("[server] bundle attach built plans locally "
+                             "— the planner artifact is incomplete")
+    elif planned:
         t0 = time.perf_counter()
         stats = model.precompile_plans(params)
         params = model.attach_device_plans(params)
@@ -243,7 +472,7 @@ def main(argv=None):
               f"{cache!r}")
     if not args.continuous:
         return generate_oneshot(model, params, args)
-    return serve_continuous(model, params, args)
+    return serve_continuous(model, params, args, raw_params=raw_params)
 
 
 if __name__ == "__main__":

@@ -25,27 +25,42 @@ reference attends over full-precision K/V during prefill) but its pages
 are still shared. Every request's tokens equal running it alone through
 ``greedy_generate`` with the same ``max_len``.
 
-Not in this slice: the reference's weight generations and
-``swap_params`` (hot swap), its mesh placement, and its jit-trace
-counters (the port runs eagerly; ``stats()`` keeps the distinct prefill
-shapes, which is what bucketing bounds).
+Weights hot-swap without draining: the per-weight state (params, page
+pool, allocator, prefix trie, slot arrays) lives in a **generation cell**,
+and :meth:`ServeEngine.swap_params` stages a new cell that is attached at
+the next ``step()`` boundary, never mid-step. A request stays on the cell
+that admitted it (its K/V bytes are a function of its tokens and of the
+weights) until its last token; requests admitted after the swap run on
+the new generation, and each live cell runs its own packed decode in a
+step. ``swap_params`` only stages, under a lock, so a replan worker
+thread may call it (``repro_torch.fleet``).
+
+Not in this slice: the reference's mesh placement and its jit-trace
+counters (the port runs eagerly: there is no trace to keep across a swap;
+``stats()`` keeps the distinct prefill shapes, which is what bucketing
+bounds), and its plan-IR gate at swap staging (``repro.analysis``; the
+port checks each staged plan with ``core.engine.check_plan``).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import deque
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import (DevicePlan, ForestPlan,
+                                     SparseForestPlan, check_plan)
+from repro_torch.core.plancache import _iter_ptq_layers
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import CHUNK_THRESHOLD
 from repro_torch.models.model import Model
 from repro_torch.serve.paging import PageAllocator, PrefixTrie
 
-__all__ = ["Request", "ServeEngine", "bucket"]
+__all__ = ["Request", "ServeEngine", "SwapMismatchError", "bucket"]
 
 
 def bucket(n: int, cap: int) -> int:
@@ -58,6 +73,43 @@ def bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+class SwapMismatchError(ValueError):
+    """``swap_params`` was handed params the engine cannot serve: their
+    tree structure (keys, plan kinds and signatures) differs from the
+    serving generation's. A hot swap replaces weight values and the plans
+    riding with them, never the architecture: that needs a new engine."""
+
+
+def _is_plan(x) -> bool:
+    return isinstance(x, (DevicePlan, ForestPlan, SparseForestPlan))
+
+
+def _structure(tree) -> Any:
+    """The tree's structure without its values: dict keys, sequence
+    lengths, and for an attached plan its kind and signature (the
+    reference's pytree aux data); a tensor is a leaf."""
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_structure(v) for v in tree)
+    if _is_plan(tree):
+        return (type(tree).__name__, tree.t, tree.bits, tree.n, tree.k,
+                tree.groups)
+    return None if tree is None else "leaf"
+
+
+def _leaves(tree) -> list:
+    """Every tensor of the tree in one fixed order, an attached plan's
+    leaves included."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _leaves(v)]
+    if _is_plan(tree):
+        return list(tree.leaves().values())
+    return [] if tree is None else [tree]
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request plus the engine's bookkeeping for it."""
@@ -68,6 +120,7 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
     page_ids: list = dataclasses.field(default_factory=list)
     slot: int | None = None
+    gen: int = 0               # weight generation that admitted (owns) it
     length: int = 0            # K/V rows written: prompt, then +1 per step
     shared_pages: int = 0      # prompt pages taken from the prefix trie
     prefill_computed: int = 0  # prompt positions the prefill forward ran
@@ -85,6 +138,29 @@ class Request:
         return list(self.out)
 
 
+@dataclasses.dataclass
+class _Cell:
+    """One weight generation's serving state: everything whose bytes are a
+    function of the weights (params, page pool, allocator, prefix trie,
+    which indexes K/V bytes, and the packed slot arrays). A hot swap
+    appends a cell; a request's generation is the cell that admitted
+    it."""
+    gen: int
+    params: Any
+    pool: Any
+    alloc: PageAllocator
+    trie: PrefixTrie
+    slots: list
+    tokens: np.ndarray
+    steps: np.ndarray
+    table: np.ndarray
+    tag: Any = None            # caller's label (checkpoint step, ...)
+
+    @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self.slots)
+
+
 class ServeEngine:
     """Paged-KV continuous-batching scheduler around one model.
 
@@ -94,6 +170,10 @@ class ServeEngine:
     ``n_slots * max_len / page_size + 1`` (page 0 is the null page).
     ``device`` must be the model's device; it defaults to ``cuda`` like
     every entry point of the port.
+
+    Weights swap at runtime through :meth:`swap_params`;
+    ``params``/``pool``/``alloc``/``trie``/``slots`` read the current
+    generation's cell.
     """
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
@@ -114,7 +194,6 @@ class ServeEngine:
                 f"max_len ({max_len}) must be a multiple of page_size "
                 f"({page_size}) so a slot's page table covers it exactly")
         self.model = model
-        self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -124,15 +203,12 @@ class ServeEngine:
         self.paged_kernel = bool(paged_kernel)
         self.bucket_prefill = bool(bucket_prefill)
         self.exact_pool = model.cfg.kv_cache_bits != 8
-        self.pool = model.init_page_pool(self.n_pages, page_size)
-        self.alloc = PageAllocator(self.n_pages)
-        self.trie = PrefixTrie(page_size)
-        self.slots: list = [None] * n_slots
-        # persistent host page table / tokens / steps; only per-slot deltas
-        # are written between steps
-        self.tokens = np.zeros((n_slots, 1), np.int32)
-        self.steps = np.zeros((n_slots,), np.int32)
-        self.table = np.zeros((n_slots, self.pages_per_slot), np.int32)
+        # generation cells: [-1] is current (it admits), earlier ones drain
+        # their in-flight requests on their own weights
+        self._cells: list[_Cell] = [self._new_cell(0, params)]
+        self._staged: tuple | None = None
+        self._swap_lock = threading.Lock()
+        self.swap_steps: list[int] = []
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}
         self.finished: list[Request] = []
@@ -145,10 +221,122 @@ class ServeEngine:
                          "prefill_skipped": 0, "prefill_written": 0,
                          "prefill_calls": 0, "prefill_batched_calls": 0,
                          "prefill_batched_rows": 0, "prefill_pad_rows": 0,
-                         "bucket_hits": 0}
+                         "bucket_hits": 0, "swaps": 0, "swaps_staged": 0,
+                         "swaps_superseded": 0, "swap_shape_drift": 0,
+                         "generations_retired": 0}
+
+    def _new_cell(self, gen: int, params, tag=None) -> _Cell:
+        # persistent host page table / tokens / steps; only per-slot deltas
+        # are written between steps
+        return _Cell(
+            gen=gen, params=params,
+            pool=self.model.init_page_pool(self.n_pages, self.page_size),
+            alloc=PageAllocator(self.n_pages),
+            trie=PrefixTrie(self.page_size),
+            slots=[None] * self.n_slots,
+            tokens=np.zeros((self.n_slots, 1), np.int32),
+            steps=np.zeros((self.n_slots,), np.int32),
+            table=np.zeros((self.n_slots, self.pages_per_slot), np.int32),
+            tag=tag)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- current-generation views (admission target; old cells drain) ------
+    @property
+    def cell(self) -> _Cell:
+        return self._cells[-1]
+
+    @property
+    def generation(self) -> int:
+        return self.cell.gen
+
+    @property
+    def params(self):
+        return self.cell.params
+
+    @property
+    def pool(self):
+        return self.cell.pool
+
+    @property
+    def alloc(self) -> PageAllocator:
+        return self.cell.alloc
+
+    @property
+    def trie(self) -> PrefixTrie:
+        return self.cell.trie
+
+    @property
+    def slots(self) -> list:
+        return self.cell.slots
+
+    @property
+    def n_active(self) -> int:
+        return self.cell.n_active
+
+    # -- hot swap -----------------------------------------------------------
+    def swap_params(self, params, *, tag=None) -> int:
+        """Stage a weight-generation swap; returns the new generation id.
+
+        Applied at the start of the next :meth:`step`, never mid-step.
+        Non-draining: requests in flight keep decoding on the generation
+        that admitted them (its cell stays alive until they finish);
+        requests admitted after the swap run on the new weights. This only
+        stages, under a lock, so a background replan worker may call it.
+        Staging again before the next step supersedes the earlier staged
+        params (``swaps_superseded``).
+
+        ``params`` must have the serving generation's structure (else
+        :class:`SwapMismatchError`: the caller's rollback is not to swap),
+        and every attached plan must pass ``core.engine.check_plan``
+        (else ``ValueError``). Leaf-shape drift is allowed (a DevicePlan's
+        direct width past its pad, a SparseForestPlan's table width) and
+        counted in ``swap_shape_drift``."""
+        cur = self.cell.params
+        if _structure(params) != _structure(cur):
+            raise SwapMismatchError(
+                "swap_params: new params tree structure differs from the "
+                "serving generation's — a hot swap replaces weight values, "
+                "not model architecture (build a new engine for that)")
+        for layer in _iter_ptq_layers(params):
+            if "dplan" in layer:
+                check_plan(layer["dplan"])
+        drift = sum(a.shape != b.shape or a.dtype != b.dtype
+                    for a, b in zip(_leaves(params), _leaves(cur)))
+        with self._swap_lock:
+            superseded = self._staged is not None
+            self._staged = (params, tag, drift)
+        self.counters["swaps_staged"] += 1
+        if superseded:
+            self.counters["swaps_superseded"] += 1
+        return self.cell.gen + 1
+
+    def _apply_staged(self) -> None:
+        """Attach a staged generation (scheduling thread, step boundary)."""
+        with self._swap_lock:
+            staged, self._staged = self._staged, None
+        if staged is None:
+            return
+        params, tag, drift = staged
+        self._cells.append(self._new_cell(self.cell.gen + 1, params,
+                                          tag=tag))
+        self.counters["swaps"] += 1
+        self.counters["swap_shape_drift"] += drift
+        self.swap_steps.append(self.step_count)
+
+    def _retire_cells(self) -> None:
+        """Drop old generations whose last in-flight request finished
+        (frees their pool and trie); the current cell always stays."""
+        for cell in [c for c in self._cells[:-1] if c.n_active == 0]:
+            self._cells.remove(cell)
+            self.counters["generations_retired"] += 1
+
+    def _cell_of(self, gen: int) -> _Cell:
+        for cell in self._cells:
+            if cell.gen == gen:
+                return cell
+        raise KeyError(f"generation {gen} already retired")
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -173,42 +361,46 @@ class ServeEngine:
         return rid
 
     # -- scheduling --------------------------------------------------------
-    def _alloc_page(self) -> int | None:
+    def _alloc_page(self, cell: _Cell) -> int | None:
         """One page, evicting trie-only pages (LRU) under pressure."""
-        pid = self.alloc.alloc()
-        if pid is None and self.trie.evict(self.alloc, 1):
-            pid = self.alloc.alloc()
+        pid = cell.alloc.alloc()
+        if pid is None and cell.trie.evict(cell.alloc, 1):
+            pid = cell.alloc.alloc()
         return pid
 
     def _reserve(self, req: Request) -> dict | None:
         """Match/pin/allocate ``req``'s prompt pages; None = no pages yet.
         The prompt is indexed into the trie immediately, so later
-        reservations of the same wave already share its pages."""
+        reservations of the same wave already share its pages. Always
+        against the current cell: only the current generation admits."""
+        cell = self.cell
         L, ps = len(req.prompt), self.page_size
         n_prompt_pages = -(-L // ps)
         # the suffix keeps >= 1 token: the last prompt position must run
         # through prefill to produce the step-0 logits
-        shared = self.trie.match(req.prompt, max_pages=(L - 1) // ps)
+        shared = cell.trie.match(req.prompt, max_pages=(L - 1) // ps)
         for pid in shared:            # pin before eviction can see them
-            self.alloc.incref(pid)
+            cell.alloc.incref(pid)
         need = n_prompt_pages - len(shared)
-        if self.alloc.free_count < need:
-            self.trie.evict(self.alloc, need - self.alloc.free_count)
-        if self.alloc.free_count < need:
+        if cell.alloc.free_count < need:
+            cell.trie.evict(cell.alloc, need - cell.alloc.free_count)
+        if cell.alloc.free_count < need:
             for pid in shared:
-                self.alloc.decref(pid)
+                cell.alloc.decref(pid)
             return None
-        page_ids = list(shared) + [self.alloc.alloc() for _ in range(need)]
-        self.trie.insert(req.prompt, page_ids, self.alloc)
+        page_ids = list(shared) + [cell.alloc.alloc() for _ in range(need)]
+        cell.trie.insert(req.prompt, page_ids, cell.alloc)
         return {"req": req, "page_ids": page_ids, "shared": len(shared)}
 
     def _seat(self, res: dict, tok: int) -> None:
         """Post-prefill bookkeeping: record token, counters, slot/table."""
+        cell = self.cell
         req = res["req"]
         L, ps = len(req.prompt), self.page_size
         shared = res["shared"]
         shared_len = shared * ps
         start = shared_len if self.exact_pool else 0
+        req.gen = cell.gen
         req.out.append(tok)
         req.length = L
         req.page_ids = res["page_ids"]
@@ -225,16 +417,17 @@ class ServeEngine:
         if len(req.out) >= req.max_new_tokens or tok == req.eos_id:
             self._finish(req)
         else:
-            slot = self.slots.index(None)
+            slot = cell.slots.index(None)
             req.slot = slot
-            self.slots[slot] = req.rid
+            cell.slots[slot] = req.rid
             self.active[req.rid] = req
-            self.tokens[slot, 0] = tok
-            self.steps[slot] = req.length
-            self.table[slot, :len(req.page_ids)] = req.page_ids
+            cell.tokens[slot, 0] = tok
+            cell.steps[slot] = req.length
+            cell.table[slot, :len(req.page_ids)] = req.page_ids
 
     def _prefill_one(self, res: dict) -> None:
         """Per-request batch-1 prefill."""
+        cell = self.cell
         req, page_ids = res["req"], res["page_ids"]
         L, ps = len(req.prompt), self.page_size
         shared_len = res["shared"] * ps
@@ -249,8 +442,8 @@ class ServeEngine:
         wo = np.asarray([p % ps for p in range(shared_len, L)], np.int32)
         self.counters["prefill_calls"] += 1
         self._shape_keys.add(("one", L - start, start // ps, write_from))
-        logits, self.pool = self.model.prefill_paged(
-            self.params, self._dev(suffix), self.pool,
+        logits, cell.pool = self.model.prefill_paged(
+            cell.params, self._dev(suffix), cell.pool,
             prefix_page_ids=self._dev(prefix),
             write_page_ids=self._dev(wp), write_offs=self._dev(wo),
             write_from=write_from)
@@ -267,6 +460,7 @@ class ServeEngine:
 
     def _prefill_group(self, group: list[dict]) -> None:
         """One padded batched prefill over same-bucket reservations."""
+        cell = self.cell
         ps = self.page_size
         lb, n_pre = self._bucket_key(group[0])
         if not self.bucket_prefill or n_pre * ps + lb > CHUNK_THRESHOLD:
@@ -303,8 +497,8 @@ class ServeEngine:
         if key in self._shape_keys:
             c["bucket_hits"] += 1
         self._shape_keys.add(key)
-        logits, self.pool = self.model.prefill_paged_batched(
-            self.params, self._dev(tokens), self.pool,
+        logits, cell.pool = self.model.prefill_paged_batched(
+            cell.params, self._dev(tokens), cell.pool,
             prefix_page_ids=self._dev(prefix),
             prefix_lens=self._dev(plens), suffix_lens=self._dev(slens),
             write_page_ids=self._dev(wp), write_offs=self._dev(wo),
@@ -348,38 +542,40 @@ class ServeEngine:
                     self._prefill_group(group)
 
     def _finish(self, req: Request) -> None:
+        cell = self._cell_of(req.gen)
         if req.slot is not None:
-            self.slots[req.slot] = None
+            cell.slots[req.slot] = None
             del self.active[req.rid]
-            self.tokens[req.slot, 0] = 0
-            self.steps[req.slot] = 0
-            self.table[req.slot, :] = 0
+            cell.tokens[req.slot, 0] = 0
+            cell.steps[req.slot] = 0
+            cell.table[req.slot, :] = 0
             req.slot = None
         for pid in req.page_ids:
-            self.alloc.decref(pid)    # trie-held pages survive (refcount)
+            cell.alloc.decref(pid)    # trie-held pages survive (refcount)
         req.t_done = time.perf_counter()
         self.counters["completed"] += 1
         self.finished.append(req)
 
-    def _decode(self, packed: list[tuple[int, Request]]) -> None:
-        """One packed decode over the active slots."""
+    def _decode(self, cell: _Cell, packed: list[tuple[int, Request]]
+                ) -> None:
+        """One packed decode over ``cell``'s active slots."""
         self.counters["decode_steps"] += 1
         for s, req in packed:
             # this step writes K/V position req.length — grow the request's
             # table when it crosses a page boundary
             if req.length // self.page_size >= len(req.page_ids):
-                pid = self._alloc_page()
+                pid = self._alloc_page(cell)
                 if pid is None:
                     raise RuntimeError(
-                        f"page pool exhausted ({self.alloc!r}) — "
+                        f"page pool exhausted ({cell.alloc!r}) — "
                         f"size n_pages for the slot working set")
                 req.page_ids.append(pid)
-                self.table[s, len(req.page_ids) - 1] = pid
-            self.tokens[s, 0] = req.out[-1]
-            self.steps[s] = req.length
-        logits, self.pool = self.model.decode_step_paged(
-            self.params, self.pool, self._dev(self.tokens),
-            self._dev(self.table), self._dev(self.steps),
+                cell.table[s, len(req.page_ids) - 1] = pid
+            cell.tokens[s, 0] = req.out[-1]
+            cell.steps[s] = req.length
+        logits, cell.pool = self.model.decode_step_paged(
+            cell.params, cell.pool, self._dev(cell.tokens),
+            self._dev(cell.table), self._dev(cell.steps),
             kernel=self.paged_kernel)
         toks = torch.argmax(logits[:, -1], -1).cpu().numpy()
         done = []
@@ -394,15 +590,26 @@ class ServeEngine:
             self._finish(req)
 
     def step(self) -> list[Request]:
-        """Admit arrivals, run one packed decode step, retire finished
-        requests. Returns the requests that finished during this call."""
+        """Attach a staged swap, admit arrivals, run one packed decode per
+        live generation, retire finished requests and drained generations.
+
+        Returns the requests that finished during this call. A staged swap
+        is applied before admission, so requests taken off the queue this
+        step already run on the new weights, while older generations keep
+        decoding their in-flight requests in the same call."""
         n_done = len(self.finished)
+        self._apply_staged()
         self._admit()
-        packed = [(s, self.active[rid])
-                  for s, rid in enumerate(self.slots) if rid is not None]
-        if packed:
+        packed_by_cell = [
+            (cell, [(s, self.active[rid])
+                    for s, rid in enumerate(cell.slots) if rid is not None])
+            for cell in list(self._cells)]
+        if any(packed for _, packed in packed_by_cell):
             self.step_count += 1
-            self._decode(packed)
+            for cell, packed in packed_by_cell:
+                if packed:
+                    self._decode(cell, packed)
+        self._retire_cells()
         return self.finished[n_done:]
 
     def run(self, max_steps: int = 100_000) -> list[Request]:
@@ -427,17 +634,26 @@ class ServeEngine:
 
     # -- introspection -----------------------------------------------------
     def stats(self) -> dict:
+        active_by_gen: dict[int, int] = {}
+        for r in self.active.values():
+            active_by_gen[r.gen] = active_by_gen.get(r.gen, 0) + 1
+        cur = self.cell.gen
         return {**self.counters, "queued": len(self.queue),
                 "active": len(self.active),
                 "finished": len(self.finished),
                 "prefill_shapes": len(self._shape_keys),
+                "generation": cur,
+                "draining_generations": len(self._cells) - 1,
+                "active_by_gen": active_by_gen,
+                "in_flight_prev_gen": sum(n for g, n in active_by_gen.items()
+                                          if g != cur),
                 "pages": self.alloc.stats(), "trie": self.trie.stats()}
 
     def report(self) -> dict:
         """Latency/throughput summary over the finished requests."""
         reqs = self.finished
         per = [{"rid": r.rid, "prompt_len": len(r.prompt),
-                "n_tokens": len(r.out),
+                "n_tokens": len(r.out), "gen": r.gen,
                 "shared_pages": r.shared_pages,
                 "prefill_computed": r.prefill_computed,
                 "ttft_s": (r.t_admit or r.t_submit) - r.t_submit,
@@ -453,6 +669,7 @@ class ServeEngine:
                 "counters": self.stats()}
 
     def __repr__(self) -> str:
-        return (f"ServeEngine(slots={len(self.active)}/{self.n_slots} "
+        return (f"ServeEngine(gen={self.cell.gen} "
+                f"slots={self.cell.n_active}/{self.n_slots} "
                 f"queued={len(self.queue)} "
                 f"finished={len(self.finished)} steps={self.step_count})")
