@@ -233,6 +233,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      worker's ``build_s``; (c) a structurally different params tree
      raises ``SwapMismatchError`` and a replan whose build raises fires
      ``on_error``: generation 0 serves on, its tokens phase 5's;
+  19. the paper's evaluation and the launcher flags (``paper_path``): (a)
+     the quickstart example on the card, its one B3 launch bit-equal to
+     the int64 GEMM and to B3's plain version; (b) the serve_lm example
+     on the card, then its W4A8 model again on ``lut_cuda``, tokens equal
+     to its ``int_dot`` run's; (c) ``repro_torch.paper.run``'s six
+     sections (the modelled accelerators of Figs. 9-14, computed on the
+     host), the Fig. 10 llama1-7b TA4 speedups within the reference's
+     bands; (d) ``launch.serve.main`` on smollm-135m at full width and
+     depth with phase 5's sizes on ``lut_cuda``, with
+     ``--no-bucket-prefill`` (tokens equal) and with ``--path engine_cuda
+     --no-precompile`` on a fresh plan cache (the warning caught, all 210
+     plans built inside attach, tokens equal); (e) a greedy loop over
+     ``make_prefill`` / ``make_decode_step`` at full width on
+     ``lut_cuda``, tokens equal to ``greedy_generate``'s;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -249,7 +263,8 @@ B3 at T outside {4, 8} and B1 at T > 8: phase 7), with the counts set to
 phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
 B3's in phases 14-15b and 17, B1's in phase 14's ``engine_cuda`` run and
 phase 17, B5's forward and backward in phase 16b, B1's and B2's int8
-entry in phase 18's three runs) under ``launches_in_other_phases``
+entry in phase 18's three runs, B1's, B2's int8 entry and B3's in
+phase 19's runs) under ``launches_in_other_phases``
 (phase 18's numbers under B1's ``fleet_phase``), and B3's entry the one-shot phases'
 prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
 launches made to compare a kernel with its plain version are not
@@ -3446,6 +3461,251 @@ def accuracy_path():
                  "ppl": {k: out[k] for k in ("fp32", "W8A8", "W4A8")}}
 
 
+def _counts(kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _zero(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+PAPER_BANDS = {"ant": (3.4, 6.5), "olive": (5.2, 9.5), "bitvert": (2.6, 5.2)}
+
+
+def paper_path():
+    """Phase 19: the paper's evaluation and the launcher flags.
+
+    (a) ``examples.quickstart.main()`` on the card: step 4 is one B3
+    launch (64 x 64 int4 weights, M = 32, T = 8), bit-equal to the int64
+    GEMM and to ``transitive_gemm_plain`` on the same operands. (b)
+    ``examples.serve_lm.main()`` on the card (reduced chatglm3-6b, f32 and
+    W4A8 on ``int_dot``, 4 x 16 -> 8; its lossless check on ``lut_cuda``),
+    then the example's W4A8 model and params once more on ``lut_cuda``:
+    every token equal to the ``int_dot`` run's, B3 launched. (c)
+    ``paper.run`` with its six sections, the rows printed; the Fig. 10
+    llama1-7b TA4 ratios within the reference's bands
+    (``tests/test_costmodel.py``). (d) ``launch.serve.main`` on
+    smollm-135m at full width and depth, ``--continuous --paged-kernel``
+    with phase 5's sizes (8 requests of 128-token prompts sharing
+    prefixes, 32 tokens, 4 slots, page_size 16; one arrival a host step),
+    its weights drawn on the card from seed 0: on ``lut_cuda`` bucketed,
+    again with ``--no-bucket-prefill`` (tokens equal), and ``--path
+    engine_cuda --no-precompile`` on a fresh plan cache (the
+    ``DeprecationWarning`` caught; no precompile, all 210 plans built
+    inside attach, none while serving; tokens equal to the lut_cuda
+    run's, the two backends' int32 accumulators being equal). (e) a
+    greedy loop over ``make_prefill`` / ``make_decode_step`` on
+    smollm-135m at full width on ``lut_cuda`` (B = 4 x 16 -> 16): tokens
+    equal to ``greedy_generate``'s. Counts are set to 0 just before each
+    run. Returns ({run: {kernel: launches}}, numbers)."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import plancache
+    from repro_torch.examples import quickstart, serve_lm
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_plain
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    from repro_torch.paper import run as paper_run
+    from repro_torch.train.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill)
+    kernels = _oneshot_kernels()
+    b3 = "transitive_gemm_cuda"
+    launches, numbers = {}, {}
+
+    def only(tag, got, *names):
+        if not all(got[n] for n in names) or any(
+                v for k, v in got.items() if k not in names):
+            raise AssertionError(f"{tag}: launches {got}, expected only "
+                                 f"{names}")
+
+    # -- (a) quickstart ------------------------------------------------------
+    _zero(kernels)
+    t0 = time.perf_counter()
+    q = quickstart.main()
+    dt = time.perf_counter() - t0
+    got = launches["phase 19a (quickstart)"] = _counts(kernels)
+    want = (q["w"].astype(np.int64) @ q["x"].astype(np.int64)).T
+    qx = torch.as_tensor(q["x"].T, dtype=torch.int8, device="cuda")
+    qw = torch.as_tensor(q["w"], dtype=torch.int8, device="cuda")
+    plain = transitive_gemm_plain(qx, qw, w_bits=4, t=8)[:, 0].cpu()
+    err = int((q["out_kernel"].long() - torch.from_numpy(want)).abs().max())
+    print(f"[phase 19a] quickstart on the card in {dt:.2f}s: density "
+          f"{q['density']:.4f}, patterns {q['patterns']} | B3 (M=32 N=64 "
+          f"K=64 w_bits 4 T=8) max |err| against the int64 GEMM {err}, "
+          f"equal to its plain version: "
+          f"{torch.equal(q['out_kernel'], plain)} | launches {got}")
+    if got[b3] != 1 or err or not torch.equal(q["out_kernel"], plain):
+        raise AssertionError(f"phase 19a: B3 launched {got[b3]} times, "
+                             f"max |err| {err}")
+    only("phase 19a", got, b3)
+
+    # -- (b) serve_lm ----------------------------------------------------------
+    _zero(kernels)
+    t0 = time.perf_counter()
+    ex = serve_lm.main()
+    dt = time.perf_counter() - t0
+    got = launches["phase 19b (serve_lm)"] = _counts(kernels)
+    only("phase 19b (serve_lm)", got, b3)       # its lossless check
+    mq = ex["model_q"]
+    lcfg = mq.cfg.replace(quant=mq.cfg.quant.with_(backend="lut_cuda"))
+    _zero(kernels)
+    toks = greedy_generate(Model(lcfg, device="cuda"), ex["params_q"],
+                           ex["batch"], max_len=64, n_steps=8).cpu()
+    got = launches["phase 19b (serve_lm W4A8 on lut_cuda)"] = \
+        _counts(kernels)
+    same = int((toks == ex["tokens_q"]).sum())
+    print(f"[phase 19b] serve_lm on the card in {dt:.2f}s ({lcfg.name}, "
+          f"{lcfg.n_layers} layers, f32 and W4A8 on int_dot) | its W4A8 "
+          f"model on lut_cuda: tokens equal to int_dot's {same}/"
+          f"{toks.numel()} | launches {got}")
+    if not torch.equal(toks, ex["tokens_q"]):
+        raise AssertionError(f"phase 19b: lut_cuda tokens differ from "
+                             f"int_dot's ({same}/{toks.numel()} equal)")
+    only("phase 19b (lut_cuda)", got, b3)
+
+    # -- (c) the paper's sections -----------------------------------------------
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        paper_run.main([])
+    numbers["paper_run_s"] = time.perf_counter() - t0
+    rows = buf.getvalue().splitlines()
+    for row in rows:
+        print(f"[phase 19c] {row}")
+    fig10 = next(r for r in rows if r.startswith("fig10_fc_llama1-7b,"))
+    ratios = {part.split(":")[0]: float(part.split(":x")[1].split("/")[0])
+              for part in fig10.split(",", 2)[2].split()}
+    numbers["fig10_llama1_7b_ta4_speedup"] = ratios
+    print(f"[phase 19c] {len(rows)} rows in {numbers['paper_run_s']:.2f}s "
+          f"(the modelled accelerators' numbers, computed on the host) | "
+          f"Fig. 10 llama1-7b TA4 speedups {ratios}, bands {PAPER_BANDS}")
+    for name, (lo, hi) in PAPER_BANDS.items():
+        if not lo < ratios[name] < hi:
+            raise AssertionError(f"phase 19c: TA4 over {name} "
+                                 f"x{ratios[name]} outside ({lo}, {hi})")
+
+    # -- (d) the launcher's flags at full width ---------------------------------
+    argv = ["--arch", "smollm-135m", "--continuous", "--paged-kernel",
+            "--requests", "8", "--prompt-len", "128", "--gen", "32",
+            "--slots", "4", "--page-size", "16", "--arrive-every", "0"]
+    served = {}
+    runs = (("lut_cuda", ["--backend", "lut_cuda"]),
+            ("lut_cuda --no-bucket-prefill",
+             ["--backend", "lut_cuda", "--no-bucket-prefill"]),
+            ("--path engine_cuda --no-precompile",
+             ["--path", "engine_cuda", "--no-precompile"]))
+    for run, extra in runs:
+        tag = f"phase 19d ({run})"
+        cache = plancache.PlanCache()
+        prev = plancache.set_default_cache(cache)
+        attach, precompile = plancache.attach_device_plans, \
+            plancache.precompile
+        built = {"attach": 0, "precompile": 0}
+
+        def counted_attach(*a, **k):
+            m0 = cache.stats()["misses"]
+            out = attach(*a, **k)
+            built["attach"] += cache.stats()["misses"] - m0
+            return out
+
+        def counted_precompile(*a, **k):
+            built["precompile"] += 1
+            return precompile(*a, **k)
+        plancache.attach_device_plans = counted_attach
+        plancache.precompile = counted_precompile
+        _zero(kernels)
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng = serve.main(argv + extra)
+            torch.cuda.synchronize()
+        finally:
+            plancache.attach_device_plans = attach
+            plancache.precompile = precompile
+            plancache.set_default_cache(prev)
+        dt = time.perf_counter() - t0
+        got = launches[tag] = _counts(kernels)
+        served[run] = {r.rid: r.tokens for r in eng.finished}
+        misses = cache.stats()["misses"]
+        deprecated = [str(w.message) for w in caught
+                      if issubclass(w.category, DeprecationWarning)]
+        c = eng.report()["counters"]
+        print(f"[{tag}] {dt:.2f}s (weights drawn on the card, serve, "
+              f"planning where planned) | bucket_prefill="
+              f"{eng.bucket_prefill} batched prefills "
+              f"{c['prefill_batched_calls']} single {c['prefill_calls']} | "
+              f"plan cache misses {misses}, built inside attach "
+              f"{built['attach']}, precompile calls {built['precompile']} | "
+              f"DeprecationWarnings {deprecated} | launches {got}")
+        numbers[tag] = {"s": dt, "plans_built_in_attach": built["attach"]}
+        if sorted(map(len, served[run].values())) != [32] * 8:
+            raise AssertionError(f"{tag}: output malformed")
+        if "engine_cuda" in run:
+            if (misses, built["attach"], built["precompile"]) != (210, 210,
+                                                                  0):
+                raise AssertionError(
+                    f"{tag}: {misses} misses, {built['attach']} built in "
+                    f"attach, {built['precompile']} precompiles; expected "
+                    f"210, 210, 0")
+            if not any("--path is deprecated" in m for m in deprecated):
+                raise AssertionError(f"{tag}: no DeprecationWarning")
+            only(tag, got, "transitive_forest", "paged_attention")
+        else:
+            if eng.bucket_prefill == ("--no-bucket" in run) or misses:
+                raise AssertionError(f"{tag}: bucket_prefill "
+                                     f"{eng.bucket_prefill}, {misses} plans")
+            only(tag, got, b3, "paged_attention")
+        if served[run] != served["lut_cuda"]:
+            same = sum(a == b for rid, ts in served[run].items()
+                       for a, b in zip(ts, served["lut_cuda"][rid]))
+            raise AssertionError(f"{tag}: tokens differ from the bucketed "
+                                 f"lut_cuda run's ({same}/256 equal)")
+        print(f"[{tag}] tokens equal to the bucketed lut_cuda run's: "
+              f"256/256")
+        del eng
+
+    # -- (e) make_prefill / make_decode_step ----------------------------------
+    cfg = serve_config(get_config("smollm_135m"), backend="lut_cuda")
+    model = Model(cfg, device="cuda")
+    params = model.init(0, on_device=True)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, size=(4, 16)))
+    max_len, gen = 16 + 16 + 8, 16
+    prefill, step = make_prefill(model, max_len), make_decode_step(model)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": tokens})
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    out = [tok]
+    for i in range(gen - 1):
+        logits, caches = step(params, caches, tok, 16 + i)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out.append(tok)
+    loop = torch.cat(out, dim=1).cpu()
+    dt = time.perf_counter() - t0
+    got = launches["phase 19e (make_prefill / make_decode_step)"] = \
+        _counts(kernels)
+    want = greedy_generate(model, params, {"tokens": tokens}, max_len,
+                           gen).cpu()
+    same = int((loop == want).sum())
+    print(f"[phase 19e] {cfg.name} full width on lut_cuda, B=4 S=16 -> "
+          f"{gen}: the factories' loop in {dt:.3f}s, tokens equal to "
+          f"greedy_generate's {same}/{want.numel()} | launches {got}")
+    if not torch.equal(loop, want):
+        raise AssertionError(f"phase 19e: {same}/{want.numel()} equal")
+    only("phase 19e", got, b3)
+    return launches, numbers
+
+
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
@@ -3640,6 +3900,7 @@ def main() -> int:
     b5_train, rglru["training"] = timed("16b", train_recurrent_path, flush)
     del flush
     accuracy, accuracy_numbers = timed("17", accuracy_path)
+    paper, paper_numbers = timed("19", paper_path)
     ops = timed("7", ops_path)
     print(f"[seconds] by phase: {phase_s}")
     kernels = [
@@ -3654,7 +3915,9 @@ def main() -> int:
              "phase 17 (quantize_eval, engine_cuda)":
                  accuracy["transitive_forest"],
              **{phase: n["transitive_forest"] for phase, n in
-                fleet.items()}},
+                fleet.items()},
+             **{phase: n["transitive_forest"] for phase, n in
+                paper.items() if n["transitive_forest"]}},
          "fleet_phase": fleet_numbers, **forest},
         {"name": "transitive_forest_dense", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
@@ -3678,6 +3941,9 @@ def main() -> int:
          **attention[code]} for code in sorted(ATTN_LAYOUTS)]
     kernels[3]["launches_in_other_phases"] = {      # int8 pool + int8 attn
         phase: n["paged_attention"] for phase, n in (archs | fleet).items()}
+    kernels[3]["launches_in_other_phases"] |= {
+        phase: n["paged_attention"] for phase, n in paper.items()
+        if n["paged_attention"]}
     kernels += [
         {"name": "transitive_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",
@@ -3688,8 +3954,11 @@ def main() -> int:
              **{phase: n["transitive_gemm_cuda"] for phase, n in
                 (archs | recurrent | oneshot_launches).items()},
              "phase 17 (quantize_eval, lut_cuda)":
-                 accuracy["transitive_gemm_cuda"]},
+                 accuracy["transitive_gemm_cuda"],
+             **{phase: n["transitive_gemm_cuda"] for phase, n in
+                paper.items() if n["transitive_gemm_cuda"]}},
          "oneshot_phases": oneshot, "accuracy_phase": accuracy_numbers,
+         "paper_phase": paper_numbers,
          **tgemm},
         {"name": "transitive_gemm_generic", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_gemm.cu",

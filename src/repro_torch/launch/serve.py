@@ -81,12 +81,26 @@ The fleet flags (``repro_torch.fleet``):
       --reduced --backend engine_cuda --continuous --watch-weights W \
       --assert-swap-identity --device cpu
 
-Meshes and the lint preflight of the reference launcher are not ported.
+The reference's other launch flags:
+
+  * ``--path`` is the deprecated spelling of ``--backend``: it warns
+    (``DeprecationWarning``), and ``--backend`` wins when both are given.
+  * ``--no-bucket-prefill`` (with ``--continuous``) prefills each request
+    alone at batch 1 instead of in bucketed batches; the report says
+    ``prefill=per-request``.
+  * ``--no-precompile`` skips planning every linear before serving; a
+    planned backend then builds each plan through the plan cache while
+    its plans are attached to the params.
+
+``--lint`` (the tracelint and planlint preflight) waits for ROADMAP item
+A6 and ``--mesh`` (multi-device serving) for A10: asked for, the
+launcher exits with that reason.
 """
 from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
 import numpy as np
 
@@ -187,6 +201,7 @@ def serve_continuous(model, params, args, raw_params=None):
     max_len = -(-(args.prompt_len + args.gen) // ps) * ps
     eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
                       page_size=ps, paged_kernel=args.paged_kernel,
+                      bucket_prefill=not args.no_bucket_prefill,
                       device=model.device)
     prompts = prefix_sharing_prompts(cfg.vocab, args.requests,
                                      args.prompt_len, args.seed + 1)
@@ -276,7 +291,8 @@ def serve_continuous(model, params, args, raw_params=None):
           f"launches={transitive_gemm_cuda.launches - launches0[1]} "
           f"paged_attention launches="
           f"{paged_attention.launches - launches0[2]} | decode="
-          f"{'paged-kernel' if args.paged_kernel else 'gather'}")
+          f"{'paged-kernel' if args.paged_kernel else 'gather'} prefill="
+          f"{'per-request' if args.no_bucket_prefill else 'bucketed'}")
     for r in eng.finished:
         gen = f" gen={r.gen}" if hot else ""
         print(f"  req {r.rid}:{gen} {r.tokens}")
@@ -337,7 +353,8 @@ def _hotswap_report(model, eng, args, failures, gen_raw, worker,
     ps = args.page_size
     kw = dict(n_slots=args.slots, page_size=ps,
               max_len=-(-(args.prompt_len + args.gen) // ps) * ps,
-              paged_kernel=args.paged_kernel)
+              paged_kernel=args.paged_kernel,
+              bucket_prefill=not args.no_bucket_prefill)
     gens = sorted({r.gen for r in eng.finished})
     bad = 0
     for g in gens:
@@ -367,8 +384,11 @@ def main(argv=None):
                     "engine (default: one-shot greedy_generate)")
     ap.add_argument("--batch", type=int, default=4,
                     help="one-shot mode: prompts in the batch")
-    ap.add_argument("--backend", default="int_dot", choices=list_backends(),
-                    help="integer-GEMM backend for the PTQ linears")
+    ap.add_argument("--backend", default=None, choices=list_backends(),
+                    help="integer-GEMM backend for the PTQ linears "
+                    "(default: int_dot)")
+    ap.add_argument("--path", default=None, choices=list_backends(),
+                    help="DEPRECATED alias for --backend")
     ap.add_argument("--w-bits", type=int, default=4, choices=(4, 8))
     ap.add_argument("--fp", action="store_true",
                     help="serve the base config unquantized (bf16 linears, "
@@ -376,6 +396,17 @@ def main(argv=None):
     ap.add_argument("--paged-kernel", action="store_true",
                     help="decode attention through the live-page CUDA "
                     "kernel instead of the full-extent gather")
+    ap.add_argument("--no-bucket-prefill", action="store_true",
+                    help="(--continuous) prefill each request alone at "
+                    "batch 1 instead of in bucketed batches")
+    ap.add_argument("--no-precompile", action="store_true",
+                    help="skip planning every linear before serving "
+                    "(planned backends: each plan is built through the "
+                    "plan cache as the plans are attached)")
+    ap.add_argument("--lint", action="store_true",
+                    help="not ported (ROADMAP A6); refused")
+    ap.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
+                    help="not ported (ROADMAP A10); refused")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--requests", type=int, default=4)
@@ -415,17 +446,28 @@ def main(argv=None):
                  "protocol lives on the serve engine)")
     if args.role is not None and args.fp:
         ap.error("plan bundles carry quantized-weight plans; drop --fp")
+    if args.lint:
+        ap.error("--lint is not ported: the tracelint and planlint "
+                 "preflight waits for ROADMAP item A6")
+    if args.mesh is not None:
+        ap.error("--mesh is not ported: multi-device serving waits for "
+                 "ROADMAP item A10")
 
+    name = args.backend or "int_dot"
+    if args.path is not None:
+        warnings.warn("--path is deprecated; use --backend",
+                      DeprecationWarning)
+        name = args.path if args.backend is None else name
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
-                                            backend=args.backend)
+                                            backend=name)
     model = Model(cfg, device=args.device)
     reason = model.supports_paged()
     if args.continuous and reason is not None:
         ap.error(f"--continuous needs the paged serve path: {reason}")
     params = model.init(args.seed, on_device=True)
     raw_params = params
-    backend = get_backend(args.backend)
+    backend = get_backend(name)
     planned = not args.fp and backend.needs_plan
 
     if args.role == "planner":
@@ -446,7 +488,7 @@ def main(argv=None):
     if args.role == "server":
         if not (planned and backend.device_resident):
             ap.error(f"--role server attaches device plan bundles; backend "
-                     f"'{args.backend}' does not execute from them")
+                     f"'{name}' does not execute from them")
         from repro_torch.core.engine import BundleMismatchError
         from repro_torch.fleet import load_bundles, read_manifest
         cache.reset_stats()
@@ -463,6 +505,13 @@ def main(argv=None):
         if builds:
             raise SystemExit("[server] bundle attach built plans locally "
                              "— the planner artifact is incomplete")
+    elif planned and args.no_precompile:
+        misses = cache.stats()["misses"]
+        t0 = time.perf_counter()
+        params = model.attach_device_plans(params)
+        print(f"[plan cache] no precompile: attach built "
+              f"{cache.stats()['misses'] - misses} plans in "
+              f"{time.perf_counter() - t0:.2f}s | {cache!r}")
     elif planned:
         t0 = time.perf_counter()
         stats = model.precompile_plans(params)

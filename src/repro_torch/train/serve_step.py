@@ -1,12 +1,30 @@
-"""Greedy generation loop (port of ``repro.train.serve_step``): one
-prefill, then one decode step per generated token, eagerly."""
+"""Serving-step factories and the greedy generation loop (port of
+``repro.train.serve_step``): one prefill, then one decode step per
+generated token, eagerly. The factories are plain closures over the
+model (the reference jits them; the port runs them as they are)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.model import Model
 
-__all__ = ["greedy_generate"]
+__all__ = ["make_prefill", "make_decode_step", "greedy_generate"]
+
+
+def make_prefill(model: Model, max_len: int):
+    """``prefill(params, batch) -> (logits, caches)`` over dense caches of
+    ``max_len`` positions."""
+    def prefill(params, batch):
+        return model.prefill(params, batch, max_len)
+    return prefill
+
+
+def make_decode_step(model: Model):
+    """``decode_step(params, caches, token, step) -> (logits, caches)``:
+    one new token (B, 1) at position ``step``."""
+    def decode_step(params, caches, token, step):
+        return model.decode_step(params, caches, token, step)
+    return decode_step
 
 
 def greedy_generate(model: Model, params, batch, max_len: int,
@@ -27,13 +45,13 @@ def greedy_generate(model: Model, params, batch, max_len: int,
     b, prompt_len = tokens.shape
     if n_steps == 0:
         return torch.zeros((b, 0), dtype=torch.int32, device=model.device)
-    logits, caches = model.prefill(params, {**batch, "tokens": tokens},
-                                   max_len)
+    step_fn = make_decode_step(model)
+    logits, caches = make_prefill(model, max_len)(
+        params, {**batch, "tokens": tokens})
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     toks = [tok]
     for i in range(n_steps - 1):
-        logits, caches = model.decode_step(params, caches, tok,
-                                           prompt_len + i)
+        logits, caches = step_fn(params, caches, tok, prompt_len + i)
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
         toks.append(tok)
     return torch.cat(toks, dim=1)
