@@ -115,7 +115,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      kernels over that run must be > 0 and nothing may be packed during
      it; then the same requests on the plain path (``engine_torch``
      running its own dense DevicePlans through ``run_device``, + gather
-     decode) and the share of tokens that agree;
+     decode) and the share of tokens that agree. From here on the plan
+     verifier's gates (``repro_torch.analysis.planlint``) are counted
+     (``GateMeter``: artifacts, findings and seconds per ``where``,
+     printed after each phase): phase 5's planning must show 210
+     ``cache-publish`` verifications, one per cache miss, and no finding;
   6. the LUT serving path: the same model, weights and requests served on
      ``lut_cuda`` (the doubling-LUT kernel) with the paged-attention
      kernel and no plan: over that run B3 and B2 launch, B1 does not, the
@@ -232,7 +236,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      before, during and after the replan (and served alone), the
      worker's ``build_s``; (c) a structurally different params tree
      raises ``SwapMismatchError`` and a replan whose build raises fires
-     ``on_error``: generation 0 serves on, its tokens phase 5's;
+     ``on_error``: generation 0 serves on, its tokens phase 5's. The
+     gates: the load's
+     ``bundle-load`` verifies the manifest, every file (its plan and
+     DevicePlan, before its SHA-256) and the 7 lowered ForestPlans, 428
+     artifacts, no finding (the damaged file is now refused there); the
+     replan's 210 ``cache-publish`` and 7 ``swap-staging`` on the
+     worker thread;
   19. the paper's evaluation and the launcher flags (``paper_path``): (a)
      the quickstart example on the card, its one B3 launch bit-equal to
      the int64 GEMM and to B3's plain version; (b) the serve_lm example
@@ -243,10 +253,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      bands; (d) ``launch.serve.main`` on smollm-135m at full width and
      depth with phase 5's sizes on ``lut_cuda``, with
      ``--no-bucket-prefill`` (tokens equal) and with ``--path engine_cuda
-     --no-precompile`` on a fresh plan cache (the warning caught, all 210
-     plans built inside attach, tokens equal); (e) a greedy loop over
-     ``make_prefill`` / ``make_decode_step`` at full width on
-     ``lut_cuda``, tokens equal to ``greedy_generate``'s;
+     --no-precompile --lint`` on a fresh plan cache (the warning caught,
+     the plan preflight with no finding, all 210 plans built inside
+     attach and verified at ``cache-publish``, tokens equal); (e) a
+     greedy loop over ``make_prefill`` / ``make_decode_step`` at full
+     width on ``lut_cuda``, tokens equal to ``greedy_generate``'s;
+  20. the plan verifier on the card (``verifier_path``): (a)
+     ``lint_plans(["engine_torch", "engine_cuda"])`` on ``cuda``, no
+     finding; (b) a 1-layer smollm-135m at full width: the up
+     projection's unstacked ForestPlan (1536 x 576, T=8) on the card, a
+     copy with one gathered node set FOREST_UNUSED run through B1 differs
+     from the exact GEMM (the clean plan equals it), the copy and one
+     with two gathers swapped refused at ``cache-lowering``
+     (``forest-gathers``, ``plan-forest-agreement``), a generation
+     carrying the copy refused at ``swap-staging`` with nothing staged
+     and the engine's tokens unchanged; (c) its 7 plans as bundles, one
+     truncated, refused at ``bundle-load`` (``bundle-file``) before
+     ``_sha256`` reads it;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -264,7 +287,8 @@ phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
 B3's in phases 14-15b and 17, B1's in phase 14's ``engine_cuda`` run and
 phase 17, B5's forward and backward in phase 16b, B1's and B2's int8
 entry in phase 18's three runs, B1's, B2's int8 entry and B3's in
-phase 19's runs) under ``launches_in_other_phases``
+phase 19's runs, B1's and B2's int8 entry in phase 20) under
+``launches_in_other_phases``
 (phase 18's numbers under B1's ``fleet_phase``), and B3's entry the one-shot phases'
 prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
 launches made to compare a kernel with its plain version are not
@@ -1882,6 +1906,17 @@ def main_path():
     if stats["plans"] != 7 * cfg.n_layers:
         raise AssertionError(f"expected {7 * cfg.n_layers} plans, got "
                              f"{stats['plans']}")
+    counted = _gates().take("phase 5 (precompile + attach)")
+    pub = _gate(counted, "cache-publish")
+    print(f"[main] plan verifier: {pub['artifacts']} plans verified at "
+          f"cache-publish ({stats['built']} cache misses), "
+          f"{pub['findings']} findings, {pub['s']:.2f}s of the "
+          f"{t_plan:.2f}s planning")
+    if (pub["artifacts"], pub["findings"]) != (stats["built"], 0) or \
+            stats["built"] != 7 * cfg.n_layers or set(counted) != {
+                "cache-publish"}:
+        raise AssertionError(f"phase 5: the publish gate verified "
+                             f"{counted}, {stats['built']} plans built")
     if plan_bytes >= weight_bytes:
         raise AssertionError(f"plans ({plan_bytes} B) not below the int8 "
                              f"weights ({weight_bytes} B)")
@@ -1969,6 +2004,88 @@ def _thread_counts(main):
     return counts, undo
 
 
+class GateMeter:
+    """Counts what the plan verifier verifies, per gate.
+
+    Wraps ``repro_torch.analysis.planlint._run`` (one call per artifact:
+    its findings) and each gate function and ``lint_plans`` (the
+    ``where`` that the runs inside it are counted under, on its own
+    thread, and its seconds, parsing a bundle file included). The package
+    looks the gates up on the module at each call, so the wrappers see
+    every gate of the serving path. :meth:`take` prints and returns what
+    was counted since the last take."""
+
+    GATES = ("gate_plan", "gate_device", "gate_manifest", "gate_bundle_file",
+             "gate_params")
+
+    def __init__(self):
+        from repro_torch.analysis import planlint
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.counts = {}
+        self.log = {}
+        real_run = planlint._run
+
+        def run(art, **kw):
+            t = time.perf_counter()
+            out = real_run(art, **kw)
+            where = getattr(self.local, "where", None)
+            self._add(where or "(no gate)", 1, len(out),
+                      0.0 if where else time.perf_counter() - t)
+            return out
+        planlint._run = run
+        for name in self.GATES:
+            setattr(planlint, name, self._scoped(getattr(planlint, name)))
+        planlint.lint_plans = self._scoped(planlint.lint_plans,
+                                           "lint_plans")
+
+    def _add(self, where, artifacts, findings, s):
+        with self.lock:
+            c = self.counts.setdefault(
+                where, {"artifacts": 0, "findings": 0, "s": 0.0})
+            c["artifacts"] += artifacts
+            c["findings"] += findings
+            c["s"] += s
+
+    def _scoped(self, real, fixed=None):
+        def gate(*a, **k):
+            where = fixed or k["where"]
+            prev = getattr(self.local, "where", None)
+            self.local.where = where
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                self.local.where = prev
+                self._add(where, 0, 0, time.perf_counter() - t)
+        return gate
+
+    def take(self, label):
+        with self.lock:
+            out, self.counts = self.counts, {}
+        if out:
+            self.log[label] = out
+            print(f"[planlint] {label}: " + "; ".join(
+                f"{w} {c['artifacts']} artifacts, {c['findings']} findings, "
+                f"{c['s']:.2f}s" for w, c in sorted(out.items())))
+        return out
+
+
+_GATE_METER = []
+
+
+def _gates() -> GateMeter:
+    """The process's gate meter, installed at its first use."""
+    if not _GATE_METER:
+        _GATE_METER.append(GateMeter())
+    return _GATE_METER[0]
+
+
+def _gate(counted, where):
+    """``counted[where]`` (zeros where the gate verified nothing)."""
+    return counted.get(where, {"artifacts": 0, "findings": 0, "s": 0.0})
+
+
 def fleet_path(raw, params0, cfg, toks5, device="cuda"):
     """Phase 18: the live-weight fleet on phase 5's model and workload
     (smollm-135m at full width and depth, W4A8 ``engine_cuda`` (B1) + B2,
@@ -1976,8 +2093,10 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
     sharing prefixes, 32 tokens each).
 
     (a) Bundles: plan the model into ``write_bundles`` (a fresh plan
-    cache: the planning is timed), load them on a fresh cache with zero
-    lookups, the packed ForestPlans equal phase 5's leaf for leaf, serve
+    cache: the planning is timed, 210 ``cache-publish`` verifications),
+    load them on a fresh cache with zero lookups (the ``bundle-load``
+    gate: the manifest, every file, every lowered ForestPlan), the packed
+    ForestPlans equal phase 5's leaf for leaf, serve
     phase 5's requests: all 256 tokens equal; a stale bundle (one weight
     byte changed) and a damaged file (one byte flipped, even forced) are
     refused. (b) Hot swap under load: 4 requests admitted on generation 0,
@@ -1996,6 +2115,7 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
     import statistics
 
     import torch
+    from repro_torch.analysis.planlint import PlanVerificationError
     from repro_torch.core import plancache
     from repro_torch.core.engine import BundleMismatchError, ForestPlan
     from repro_torch.core.plancache import _iter_ptq_layers
@@ -2027,6 +2147,8 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
         t_plan = time.perf_counter() - t0
         n_bytes = sum(os.path.getsize(os.path.join(bdir, f))
                       for f in os.listdir(bdir))
+        written = _gate(_gates().take("phase 18a (write_bundles)"),
+                        "cache-publish")
         cache = plancache.PlanCache()
         prev = plancache.set_default_cache(cache)
         try:
@@ -2040,13 +2162,35 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
             plancache.set_default_cache(prev)
         print(f"[phase 18a] write_bundles: {manifest['n_files']} files "
               f"over {manifest['n_layers']} stacked layers, {n_bytes} B, "
-              f"planned in {t_plan:.2f}s | load_bundles in {t_load:.2f}s "
+              f"planned in {t_plan:.2f}s (of which the cache-publish "
+              f"gate {written['artifacts']} plans, {written['findings']} "
+              f"findings, {written['s']:.2f}s) | load_bundles in "
+              f"{t_load:.2f}s "
               f"(read, SHA-256, checks, pack into ForestPlans, upload), "
               f"cache lookups {looked['hits'] + looked['misses']}")
         if manifest["n_files"] != 7 * cfg.n_layers or looked["misses"] \
                 or looked["hits"]:
             raise AssertionError(f"phase 18a: {manifest['n_files']} files, "
                                  f"cache {looked}")
+        # the manifest, each file's plan and DevicePlan, each stacked
+        # layer's lowered ForestPlan
+        loaded = _gate(_gates().take("phase 18a (load_bundles)"),
+                       "bundle-load")
+        want_n = 1 + 2 * manifest["n_files"] + manifest["n_layers"]
+        print(f"[phase 18a] plan verifier: "
+              f"{loaded['artifacts']} artifacts at bundle-load (manifest, "
+              f"{manifest['n_files']} files x plan + DevicePlan, "
+              f"{manifest['n_layers']} lowered ForestPlans; {want_n} "
+              f"expected), {loaded['findings']} findings, "
+              f"{loaded['s']:.2f}s of the {t_load:.2f}s load")
+        if (loaded["artifacts"], loaded["findings"]) != (want_n, 0) or (
+                written["artifacts"], written["findings"]) != (
+                    manifest["n_files"], 0):
+            raise AssertionError(f"phase 18a: the gates verified "
+                                 f"{loaded} at load, {written} while "
+                                 f"planning")
+        numbers["plan_verifier"] = {"bundle_write": written,
+                                    "bundle_load": loaded}
         got = list(_iter_ptq_layers(params))
         want = list(_iter_ptq_layers(params0))
         for a, b in zip(got, want):
@@ -2091,11 +2235,13 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
                                                  force=True))):
             try:
                 fn()
-            except BundleMismatchError as e:
-                refused.append(f"{name}: {str(e)[:90]}")
+            except (BundleMismatchError, PlanVerificationError) as e:
+                refused.append(f"{name}: {type(e).__name__}: "
+                               f"{str(e)[:120]}")
             else:
                 raise AssertionError(f"phase 18a: a {name} bundle loaded")
         print(f"[phase 18a] refused: {refused}")
+        _gates().take("phase 18a (refusals)")
         del params, stale
         shutil.rmtree(bdir)
         shutil.rmtree(bad)
@@ -2167,6 +2313,22 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
         if errors or ticket is None or ticket.error is not None:
             raise AssertionError(f"phase 18b: the replan failed: {errors}")
         gen1 = ticket.generation
+        counted = _gates().take("phase 18b (replan + swap)")
+        staging, publish = (_gate(counted, w) for w in ("swap-staging",
+                                                        "cache-publish"))
+        n_stacked = manifest["n_layers"]
+        print(f"[phase 18b] plan verifier on the worker thread: "
+              f"{publish['artifacts']} plans at cache-publish "
+              f"({publish['s']:.2f}s of the {gen1.build_s:.2f}s replan), "
+              f"{staging['artifacts']} stacked ForestPlans at swap-staging "
+              f"({staging['s']:.3f}s), findings "
+              f"{publish['findings'] + staging['findings']}")
+        if (staging["artifacts"], publish["artifacts"]) != (
+                n_stacked, gen1.plans_built) or staging["findings"] or \
+                publish["findings"]:
+            raise AssertionError(f"phase 18b: the gates verified {counted}")
+        numbers["plan_verifier"] |= {"replan_publish": publish,
+                                     "swap_staging": staging}
         s = eng.stats()
         med = {k: statistics.median(v) * 1e3 if v else float("nan")
                for k, v in steps.items()}
@@ -3600,8 +3762,8 @@ def paper_path():
     runs = (("lut_cuda", ["--backend", "lut_cuda"]),
             ("lut_cuda --no-bucket-prefill",
              ["--backend", "lut_cuda", "--no-bucket-prefill"]),
-            ("--path engine_cuda --no-precompile",
-             ["--path", "engine_cuda", "--no-precompile"]))
+            ("--path engine_cuda --no-precompile --lint",
+             ["--path", "engine_cuda", "--no-precompile", "--lint"]))
     for run, extra in runs:
         tag = f"phase 19d ({run})"
         cache = plancache.PlanCache()
@@ -3649,7 +3811,19 @@ def paper_path():
         numbers[tag] = {"s": dt, "plans_built_in_attach": built["attach"]}
         if sorted(map(len, served[run].values())) != [32] * 8:
             raise AssertionError(f"{tag}: output malformed")
+        counted = _gates().take(tag)
         if "engine_cuda" in run:
+            lint, pub = (_gate(counted, w) for w in ("lint_plans",
+                                                     "cache-publish"))
+            print(f"[{tag}] --lint preflight: {lint['artifacts']} "
+                  f"artifacts verified, {lint['findings']} findings, "
+                  f"{lint['s']:.2f}s | cache-publish {pub['artifacts']} "
+                  f"plans, {pub['findings']} findings, {pub['s']:.2f}s")
+            numbers[tag]["plan_verifier"] = counted
+            if not lint["artifacts"] or lint["findings"] or \
+                    pub["artifacts"] != 210 or pub["findings"]:
+                raise AssertionError(f"{tag}: the plan verifier counted "
+                                     f"{counted}")
             if (misses, built["attach"], built["precompile"]) != (210, 210,
                                                                   0):
                 raise AssertionError(
@@ -3703,6 +3877,240 @@ def paper_path():
     if not torch.equal(loop, want):
         raise AssertionError(f"phase 19e: {same}/{want.numel()} equal")
     only("phase 19e", got, b3)
+    return launches, numbers
+
+
+def _leaf_fault(fplan):
+    """A host copy of an unstacked ForestPlan's producer with its first
+    gathered node that no other node is made from set to FOREST_UNUSED:
+    (producer, tile, node, the outputs that gather the node)."""
+    import numpy as np
+    from repro_torch.core.engine import FOREST_UNUSED
+    prod = fplan.producer.cpu().numpy().copy()
+    rows = fplan.rows.cpu().numpy().astype(np.int64)
+    for j in range(prod.shape[0]):
+        p = prod[j].astype(np.int64)
+        chained = np.flatnonzero(p < fplan.t)
+        prefixes = set((chained ^ (1 << p[chained])).tolist())
+        for v in np.unique(rows[j]):
+            if v and int(v) not in prefixes:
+                prod[j, v] = FOREST_UNUSED
+                readers = int((rows[j] == v).any(0).sum())
+                return prod, j, int(v), readers
+    raise AssertionError("phase 20: no gathered leaf node")
+
+
+def _replace_layer(tree, parts, fn):
+    """A copy of ``tree`` with the layer dict at ``parts`` replaced by
+    ``fn(layer)`` (the rest shared)."""
+    if not parts:
+        return fn(tree)
+    return {**tree, parts[0]: _replace_layer(tree[parts[0]], parts[1:], fn)}
+
+
+def verifier_path():
+    """Phase 20: the plan verifier on the card.
+
+    (a) ``lint_plans(["engine_torch", "engine_cuda"])`` on ``cuda``: zero
+    findings, the artifact labels printed. (b) smollm-135m with one layer
+    at full width on ``engine_cuda``: the up projection's (1536 x 576,
+    T = 8) unstacked ForestPlan, built through a plan cache (both publish
+    gates), on the card; a copy with one gathered node's producer byte
+    set to FOREST_UNUSED (dtype, contiguity and device sound: the
+    ForestPlan's own checks pass it) runs through B1
+    (``transitive_forest_rows``) and differs from the exact integer GEMM,
+    which the clean plan equals; that copy, and a copy with two gathered
+    nodes swapped, are each refused at ``cache-lowering`` (a compile hook
+    that returns them); a generation carrying the first copy (in the
+    layer's stacked plan) is refused at ``swap-staging``: nothing staged,
+    and the engine serves on with its tokens unchanged. (c) The model's 7
+    plans written as bundles, one file truncated: ``load_bundles``
+    refuses at ``bundle-load`` with ``bundle-file`` and the wrapped
+    ``bundles._sha256`` never reads the file. Every part raises on
+    failure. Returns ({run: {kernel: launches}}, numbers)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis.planlint import (PlanVerificationError,
+                                               lint_plans)
+    from repro_torch.configs import get_config
+    from repro_torch.core import plancache
+    from repro_torch.core.backend import EngineConfig, get_backend
+    from repro_torch.core.engine import ForestPlan
+    from repro_torch.fleet import bundles, load_bundles, write_bundles
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import (transitive_forest,
+                                                       transitive_forest_rows)
+    from repro_torch.launch.specs import serve_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+    kernels = (transitive_forest, paged_attention)
+    for k in kernels:
+        k.launches = 0
+    numbers = {}
+
+    # -- (a) lint_plans on the card -----------------------------------------
+    t0 = time.perf_counter()
+    report, findings = lint_plans(["engine_torch", "engine_cuda"])
+    numbers["lint_plans_s"] = time.perf_counter() - t0
+    for row in report:
+        print(f"[phase 20a] lint_plans {row['backend']} on cuda: artifacts "
+              f"{row['artifacts']}, findings {len(row['findings'])}")
+    print(f"[phase 20a] {len(findings)} findings in "
+          f"{numbers['lint_plans_s']:.2f}s")
+    if findings or not all(row["artifacts"] for row in report):
+        raise AssertionError(f"phase 20a: {[f.format() for f in findings]}")
+    _gates().take("phase 20a (lint_plans)")
+
+    # -- (b) a corrupted ForestPlan: B1 is silently wrong, the gates refuse --
+    cfg = serve_config(get_config("smollm_135m").replace(n_layers=1),
+                       backend="engine_cuda").replace(paged_kernel=True)
+    model = Model(cfg, device="cuda")
+    raw = model.init(0)
+    lpath, layer = next((p, lay) for p, lay in bundles._iter_layer_paths(raw)
+                        if tuple(lay["qw"].shape[-2:]) == (1536, 576))
+    qw = layer["qw"][0]
+    ecfg = EngineConfig(w_bits=cfg.quant.w_bits, t=cfg.quant.transrow_t,
+                        groups=plancache._layer_groups(layer["sg"]))
+    cache = plancache.PlanCache()
+    fplan = cache.get_or_build_device(qw, ecfg, backend="engine_cuda",
+                                      device="cuda")
+    if not isinstance(fplan, ForestPlan) or fplan.lead or fplan.t != 8 \
+            or fplan.producer.device.type != "cuda":
+        raise AssertionError(f"phase 20b: {type(fplan).__name__} "
+                             f"t={fplan.t} lead {fplan.lead}")
+    prod, j, v, readers = _leaf_fault(fplan)
+    bad = dataclasses.replace(fplan, producer=torch.from_numpy(prod).cuda())
+    rows = fplan.rows.cpu().numpy().copy()
+    s_, n1 = (int(i) for i in np.argwhere(rows[j] != 0)[0])
+    n2 = int(np.flatnonzero(rows[j, s_] != rows[j, s_, n1])[0])
+    rows[j, s_, [n1, n2]] = rows[j, s_, [n2, n1]]
+    swapped = dataclasses.replace(fplan, rows=torch.from_numpy(rows).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    qx = torch.randint(-128, 128, (64, 576), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    exact = (qx.double() @ qw.double().T).to(torch.int32)
+    good_out = transitive_forest_rows(fplan, qx)
+    bad_out = transitive_forest_rows(bad, qx)
+    torch.cuda.synchronize()
+    wrong = int((bad_out != exact).sum())
+    print(f"[phase 20b] {lpath} (1536 x 576, T=8) ForestPlan on the card: "
+          f"B1 equals the exact GEMM: {torch.equal(good_out, exact)} | the "
+          f"copy with tile {j} node {v} (gathered by {readers} outputs) set "
+          f"FOREST_UNUSED (a ForestPlan whose dtype, contiguity and device "
+          f"hold): B1 differs from the exact GEMM in {wrong} of "
+          f"{exact.numel()} outputs, max |diff| "
+          f"{int((bad_out.long() - exact.long()).abs().max())}")
+    if not torch.equal(good_out, exact) or not wrong:
+        raise AssertionError(f"phase 20b: clean plan exact "
+                             f"{torch.equal(good_out, exact)}, corrupted "
+                             f"plan wrong in {wrong} outputs")
+    b = get_backend("engine_cuda")
+    real = type(b).compile
+    refusals = {}
+    for name, copy, rules in (
+            ("unused node", bad, ("forest-gathers", "forest-producers")),
+            ("swapped gathers", swapped, ("plan-forest-agreement",))):
+        fresh = plancache.PlanCache()
+        type(b).compile = lambda self, plan, device=None, _c=copy: _c
+        try:
+            fresh.get_or_build_device(qw, ecfg, backend="engine_cuda",
+                                      device="cuda")
+        except PlanVerificationError as e:
+            f = e.findings[0]
+            refusals[name] = f"{e.where}: {f.rule} at {f.path}"
+            if e.where != "cache-lowering" or f.rule not in rules or any(
+                    entry.device for entry in fresh._plans.values()):
+                raise AssertionError(f"phase 20b: {name}: {e}")
+        else:
+            raise AssertionError(f"phase 20b: the {name} copy was memoized")
+        finally:
+            type(b).compile = real
+    print(f"[phase 20b] refused at cache-lowering: {refusals}")
+    params0 = model.attach_device_plans(raw)
+    eng = ServeEngine(model, params0, n_slots=4, max_len=256, page_size=16,
+                      paged_kernel=True, device="cuda")
+    prompts = _prompts(cfg.vocab, 4, 64)
+
+    def serve_round():
+        rids = [eng.submit(p, 16) for p in prompts]
+        eng.run()
+        done = {r.rid: r.tokens for r in eng.finished}
+        return [done[r] for r in rids]
+    before = serve_round()
+
+    def corrupt(lay):
+        d = lay["dplan"]
+        if not torch.equal(d.producer[0], fplan.producer):
+            raise AssertionError("phase 20b: the attached stacked plan's "
+                                 "entry differs from the cache's plan")
+        p = d.producer.clone()
+        p[0] = bad.producer
+        return {**lay, "dplan": dataclasses.replace(d, producer=p)}
+    staged0 = eng.counters["swaps_staged"]
+    try:
+        eng.swap_params(_replace_layer(params0, lpath.split("/"), corrupt))
+    except PlanVerificationError as e:
+        f = e.findings[0]
+        refusals["swap"] = f"{e.where}: {f.rule} at {f.path}"
+        if e.where != "swap-staging" or f.rule not in (
+                "forest-gathers", "forest-producers"):
+            raise AssertionError(f"phase 20b: swap: {e}")
+    else:
+        raise AssertionError("phase 20b: the corrupted generation staged")
+    after = serve_round()
+    print(f"[phase 20b] swap_params refused at {refusals['swap']}; "
+          f"swaps_staged {staged0} -> {eng.counters['swaps_staged']}, "
+          f"generation {eng.generation}; 4 requests x 16 tokens before and "
+          f"after equal: {before == after}")
+    if eng.counters["swaps_staged"] != staged0 or eng.generation or \
+            before != after:
+        raise AssertionError(f"phase 20b: staged "
+                             f"{eng.counters['swaps_staged']}, tokens "
+                             f"{before} != {after}")
+    numbers["refusals"] = refusals
+    numbers["wrong_outputs"] = wrong
+    del eng
+    _gates().take("phase 20b (corrupted ForestPlans)")
+
+    # -- (c) a truncated bundle is refused before its hash --------------------
+    work = os.path.join(ROOT, "build", "phase20")
+    shutil.rmtree(work, ignore_errors=True)
+    real_sha = bundles._sha256
+    try:
+        manifest = write_bundles(raw, cfg.quant, work,
+                                 cache=plancache.PlanCache())
+        victim = os.path.join(work, manifest["layers"][lpath]["files"][0][
+            "file"])
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        hashed = []
+        bundles._sha256 = lambda p: hashed.append(str(p)) or real_sha(p)
+        try:
+            load_bundles(raw, cfg.quant, work)
+        except PlanVerificationError as e:
+            f = e.findings[0]
+            numbers["truncated"] = f"{e.where}: {f.rule}"
+            if e.where != "bundle-load" or f.rule != "bundle-file":
+                raise AssertionError(f"phase 20c: {e}")
+        else:
+            raise AssertionError("phase 20c: a truncated bundle loaded")
+        print(f"[phase 20c] {manifest['n_files']} bundles written, "
+              f"{os.path.basename(victim)} truncated: refused at "
+              f"{numbers['truncated']}; files hashed before the refusal "
+              f"{len(hashed)}, the truncated one among them: "
+              f"{victim in hashed}")
+        if victim in hashed or manifest["n_files"] != 7:
+            raise AssertionError(f"phase 20c: _sha256 read {hashed}")
+    finally:
+        bundles._sha256 = real_sha
+        shutil.rmtree(work, ignore_errors=True)
+    _gates().take("phase 20c (truncated bundle)")
+    launches = {"phase 20 (the plan verifier)": {
+        k.__name__: k.launches for k in kernels}}
+    print(f"[phase 20] launches {launches}")
     return launches, numbers
 
 
@@ -3855,10 +4263,17 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     phase_s = {}
 
+    from repro_torch.launch.device_events import device_events
+    retried = {}
+
     def timed(name, fn, *a, **kw):
-        t = time.perf_counter()
+        t, r = time.perf_counter(), device_events.retries
         out = fn(*a, **kw)
         phase_s[name] = round(time.perf_counter() - t, 1)
+        if device_events.retries > r:
+            retried[name] = device_events.retries - r
+        if _GATE_METER:                 # what the gates verified otherwise
+            _gates().take(f"phase {name}")
         return out
     forest = timed("B1", check_forest, flush)
     attention = timed("B2", check_attention, flush)
@@ -3870,6 +4285,7 @@ def main() -> int:
     w4a8 = timed("B4", check_w4a8, flush)
     rglru = timed("B5", check_rg_lru, flush)
     timed("4", check_reduced_serve)
+    _gates()                # count the plan verifier's gates from here on
     launches, toks, raw, params, cfg = timed("5", main_path)
     lut = timed("6", lut_path, toks, raw, cfg)
     layouts = timed("8-10", layout_paths, raw, cfg)
@@ -3901,8 +4317,12 @@ def main() -> int:
     del flush
     accuracy, accuracy_numbers = timed("17", accuracy_path)
     paper, paper_numbers = timed("19", paper_path)
+    verifier, verifier_numbers = timed("20", verifier_path)
     ops = timed("7", ops_path)
-    print(f"[seconds] by phase: {phase_s}")
+    print(f"[seconds] by phase: {phase_s} | profiler reads taken again "
+          f"(a launch lost at a window's edge) by phase: {retried}, "
+          f"{device_events.retries} in all; the most primer and spin "
+          f"records one read lost: {device_events.primers_lost}")
     kernels = [
         {"name": "transitive_forest", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest.cu",
@@ -3917,8 +4337,12 @@ def main() -> int:
              **{phase: n["transitive_forest"] for phase, n in
                 fleet.items()},
              **{phase: n["transitive_forest"] for phase, n in
-                paper.items() if n["transitive_forest"]}},
-         "fleet_phase": fleet_numbers, **forest},
+                paper.items() if n["transitive_forest"]},
+             **{phase: n["transitive_forest"] for phase, n in
+                verifier.items()}},
+         "fleet_phase": fleet_numbers,
+         "plan_verifier": {"by_phase": _gates().log,
+                           "phase_20": verifier_numbers}, **forest},
         {"name": "transitive_forest_dense", "route": "cuda",
          "source": "src/repro_torch/csrc/transitive_forest_dense.cu",
          "replaces": "src/repro/kernels/transitive_forest.py:47",
@@ -3942,7 +4366,7 @@ def main() -> int:
     kernels[3]["launches_in_other_phases"] = {      # int8 pool + int8 attn
         phase: n["paged_attention"] for phase, n in (archs | fleet).items()}
     kernels[3]["launches_in_other_phases"] |= {
-        phase: n["paged_attention"] for phase, n in paper.items()
+        phase: n["paged_attention"] for phase, n in (paper | verifier).items()
         if n["paged_attention"]}
     kernels += [
         {"name": "transitive_gemm", "route": "cuda",

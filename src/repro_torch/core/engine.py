@@ -52,8 +52,8 @@ __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "forest_plan_plain", "SparseForestPlan", "SPARSE_DATA_FIELDS",
            "SPARSE_DIRECT", "SPARSE_MAX_T", "SPARSE_MAX_SLOT",
            "sparse_forest_slots", "complete_forest_plan",
-           "check_sparse_forest_plan",
-           "pack_sparse_forest_plan", "sparse_forest_plain", "check_plan"]
+           "check_sparse_forest_plan", "sparse_forest_fault",
+           "pack_sparse_forest_plan", "sparse_forest_plain"]
 
 
 # DevicePlan's array leaves, in the reference's order.
@@ -778,6 +778,12 @@ def pack_forest_plan(dplan: DevicePlan, *, device=None) -> ForestPlan:
     calls in ``pack_forest_plan.calls``.
     """
     pack_forest_plan.calls += 1
+    return _pack_forest(dplan, device)
+
+
+def _pack_forest(dplan: DevicePlan, device) -> ForestPlan:
+    """:func:`pack_forest_plan` uncounted (the plan verifier's
+    ``plan-forest-agreement`` packs with it)."""
     if not dplan.tile_local:
         raise ValueError("pack_forest_plan needs a tile-local plan (compile "
                          "it with compile_plan)")
@@ -1032,33 +1038,49 @@ def complete_forest_plan(t: int, count: int, n: int, bits: int = 4,
         signs=bitslice.plane_signs(bits))
 
 
-def check_sparse_forest_plan(splan: SparseForestPlan) -> None:
-    """Raise unless the sparse plan holds what its kernel relies on: T <=
-    ``SPARSE_MAX_T``; slots fit int16; each tile's level bounds start at
-    1 and never fall; every chained slot's prefix slot lies in an earlier
-    level (or is slot 0) and its bit is below T; every direct slot's
-    node has T bits and its own level's popcount; and every gathered slot
-    is made (or is slot 0). The kernel leaves slots past a tile's last
-    level unwritten, so nothing may read one. Works on stacked plans."""
-    t = splan.t
+def _first(mask: np.ndarray) -> tuple[int, ...]:
+    """The index of a boolean mask's first True entry."""
+    flat = int(np.flatnonzero(mask.reshape(-1))[0])
+    return tuple(int(i) for i in np.unravel_index(flat, mask.shape))
+
+
+def _at(name: str, where: tuple[int, ...]) -> str:
+    return f"{name}[{', '.join(map(str, where))}]"
+
+
+def sparse_forest_fault(splan: SparseForestPlan
+                        ) -> tuple[str, str, str] | None:
+    """The first way a sparse plan breaks what its kernel relies on, as
+    ``(path, leaf, message)``, or None: T <= ``SPARSE_MAX_T``; slots fit
+    int16; each tile's level bounds start at 1, never fall and stay in
+    the table; every chained slot's prefix slot lies in an earlier level
+    (or is slot 0) and its bit is below T; every direct slot's node has T
+    bits and its own level's popcount; and every gathered slot is made
+    (or is slot 0). The kernel leaves slots past a tile's last level
+    unwritten, so nothing may read one. Works on stacked plans. The plan
+    verifier's ``sparse-forest`` rule reports it as a finding."""
+    t = int(splan.t)
     if t > SPARSE_MAX_T:
-        raise ValueError(f"a direct node's bits fit 31: T <= "
-                         f"{SPARSE_MAX_T}, got T={t}")
-    u = splan.slots
+        return ("t", "t", f"a SparseForestPlan holds T <= {SPARSE_MAX_T} "
+                f"(a direct node's bits fit 31), got t={t}")
+    codes = splan.codes.detach().cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    bounds = splan.bounds.detach().cpu().numpy().astype(np.int64)
+    rows = splan.rows.detach().cpu().numpy().astype(np.int64)
+    u = codes.shape[-1]                                   # (..., J, U)
     if u - 1 > SPARSE_MAX_SLOT:
-        raise ValueError(f"{u} table rows: a slot must fit int16 (<= "
-                         f"{SPARSE_MAX_SLOT})")
-    j = splan.n_tiles
-    codes = splan.codes.detach().cpu().numpy().astype(np.int64)
-    codes = codes.reshape(-1, j, u) & 0xFFFFFFFF
-    bounds = splan.bounds.detach().cpu().numpy().astype(np.int64).reshape(
-        -1, j, t + 1)
-    rows = splan.rows.detach().cpu().numpy().astype(np.int64).reshape(
-        codes.shape[0], j, -1)
-    if ((bounds[..., 0] != 1).any() or (np.diff(bounds, axis=-1) < 0).any()
-            or (bounds[..., -1] > u).any()):
-        raise ValueError("level bounds must start at slot 1, never fall "
-                         "and stay inside the table")
+        return ("codes", "codes", f"{u} table rows: a slot must fit int16 "
+                f"(<= {SPARSE_MAX_SLOT})")
+    bad = np.zeros(bounds.shape, bool)                    # (..., J, T+1)
+    bad[..., 0] = bounds[..., 0] != 1
+    bad[..., 1:] = np.diff(bounds, axis=-1) < 0
+    bad[..., -1] |= bounds[..., -1] > u
+    if bad.any():
+        w = _first(bad)
+        return (_at("bounds", w), "bounds",
+                f"{int(bad.sum())} level bound(s) break the table: first "
+                f"{_at('bounds', w)} = {int(bounds[w])} (level bounds must "
+                f"start at slot 1, never fall and stay inside the {u}-row "
+                f"table)")
     slot = np.arange(u)
     # the level of each slot: L where bounds[L - 1] <= slot < bounds[L]
     level = np.zeros(codes.shape, np.int64)
@@ -1068,14 +1090,40 @@ def check_sparse_forest_plan(splan: SparseForestPlan) -> None:
     start = np.take_along_axis(bounds, np.clip(level - 1, 0, t), -1)
     direct = (codes & SPARSE_DIRECT) != 0
     pre, bit = codes & 0xFFFF, (codes >> 16) & 0x7FFF
-    v = codes & (SPARSE_DIRECT - 1)
-    if (live & ~direct & ((pre >= start) | (bit >= t))).any():
-        raise ValueError("a slot reads a prefix that is not in an earlier "
-                         "level, or an activation bit >= T")
-    if (live & direct & ((v >> t != 0) | (hasse.popcount(v) != level))).any():
-        raise ValueError("a direct slot's node is not of its own level")
-    if (rows < 0).any() or (rows >= bounds[..., -1:]).any():
-        raise ValueError("the plan gathers a slot it never makes")
+    node = codes & (SPARSE_DIRECT - 1)
+    for bad, what in (
+            (live & ~direct & (pre >= start),
+             "read a prefix slot that is not in an earlier level"),
+            (live & ~direct & (bit >= t),
+             f"read an activation bit >= T={t}"),
+            (live & direct & ((node >> t != 0)
+                              | (hasse.popcount(node) != level)),
+             "hold a direct node not of its own level")):
+        if bad.any():
+            w = _first(bad)
+            return (_at("codes", w), "codes",
+                    f"{int(bad.sum())} slot(s) {what}: first "
+                    f"{_at('codes', w)} = {int(codes[w])} (level "
+                    f"{int(level[w])}, which starts at slot "
+                    f"{int(start[w])})")
+    end = bounds[..., -1][..., None, None]                # (..., J, 1, 1)
+    bad = (rows < 0) | (rows >= end)                      # (..., J, S, N)
+    if bad.any():
+        w = _first(bad)
+        return (_at("rows", w), "rows",
+                f"{int(bad.sum())} gather(s) read a slot the plan never "
+                f"makes: first {_at('rows', w)} = {int(rows[w])} (the "
+                f"tile's last made slot is {int(end[w[:-2]][0, 0]) - 1}) "
+                f"— the kernel leaves it unwritten")
+    return None
+
+
+def check_sparse_forest_plan(splan: SparseForestPlan) -> None:
+    """Raise ``ValueError`` with :func:`sparse_forest_fault`'s message
+    unless the sparse plan holds what its kernel relies on."""
+    fault = sparse_forest_fault(splan)
+    if fault is not None:
+        raise ValueError(fault[2])
 
 
 def pack_sparse_forest_plan(dplan: DevicePlan, *, device=None
@@ -1093,6 +1141,17 @@ def pack_sparse_forest_plan(dplan: DevicePlan, *, device=None
     on ``device`` (default: the plan's). Counts its calls in
     ``pack_sparse_forest_plan.calls``."""
     pack_sparse_forest_plan.calls += 1
+    splan = _pack_sparse_forest(dplan)
+    check_sparse_forest_plan(splan)                 # on the host
+    device = dplan.signs.device if device is None else device
+    return dataclasses.replace(splan, **{
+        f: a.to(device) for f, a in splan.leaves().items()})
+
+
+def _pack_sparse_forest(dplan: DevicePlan) -> SparseForestPlan:
+    """:func:`pack_sparse_forest_plan` uncounted and unchecked, on the
+    host (the plan verifier's ``plan-forest-agreement`` packs with it and
+    compares leaves; it does not verify the plan again)."""
     if not dplan.tile_local:
         raise ValueError("pack_sparse_forest_plan needs a tile-local plan "
                          "(compile it with compile_plan)")
@@ -1116,14 +1175,10 @@ def pack_sparse_forest_plan(dplan: DevicePlan, *, device=None
     rows = np.stack([r for _, _, r in packed]).astype(np.int16)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(
         a.reshape(lead + a.shape[1:])))
-    splan = SparseForestPlan(
+    return SparseForestPlan(
         t=dplan.t, bits=dplan.bits, n=dplan.n, k=dplan.k, groups=dplan.groups,
         codes=as_t(codes), bounds=as_t(bounds), rows=as_t(rows),
         signs=torch.from_numpy(leaves["signs"].copy()))
-    check_sparse_forest_plan(splan)                 # on the host
-    device = dplan.signs.device if device is None else device
-    return dataclasses.replace(splan, **{
-        f: a.to(device) for f, a in splan.leaves().items()})
 
 
 pack_sparse_forest_plan.calls = 0
@@ -1177,31 +1232,3 @@ def sparse_forest_plain(splan: SparseForestPlan, x: torch.Tensor
             1, dtype=torch.int64)
     out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
     return out[:, 0] if g == 1 else out.contiguous()
-
-
-def check_plan(plan) -> None:
-    """Raise ``ValueError`` unless an attached device plan holds what its
-    executor relies on: a :class:`ForestPlan`'s dtypes, contiguity and one
-    device (its ``__post_init__``); a :class:`SparseForestPlan`'s as well
-    and :func:`check_sparse_forest_plan`; a :class:`DevicePlan`'s int32
-    leaves and :func:`check_tile_local` (every plan ``compile_plan``
-    makes is tile-local). The checks the port runs where a plan enters a
-    server from outside its own planner: a plan bundle's load and a
-    swap's staging. Works on stacked plans."""
-    if isinstance(plan, (ForestPlan, SparseForestPlan)):
-        plan.__post_init__()
-        if isinstance(plan, SparseForestPlan):
-            check_sparse_forest_plan(plan)
-        return
-    if not isinstance(plan, DevicePlan):
-        raise ValueError(f"not a device plan: {type(plan).__name__}")
-    leaves = {f: a.detach().cpu().numpy() for f, a in plan.leaves().items()}
-    for name, a in leaves.items():
-        if a.dtype != np.int32:
-            raise ValueError(f"DevicePlan.{name} must be int32, got "
-                             f"{a.dtype}")
-    if not check_tile_local(plan.t, plan.k, leaves["level_src"],
-                            leaves["level_xsrc"], leaves["direct_idx"],
-                            leaves["direct_x_idx"], leaves["gather_idx"]):
-        raise ValueError(f"DevicePlan (t={plan.t}, n={plan.n}, k={plan.k}) "
-                         f"is not tile-local: not a compile_plan lowering")

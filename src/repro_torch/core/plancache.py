@@ -21,8 +21,12 @@ weight bytes; :meth:`PlanCache.invalidate` (by content),
 :meth:`PlanCache.invalidate_version` and :meth:`PlanCache.clear`
 tombstone builds still in flight so they cannot repopulate the cache.
 
-Not in this slice: the reference's plan-IR verifier gates at publish and
-lowering (``repro.analysis.planlint``; ROADMAP A6).
+The plan verifier (``repro_torch.analysis.planlint``) gates both halves
+of a publish: a built plan is verified before it is published
+(``cache-publish``; a refused build publishes nothing, its waiters retry
+and a healthy rebuild counts as a miss), and a lowering before it is
+memoized (``cache-lowering``; on ``engine_cuda`` the ForestPlan /
+SparseForestPlan rules run there).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Any, Hashable, Iterator
 import numpy as np
 import torch
 
+from repro_torch.analysis import planlint
 from repro_torch.core.backend import (EngineConfig, TransitiveBackend,
                                       get_backend)
 from repro_torch.core.engine import (BatchedTransitiveEngine, DevicePlan,
@@ -176,6 +181,9 @@ class PlanCache:
             qw = _canonical(qw)
             plan = BatchedTransitiveEngine(bits=cfg.w_bits, t=cfg.t).plan(
                 qw.astype(np.int64), groups=cfg.groups)
+            # nothing malformed is published: a refusal propagates like a
+            # failed build (waiters retry, nothing is cached)
+            planlint.gate_plan(plan, where="cache-publish")
             entry = _Entry(plan=plan, fingerprint=fp or weight_fingerprint(qw))
         except BaseException as e:
             with self._lock:
@@ -213,7 +221,9 @@ class PlanCache:
         """The cached plan's device lowering, compiled once per (entry,
         compile hook, device) through the requesting backend's hook
         (``engine_torch``'s when the tag names no device lowering),
-        outside the lock; a racing compile keeps the first result."""
+        outside the lock, and verified against the plan before it is
+        memoized (``cache-lowering``); a racing compile keeps the first
+        result."""
         tag = _backend_tag(backend)
         entry = self._entry(qw, cfg, version, tag)
         if isinstance(backend, TransitiveBackend):
@@ -225,6 +235,8 @@ class PlanCache:
         memo = (type(bk).compile, str(torch.device(device or "cpu")))
         if memo not in entry.device:
             lowered = bk.compile(entry.plan, device=device)
+            planlint.gate_device(lowered, plan=entry.plan, backend=tag,
+                                 where="cache-lowering")
             with self._lock:
                 entry.device.setdefault(memo, lowered)
         return entry.device[memo]

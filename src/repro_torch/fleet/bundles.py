@@ -20,9 +20,10 @@ not planning, and the plan cache is not touched). The loader reads the
 reference's backend names as the port's (``engine_jit`` is
 ``engine_torch``, ``engine_pallas`` is ``engine_cuda``), so a bundle
 directory the reference's ``write_bundles`` wrote serves here with zero
-builds. Every attached plan passes ``core.engine.check_plan`` first. The
-reference's plan-IR gates (``repro.analysis.planlint``: the manifest, each
-file, the params) are not in this slice (ROADMAP A6).
+builds. The plan verifier (``repro_torch.analysis.planlint``) gates the
+load (``bundle-load``): the manifest's structure before any mismatch
+check, every file's structure before its SHA-256, and every attached,
+lowered plan.
 
 ``force=True`` skips the fingerprint and config refusals; a damaged file
 (hash mismatch) and a shape that cannot run are refused all the same.
@@ -39,10 +40,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis import planlint
 from repro_torch.core.backend import EngineConfig, get_backend
 from repro_torch.core.engine import (DEVICE_DATA_FIELDS, BundleMismatchError,
-                                     DevicePlan, ExecutionPlan, check_plan,
-                                     compile_plan)
+                                     DevicePlan, ExecutionPlan, compile_plan)
 from repro_torch.core.plancache import (_as_numpy, _canonical, _cfg_backend,
                                         _is_ptq_layer, _layer_groups,
                                         _plan_knobs, default_cache,
@@ -175,19 +176,29 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
 
     Checked before any plan is trusted, in the reference's order:
 
-      1. the manifest: its format, backend and engine config against the
-         serving ``cfg``, and its weight fingerprint against ``params``
-         (:class:`BundleMismatchError`; ``force=True`` skips these);
+      1. the manifest: its structure (the ``bundle-load`` gate,
+         ``planlint.PlanVerificationError``), then its format, backend
+         and engine config against the serving ``cfg``, and its weight
+         fingerprint against ``params`` (:class:`BundleMismatchError`;
+         ``force=True`` skips these);
       2. per layer: the manifest covers it, with its stacked axes; per
-         file: its SHA-256 (damage refuses even with ``force``), then
-         ``ExecutionPlan.load_bundle(qw=slice, cfg=...)`` (config, shape
-         (even with ``force``), slice fingerprint);
-      3. the attached plan: ``core.engine.check_plan``.
+         file: its structure (the gate: a truncated or malformed file is
+         refused before it is hashed), its SHA-256 (damage refuses even
+         with ``force``), then ``ExecutionPlan.load_bundle(qw=slice,
+         cfg=...)`` (config, shape (even with ``force``), slice
+         fingerprint);
+      3. the attached, lowered plan: the gate again (the forest rules on
+         ``engine_cuda``'s ForestPlans; with ``REPRO_PLANLINT=0`` the
+         rules that guard a kernel's raw-pointer reads still run).
 
     A manifest that names layers ``params`` does not hold refuses unless
     ``force``."""
     manifest = read_manifest(bundle_dir)
     b = _planned_backend(cfg, None)
+    # structure before any semantic check: a malformed manifest never
+    # reaches the mismatch logic below
+    planlint.gate_manifest(manifest, where="bundle-load",
+                           bundle_dir=bundle_dir, backend=b.name)
     w_bits, t = _plan_knobs(cfg)
     mcfg = manifest.get("engine_config", {})
     if not force:
@@ -228,9 +239,13 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
                 f"{bundle_dir}: layer '{lpath}' lead axes {lead} != "
                 f"manifest {meta['lead']}")
         ecfg = EngineConfig(w_bits=w_bits, t=t, groups=int(meta["groups"]))
-        devices = []
+        devices, plans = [], []
         for e in meta["files"]:
             fpath = os.path.join(bundle_dir, e["file"])
+            # structure first: a truncated or corrupt npz is refused
+            # before its hash is computed
+            planlint.gate_bundle_file(fpath, where="bundle-load",
+                                      backend=b.name)
             if _sha256(fpath) != e["sha256"]:
                 raise BundleMismatchError(
                     f"{fpath}: file hash mismatch — bundle corrupted "
@@ -240,6 +255,7 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
                 fpath, qw=(qw[i] if i else qw), cfg=ecfg, force=force)
             devices.append(bundle.device if bundle.device is not None
                            else compile_plan(bundle.plan))   # plan-only file
+            plans.append(bundle.plan)
         dplan = _stack(devices, lead)
         device = layer["qw"].device
         lower = getattr(b, "lower", None)       # engine_cuda packs
@@ -248,11 +264,9 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
         else:
             dplan = dataclasses.replace(dplan, **{
                 f: a.to(device) for f, a in dplan.leaves().items()})
-        try:
-            check_plan(dplan)
-        except ValueError as err:
-            raise BundleMismatchError(
-                f"{bundle_dir}: layer '{lpath}': {err}") from None
+        planlint.gate_device(dplan, plan=None if lead else plans[0],
+                             where="bundle-load", backend=b.name,
+                             guard_kernel=True)
         return {**layer, "dplan": dplan}
 
     def walk(tree: Any, path: tuple = ()):

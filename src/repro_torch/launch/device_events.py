@@ -12,10 +12,23 @@ inside the host's window once moved to the host clock, so a record near
 either edge can fall out when the two clocks disagree. So each profile
 here opens with ``PRIMER_LAUNCHES`` tiny launches and one spin of
 ``PAD_CYCLES`` device cycles (``torch.cuda._sleep``), and closes with a
-second spin before its last synchronize: the calls sit at least a spin
-away from both edges, and the spins are left out of the result. A read
-counts only if it holds events and every kernel's count is a multiple of
-``calls``, else it is taken again. ``chip_smoke.py``, the card tests,
+second spin and as many tiny launches before its last synchronize: the
+calls sit at least a spin and the primer away from both edges, and the
+primer and the spins are left out of the result. A read counts only if
+it holds events and every kernel's count is a multiple of ``calls``,
+else it is taken again with both spins twice as long (up to ``PAD_MAX``)
+and four times the primer (up to ``PRIMER_MAX``);
+``device_events.retries`` counts such reads and
+``device_events.primers_lost`` the most primer and spin records one read
+lost. Each call starts again from ``PAD_CYCLES`` and
+``PRIMER_LAUNCHES``: a longer window lasts one read. Reads lose launches
+only late in a run, and more the later. Eleven minutes into
+``chip_smoke.py`` runs on an H100, reads with ~20 ms spins kept 10 of 20
+calls of a ~25 µs kernel, and reads with spins doubled to ~320 ms kept
+17 of 20 calls of a ~3 ms one; ten reads with spins up to ~1.3 s kept 10
+of 20 calls of a ~40 µs one; the same reads two minutes into a run kept
+every launch.
+``chip_smoke.py``, the card tests,
 ``launch/profile_serve.py`` and ``launch/bench_forest_sparse.py`` read
 through it. CUDA only.
 
@@ -32,28 +45,35 @@ import sys
 import time
 
 __all__ = ["device_events", "kernel_names", "open_window", "close_window",
-           "PRIMER", "PRIMER_LAUNCHES", "PAD_CYCLES"]
+           "PRIMER", "PRIMER_LAUNCHES", "PRIMER_MAX", "PAD_CYCLES",
+           "PAD_MAX"]
 
 PRIMER = "spin_kernel"          # the kernel of torch.cuda._sleep
 PRIMER_LAUNCHES = 32            # more than a profile was seen to lose
+PRIMER_MAX = 256 * PRIMER_LAUNCHES
 PAD_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz SM clock
+PAD_MAX = 64 * PAD_CYCLES       # ~1.3 s
 
 
-def open_window() -> None:
-    """Inside a profile, before the calls it reads: the primer launches
-    and a spin, then a synchronize."""
+def open_window(cycles: int = PAD_CYCLES,
+                primers: int = PRIMER_LAUNCHES) -> None:
+    """Inside a profile, before the calls it reads: ``primers`` tiny
+    launches and a spin of ``cycles``, then a synchronize."""
     import torch
-    for _ in range(PRIMER_LAUNCHES):
+    for _ in range(primers):
         torch.cuda._sleep(100)
-    torch.cuda._sleep(PAD_CYCLES)
+    torch.cuda._sleep(cycles)
     torch.cuda.synchronize()
 
 
-def close_window() -> None:
-    """Inside a profile, after the calls it reads: a spin, then a
-    synchronize."""
+def close_window(cycles: int = PAD_CYCLES,
+                 primers: int = PRIMER_LAUNCHES) -> None:
+    """Inside a profile, after the calls it reads: a spin of ``cycles``
+    and ``primers`` tiny launches, then a synchronize."""
     import torch
-    torch.cuda._sleep(PAD_CYCLES)
+    torch.cuda._sleep(cycles)
+    for _ in range(primers):
+        torch.cuda._sleep(100)
     torch.cuda.synchronize()
 
 
@@ -67,19 +87,30 @@ def device_events(fn, calls: int = 1, attempts: int = 10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    pad, primers = PAD_CYCLES, PRIMER_LAUNCHES
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            open_window()
+            open_window(pad, primers)
             for _ in range(calls):
                 fn()
-            close_window()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and PRIMER not in e.key]
+            close_window(pad, primers)
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        events = [e for e in device if PRIMER not in e.key]
+        kept = sum(e.count for e in device if PRIMER in e.key)
+        device_events.primers_lost = max(device_events.primers_lost,
+                                         2 * primers + 2 - kept)
         if events and all(e.count % calls == 0 for e in events):
             break
+        device_events.retries += 1
+        pad = min(2 * pad, PAD_MAX)
+        primers = min(4 * primers, PRIMER_MAX)
         time.sleep(0.05)
     return events
+
+
+device_events.retries = 0
+device_events.primers_lost = 0
 
 
 def kernel_names(fn) -> list[str]:

@@ -92,9 +92,16 @@ The reference's other launch flags:
     planned backend then builds each plan through the plan cache while
     its plans are attached to the params.
 
-``--lint`` (the tracelint and planlint preflight) waits for ROADMAP item
-A6 and ``--mesh`` (multi-device serving) for A10: asked for, the
-launcher exits with that reason.
+``--lint`` runs the plan half of the reference's preflight before
+anything is built: ``analysis.planlint.lint_plans`` verifies the
+backend's representative plans, lowerings and a bundle round trip on
+``--device``, prints each finding and the seconds, and refuses to serve
+(exit 2) on an error finding. The program half (tracelint) waits for
+ROADMAP item A6.2, and the launcher says so. ``--mesh`` (multi-device
+serving) waits for A10: asked for, the launcher exits with that reason.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --continuous --backend engine_cuda --lint --device cpu
 """
 from __future__ import annotations
 
@@ -375,6 +382,28 @@ def _hotswap_report(model, eng, args, failures, gen_raw, worker,
           f"on a fresh engine")
 
 
+def lint_preflight(ap, name: str, device) -> None:
+    """``--lint``: the plan verifier over ``name``'s plan artifacts on
+    ``device`` (``analysis.planlint.lint_plans``); exits 2 through
+    ``ap.error`` on any error finding."""
+    from repro_torch.analysis.planlint import lint_plans
+    t0 = time.perf_counter()
+    report, findings = lint_plans([name], device=device)
+    dt = time.perf_counter() - t0
+    for f in findings:
+        print(f"[planlint] {f.format()}")
+    row = report[0]
+    what = row.get("skipped") or "artifacts " + ", ".join(row["artifacts"])
+    print(f"[planlint] preflight {name}: {len(findings)} finding(s) "
+          f"({what}) in {dt:.2f}s")
+    print("[tracelint] not run: the program half of the preflight "
+          "(tracelint) is not ported yet and waits for ROADMAP item A6.2")
+    errors = [f for f in findings if f.severity == "error"]
+    if errors:
+        ap.error(f"planlint preflight failed with {len(errors)} error "
+                 f"finding(s); serve refused")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -404,7 +433,9 @@ def main(argv=None):
                     "(planned backends: each plan is built through the "
                     "plan cache as the plans are attached)")
     ap.add_argument("--lint", action="store_true",
-                    help="not ported (ROADMAP A6); refused")
+                    help="verify the backend's plan artifacts before "
+                    "serving (planlint) and refuse to serve on an error "
+                    "finding; the tracelint half waits for ROADMAP A6.2")
     ap.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
                     help="not ported (ROADMAP A10); refused")
     ap.add_argument("--slots", type=int, default=2)
@@ -446,9 +477,6 @@ def main(argv=None):
                  "protocol lives on the serve engine)")
     if args.role is not None and args.fp:
         ap.error("plan bundles carry quantized-weight plans; drop --fp")
-    if args.lint:
-        ap.error("--lint is not ported: the tracelint and planlint "
-                 "preflight waits for ROADMAP item A6")
     if args.mesh is not None:
         ap.error("--mesh is not ported: multi-device serving waits for "
                  "ROADMAP item A10")
@@ -458,6 +486,8 @@ def main(argv=None):
         warnings.warn("--path is deprecated; use --backend",
                       DeprecationWarning)
         name = args.path if args.backend is None else name
+    if args.lint:
+        lint_preflight(ap, name, args.device)
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
                                             backend=name)
@@ -489,13 +519,15 @@ def main(argv=None):
         if not (planned and backend.device_resident):
             ap.error(f"--role server attaches device plan bundles; backend "
                      f"'{name}' does not execute from them")
+        from repro_torch.analysis.planlint import PlanVerificationError
         from repro_torch.core.engine import BundleMismatchError
         from repro_torch.fleet import load_bundles, read_manifest
         cache.reset_stats()
         t0 = time.perf_counter()
         try:
             params = load_bundles(params, cfg.quant, args.bundle_dir)
-        except (FileNotFoundError, BundleMismatchError) as e:
+        except (FileNotFoundError, BundleMismatchError,
+                PlanVerificationError) as e:
             raise SystemExit(f"[server] bundle refused: {e}")
         builds = cache.stats()["misses"]
         print(f"[server] attached "

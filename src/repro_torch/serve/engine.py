@@ -38,8 +38,9 @@ thread may call it (``repro_torch.fleet``).
 Not in this slice: the reference's mesh placement and its jit-trace
 counters (the port runs eagerly: there is no trace to keep across a swap;
 ``stats()`` keeps the distinct prefill shapes, which is what bucketing
-bounds), and its plan-IR gate at swap staging (``repro.analysis``; the
-port checks each staged plan with ``core.engine.check_plan``).
+bounds). A staged generation's plans pass the plan verifier's
+``swap-staging`` gate first (``repro_torch.analysis.planlint``; with
+``REPRO_PLANLINT=0`` its kernel guards still run).
 """
 from __future__ import annotations
 
@@ -52,9 +53,9 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import planlint
 from repro_torch.core.engine import (DevicePlan, ForestPlan,
-                                     SparseForestPlan, check_plan)
-from repro_torch.core.plancache import _iter_ptq_layers
+                                     SparseForestPlan)
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import CHUNK_THRESHOLD
 from repro_torch.models.model import Model
@@ -289,8 +290,9 @@ class ServeEngine:
 
         ``params`` must have the serving generation's structure (else
         :class:`SwapMismatchError`: the caller's rollback is not to swap),
-        and every attached plan must pass ``core.engine.check_plan``
-        (else ``ValueError``). Leaf-shape drift is allowed (a DevicePlan's
+        and every attached plan must pass the plan verifier's
+        ``swap-staging`` gate (else ``PlanVerificationError``: nothing is
+        staged; with the gates off, its kernel guards still run). Leaf-shape drift is allowed (a DevicePlan's
         direct width past its pad, a SparseForestPlan's table width) and
         counted in ``swap_shape_drift``."""
         cur = self.cell.params
@@ -299,9 +301,8 @@ class ServeEngine:
                 "swap_params: new params tree structure differs from the "
                 "serving generation's — a hot swap replaces weight values, "
                 "not model architecture (build a new engine for that)")
-        for layer in _iter_ptq_layers(params):
-            if "dplan" in layer:
-                check_plan(layer["dplan"])
+        planlint.gate_params(params, where="swap-staging",
+                             guard_kernel=True)
         drift = sum(a.shape != b.shape or a.dtype != b.dtype
                     for a, b in zip(_leaves(params), _leaves(cur)))
         with self._swap_lock:

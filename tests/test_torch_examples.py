@@ -1,7 +1,8 @@
 """Port parity: the examples ``quickstart`` and ``serve_lm``, the serving
 step factories ``make_prefill`` / ``make_decode_step``, and the
 launcher's ``--path``, ``--no-bucket-prefill`` and ``--no-precompile``
-(and its refusals of ``--lint`` and ``--mesh``), on the CPU.
+(and its refusal of ``--mesh``), on the CPU. ``--lint`` is held in
+``tests/test_torch_planlint.py``.
 
 The quickstart's numbers are held exactly to the reference's modules on
 the same arrays (step 4 to the reference's Pallas kernel in interpret
@@ -271,7 +272,6 @@ def test_no_precompile_builds_each_plan_in_attach(capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--lint"], "--lint is not ported.*item A6"),
     (["--mesh", "data=4"], "--mesh is not ported.*item A10"),
 ])
 def test_launcher_refuses_flags_not_ported(capsys, argv, message):

@@ -59,6 +59,7 @@ from repro.serve import ServeEngine as RefServeEngine  # noqa: E402
 import repro_torch.core.backend as PB  # noqa: E402
 import repro_torch.core.engine as PE  # noqa: E402
 import repro_torch.fleet.replan as PR  # noqa: E402
+from repro_torch.analysis import PlanVerificationError  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.core.backend import EngineConfig  # noqa: E402
@@ -743,7 +744,11 @@ def test_bundles_refusals(cache, ref, bundle_dirs, tmp_path, case):
         blob = bytearray(open(path, "rb").read())
         blob[len(blob) // 2] ^= 0xFF
         open(path, "wb").write(bytes(blob))
-        with pytest.raises(BundleMismatchError, match="hash mismatch"):
+        # as in the reference: damaged bytes are refused structurally
+        # (the plan verifier, before the hash) or, where the flip survives
+        # parsing, by the hash; force= bypasses neither
+        refused = (BundleMismatchError, PlanVerificationError)
+        with pytest.raises(refused, match="hash mismatch|refused|planlint"):
             load_bundles(p0, q, bad, force=case.endswith("forced"))
     elif case == "model_shape":
         small = Model(_cfg("engine_cuda").replace(n_layers=1),
@@ -761,15 +766,19 @@ def test_bundles_refusals(cache, ref, bundle_dirs, tmp_path, case):
 
 
 def test_loaded_plans_pass_the_port_checks(cache, ref, bundle_dirs):
-    """Every plan a bundle load attaches passes core.engine.check_plan;
-    a DevicePlan that is not a compile_plan lowering does not."""
+    """Every plan a bundle load attaches passes the plan verifier's device
+    rules (the forest rules on engine_cuda's ForestPlans); a DevicePlan
+    that is not a compile_plan lowering does not."""
+    from repro_torch.analysis import planlint
     for backend in PLANNED:
         model, p0, _ = _port(ref, backend)
         for lay in _iter_ptq_layers(load_bundles(
                 p0, model.cfg.quant, bundle_dirs[("port", backend)])):
-            PE.check_plan(lay["dplan"])
+            assert planlint.verify_device_plan(lay["dplan"]) == []
     dp = PE.compile_plan(PlanCache().get_or_build(_w(0), EngineConfig(4, 8)))
-    src = dp.level_src.clone()
-    src[0, 0] = src.shape[-1] - 1
-    with pytest.raises(ValueError, match="tile-local"):
-        PE.check_plan(dataclasses.replace(dp, level_src=src))
+    xsrc = dp.level_xsrc.clone()
+    lv, r = (int(i) for i in torch.nonzero(xsrc != dp.k)[0])
+    xsrc[lv, r] = ((r >> dp.t) + 1) % (dp.k // dp.t) * dp.t   # next tile
+    with pytest.raises(PlanVerificationError, match="tile-local"):
+        planlint.gate_device(dataclasses.replace(dp, level_xsrc=xsrc),
+                             where="bundle-load")
