@@ -254,8 +254,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      depth with phase 5's sizes on ``lut_cuda``, with
      ``--no-bucket-prefill`` (tokens equal) and with ``--path engine_cuda
      --no-precompile --lint`` on a fresh plan cache (the warning caught,
-     the plan preflight with no finding, all 210 plans built inside
-     attach and verified at ``cache-publish``, tokens equal); (e) a
+     the tracelint preflight's 7 programs on the card and the plan
+     preflight with no finding, the preflight's plans in a cache of their
+     own, all 210 serving plans built inside attach and verified at
+     ``cache-publish``, tokens equal); (e) a
      greedy loop over ``make_prefill`` / ``make_decode_step`` at full
      width on ``lut_cuda``, tokens equal to ``greedy_generate``'s;
   20. the plan verifier on the card (``verifier_path``): (a)
@@ -270,6 +272,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and the engine's tokens unchanged; (c) its 7 plans as bundles, one
      truncated, refused at ``bundle-load`` (``bundle-file``) before
      ``_sha256`` reads it;
+  21. the program half of the analysis on the card (``tracelint_path``):
+     the walker's op spellings on the card's torch (cuda and CPU), RoPE's
+     frequencies equal to the old formula's; (a) ``python -m
+     repro_torch.analysis.lint --backend engine_cuda --backend lut_cuda
+     --plans --budgets --device cuda`` exit 0, ``paged-attention`` with
+     one ``kernel:B2`` site a layer, ``forest`` one ``kernel:B1`` site,
+     the live-page budget held by (c), not evaluated; (b) both backends' programs at smollm-135m's published widths (2
+     layers): 0 findings, the kernel sites, seconds; (c) B2 bit-identical
+     with every row it has no business reading poisoned, in all four
+     layouts, and the oracle paged decode's pool reads growing past the
+     live-page budget; (d) ``no-host-callback`` on an ``.item()``, a
+     ``.cpu()`` and a ``torch.tensor``, ``swap_trace_count`` 1 aligned
+     and 2 widened on ``engine_torch``;
   7. the public kernel API (``repro_torch.kernels.ops``): each of its
      five functions once on the card at a serving shape, plus B3 at T=6
      and T=16 (counted apart), B1 from a T=9 and a T=15 plan (the fused
@@ -2008,15 +2023,20 @@ class GateMeter:
     """Counts what the plan verifier verifies, per gate.
 
     Wraps ``repro_torch.analysis.planlint._run`` (one call per artifact:
-    its findings) and each gate function and ``lint_plans`` (the
-    ``where`` that the runs inside it are counted under, on its own
-    thread, and its seconds, parsing a bundle file included). The package
-    looks the gates up on the module at each call, so the wrappers see
-    every gate of the serving path. :meth:`take` prints and returns what
-    was counted since the last take."""
+    its findings) and each gate function, ``lint_plans`` and
+    ``analysis.programs.lint_backend`` (the ``where`` that the runs inside
+    it are counted under, on its own thread, and its seconds, parsing a
+    bundle file included; inside ``lint_backend`` every gate counts under
+    ``tracelint``). The package looks the gates up on the module at each
+    call, so the wrappers see every gate of the serving path.
+    :meth:`take` prints and returns what was counted since the last
+    take."""
 
     GATES = ("gate_plan", "gate_device", "gate_manifest", "gate_bundle_file",
              "gate_params")
+    # wheres that keep the gates run inside them: the tracelint programs
+    # plan in a cache of their own, apart from the serving path's gates
+    OUTER = ("tracelint",)
 
     def __init__(self):
         from repro_torch.analysis import planlint
@@ -2038,6 +2058,9 @@ class GateMeter:
             setattr(planlint, name, self._scoped(getattr(planlint, name)))
         planlint.lint_plans = self._scoped(planlint.lint_plans,
                                            "lint_plans")
+        from repro_torch.analysis import programs
+        programs.lint_backend = self._scoped(programs.lint_backend,
+                                             "tracelint")
 
     def _add(self, where, artifacts, findings, s):
         with self.lock:
@@ -2049,15 +2072,16 @@ class GateMeter:
 
     def _scoped(self, real, fixed=None):
         def gate(*a, **k):
-            where = fixed or k["where"]
             prev = getattr(self.local, "where", None)
+            where = prev if prev in self.OUTER else fixed or k["where"]
             self.local.where = where
             t = time.perf_counter()
             try:
                 return real(*a, **k)
             finally:
                 self.local.where = prev
-                self._add(where, 0, 0, time.perf_counter() - t)
+                if prev not in self.OUTER:
+                    self._add(where, 0, 0, time.perf_counter() - t)
         return gate
 
     def take(self, label):
@@ -3667,6 +3691,7 @@ def paper_path():
 
     import numpy as np
     import torch
+    from repro_torch.analysis import programs
     from repro_torch.configs import get_config
     from repro_torch.core import plancache
     from repro_torch.examples import quickstart, serve_lm
@@ -3681,6 +3706,7 @@ def paper_path():
     kernels = _oneshot_kernels()
     b3 = "transitive_gemm_cuda"
     launches, numbers = {}, {}
+    lint_backend = programs.lint_backend
 
     def only(tag, got, *names):
         if not all(got[n] for n in names) or any(
@@ -3779,10 +3805,22 @@ def paper_path():
             return out
 
         def counted_precompile(*a, **k):
-            built["precompile"] += 1
+            # the serving path's precompiles (the --lint preflight's
+            # programs plan in a cache of their own)
+            if (a[2] if len(a) > 2 else k.get("cache")) in (None, cache):
+                built["precompile"] += 1
             return precompile(*a, **k)
+
+        preflight = []
+
+        def recorded_lint_backend(*a, **k):
+            t = time.perf_counter()
+            progs, found = lint_backend(*a, **k)
+            preflight.append((progs, found, time.perf_counter() - t))
+            return progs, found
         plancache.attach_device_plans = counted_attach
         plancache.precompile = counted_precompile
+        programs.lint_backend = recorded_lint_backend
         _zero(kernels)
         t0 = time.perf_counter()
         try:
@@ -3793,6 +3831,7 @@ def paper_path():
         finally:
             plancache.attach_device_plans = attach
             plancache.precompile = precompile
+            programs.lint_backend = lint_backend
             plancache.set_default_cache(prev)
         dt = time.perf_counter() - t0
         got = launches[tag] = _counts(kernels)
@@ -3824,6 +3863,23 @@ def paper_path():
                     pub["artifacts"] != 210 or pub["findings"]:
                 raise AssertionError(f"{tag}: the plan verifier counted "
                                      f"{counted}")
+            if len(preflight) != 1:
+                raise AssertionError(f"{tag}: {len(preflight)} tracelint "
+                                     f"preflights")
+            progs, found, pre_s = preflight[0]
+            built_progs = [p.name for p in progs if not p.skipped]
+            print(f"[{tag}] --lint tracelint preflight: "
+                  f"{len(built_progs)} programs on cuda "
+                  f"({', '.join(built_progs)}), {len(found)} findings, "
+                  f"{pre_s:.2f}s (its plans in a cache of its own: "
+                  f"{_gate(counted, 'tracelint')})")
+            numbers[tag]["tracelint_preflight"] = {
+                "programs": built_progs, "findings": len(found),
+                "s": pre_s}
+            if found or len(built_progs) != 7:
+                raise AssertionError(f"{tag}: the tracelint preflight "
+                                     f"built {built_progs}, findings "
+                                     f"{[f.format() for f in found]}")
             if (misses, built["attach"], built["precompile"]) != (210, 210,
                                                                   0):
                 raise AssertionError(
@@ -4114,6 +4170,241 @@ def verifier_path():
     return launches, numbers
 
 
+def _poison_pool(pool, table, steps, ps, vmax):
+    """A copy of ``pool`` with every row B2 has no business reading
+    poisoned: NaN in an exact pool's K and V rows, 127 in an int8 pool's
+    and NaN in its ks / vs scales, on every page no slot's live extent
+    names and in each slot's last live page past its step. With ``vmax``
+    (an exact pool under int8 attention, whose V scale is the |V| max over
+    the whole page-table extent, the null page 0 of the dead entries
+    included) V is poisoned only on the pages no table entry names.
+    Returns (poisoned copy, poisoned rows of K, of V)."""
+    import torch
+    n_pages = pool["k"].shape[0]
+    live = torch.zeros((n_pages, ps), dtype=torch.bool)
+    named = torch.zeros((n_pages,), dtype=torch.bool)
+    named[0] = True
+    for s, step in enumerate(steps.tolist()):
+        for j, page in enumerate(table[s].tolist()):
+            named[page] = True
+            lanes = step + 1 - j * ps
+            if lanes > 0:
+                live[page, :min(lanes, ps)] = True
+    dead_k = ~live
+    dead_v = ~named[:, None].expand(n_pages, ps) if vmax else dead_k
+    out = {}
+    for name, a in pool.items():
+        dead = (dead_v if name in ("v", "vs") else dead_k).to(a.device)
+        fill = 127 if a.dtype == torch.int8 else float("nan")
+        out[name] = torch.where(dead[:, :, None, None], torch.full_like(
+            a, fill), a)
+    return out, int(dead_k.sum()), int(dead_v.sum())
+
+
+def tracelint_path():
+    """Phase 21: the program half of the analysis on the card.
+
+    (0) The walker's op spellings (``walker.spelling_report``) on the
+    card's torch, on ``cuda`` and on its CPU: every probe caught by the set
+    meant to catch it, the ops printed; RoPE's frequencies from a Python
+    base equal the old ``torch.tensor(theta)`` formula's bit for bit at
+    smollm-135m's, chatglm3-6b's (partial) and llama1-7b's head dims on
+    ``cuda``. (a) ``python -m repro_torch.analysis.lint --backend
+    engine_cuda --backend lut_cuda --plans --budgets --device cuda`` (its
+    ``main``, in process): exit 0, ``[tracelint]``, ``[planlint]`` and
+    ``[costcheck]`` lines, ``paged-attention`` built with one
+    ``kernel:B2`` site a layer, ``forest`` on ``engine_cuda`` one
+    ``kernel:B1`` site, the ``live-page-decode`` budget reported held by
+    (c) on both backends, not evaluated (B2's pool reads are a kernel
+    site). (b) ``lint_backend(..., reduced=False,
+    n_layers=2)`` on ``cuda`` for both backends, smollm-135m at its
+    published widths: 0 findings, the same kernel sites (and 7 B1 or B3
+    sites a layer in each decode), no scatter in ``forest``; seconds per
+    backend. (c) The live-page budget's kernel half: at smollm-135m's
+    heads (KV 3, G 3, hd 64), B = 4, page_size 16, max_len 256, ragged
+    steps, in all four pool layouts, every row B2 has no business reading
+    poisoned (``_poison_pool``): B2's output bit-identical to the clean
+    call; and the oracle ``paged-decode``'s ``pool_gather_bytes_growth``
+    on ``cuda`` above the 1.25 budget. (d) Controls on ``cuda``: an
+    ``.item()``, a ``.cpu()`` and a ``torch.tensor`` each give
+    ``no-host-callback``; ``swap_trace_count`` on ``engine_torch`` gives 1
+    aligned and 2 widened. Every part raises on failure and prints what
+    it found, with the kernels' launches."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    import torch
+    from repro_torch.analysis import find_violations, walker
+    from repro_torch.analysis.costcheck import growth_ratio, swap_trace_count
+    from repro_torch.analysis.lint import main as lint_main
+    from repro_torch.analysis.programs import lint_backend
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
+    from repro_torch.launch.specs import serve_config
+    kernels = (transitive_forest, transitive_gemm_cuda, paged_attention)
+    n_layers = 2
+
+    # -- (0) the op spellings on this torch; RoPE's frequencies ---------------
+    for dev in ("cuda", "cpu"):
+        report = walker.spelling_report(dev)
+        missed = [k for k, v in report.items() if not v["caught"]]
+        print(f"[phase 21] op spellings on {dev} (torch "
+              f"{torch.__version__}): " + "; ".join(
+                  f"{k}: {' '.join(v['ops'])}" for k, v in report.items()))
+        if missed:
+            raise AssertionError(f"phase 21: probes not caught on {dev}: "
+                                 f"{missed}")
+    for arch in ("smollm_135m", "chatglm3_6b", "llama1_7b"):
+        cfg = get_config(arch)
+        rot_d = cfg.hd // 2 if cfg.rope_2d else cfg.hd
+        exps = -torch.arange(0, rot_d, 2, dtype=torch.float32,
+                             device="cuda") / rot_d
+        new = torch.pow(float(cfg.rope_theta), exps)
+        old = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                     device="cuda"), exps)
+        if not torch.equal(new, old):
+            raise AssertionError(f"phase 21: RoPE frequencies of {arch} "
+                                 f"differ on the card")
+    print("[phase 21] RoPE frequencies from a Python base equal the "
+          "torch.tensor(theta) formula's bit for bit on cuda at "
+          "smollm-135m's, chatglm3-6b's (partial) and llama1-7b's head "
+          "dims")
+
+    # -- (a) the lint CLI on the card -----------------------------------------
+    out_json = os.path.join(ROOT, "build", "phase21_lint.json")
+    os.makedirs(os.path.dirname(out_json), exist_ok=True)
+    _zero(kernels)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(["--backend", "engine_cuda", "--backend", "lut_cuda",
+                        "--plans", "--budgets", "--device", "cuda",
+                        "--json", out_json])
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[phase 21a] {line}")
+    with open(out_json) as f:
+        doc = json.load(f)
+    os.remove(out_json)
+    sites = {r["backend"]: r["kernel_sites"] for r in doc["backends"]}
+    print(f"[phase 21a] exit {rc} in {dt:.1f}s | kernel sites {sites} | "
+          f"launches {_counts(kernels)}")
+    if rc != 0 or not all(tag in text for tag in ("[tracelint]",
+                                                  "[planlint]",
+                                                  "[costcheck]")):
+        raise AssertionError(f"phase 21a: lint exit {rc}")
+    for b in ("engine_cuda", "lut_cuda"):
+        if sites[b]["paged-attention"].get(
+                "kernel:B2.paged_attention") != n_layers:
+            raise AssertionError(f"phase 21a: {b} paged-attention sites "
+                                 f"{sites[b]['paged-attention']}")
+    if sites["engine_cuda"]["forest"] != {"kernel:B1.forest_narrow": 1}:
+        raise AssertionError(f"phase 21a: forest sites "
+                             f"{sites['engine_cuda']['forest']}")
+    # B2 reads the pool: the live-page budget is held by (c), not evaluated
+    live = [r for r in doc["budgets"] if r["budget"] == "live-page-decode"]
+    if len(live) != 2 or not all(
+            "kernel:B2" in r.get("held_by", "") and "value" not in r
+            for r in live):
+        raise AssertionError(f"phase 21a: live-page-decode rows {live}")
+
+    # -- (b) the published widths ---------------------------------------------
+    for b, kernel in (("engine_cuda", "kernel:B1.forest_narrow"),
+                      ("lut_cuda", "kernel:B3.tgemm_lut")):
+        _zero(kernels)
+        t0 = time.perf_counter()
+        progs, found = lint_backend(b, device="cuda", reduced=False,
+                                    n_layers=n_layers)
+        dt = time.perf_counter() - t0
+        tag = f"phase 21b ({b}, full width)"
+        by = {p.name: p for p in progs}
+        ks = {p.name: dict(Counter(s.op for s in p.trace if s.is_kernel))
+              for p in progs}
+        scatter = [s.op for s in by["forest"].trace
+                   if s.is_in(walker.SCATTER_OPS)] if "forest" in by else []
+        print(f"[{tag}] smollm-135m d_model 576, {n_layers} layers: "
+              f"{len(progs)} programs, {len(found)} findings in {dt:.1f}s | "
+              f"kernel sites {ks} | launches {_counts(kernels)}")
+        for f in found:
+            print(f"[{tag}] {f.format()}")
+        if found or any(p.skipped for p in progs):
+            raise AssertionError(f"{tag}: {len(found)} findings")
+        if ks["paged-attention"].get("kernel:B2.paged_attention") != \
+                n_layers or ks["decode"].get(kernel) != 7 * n_layers:
+            raise AssertionError(f"{tag}: kernel sites {ks}")
+        if b == "engine_cuda" and (ks["forest"] != {kernel: 1} or scatter):
+            raise AssertionError(f"{tag}: forest sites {ks['forest']}, "
+                                 f"scatters {scatter}")
+
+    # -- (c) the live-page budget's kernel half -------------------------------
+    base = serve_config(get_config("smollm_135m"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b_, ps, max_len = 4, 16, 256
+    pps = max_len // ps
+    kv, g, hd = base.n_kv_heads, base.n_heads // base.n_kv_heads, base.hd
+    n_pages = b_ * pps + 1 + 8                 # 8 pages no table names
+    steps = torch.tensor([0, 37, 100, 200], dtype=torch.int32,
+                         device="cuda")
+    table = torch.zeros((b_, pps), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(21)) + 1
+    nxt = 0
+    for s in range(b_):
+        n = pps if s % 2 else int(steps[s]) // ps + 1   # dead entries: 0
+        table[s, :n] = perm[nxt:nxt + n].to(torch.int32)
+        nxt += n
+    q = torch.randn((b_, 1, kv * g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    named = len(set(table.flatten().tolist()) - {0})
+    for layout, (name, quant, bits) in ATTN_LAYOUTS.items():
+        cfg = base.replace(quant_attention=quant)
+        pool = _attn_pool(layout, (n_pages, ps, kv, hd), gen)
+        bad, dk, dv = _poison_pool(pool, table.cpu(), steps.cpu(), ps,
+                                   vmax=quant and bits == 16)
+        clean = paged_attention(q, pool, table, steps, cfg, hd ** -0.5)
+        dirty = paged_attention(q, bad, table, steps, cfg, hd ** -0.5)
+        same = torch.equal(clean, dirty)
+        what = "NaN" if bits == 16 else "127, NaN scales"
+        print(f"[phase 21c] B2 {name}: {dk} K rows and {dv} V rows of "
+              f"{n_pages * ps} poisoned ({what}), steps {steps.tolist()}, "
+              f"{named} of {n_pages - 1} pages named by the table: output "
+              f"bit-identical to the clean call: {same}")
+        if not same or not torch.isfinite(dirty.float()).all():
+            raise AssertionError(f"phase 21c: B2 {name} read a dead row")
+    ratio, values = growth_ratio("lut_cuda", "paged-decode",
+                                 "pool_gather_bytes", device="cuda")
+    print(f"[phase 21c] the oracle paged-decode's pool_gather_bytes_growth "
+          f"on cuda: {ratio:.3f} ({values}) > the 1.25 budget: "
+          f"{ratio > 1.25}")
+    if not ratio > 1.25:
+        raise AssertionError(f"phase 21c: oracle growth {ratio}")
+
+    # -- (d) positive controls on the card ------------------------------------
+    x = torch.ones(4, device="cuda")
+    controls = {
+        "item": lambda v: v * float(v.sum().item()),
+        "cpu()": lambda v: v.cpu() + 1.0,
+        "torch.tensor": lambda v: v * torch.tensor(2.0, device="cuda")}
+    fired = {}
+    for name, fn in controls.items():
+        found = find_violations(fn, x, rules=("no-host-callback",))
+        fired[name] = [f.primitive for f in found]
+        if not found:
+            raise AssertionError(f"phase 21d: no-host-callback silent on "
+                                 f"{name}")
+    counts = {a: swap_trace_count(backend="engine_torch", device="cuda",
+                                  aligned=a) for a in (True, False)}
+    print(f"[phase 21d] no-host-callback fires on cuda: {fired} | "
+          f"swap_trace_count on engine_torch: aligned {counts[True]}, "
+          f"widened {counts[False]}")
+    if counts != {True: 1, False: 2}:
+        raise AssertionError(f"phase 21d: swap_trace_count {counts}")
+
+
 def ops_path():
     """The public kernel API on the card: each function of
     repro_torch.kernels.ops once at a serving shape, plus the routes that
@@ -4318,6 +4609,7 @@ def main() -> int:
     accuracy, accuracy_numbers = timed("17", accuracy_path)
     paper, paper_numbers = timed("19", paper_path)
     verifier, verifier_numbers = timed("20", verifier_path)
+    timed("21", tracelint_path)
     ops = timed("7", ops_path)
     print(f"[seconds] by phase: {phase_s} | profiler reads taken again "
           f"(a launch lost at a window's edge) by phase: {retried}, "

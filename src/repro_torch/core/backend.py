@@ -50,6 +50,7 @@ from repro_torch.core.engine import (FOREST_WIDE_MAX_T, DevicePlan,
                                      compile_plans, pack_forest_plan,
                                      pack_sparse_forest_plan, run_device,
                                      sparse_forest_slots)
+from repro_torch.tracepoints import scope
 
 __all__ = ["EngineConfig", "TransitiveBackend", "register_backend",
            "get_backend", "list_backends", "int_matmul"]
@@ -84,12 +85,18 @@ class TransitiveBackend:
     weight-only half (the plan cache builds it; :meth:`compile` lowers
     it). ``cpu_ok``: runs on CPU tensors (the CUDA backend does, through
     its kernel's plain version).
+
+    ``lint_exempt`` names the tracelint rules (``repro_torch.analysis``)
+    that do not apply to the backend, with a reason per tag in the
+    class docstring. No port backend has one: the reference's one
+    exemption belongs to its host ``engine`` oracle, which is not ported.
     """
     name: str = ""
     device_resident: bool = False
     supports_groups: bool = True
     needs_plan: bool = False
     cpu_ok: bool = True
+    lint_exempt: frozenset[str] = frozenset()
 
     def compile(self, plan, device=None
                 ) -> DevicePlan | ForestPlan | SparseForestPlan | None:
@@ -160,8 +167,9 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     which int8 x int8 products reach only past K = 2^39; the result is the
     int32 accumulator the reference's ``preferred_element_type=int32``
     dots give."""
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)) \
-        .to(torch.int32)
+    with scope("int_matmul"):
+        return torch.matmul(a.to(torch.float64), b.to(torch.float64)) \
+            .to(torch.int32)
 
 
 class IntDotBackend(TransitiveBackend):

@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import bitslice, hasse
 from repro_torch.core.scoreboard import (MAX_DISTANCE, ScoreboardInfo,
                                          dynamic_scoreboard)
+from repro_torch.tracepoints import scope
 
 __all__ = ["BatchedTransitiveEngine", "ExecutionPlan", "LevelStep",
            "DevicePlan", "PlanBundle", "BundleMismatchError",
@@ -589,8 +590,9 @@ def forest_body(xt, level_src, level_xsrc, direct_idx, direct_x_idx,
     # level-synchronous forest, gather-only: every row advances as
     # psum[src] + x[xsrc]; non-executed rows gather themselves + zero
     for lv in range(level_src.shape[0]):
-        psum = (psum.index_select(0, level_src[lv])
-                + xt_ext.index_select(0, level_xsrc[lv]))
+        with scope("level", loop=True):
+            psum = (psum.index_select(0, level_src[lv])
+                    + xt_ext.index_select(0, level_xsrc[lv]))
 
     # APE shift-accumulate: gather every TransRow's psum, reduce per group
     s = signs.shape[0]
@@ -821,7 +823,8 @@ def forest_plan_plain(fplan: ForestPlan, x: torch.Tensor) -> torch.Tensor:
     :func:`run_device` on the plan it was packed from. The plain version
     of the CUDA forest kernel. The psum table is int32 (wrapping adds like
     the reference's); the APE sums run in int64 and are cast back, which
-    is congruent mod 2^32.
+    is congruent mod 2^32. Like ``forest_body`` it runs the same ops on
+    any values: gathers and selects only, no host read.
     """
     if x.ndim != 2 or x.shape[0] != fplan.k:
         raise ValueError(f"x must be (K={fplan.k}, M), got {tuple(x.shape)}")
@@ -836,24 +839,30 @@ def forest_plan_plain(fplan: ForestPlan, x: torch.Tensor) -> torch.Tensor:
     prod = fplan.producer.to(device=dev, dtype=torch.int64)      # (J, 2^T)
     nodes = torch.arange(size, device=dev)
     bits = (nodes[:, None] >> torch.arange(t, device=dev)) & 1   # (2^T, T)
+    # direct nodes: the subset sum of their bits (int32 adds, wrapping)
     table = xt.new_zeros((j, size, m))
-    dt, dv = torch.nonzero(prod == FOREST_DIRECT, as_tuple=True)
-    table[dt, dv] = (bits[dv].to(torch.int32)[:, :, None] * xt[dt]).sum(
-        1, dtype=torch.int32)
+    for b in range(t):
+        table += bits[:, b].to(torch.int32)[None, :, None] * xt[:, b, None]
+    table = torch.where((prod == FOREST_DIRECT)[:, :, None], table, 0)
+    # level by level, a made node is its parent (v without its producer
+    # bit b) plus x[b]: every node is gathered, the level's made nodes kept
     level = bits.sum(1)
+    bit = prod.clamp(max=t - 1)
+    parent = (nodes[None] ^ (1 << bit))[:, :, None].expand(j, size, m)
+    xb = xt.gather(1, bit[:, :, None].expand(j, size, m))
     for lv in range(1, t + 1):
-        jj, v = torch.nonzero((prod < t) & (level == lv)[None],
-                              as_tuple=True)
-        b = prod[jj, v]
-        table[jj, v] = table[jj, v ^ (1 << b)] + xt[jj, b]
+        with scope("level", loop=True):
+            made = ((prod < t) & (level == lv)[None])[:, :, None]
+            table = torch.where(made, table.gather(1, parent) + xb, table)
     flat = table.reshape(j * size, m)
     rows = fplan.rows.to(device=dev, dtype=torch.int64)          # (J, S, N)
+    signs = fplan.signs.to(device=dev, dtype=torch.int64)
     base = torch.arange(j, device=dev)[:, None] * size
     g, n = fplan.groups, fplan.n
     out = torch.zeros((g, n, m), dtype=torch.int64, device=dev)
     for s in range(rows.shape[1]):
         gathered = flat.index_select(0, (rows[:, s] + base).reshape(-1))
-        out += int(fplan.signs[s]) * gathered.reshape(g, j // g, n, m).sum(
+        out += signs[s] * gathered.reshape(g, j // g, n, m).sum(
             1, dtype=torch.int64)
     out = out.to(torch.int32).permute(1, 0, 2)                   # (N, G, M)
     return out[:, 0] if g == 1 else out.contiguous()

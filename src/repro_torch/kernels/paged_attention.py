@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.quant.quantize import quantize_per_token
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["paged_attention", "paged_attention_plain", "agreement",
            "float_roundings", "bf16_neighbours", "launch_plan", "smem_bytes",
@@ -430,6 +431,9 @@ def paged_attention(q, pool, page_indices, steps, cfg, scale):
         raise RuntimeError(f"paged_attention launch failed: "
                            f"{lib.paged_attention_error(err).decode()}")
     paged_attention.launches += 1
+    note_launch("B2.paged_attention",
+                (qk, *leaves.values(), table, st,
+                 *(() if sq32 is None else (sq32,))), (out,))
     return out.reshape(b, 1, h, hd)
 
 

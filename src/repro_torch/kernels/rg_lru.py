@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["rg_lru", "rg_lru_cuda", "rg_lru_grad", "rg_lru_plain",
            "launch_plan", "LaunchPlan", "SMS", "SMEM_LIMIT"]
@@ -267,6 +268,7 @@ def _launch(lib, x, a, h0, out, plan: LaunchPlan) -> None:
     if err != 0:
         raise RuntimeError(f"rg_lru launch failed ({plan.kernel}): "
                            f"{lib.rg_lru_error(err).decode()}")
+    note_launch(f"B5.{plan.kernel}", (x, a, h0), (out,))
 
 
 rg_lru_cuda.launches = 0

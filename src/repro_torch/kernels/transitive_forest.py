@@ -63,6 +63,7 @@ from repro_torch.kernels.transitive_forest_dense import (
     launch_fused16, transitive_forest_dense)
 from repro_torch.kernels.transitive_forest_sparse import (launch_sparse,
                                                           sparse_fits)
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["transitive_forest", "transitive_forest_rows", "forest_plain",
            "forest_plan_plain", "sparse_forest_plain"]
@@ -151,6 +152,8 @@ def _launch(fplan, x: torch.Tensor, rows_layout: bool,
         raise RuntimeError(f"transitive_forest launch failed: "
                            f"{lib.transitive_forest_error(err).decode()}")
     transitive_forest.launches += 1
+    note_launch("B1.forest_narrow" if m <= 8 else "B1.forest_wide",
+                (x, fplan.producer, fplan.rows, fplan.signs), (out,))
 
 
 def transitive_forest(plan, x: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core.engine import DevicePlan, ForestPlan, run_device
 from repro_torch.kernels import build
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["transitive_forest_dense", "launch_fused16", "wide_tiling",
            "WideTiling", "level_order"]
@@ -250,6 +251,8 @@ def launch_fused16(fplan: ForestPlan, x: torch.Tensor, rows_layout: bool,
         raise RuntimeError(f"forest_fused16 launch failed: "
                            f"{lib.transitive_forest_dense_error(err).decode()}")
     transitive_forest_dense.launches += 1
+    note_launch("B1.forest_fused16",
+                (x, fplan.producer, fplan.rows, fplan.signs), (out,))
 
 
 def transitive_forest_dense(dplan: DevicePlan, x: torch.Tensor
@@ -307,6 +310,8 @@ def transitive_forest_dense(dplan: DevicePlan, x: torch.Tensor
                 f"transitive_forest_dense launch failed: "
                 f"{lib.transitive_forest_dense_error(err).decode()}")
         transitive_forest_dense.launches += 1
+        note_launch("B1.forest_dense", (xt, *leaves.values()),
+                    tuple(a for a in (work, scratch, out) if a is not None))
     out = out.reshape(n, g, m)
     return out[:, 0] if g == 1 else out
 

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.engine import SPARSE_MAX_SLOT, SparseForestPlan
 from repro_torch.kernels import build
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["launch_sparse", "sparse_tiling", "SparseTiling", "sparse_smem",
            "sparse_fits"]
@@ -166,6 +167,7 @@ def launch_sparse(splan: SparseForestPlan, x: torch.Tensor,
             f"forest_sparse launch failed: "
             f"{lib.transitive_forest_sparse_error(err).decode()}")
     launch_sparse.launches += 1
+    note_launch("B1.forest_sparse", (x, *splan.leaves().values()), (out,))
 
 
 launch_sparse.launches = 0

@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["transitive_gemm_cuda", "transitive_gemm_plain", "lut_width",
            "k_split"]
@@ -177,6 +178,7 @@ def transitive_gemm_cuda(qx: torch.Tensor, qw: torch.Tensor, *,
         raise RuntimeError(f"transitive_gemm launch failed: "
                            f"{lib.transitive_gemm_error(err).decode()}")
     transitive_gemm_cuda.launches += 1
+    note_launch("B3.tgemm_lut", (xc, wc), (out,))
     return out
 
 

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.tracepoints import note_launch
 
 __all__ = ["w4a8_gemm_cuda", "w4a8_gemm_plain", "w4a8_gemm_ordered",
            "launch_plan", "dot_plan", "with_split", "LaunchPlan",
@@ -293,6 +294,7 @@ def _launch(lib, qx, sx, qw, sg, out, group: int, plan: LaunchPlan) -> None:
     if err != 0:
         raise RuntimeError(f"w4a8_gemm launch failed ({plan.kernel}): "
                            f"{lib.w4a8_gemm_error(err).decode()}")
+    note_launch(f"B4.{plan.kernel}", (qx, sx, qw, sg), (out,))
 
 
 w4a8_gemm_cuda.launches = 0

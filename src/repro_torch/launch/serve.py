@@ -92,12 +92,14 @@ The reference's other launch flags:
     planned backend then builds each plan through the plan cache while
     its plans are attached to the params.
 
-``--lint`` runs the plan half of the reference's preflight before
-anything is built: ``analysis.planlint.lint_plans`` verifies the
-backend's representative plans, lowerings and a bundle round trip on
-``--device``, prints each finding and the seconds, and refuses to serve
-(exit 2) on an error finding. The program half (tracelint) waits for
-ROADMAP item A6.2, and the launcher says so. ``--mesh`` (multi-device
+``--lint`` runs the reference's preflight before anything is built, on
+``--device``: tracelint over the backend's serving programs at the
+arch's reduced widths (``analysis.programs.lint_backend``: prefill,
+decode, paged decode and its swapped twin, the B2 kernel's decode on
+``cuda``, bucketed prefill, the forest), then the plan verifier
+(``analysis.planlint.lint_plans``: representative plans, lowerings and a
+bundle round trip). It prints each finding and the seconds, and refuses
+to serve (exit 2) on an error finding. ``--mesh`` (multi-device
 serving) waits for A10: asked for, the launcher exits with that reason.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -382,26 +384,44 @@ def _hotswap_report(model, eng, args, failures, gen_raw, worker,
           f"on a fresh engine")
 
 
-def lint_preflight(ap, name: str, device) -> None:
-    """``--lint``: the plan verifier over ``name``'s plan artifacts on
-    ``device`` (``analysis.planlint.lint_plans``); exits 2 through
-    ``ap.error`` on any error finding."""
-    from repro_torch.analysis.planlint import lint_plans
+def lint_preflight(ap, name: str, args) -> None:
+    """``--lint``: tracelint over ``name``'s serving programs at the arch's
+    reduced widths (``analysis.programs.lint_backend``), then the plan
+    verifier over its plan artifacts (``analysis.planlint.lint_plans``),
+    both on ``args.device``; exits 2 through ``ap.error`` on any error
+    finding of either. A plan the verifier refuses while the programs are
+    built counts as that refusal's findings."""
+    from repro_torch.analysis import planlint, programs
     t0 = time.perf_counter()
-    report, findings = lint_plans([name], device=device)
+    try:
+        progs, tfindings = programs.lint_backend(
+            name, device=args.device, arch=args.arch, batch=args.batch,
+            w_bits=args.w_bits)
+        built = [p.name for p in progs if not p.skipped]
+        skipped = [p.name for p in progs if p.skipped]
+        what = (f"programs {', '.join(built)}"
+                + (f"; skipped {', '.join(skipped)}" if skipped else ""))
+    except planlint.PlanVerificationError as e:
+        tfindings, what = list(e.findings), f"a plan refused at {e.where}"
     dt = time.perf_counter() - t0
-    for f in findings:
+    for f in tfindings:
+        print(f"[tracelint] {f.format()}")
+    print(f"[tracelint] preflight {name}: {len(tfindings)} finding(s) "
+          f"({what}) in {dt:.2f}s")
+    t0 = time.perf_counter()
+    report, pfindings = planlint.lint_plans([name], device=args.device)
+    dt = time.perf_counter() - t0
+    for f in pfindings:
         print(f"[planlint] {f.format()}")
     row = report[0]
     what = row.get("skipped") or "artifacts " + ", ".join(row["artifacts"])
-    print(f"[planlint] preflight {name}: {len(findings)} finding(s) "
+    print(f"[planlint] preflight {name}: {len(pfindings)} finding(s) "
           f"({what}) in {dt:.2f}s")
-    print("[tracelint] not run: the program half of the preflight "
-          "(tracelint) is not ported yet and waits for ROADMAP item A6.2")
-    errors = [f for f in findings if f.severity == "error"]
+    errors = [f for f in (*tfindings, *pfindings) if f.severity == "error"]
     if errors:
-        ap.error(f"planlint preflight failed with {len(errors)} error "
-                 f"finding(s); serve refused")
+        ap.error(f"lint preflight failed with {len(errors)} error "
+                 f"finding(s); serve refused (run python -m "
+                 f"repro_torch.analysis.lint --backend {name} to inspect)")
 
 
 def main(argv=None):
@@ -433,9 +453,9 @@ def main(argv=None):
                     "(planned backends: each plan is built through the "
                     "plan cache as the plans are attached)")
     ap.add_argument("--lint", action="store_true",
-                    help="verify the backend's plan artifacts before "
-                    "serving (planlint) and refuse to serve on an error "
-                    "finding; the tracelint half waits for ROADMAP A6.2")
+                    help="lint the backend's serving programs (tracelint) "
+                    "and plan artifacts (planlint) before serving and "
+                    "refuse to serve on an error finding")
     ap.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
                     help="not ported (ROADMAP A10); refused")
     ap.add_argument("--slots", type=int, default=2)
@@ -487,7 +507,7 @@ def main(argv=None):
                       DeprecationWarning)
         name = args.path if args.backend is None else name
     if args.lint:
-        lint_preflight(ap, name, args.device)
+        lint_preflight(ap, name, args)
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
                                             backend=name)

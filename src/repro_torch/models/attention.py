@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import linear_apply, linear_init, quantize_per_token
 from repro_torch.quant.quantize import true_div
+from repro_torch.tracepoints import scope
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048        # direct softmax below, chunked above
@@ -30,8 +31,9 @@ Q_CHUNK = 1024                # query-chunk size of attend_chunked
 
 def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 einsum with an int32 result (float64 inside)."""
-    return torch.einsum(spec, a.to(torch.float64), b.to(torch.float64)) \
-        .to(torch.int32)
+    with scope("int_einsum"):
+        return torch.einsum(spec, a.to(torch.float64),
+                            b.to(torch.float64)).to(torch.int32)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -48,8 +50,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     rot_d = d // 2 if partial else d
     exps = -torch.arange(0, rot_d, 2, dtype=torch.float32,
                          device=x.device) / rot_d
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # a Python base (aten.pow.Scalar, rounded to float32 like exps): no
+    # host data enters the call
+    freqs = torch.pow(float(theta), exps)
     ang = positions[..., None].to(torch.float32) * freqs      # (B, S, rd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     xr = x[..., :rot_d].to(torch.float32)
@@ -71,7 +74,8 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 def _quantize_kv(t: torch.Tensor):
     """KV8 cache quantization, always from float32: the stored (int8, scale)
     pair is then a function of the row values alone."""
-    return quantize_per_token(t.to(torch.float32))
+    with scope("quantize_kv"):
+        return quantize_per_token(t.to(torch.float32))
 
 
 def _scores(q, k, scale, quant: bool):

@@ -35,12 +35,16 @@ the new generation, and each live cell runs its own packed decode in a
 step. ``swap_params`` only stages, under a lock, so a replan worker
 thread may call it (``repro_torch.fleet``).
 
-Not in this slice: the reference's mesh placement and its jit-trace
-counters (the port runs eagerly: there is no trace to keep across a swap;
-``stats()`` keeps the distinct prefill shapes, which is what bucketing
-bounds). A staged generation's plans pass the plan verifier's
-``swap-staging`` gate first (``repro_torch.analysis.planlint``; with
-``REPRO_PLANLINT=0`` its kernel guards still run).
+Not in this slice: the reference's mesh placement. The port runs
+eagerly, so there is no jit trace to count; ``stats()`` keeps what a
+trace counter bounds: the distinct prefill shapes (what bucketing
+bounds) and ``decode_signatures``, the distinct signatures the packed
+decode ran with (every params and pool leaf's shape and dtype and the
+batch shapes: a jit would retrace, a CUDA graph recapture, once per
+signature; the reference's ``decode_jit_traces``). A staged
+generation's plans pass the plan verifier's ``swap-staging`` gate first
+(``repro_torch.analysis.planlint``; with ``REPRO_PLANLINT=0`` its
+kernel guards still run).
 """
 from __future__ import annotations
 
@@ -156,6 +160,8 @@ class _Cell:
     steps: np.ndarray
     table: np.ndarray
     tag: Any = None            # caller's label (checkpoint step, ...)
+    signature: tuple = ()      # the packed decode's (ServeEngine._new_cell)
+    decoded: bool = False      # its signature counted in decode_signatures
 
     @property
     def n_active(self) -> int:
@@ -216,6 +222,7 @@ class ServeEngine:
         self.step_count = 0
         self._next_rid = 0
         self._shape_keys: set = set()
+        self._decode_signatures: set = set()
         self.counters = {"admitted": 0, "completed": 0, "decode_steps": 0,
                          "decode_tokens": 0, "prefix_hits": 0,
                          "pages_shared": 0, "prefill_computed": 0,
@@ -229,16 +236,19 @@ class ServeEngine:
     def _new_cell(self, gen: int, params, tag=None) -> _Cell:
         # persistent host page table / tokens / steps; only per-slot deltas
         # are written between steps
+        pool = self.model.init_page_pool(self.n_pages, self.page_size)
+        tokens = np.zeros((self.n_slots, 1), np.int32)
+        steps = np.zeros((self.n_slots,), np.int32)
+        table = np.zeros((self.n_slots, self.pages_per_slot), np.int32)
+        signature = (tuple((tuple(a.shape), a.dtype)
+                           for a in _leaves(params) + _leaves(pool)),
+                     tokens.shape, table.shape, steps.shape)
         return _Cell(
-            gen=gen, params=params,
-            pool=self.model.init_page_pool(self.n_pages, self.page_size),
+            gen=gen, params=params, pool=pool,
             alloc=PageAllocator(self.n_pages),
             trie=PrefixTrie(self.page_size),
-            slots=[None] * self.n_slots,
-            tokens=np.zeros((self.n_slots, 1), np.int32),
-            steps=np.zeros((self.n_slots,), np.int32),
-            table=np.zeros((self.n_slots, self.pages_per_slot), np.int32),
-            tag=tag)
+            slots=[None] * self.n_slots, tokens=tokens, steps=steps,
+            table=table, tag=tag, signature=signature)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -561,6 +571,9 @@ class ServeEngine:
                 ) -> None:
         """One packed decode over ``cell``'s active slots."""
         self.counters["decode_steps"] += 1
+        if not cell.decoded:
+            cell.decoded = True
+            self._decode_signatures.add(cell.signature)
         for s, req in packed:
             # this step writes K/V position req.length — grow the request's
             # table when it crosses a page boundary
@@ -643,6 +656,7 @@ class ServeEngine:
                 "active": len(self.active),
                 "finished": len(self.finished),
                 "prefill_shapes": len(self._shape_keys),
+                "decode_signatures": len(self._decode_signatures),
                 "generation": cur,
                 "draining_generations": len(self._cells) - 1,
                 "active_by_gen": active_by_gen,
