@@ -242,7 +242,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      DevicePlan, before its SHA-256) and the 7 lowered ForestPlans, 428
      artifacts, no finding (the damaged file is now refused there); the
      replan's 210 ``cache-publish`` and 7 ``swap-staging`` on the
-     worker thread;
+     worker thread; phase 18a's bundles stay for phase 22;
+  22. the data-parallel serve cell on the one card (``mesh_path``, right
+     after phase 18): two ranks (``launch.mesh.run_ranks``, one ``gloo``
+     group: NCCL refuses two ranks on one GPU, so the step's token and
+     K/V exchange goes through the host), a ``data=2`` mesh, each rank
+     serving smollm-135m at its published widths and all 30 layers on
+     ``engine_cuda`` (B1) + B2 with bucketed prefill and phase 5's
+     engine settings and requests, its 2 of the 4 slots; plans from
+     phase 18a's bundles through ``load_bundles(mesh=)`` (replicated
+     DTensor leaves, 0 plan builds and 0 cache lookups on any rank,
+     read after the load and again after the serve); all 256 tokens
+     equal to phase 5's on every rank, B1 and B2 launched on every rank;
+     the backend, each rank's device and slot rows, its launches, the
+     packed decode's placements, ``mesh_decode_report``'s line over the
+     slots (``mesh_serve_report``: the requests and tokens served) and
+     seconds printed; then ``python -m
+     repro_torch.analysis.lint --mesh data=2 --backend engine_cuda
+     --device cuda`` across the two ranks: exit 0, 0 findings,
+     ``sharding-integrity`` evaluated on the decode program;
   19. the paper's evaluation and the launcher flags (``paper_path``): (a)
      the quickstart example on the card, its one B3 launch bit-equal to
      the int64 GEMM and to B3's plain version; (b) the serve_lm example
@@ -302,8 +320,8 @@ phases 11, 11b, 13 and 13b (B3's and B5's in phase 12's two runs too,
 B3's in phases 14-15b and 17, B1's in phase 14's ``engine_cuda`` run and
 phase 17, B5's forward and backward in phase 16b, B1's and B2's int8
 entry in phase 18's three runs, B1's, B2's int8 entry and B3's in
-phase 19's runs, B1's and B2's int8 entry in phase 20) under
-``launches_in_other_phases``
+phase 19's runs, B1's and B2's int8 entry in phase 20 and in each
+rank of phase 22) under ``launches_in_other_phases``
 (phase 18's numbers under B1's ``fleet_phase``), and B3's entry the one-shot phases'
 prefill seconds, decode tokens/s and peaks under ``oneshot_phases``;
 launches made to compare a kernel with its plain version are not
@@ -314,6 +332,7 @@ is ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -2110,7 +2129,7 @@ def _gate(counted, where):
     return counted.get(where, {"artifacts": 0, "findings": 0, "s": 0.0})
 
 
-def fleet_path(raw, params0, cfg, toks5, device="cuda"):
+def fleet_path(raw, params0, cfg, toks5, bdir, device="cuda"):
     """Phase 18: the live-weight fleet on phase 5's model and workload
     (smollm-135m at full width and depth, W4A8 ``engine_cuda`` (B1) + B2,
     4 slots, page_size 16, max_len 256, 8 requests of 128-token prompts
@@ -2134,7 +2153,8 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
     before, during and after the replan. (c) Refusals: a structurally
     different params tree raises ``SwapMismatchError``, a replan whose
     build raises fires ``on_error``; generation 0 serves on, its tokens
-    phase 5's. Returns {run: {kernel: launches}} and the numbers."""
+    phase 5's. The bundles stay in ``bdir`` for phase 22. Returns {run:
+    {kernel: launches}} and the numbers."""
     import shutil
     import statistics
 
@@ -2164,7 +2184,7 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
     counts, undo = _thread_counts(threading.current_thread())
     try:
         # -- (a) bundles ----------------------------------------------------
-        bdir = os.path.join(work, "bundles")
+        shutil.rmtree(bdir, ignore_errors=True)
         t0 = time.perf_counter()
         manifest = write_bundles(raw, cfg.quant, bdir,
                                  cache=plancache.PlanCache())
@@ -2267,7 +2287,6 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
         print(f"[phase 18a] refused: {refused}")
         _gates().take("phase 18a (refusals)")
         del params, stale
-        shutil.rmtree(bdir)
         shutil.rmtree(bad)
 
         # -- (b) hot swap under load ----------------------------------------
@@ -2465,6 +2484,138 @@ def fleet_path(raw, params0, cfg, toks5, device="cuda"):
         undo()
         shutil.rmtree(work, ignore_errors=True)
     return launches, numbers
+
+
+def _mesh_rank(bdir, toks5, lint_argv):
+    """Phase 22 on one rank of the ``data=2`` world: phase 5's weights
+    (``Model.init(0)``, the same draw on every rank), their plans from
+    phase 18a's bundles placed on the mesh, phase 5's requests through
+    ``ServeEngine(mesh=)`` on ``engine_cuda`` + B2, then the lint under
+    the mesh. Returns this rank's numbers (the parent prints them)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import lint
+    from repro_torch.configs import get_config
+    from repro_torch.core import plancache
+    from repro_torch.distributed.sharding import batch_index
+    from repro_torch.fleet import load_bundles
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.transitive_forest import transitive_forest
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.specs import mesh_serve_report, serve_config
+    from repro_torch.models.model import Model
+    t_start = time.perf_counter()
+    cfg = serve_config(get_config("smollm_135m"),
+                       backend="engine_cuda").replace(paged_kernel=True)
+    model = Model(cfg, device="cuda")
+    raw = model.init(0)
+    mesh = make_serve_mesh("data=2", device="cuda")
+    cache = plancache.PlanCache()
+    plancache.set_default_cache(cache)
+    t0 = time.perf_counter()
+    params = load_bundles(raw, cfg.quant, bdir, mesh=mesh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    loaded = cache.stats()
+    del raw
+    kernels = (transitive_forest, paged_attention)
+    for k in kernels:
+        k.launches = 0
+    eng, dt = _serve(model, params, _prompts(cfg.vocab, 8, 128), 32,
+                     n_slots=4, max_len=256, page_size=16, mesh=mesh,
+                     paged_kernel=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    served = cache.stats()                 # load and serve, cumulative
+    toks = {r.rid: r.tokens for r in eng.finished}
+    rep = eng.report()
+    k = eng.n_slots // mesh.size()
+    i = batch_index(mesh)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "slot_rows": [i * k, (i + 1) * k], "launches": launches,
+           "default_cache": plancache.default_cache() is cache,
+           "builds": [loaded["misses"], served["misses"]],
+           "lookups": [loaded["hits"] + loaded["misses"],
+                       served["hits"] + served["misses"]],
+           "load_s": t_load, "serve_s": dt,
+           "same": sum(a == b for rid in toks
+                       for a, b in zip(toks[rid], toks5[rid])),
+           "tokens_equal": toks == toks5,
+           "placements": {name: [str(p) for p in pl] for name, pl in
+                          eng.decode_placements.items()},
+           "report": mesh_serve_report(mesh, eng.n_slots, rep["n_requests"],
+                                       rep["total_tokens"],
+                                       rep["counters"]["decode_steps"], dt),
+           "plans_placed": {str(a.placements) for layer in
+                            plancache._iter_ptq_layers(params)
+                            for a in layer["dplan"].leaves().values()}}
+    del eng, params
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["lint_rc"] = lint.main(list(lint_argv))
+    out["lint_s"] = time.perf_counter() - t0
+    out["lint_out"] = buf.getvalue()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_path(toks5, bdir):
+    """Phase 22: the data-parallel serve cell on the one card. Two ranks
+    (``launch.mesh.RankWorld``: spawned processes in one ``gloo`` group;
+    NCCL refuses two ranks on one GPU, and ``gloo``'s collectives on CUDA
+    tensors are partial, so the step's token and K/V exchange goes through
+    the host) each serve smollm-135m at its published widths and all 30
+    layers on ``engine_cuda`` (B1 for every linear) and B2 (every packed
+    decode) with bucketed prefill, phase 5's engine settings and
+    requests, a ``data=2`` mesh splitting the 4 slots two a rank; plans
+    from phase 18a's bundles (``load_bundles(mesh=)``: 0 plan builds and
+    0 lookups on any rank, through the load and the serve). All 256 tokens must equal phase 5's on every rank; B1 and
+    B2 must launch on every rank. Then ``python -m
+    repro_torch.analysis.lint --mesh data=2 --backend engine_cuda`` on
+    ``cuda`` across the two ranks: exit 0, 0 findings,
+    ``sharding-integrity`` evaluated. Returns {run: {kernel: launches}}.
+    """
+    from repro_torch.launch.mesh import run_ranks
+    lint_argv = ["--mesh", "data=2", "--backend", "engine_cuda",
+                 "--device", "cuda"]
+    t0 = time.perf_counter()
+    got = run_ranks(2, _mesh_rank, bdir, toks5, lint_argv, timeout=600)
+    launches = {}
+    for r in got:
+        print(f"[phase 22] rank {r['rank']} ({r['backend']}, {r['device']}, "
+              f"slot rows {r['slot_rows'][0]}..{r['slot_rows'][1] - 1}): "
+              f"load_bundles(mesh=) {r['load_s']:.2f}s, plan builds "
+              f"{r['builds'][0]} (load) {r['builds'][1]} (load and serve), "
+              f"cache lookups {r['lookups'][0]} (load) {r['lookups'][1]} "
+              f"(load and serve), plan leaves "
+              f"{sorted(r['plans_placed'])} | served 8 requests x 32 "
+              f"tokens in {r['serve_s']:.3f}s, tokens equal to phase 5's: "
+              f"{r['same']}/256 | launches {r['launches']} | packed "
+              f"decode placements {r['placements']} | lint "
+              f"{r['lint_s']:.1f}s exit {r['lint_rc']} | rank "
+              f"{r['seconds']:.1f}s")
+        print(f"[phase 22] rank {r['rank']} {r['report']}")
+        launches[f"phase 22 (data=2 mesh, rank {r['rank']})"] = r["launches"]
+    lint_out = got[0]["lint_out"]
+    for line in lint_out.strip().splitlines():
+        print(f"[phase 22] {line}")
+    print(f"[phase 22] {time.perf_counter() - t0:.1f}s with the ranks' "
+          f"start")
+    for r in got:
+        if not r["tokens_equal"] or any(r["builds"]) or any(r["lookups"]) \
+                or not r["default_cache"] or not all(
+                r["launches"].values()) or r["lint_rc"] or r["backend"] != \
+                "gloo" or r["plans_placed"] != {"(Replicate(),)"}:
+            raise AssertionError(f"phase 22: rank {r['rank']}: {r}")
+    if "sharding-integrity evaluated on 1 program(s) (decode) under mesh " \
+            "data=2 (2 ranks)" not in lint_out or \
+            "on mesh data=2: 0 finding(s)" not in lint_out:
+        raise AssertionError(f"phase 22: lint under the mesh: {lint_out}")
+    return launches
 
 
 def lut_path(toks_engine, raw, cfg):
@@ -4581,7 +4732,13 @@ def main() -> int:
     lut = timed("6", lut_path, toks, raw, cfg)
     layouts = timed("8-10", layout_paths, raw, cfg)
     layouts[0] = (lut["paged_attention"], "phase 6 (lut_cuda serve)")
-    fleet, fleet_numbers = timed("18", fleet_path, raw, params, cfg, toks)
+    bundles = os.path.join(ROOT, "build", "phase18_bundles")
+    try:
+        fleet, fleet_numbers = timed("18", fleet_path, raw, params, cfg,
+                                     toks, bundles)
+        mesh = timed("22", mesh_path, toks, bundles)
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
     del raw, params
     archs = timed("11, 11b", dense_paths)
     for arch, shapes, ms in (
@@ -4627,7 +4784,7 @@ def main() -> int:
              "phase 17 (quantize_eval, engine_cuda)":
                  accuracy["transitive_forest"],
              **{phase: n["transitive_forest"] for phase, n in
-                fleet.items()},
+                (fleet | mesh).items()},
              **{phase: n["transitive_forest"] for phase, n in
                 paper.items() if n["transitive_forest"]},
              **{phase: n["transitive_forest"] for phase, n in
@@ -4656,7 +4813,8 @@ def main() -> int:
          "launches": layouts[code][0], "launches_from": layouts[code][1],
          **attention[code]} for code in sorted(ATTN_LAYOUTS)]
     kernels[3]["launches_in_other_phases"] = {      # int8 pool + int8 attn
-        phase: n["paged_attention"] for phase, n in (archs | fleet).items()}
+        phase: n["paged_attention"] for phase, n in
+        (archs | fleet | mesh).items()}
     kernels[3]["launches_in_other_phases"] |= {
         phase: n["paged_attention"] for phase, n in (paper | verifier).items()
         if n["paged_attention"]}

@@ -337,15 +337,14 @@ def swap_trace_count(*, backend: str = "engine_torch", device=None,
     ``decode_signatures``. ``aligned=False`` deliberately widens the new
     generation's DevicePlans (the drift ``align_device_plans`` exists to
     prevent) — the hand-broken twin that must push the count to 2.
+    With ``mesh=`` both generations are placed on the mesh and the engine
+    serves on it (every rank of the mesh calls this).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "swap_trace_count(mesh=): multi-device serving is not ported; "
-            "it waits for ROADMAP item A10")
     from repro_torch.configs import get_reduced
     from repro_torch.core.engine import pad_device_plan
     from repro_torch.core.plancache import PlanCache
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import local_tree
     from repro_torch.fleet import build_generation
     from repro_torch.fleet.replan import _walk_dplans
     from repro_torch.launch.specs import serve_config
@@ -357,15 +356,16 @@ def swap_trace_count(*, backend: str = "engine_torch", device=None,
                        backend=backend)
     model = Model(cfg, device=dev)
     cache = PlanCache()
-    gen0 = build_generation(model, model.init(0), gen=0, cache=cache)
+    gen0 = build_generation(model, model.init(0), gen=0, cache=cache,
+                            mesh=mesh)
     gen1 = build_generation(model, model.init(1234), ref=gen0.params,
-                            gen=1, cache=cache)
+                            gen=1, cache=cache, mesh=mesh)
     p1 = gen1.params
     if not aligned:
-        p1 = _walk_dplans(p1, None, lambda d, _: pad_device_plan(
+        p1 = _walk_dplans(local_tree(p1), None, lambda d, _: pad_device_plan(
             d, int(d.direct_idx.shape[-1]) + 4))
     eng = ServeEngine(model, gen0.params, n_slots=2, max_len=16,
-                      page_size=4, device=dev)
+                      page_size=4, mesh=mesh, device=dev)
     prompt = tuple(range(1, 9))
     eng.submit(prompt, 4)
     eng.step()

@@ -19,8 +19,13 @@ the arch's published widths (2 layers) instead of its reduced ones.
 ``budgets.json``); both streams merge into the same findings, baseline
 and exit code. ``--prune-baseline`` reports baseline entries no current
 finding matches (add ``--write-baseline`` to rewrite the file without
-them). ``--mesh`` (multi-device lint) waits for ROADMAP item A10 and
-exits 2.
+them). ``--mesh data=N`` lints under a data mesh: the command starts N
+ranks (``launch.mesh.run_cli_on_mesh``; inside a process group that is
+already initialised it uses that one), each builds the programs on the
+mesh, the ``decode`` program carries its batch-sharded caches, so
+``sharding-integrity`` is evaluated (a line says on how many programs),
+and the plans are placed before they are verified. Rank 0 prints. A
+``model`` axis above 1 exits 2 (ROADMAP A10.2).
 
 Exit status 1 iff any non-baselined error-severity finding remains;
 ``--json`` writes the full findings list.
@@ -44,6 +49,16 @@ def _cpu_ok_backends() -> list[str]:
     return [n for n in list_backends() if get_backend(n).cpu_ok]
 
 
+def _sharding_evaluated(prog, only) -> bool:
+    """Whether ``sharding-integrity`` ran on ``prog`` with its evidence:
+    the rule is the program's, and it carries arrays and a mesh of more
+    than one rank."""
+    return ("sharding-integrity" in prog.rules and not prog.skipped
+            and (only is None or "sharding-integrity" in only)
+            and prog.arrays is not None and prog.mesh is not None
+            and prog.mesh.size() > 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
@@ -60,7 +75,8 @@ def main(argv=None) -> int:
                     help="build the programs at the arch's published "
                     "widths (2 layers) instead of its reduced ones")
     ap.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
-                    help="lint under a device mesh (waits for ROADMAP A10)")
+                    help="lint under a data mesh of N ranks, e.g. 'data=4' "
+                    "(adds the sharding-integrity evidence)")
     ap.add_argument("--rules", default=None, metavar="R1,R2",
                     help="restrict to a comma-separated rule subset")
     ap.add_argument("--arch", default="smollm-135m")
@@ -94,9 +110,31 @@ def main(argv=None) -> int:
             print(f"{name:22s} [{r.severity}] ({r.requires}) "
                   f"{r.description}")
         return 0
+    mesh = None
     if args.mesh:
-        ap.error("--mesh: multi-device lint is not ported; it waits for "
-                 "ROADMAP item A10")
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as M
+        try:
+            axes = M.parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if axes.get("model", 1) > 1:
+            ap.error(f"--mesh {args.mesh}: a 'model' axis above 1 (tensor-"
+                     f"parallel weights) is not served yet; it is ROADMAP "
+                     f"item A10.2")
+        n = 1
+        for size in axes.values():
+            n *= size
+        if not dist.is_initialized():
+            # by module name: under ``python -m`` this file is __main__
+            from repro_torch.analysis import lint as entry
+            return M.run_cli_on_mesh(entry.main,
+                                     list(sys.argv[1:] if argv is None
+                                          else argv), n, args.device)
+        mesh = M.make_serve_mesh(axes, device=args.device)
+        if mesh.get_coordinate() is None:
+            return 0                        # a rank outside the mesh
 
     only = tuple(args.rules.split(",")) if args.rules else None
     if only:
@@ -111,7 +149,7 @@ def main(argv=None) -> int:
         t1 = time.time()
         progs, findings = lint_backend(
             name, device=args.device, only=only, batch=args.batch,
-            arch=args.arch, reduced=not args.full_width)
+            arch=args.arch, reduced=not args.full_width, mesh=mesh)
         dt = time.time() - t1
         all_findings.extend(findings)
         exempt = sorted(get_backend(name).lint_exempt)
@@ -133,6 +171,11 @@ def main(argv=None) -> int:
         sk = f", skipped {', '.join(skipped)}" if skipped else ""
         print(f"[tracelint] {name:14s} {len(progs) - len(skipped)} programs "
               f"on {args.device}{sk} -> {status}{ex} ({dt:.1f}s)")
+        if mesh is not None:
+            held = [p.name for p in progs if _sharding_evaluated(p, only)]
+            print(f"[tracelint] sharding-integrity evaluated on "
+                  f"{len(held)} program(s) ({', '.join(held) or 'none'}) "
+                  f"under mesh {args.mesh} ({mesh.size()} ranks)")
         for f in findings:
             print(f"  {f.format()}")
     for prog, why in why_skipped.items():
@@ -141,7 +184,8 @@ def main(argv=None) -> int:
     plans_report = budget_report = None
     if args.plans:
         from repro_torch.analysis.planlint import lint_plans
-        plans_report, pfindings = lint_plans(backends, device=args.device)
+        plans_report, pfindings = lint_plans(backends, device=args.device,
+                                             mesh=mesh)
         all_findings.extend(pfindings)
         status = (f"{len(pfindings)} finding(s)" if pfindings
                   else "clean")
@@ -153,7 +197,8 @@ def main(argv=None) -> int:
         from repro_torch.analysis.costcheck import check_budgets
         bpath = None if args.budgets is True else args.budgets
         budget_report, bfindings = check_budgets(
-            backends, device=args.device, budgets_path=bpath, arch=args.arch)
+            backends, device=args.device, budgets_path=bpath, arch=args.arch,
+            mesh=mesh)
         all_findings.extend(bfindings)
         n_eval = sum(1 for r in budget_report if "value" in r)
         print(f"[costcheck] {n_eval} budget evaluation(s) -> "
@@ -197,6 +242,7 @@ def main(argv=None) -> int:
     summary = {
         "backends": backends,
         "device": args.device,
+        "mesh": args.mesh,
         "full_width": args.full_width,
         "rules": list(only) if only else list(list_rules()),
         "findings": len(all_findings),
@@ -212,7 +258,8 @@ def main(argv=None) -> int:
             doc["budgets"] = budget_report
         with open(args.json, "w") as f:
             json.dump(doc, f, indent=2)
-    print(f"[tracelint] {len(backends)} backend(s) on {args.device}: "
+    on = f" on mesh {args.mesh}" if args.mesh else ""
+    print(f"[tracelint] {len(backends)} backend(s) on {args.device}{on}: "
           f"{len(all_findings)} finding(s), {len(suppressed)} baselined, "
           f"{len(failing)} failing ({dt:.1f}s)")
     return 1 if failing else 0

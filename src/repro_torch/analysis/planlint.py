@@ -215,7 +215,10 @@ def _idx(name: str, where: tuple[int, ...]) -> str:
 
 
 def _host(a: Any) -> np.ndarray:
-    """A leaf as host numpy: tensors on any device are copied down."""
+    """A leaf as host numpy: tensors on any device are copied down; a
+    leaf placed on a mesh (a DTensor) is read whole."""
+    if callable(getattr(a, "full_tensor", None)):
+        a = a.full_tensor()
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -1303,13 +1306,12 @@ def lint_plans(backend_names: list[str], *, device=None, mesh: Any = None
     SparseForestPlan). Lowerings are placed on ``device``
     (``resolve_device``: ``cuda`` unless asked otherwise). Returns
     (report rows, findings) — zero findings on a healthy tree.
-    ``mesh=`` (multi-device placement) waits for ROADMAP item A10.
+    With ``mesh=`` (a DeviceMesh every rank calls this on) the ``device``
+    lowering is placed on the mesh first (``shard_device_plan``, the
+    backend's ``plan_specs``), as the reference does, and verified as
+    placed.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "lint_plans(mesh=): multi-device plan placement is not "
-            "ported; it waits for ROADMAP item A10")
-    from repro_torch.core.backend import get_backend
+    from repro_torch.core.backend import get_backend, shard_device_plan
     from repro_torch.core.engine import (BatchedTransitiveEngine,
                                          compile_plan, complete_forest_plan,
                                          pad_device_plan)
@@ -1337,6 +1339,9 @@ def lint_plans(backend_names: list[str], *, device=None, mesh: Any = None
         lowering = None
         if b.device_resident:
             device_plan = b.compile(plan, device=dev)
+            if mesh is not None:
+                device_plan = shard_device_plan(device_plan, mesh,
+                                                b.plan_specs(mesh))
             stacked = b.compile([plan, eng.plan(w2)], device=dev)
             lowering = compile_plan(plan, device=dev)
             padded = pad_device_plan(

@@ -14,6 +14,14 @@ check), and the KV leaves each decode must update in place
 traces a compiled program: caches filled at a first call (a quantizer's
 divisor, a DevicePlan's packing) are not part of the step.
 
+With ``mesh=`` (a data mesh every rank builds the programs on) the plans
+are placed on the mesh, and the ``decode`` program runs this rank's rows
+of the batch on caches that were really prefilled from a placed batch
+(``train.serve_step._place_batch``), which it carries under
+``LintProgram.arrays`` (DTensors) with the mesh under ``.mesh``: the
+``sharding-integrity`` rule is evaluated on them. The other programs run
+the whole batch on every rank.
+
 Plans are built in a private plan cache, so linting leaves the process
 cache, its counters and its gates' counts as they were. ``paged-
 attention`` is built only where the B2 kernel runs (``cuda``): on the
@@ -87,18 +95,21 @@ def build_programs(backend_name: str, *, device=None,
     (``cuda`` unless asked otherwise), at the arch's reduced widths or,
     with ``reduced=False``, its published ones (``n_layers`` layers
     either way). ``programs`` restricts the set (the budgets build one).
-    ``mesh=`` (the sharding evidence) waits for ROADMAP item A10."""
+    ``mesh=`` builds them under a data mesh (module docstring); ``batch``
+    should divide its extent, or the lint (correctly) reports the
+    replication drop. A ``model`` axis above 1 is refused (ROADMAP
+    A10.2)."""
+    from repro_torch.distributed import sharding
     if mesh is not None:
-        raise NotImplementedError(
-            "build_programs(mesh=): multi-device serving is not ported; "
-            "it waits for ROADMAP item A10")
+        sharding.require_batch_mesh(mesh, "build_programs(mesh=)")
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.core.plancache import PlanCache, set_default_cache
     from repro_torch.device import resolve_device
     from repro_torch.fleet import build_generation
     from repro_torch.launch.specs import serve_config
     from repro_torch.models.model import Model
-    from repro_torch.train.serve_step import make_decode_step
+    from repro_torch.train.serve_step import (_place_batch, _prefill_placed,
+                                              make_decode_step)
 
     want = set(PROGRAM_RULES if programs is None else programs)
     dev = resolve_device(device)
@@ -111,9 +122,11 @@ def build_programs(backend_name: str, *, device=None,
     cache = PlanCache()
     prev = set_default_cache(cache)
     try:
-        params = model.attach_device_plans(model.init(0, on_device=on_card))
+        params = model.attach_device_plans(model.init(0, on_device=on_card),
+                                           mesh=mesh)
     finally:
         set_default_cache(prev)
+    params = sharding.local_tree(params)
     gen = torch.Generator().manual_seed(1)
 
     def draw(*shape, high=cfg.vocab):
@@ -133,12 +146,23 @@ def build_programs(backend_name: str, *, device=None,
 
     # -- decode (dense caches, written in place) ------------------------------
     if "decode" in want:
-        caches = model.init_cache(batch, max_len)
+        rows, arrays = batch, None
+        if mesh is not None:
+            with sharding.set_mesh(mesh):
+                placed = _place_batch(
+                    {"tokens": draw(batch, prompt_len)}, mesh)
+                _, arrays = _prefill_placed(model, params, placed, max_len)
+            caches = sharding.local_chunks(arrays)
+            rows = placed["tokens"].to_local().shape[0]
+            arrays = {"kv-cache": arrays}
+        else:
+            caches = model.init_cache(batch, max_len)
         progs.append(_program(
             "decode", backend_name, make_decode_step(model),
-            (params, caches, draw(batch, 1), prompt_len),
-            (params, caches, draw(batch, 1), prompt_len + 1),
-            donate_expect={"kv-cache": _pool_leaves(caches, "[1]")}))
+            (params, caches, draw(rows, 1), prompt_len),
+            (params, caches, draw(rows, 1), prompt_len + 1),
+            donate_expect={"kv-cache": _pool_leaves(caches, "[1]")},
+            mesh=mesh, arrays=arrays))
 
     paged = model.supports_paged() is None
     pps = max_len // page_size

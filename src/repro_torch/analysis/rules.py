@@ -46,9 +46,11 @@ Built-in rules (the reference's, read from the op trace):
     ``scope("int_matmul")``), where the reference's XLA dots accumulate
     in int32 and it admits no float64 at all.
 ``sharding-integrity``
-    under a multi-device mesh no large array is fully replicated; needs
-    ``arrays`` and a mesh, which no program carries before ROADMAP A10,
-    so it is skipped.
+    under a multi-rank mesh no large array is fully replicated (DTensor
+    placements all ``Replicate()``); needs ``arrays`` and a mesh, which
+    the ``decode`` program carries when it is built under a mesh
+    (``build_programs(mesh=)``: its batch-sharded, really prefilled
+    caches); elsewhere it is skipped.
 """
 from __future__ import annotations
 

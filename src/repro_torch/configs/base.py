@@ -7,7 +7,8 @@ The reference's fields not kept here: ``expert_capacity_factor`` (read
 only by the expert-parallel dispatch, not ported yet: the single-device
 dispatch drops no token), ``seq_shard`` and ``compress_pod_grads`` (the
 multi-device training paths, not ported yet), and the ``sub_quadratic``
-property.
+property. ``ShapeSpec`` / ``SHAPES`` are the reference's cell shapes
+(the serve cells' specs read them: ``launch.specs``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.quant.qlinear import QuantConfig
 
-__all__ = ["ModelConfig", "reduced"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +93,22 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

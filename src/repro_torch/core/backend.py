@@ -40,11 +40,14 @@ Run ``python -m repro_torch.core.backend`` to print the registry.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core.engine import (FOREST_WIDE_MAX_T, DevicePlan,
+from repro_torch.core.engine import (DEVICE_DATA_FIELDS,
+                                     FOREST_DATA_FIELDS, FOREST_WIDE_MAX_T,
+                                     SPARSE_DATA_FIELDS, DevicePlan,
                                      ExecutionPlan, ForestPlan,
                                      SparseForestPlan, compile_plan,
                                      compile_plans, pack_forest_plan,
@@ -53,7 +56,8 @@ from repro_torch.core.engine import (FOREST_WIDE_MAX_T, DevicePlan,
 from repro_torch.tracepoints import scope
 
 __all__ = ["EngineConfig", "TransitiveBackend", "register_backend",
-           "get_backend", "list_backends", "int_matmul"]
+           "get_backend", "list_backends", "int_matmul",
+           "shard_device_plan", "plan_fields"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +102,27 @@ class TransitiveBackend:
     cpu_ok: bool = True
     lint_exempt: frozenset[str] = frozenset()
 
-    def compile(self, plan, device=None
+    def compile(self, plan, device=None, *, mesh=None, specs=None
                 ) -> DevicePlan | ForestPlan | SparseForestPlan | None:
         """Lower one plan (or a sequence of same-signature plans -> one
-        stacked plan) to device tensors; None if there is no lowering."""
+        stacked plan) to device tensors; None if there is no lowering.
+        With ``mesh=`` the leaves are placed with ``specs``
+        (:func:`shard_device_plan`): shard-ready plans for multi-rank
+        serving."""
+        return None
+
+    def plan_specs(self, mesh):
+        """How this backend's plan leaves are placed on ``mesh``.
+
+        The serve path (``plancache.attach_device_plans`` /
+        ``Model.attach_device_plans``, ``fleet.build_generation``,
+        ``fleet.load_bundles``) consults this when the caller gives a mesh
+        but no explicit ``specs``: the capability-keyed default placement.
+        The base default replicates (``None``): plans are small index
+        arrays, and data-parallel decode needs every rank to hold every
+        layer's plan. A backend whose lowering is sharded overrides this
+        to return one placements tuple or a ``{leaf-field: placements}``
+        mapping (:func:`shard_device_plan`'s forms)."""
         return None
 
     def execute(self, x: torch.Tensor, w: torch.Tensor,
@@ -172,6 +193,59 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             .to(torch.int32)
 
 
+def plan_fields(dplan) -> tuple[str, ...]:
+    """The leaf fields of a plan format: ``DEVICE_DATA_FIELDS``,
+    ``FOREST_DATA_FIELDS`` or ``SPARSE_DATA_FIELDS``."""
+    for cls, fields in ((DevicePlan, DEVICE_DATA_FIELDS),
+                        (ForestPlan, FOREST_DATA_FIELDS),
+                        (SparseForestPlan, SPARSE_DATA_FIELDS)):
+        if isinstance(dplan, cls):
+            return fields
+    raise TypeError(f"not a device plan: {type(dplan).__name__}")
+
+
+def shard_device_plan(dplan, mesh, specs=None):
+    """Place every leaf of a :class:`DevicePlan`, :class:`ForestPlan` or
+    :class:`SparseForestPlan` on ``mesh`` under ``specs``: each leaf
+    becomes a DTensor (``sharding.distribute``: this rank's chunk, no
+    communication).
+
+    ``specs`` is ``None`` (replicate everywhere: the safe default for
+    plans, which are small index arrays), one placements tuple applied to
+    every leaf (e.g. ``(Shard(0),)`` to shard the stacked leading axis of
+    stacked plans), or a mapping from leaf field name (``level_src``,
+    ``producer``, ``codes`` ...) to placements, missing fields replicated
+    (an unknown field raises). Leaf values are unchanged, only placed, so
+    a placed plan stays bit-exact with its host twin (``full_tensor()``
+    of each leaf)."""
+    from torch.distributed.tensor import Placement, Replicate
+
+    from repro_torch.distributed.sharding import distribute
+
+    fields = plan_fields(dplan)
+    replicate = tuple(Replicate() for _ in range(mesh.ndim))
+    if specs is None:
+        specs = {}
+    elif isinstance(specs, Mapping):
+        bad = set(specs) - set(fields)
+        if bad:
+            raise ValueError(f"unknown {type(dplan).__name__} leaf fields "
+                             f"{sorted(bad)}; valid: {list(fields)}")
+    elif isinstance(specs, (tuple, list)) and all(
+            isinstance(p, Placement) for p in specs):
+        specs = {f: tuple(specs) for f in fields}
+    else:
+        raise TypeError("specs must be None, a tuple of placements, or a "
+                        "{leaf-field: placements} mapping")
+    return dataclasses.replace(dplan, **{
+        f: distribute(getattr(dplan, f), mesh, specs.get(f, replicate))
+        for f in fields})
+
+
+def _placed(dplan, mesh, specs):
+    return dplan if mesh is None else shard_device_plan(dplan, mesh, specs)
+
+
 class IntDotBackend(TransitiveBackend):
     """Dense integer GEMM — the bit-exactness reference for the others."""
     name = "int_dot"
@@ -224,13 +298,15 @@ class EngineTorchBackend(TransitiveBackend):
     needs_plan = True
     device_resident = True
 
-    def compile(self, plan, device=None):
+    def compile(self, plan, device=None, *, mesh=None, specs=None):
         if isinstance(plan, ExecutionPlan):
-            return compile_plan(plan, device=device)
-        if isinstance(plan, Sequence):
-            return compile_plans(list(plan), device=device)
-        raise TypeError(f"plan must be an ExecutionPlan or a sequence "
-                        f"of them, got {type(plan).__name__}")
+            out = compile_plan(plan, device=device)
+        elif isinstance(plan, Sequence):
+            out = compile_plans(list(plan), device=device)
+        else:
+            raise TypeError(f"plan must be an ExecutionPlan or a sequence "
+                            f"of them, got {type(plan).__name__}")
+        return _placed(out, mesh, specs)
 
     def execute(self, x, w, plan, dplan, cfg):
         if dplan is None:
@@ -269,8 +345,9 @@ class EngineCudaBackend(EngineTorchBackend):
     kernel (``kernels/transitive_forest_dense.py``)."""
     name = "engine_cuda"
 
-    def compile(self, plan, device=None):
-        return self.lower(super().compile(plan), device)   # on the host
+    def compile(self, plan, device=None, *, mesh=None, specs=None):
+        return _placed(self.lower(super().compile(plan), device),  # host
+                       mesh, specs)
 
     def lower(self, dplan: DevicePlan, device=None):
         """The kernel's plan from a host DevicePlan (stacked or not): what

@@ -408,7 +408,7 @@ def precompile(params: Any, cfg: Any, cache: PlanCache | None = None, *,
 
 def attach_device_plans(params: Any, cfg: Any,
                         cache: PlanCache | None = None, *,
-                        backend=None) -> Any:
+                        mesh=None, specs=None, backend=None) -> Any:
     """Return a copy of ``params`` with a compiled ``"dplan"`` per PTQ layer.
 
     The plan is the backend's lowering: a :class:`DevicePlan` for
@@ -420,7 +420,15 @@ def attach_device_plans(params: Any, cfg: Any,
     (DevicePlans padded to a shared direct bound first); plans are placed
     on the weight's device. The tensors themselves are shared with
     ``params``, not copied. An embedded plan is only as fresh as this call:
-    re-attach after any weight update."""
+    re-attach after any weight update.
+
+    With ``mesh=`` (a DeviceMesh) each embedded plan's leaves are placed
+    under ``specs`` (:func:`~repro_torch.core.backend.shard_device_plan`:
+    DTensor leaves, values unchanged). When ``specs`` is omitted the
+    placement is capability-keyed: the backend's ``plan_specs(mesh)``
+    decides (built-ins replicate: the data-parallel serve-cell
+    default)."""
+    from repro_torch.core.backend import shard_device_plan
     cache = default_cache() if cache is None else cache
     b = _cfg_backend(cfg, backend)
     if b is None:
@@ -430,6 +438,8 @@ def attach_device_plans(params: Any, cfg: Any,
             f"backend '{b.name}' does not execute from device plans; "
             f"attach_device_plans serves device-resident planned backends "
             f"(engine_torch, engine_cuda)")
+    if mesh is not None and specs is None:
+        specs = b.plan_specs(mesh)
     w_bits, t = _plan_knobs(cfg)
     cache.reserve(_n_plans(_iter_ptq_layers(params)))
 
@@ -452,6 +462,8 @@ def attach_device_plans(params: Any, cfg: Any,
                 else:
                     dplan = cache.get_or_build_device(
                         qw, ecfg, backend=b.name, device=device)
+                if mesh is not None:
+                    dplan = shard_device_plan(dplan, mesh, specs)
                 return {**tree, "dplan": dplan}
             return {k: walk(v) for k, v in tree.items()}
         if isinstance(tree, list):

@@ -1,2 +1,3 @@
-"""Distributed runtime (port of ``repro.distributed``): checkpoints and
-the fault policy. Sharding and collectives are not ported yet."""
+"""Distributed runtime (port of ``repro.distributed``): checkpoints, the
+fault policy and the logical-axis sharding rules (``sharding``).
+Collectives (``collectives.py``) are ROADMAP item A10.2."""

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import planlint
-from repro_torch.core.backend import EngineConfig, get_backend
+from repro_torch.core.backend import (EngineConfig, get_backend,
+                                      shard_device_plan)
 from repro_torch.core.engine import (DEVICE_DATA_FIELDS, BundleMismatchError,
                                      DevicePlan, ExecutionPlan, compile_plan)
 from repro_torch.core.plancache import (_as_numpy, _canonical, _cfg_backend,
@@ -168,7 +169,7 @@ def _stack(devices: list[DevicePlan], lead: tuple) -> DevicePlan:
 
 
 def load_bundles(params: Any, cfg: Any, bundle_dir, *,
-                 force: bool = False) -> Any:
+                 force: bool = False, mesh=None, specs=None) -> Any:
     """Server role: a copy of ``params`` with each PTQ layer's plan
     attached from ``bundle_dir`` (as ``attach_device_plans`` attaches
     them: stacked like the weights, on the weights' device), with zero
@@ -192,9 +193,15 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
          rules that guard a kernel's raw-pointer reads still run).
 
     A manifest that names layers ``params`` does not hold refuses unless
-    ``force``."""
+    ``force``. With ``mesh=`` each verified plan is then placed on the
+    mesh (``specs``: ``shard_device_plan``'s forms; default the backend's
+    ``plan_specs(mesh)``, replicated), as ``attach_device_plans(mesh=)``
+    places them: every rank of a data mesh loads the same bundles and
+    builds nothing."""
     manifest = read_manifest(bundle_dir)
     b = _planned_backend(cfg, None)
+    if mesh is not None and specs is None:
+        specs = b.plan_specs(mesh)
     # structure before any semantic check: a malformed manifest never
     # reaches the mismatch logic below
     planlint.gate_manifest(manifest, where="bundle-load",
@@ -267,6 +274,8 @@ def load_bundles(params: Any, cfg: Any, bundle_dir, *,
         planlint.gate_device(dplan, plan=None if lead else plans[0],
                              where="bundle-load", backend=b.name,
                              guard_kernel=True)
+        if mesh is not None:
+            dplan = shard_device_plan(dplan, mesh, specs)
         return {**layer, "dplan": dplan}
 
     def walk(tree: Any, path: tuple = ()):

@@ -24,8 +24,10 @@ for smollm-135m). This module keeps that cost off the serving thread:
 Eager PyTorch has no trace to keep, so pad alignment is not what makes a
 swap cheap here; it is kept so a generation's DevicePlans have the
 reference's leaf shapes, and ``swap_params`` counts any leaf-shape drift
-as the reference does. Mesh placement (the reference's ``mesh=`` /
-``specs=``) waits for the multi-device slice.
+as the reference does. With ``mesh=`` a generation's plans are placed on
+the mesh after alignment (``specs=``, default the backend's
+``plan_specs``: replicated), as ``attach_device_plans(mesh=)`` places
+them; a ``ServeEngine(mesh=)`` on every rank then swaps to it.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import plancache
-from repro_torch.core.backend import get_backend
+from repro_torch.core.backend import get_backend, shard_device_plan
 from repro_torch.core.engine import (DevicePlan, ForestPlan,
                                      SparseForestPlan, pad_device_plan)
 
@@ -138,6 +140,16 @@ def _walk_dplans(tree: Any, ref: Any, fn: Callable) -> Any:
     return tree
 
 
+def _map_plans(tree: Any, fn: Callable) -> Any:
+    """Rebuild ``tree`` with ``fn(plan)`` applied to every attached plan
+    (DevicePlan, ForestPlan or SparseForestPlan)."""
+    if isinstance(tree, dict):
+        return {k: _map_plans(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_plans(v, fn) for v in tree)
+    return fn(tree) if isinstance(tree, PLAN_TYPES) else tree
+
+
 def align_device_plans(params: Any, ref_params: Any | None) -> Any:
     """Pad ``params``' attached DevicePlans to the leaf shapes of
     ``ref_params``' (the serving generation), as the reference does.
@@ -175,7 +187,8 @@ def align_device_plans(params: Any, ref_params: Any | None) -> Any:
 
 
 def build_generation(model, params, *, ref: Any = None, gen: int = 0,
-                     tag: Any = None, cache=None) -> Generation:
+                     tag: Any = None, cache=None, mesh=None,
+                     specs=None) -> Generation:
     """Plan, lower, pack, attach and align one weight generation.
 
     ``params`` are raw weights (no plans); ``ref`` the serving generation's
@@ -184,7 +197,9 @@ def build_generation(model, params, *, ref: Any = None, gen: int = 0,
     that does not plan passes ``params`` through (the generation is then a
     tagged params handle). Raises whatever the build raises:
     :class:`ReplanWorker` turns that into "keep serving the previous
-    generation"."""
+    generation". ``mesh=`` places every attached plan on it after
+    alignment (``specs``: ``shard_device_plan``'s forms; default the
+    backend's ``plan_specs(mesh)``)."""
     t0 = time.perf_counter()
     cache = plancache.default_cache() if cache is None else cache
     fp = fingerprint_params(params)
@@ -198,6 +213,10 @@ def build_generation(model, params, *, ref: Any = None, gen: int = 0,
         if b.needs_plan and b.device_resident:
             attached = plancache.attach_device_plans(params, q, cache)
             attached = align_device_plans(attached, ref)
+            if mesh is not None:
+                sp = specs if specs is not None else b.plan_specs(mesh)
+                attached = _map_plans(
+                    attached, lambda d: shard_device_plan(d, mesh, sp))
     return Generation(gen=gen, params=attached, fingerprint=fp, tag=tag,
                       build_s=time.perf_counter() - t0, plans_built=built)
 
@@ -261,13 +280,21 @@ class ReplanWorker:
     tensors stay allocated for the generation's life; the engine frees a
     retired generation only after its last decode step's tokens were read
     back, so no kernel still reads them.)
+
+    ``mesh=`` places each generation's plans on the mesh under the
+    backend's ``plan_specs`` (:func:`build_generation`). The built-in
+    backends replicate, so the build makes no collective and the thread
+    may run beside the serving thread on every rank; each rank's engine
+    must still swap at the same step.
     """
 
-    def __init__(self, model, *, cache=None, reference: Any = None,
+    def __init__(self, model, *, cache=None, mesh=None,
+                 reference: Any = None,
                  on_ready: Callable[[Generation], Any] | None = None,
                  on_error: Callable[[BaseException], Any] | None = None):
         self.model = model
         self.cache = cache
+        self.mesh = mesh
         self.on_ready = on_ready
         self.on_error = on_error
         self._ref = reference
@@ -345,7 +372,8 @@ class ReplanWorker:
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
             gen = build_generation(self.model, params, ref=self._ref,
-                                   gen=gen_id, tag=tag, cache=self.cache)
+                                   gen=gen_id, tag=tag, cache=self.cache,
+                                   mesh=self.mesh)
         if stream is not None:
             stream.synchronize()
         return gen

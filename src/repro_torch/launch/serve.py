@@ -99,8 +99,21 @@ decode, paged decode and its swapped twin, the B2 kernel's decode on
 ``cuda``, bucketed prefill, the forest), then the plan verifier
 (``analysis.planlint.lint_plans``: representative plans, lowerings and a
 bundle round trip). It prints each finding and the seconds, and refuses
-to serve (exit 2) on an error finding. ``--mesh`` (multi-device
-serving) waits for A10: asked for, the launcher exits with that reason.
+to serve (exit 2) on an error finding.
+
+``--mesh data=N`` (or ``pod=P,data=D``) serves the data-parallel cell:
+the launcher builds the CUDA kernels once, starts N ranks
+(``launch.mesh.run_cli_on_mesh``; inside a process group that is already
+initialised it uses that one), and every rank draws the same weights,
+places its plans on the mesh (replicated) and serves its rows of the
+batch (``greedy_generate(mesh=)``) or of the packed slots
+(``ServeEngine(mesh=)``); ``--lint`` runs under the mesh, and ``--role
+server`` loads the bundles onto it. Rank 0 prints, ending with
+``mesh_decode_report``'s line (``--continuous``: ``mesh_serve_report``'s,
+the same line over the slots, with the requests and tokens served). A ``model`` axis above 1 exits 2 (ROADMAP
+A10.2), and so do ``--watch-weights`` (each rank's watcher would see the
+checkpoint at its own step) and ``--role planner`` (planning is one
+process's work) under a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --reduced --continuous --backend engine_cuda --lint --device cpu
@@ -108,6 +121,7 @@ serving) waits for A10: asked for, the launcher exits with that reason.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 import warnings
 
@@ -115,7 +129,8 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.backend import get_backend, list_backends
-from repro_torch.launch.specs import serve_config
+from repro_torch.launch.specs import (mesh_decode_report, mesh_serve_report,
+                                      serve_config)
 from repro_torch.models.model import Model
 from repro_torch.train.serve_step import greedy_generate
 
@@ -159,9 +174,10 @@ def oneshot_batch(model, batch: int, prompt_len: int, seed: int) -> dict:
     return out
 
 
-def generate_oneshot(model, params, args):
+def generate_oneshot(model, params, args, mesh=None):
     """``--batch`` seeded prompts through ``greedy_generate`` over dense
-    caches; returns the (batch, gen) tokens on the host."""
+    caches (on ``mesh``'s ranks, each its rows, where given); returns the
+    (batch, gen) tokens on the host."""
     from repro_torch.kernels.rg_lru import rg_lru_cuda
     from repro_torch.kernels.transitive_forest import transitive_forest
     from repro_torch.kernels.transitive_gemm import transitive_gemm_cuda
@@ -173,7 +189,7 @@ def generate_oneshot(model, params, args):
     launches0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
     toks = greedy_generate(model, params, batch, max_len=max_len,
-                           n_steps=args.gen).cpu()
+                           n_steps=args.gen, mesh=mesh).cpu()
     dt = time.perf_counter() - t0
     n = args.batch * args.gen
     print(f"[{cfg.name} | {_mode(cfg)} | one-shot | {model.device}] "
@@ -186,10 +202,12 @@ def generate_oneshot(model, params, args):
           f"launches={rg_lru_cuda.launches - launches0[2]}")
     for i, row in enumerate(toks.tolist()):
         print(f"  row {i}: {row}")
+    if mesh is not None:
+        print(mesh_decode_report(mesh, args.batch, args.gen, dt))
     return toks
 
 
-def serve_continuous(model, params, args, raw_params=None):
+def serve_continuous(model, params, args, raw_params=None, mesh=None):
     """Staggered arrivals through ServeEngine; returns the engine.
 
     With ``--watch-weights`` a live weight update lands mid-run: the first
@@ -209,7 +227,8 @@ def serve_continuous(model, params, args, raw_params=None):
     ps = args.page_size
     max_len = -(-(args.prompt_len + args.gen) // ps) * ps
     eng = ServeEngine(model, params, n_slots=args.slots, max_len=max_len,
-                      page_size=ps, paged_kernel=args.paged_kernel,
+                      page_size=ps, mesh=mesh,
+                      paged_kernel=args.paged_kernel,
                       bucket_prefill=not args.no_bucket_prefill,
                       device=model.device)
     prompts = prefix_sharing_prompts(cfg.vocab, args.requests,
@@ -308,7 +327,17 @@ def serve_continuous(model, params, args, raw_params=None):
     if hot:
         _hotswap_report(model, eng, args, failures, gen_raw, worker,
                         admitted)
+    if mesh is not None:
+        print(f"[mesh] packed decode placements: "
+              f"{_placements(eng.decode_placements)}")
+        print(mesh_serve_report(mesh, args.slots, rep["n_requests"],
+                                rep["total_tokens"],
+                                rep["counters"]["decode_steps"], dt))
     return eng
+
+
+def _placements(placed: dict) -> str:
+    return " ".join(f"{k}={list(map(str, v))}" for k, v in placed.items())
 
 
 def replay(model, params, requests, admitted: dict, **engine_kw) -> dict:
@@ -384,7 +413,7 @@ def _hotswap_report(model, eng, args, failures, gen_raw, worker,
           f"on a fresh engine")
 
 
-def lint_preflight(ap, name: str, args) -> None:
+def lint_preflight(ap, name: str, args, mesh=None) -> None:
     """``--lint``: tracelint over ``name``'s serving programs at the arch's
     reduced widths (``analysis.programs.lint_backend``), then the plan
     verifier over its plan artifacts (``analysis.planlint.lint_plans``),
@@ -396,7 +425,7 @@ def lint_preflight(ap, name: str, args) -> None:
     try:
         progs, tfindings = programs.lint_backend(
             name, device=args.device, arch=args.arch, batch=args.batch,
-            w_bits=args.w_bits)
+            w_bits=args.w_bits, mesh=mesh)
         built = [p.name for p in progs if not p.skipped]
         skipped = [p.name for p in progs if p.skipped]
         what = (f"programs {', '.join(built)}"
@@ -409,7 +438,8 @@ def lint_preflight(ap, name: str, args) -> None:
     print(f"[tracelint] preflight {name}: {len(tfindings)} finding(s) "
           f"({what}) in {dt:.2f}s")
     t0 = time.perf_counter()
-    report, pfindings = planlint.lint_plans([name], device=args.device)
+    report, pfindings = planlint.lint_plans([name], device=args.device,
+                                            mesh=mesh)
     dt = time.perf_counter() - t0
     for f in pfindings:
         print(f"[planlint] {f.format()}")
@@ -457,7 +487,9 @@ def main(argv=None):
                     "and plan artifacts (planlint) before serving and "
                     "refuse to serve on an error finding")
     ap.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
-                    help="not ported (ROADMAP A10); refused")
+                    help="serve on a data mesh of N ranks, e.g. 'data=4': "
+                    "batch rows (or packed slots) split over the ranks, "
+                    "plans placed on the mesh (replicated)")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--requests", type=int, default=4)
@@ -497,9 +529,11 @@ def main(argv=None):
                  "protocol lives on the serve engine)")
     if args.role is not None and args.fp:
         ap.error("plan bundles carry quantized-weight plans; drop --fp")
+    mesh = None
     if args.mesh is not None:
-        ap.error("--mesh is not ported: multi-device serving waits for "
-                 "ROADMAP item A10")
+        mesh = _mesh_or_ranks(ap, args, argv)
+        if mesh is None:
+            return None
 
     name = args.backend or "int_dot"
     if args.path is not None:
@@ -507,7 +541,7 @@ def main(argv=None):
                       DeprecationWarning)
         name = args.path if args.backend is None else name
     if args.lint:
-        lint_preflight(ap, name, args)
+        lint_preflight(ap, name, args, mesh)
     base = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     cfg = base if args.fp else serve_config(base, w_bits=args.w_bits,
                                             backend=name)
@@ -545,7 +579,8 @@ def main(argv=None):
         cache.reset_stats()
         t0 = time.perf_counter()
         try:
-            params = load_bundles(params, cfg.quant, args.bundle_dir)
+            params = load_bundles(params, cfg.quant, args.bundle_dir,
+                                  mesh=mesh)
         except (FileNotFoundError, BundleMismatchError,
                 PlanVerificationError) as e:
             raise SystemExit(f"[server] bundle refused: {e}")
@@ -560,20 +595,57 @@ def main(argv=None):
     elif planned and args.no_precompile:
         misses = cache.stats()["misses"]
         t0 = time.perf_counter()
-        params = model.attach_device_plans(params)
+        params = model.attach_device_plans(params, mesh=mesh)
         print(f"[plan cache] no precompile: attach built "
               f"{cache.stats()['misses'] - misses} plans in "
               f"{time.perf_counter() - t0:.2f}s | {cache!r}")
     elif planned:
         t0 = time.perf_counter()
         stats = model.precompile_plans(params)
-        params = model.attach_device_plans(params)
+        params = model.attach_device_plans(params, mesh=mesh)
         print(f"[plan cache] {stats['plans']} plans over {stats['layers']} "
               f"stacked layer weights in {time.perf_counter() - t0:.2f}s | "
               f"{cache!r}")
     if not args.continuous:
-        return generate_oneshot(model, params, args)
-    return serve_continuous(model, params, args, raw_params=raw_params)
+        return generate_oneshot(model, params, args, mesh)
+    return serve_continuous(model, params, args, raw_params=raw_params,
+                            mesh=mesh)
+
+
+def _mesh_or_ranks(ap, args, argv):
+    """``--mesh``: refuse what this slice does not serve, then either
+    start the ranks (none running yet: this process only waits for them,
+    and exits with their largest code) and return None, or, inside a
+    rank, return the mesh (None on a rank outside it)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    try:
+        axes = M.parse_mesh_spec(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if axes.get("model", 1) > 1:
+        ap.error(f"--mesh {args.mesh}: a 'model' axis above 1 (tensor-"
+                 f"parallel weights) is not served yet; it is ROADMAP item "
+                 f"A10.2")
+    if args.watch_weights:
+        ap.error("--watch-weights under --mesh: each rank's watcher would "
+                 "stage the swap at its own step; the mesh engine swaps "
+                 "through swap_params at one step on every rank")
+    if args.role == "planner":
+        ap.error("--role planner plans once, in one process; drop --mesh")
+    if not dist.is_initialized():
+        n = 1
+        for size in axes.values():
+            n *= size
+        from repro_torch.launch import serve as entry
+        code = M.run_cli_on_mesh(entry.main, list(
+            sys.argv[1:] if argv is None else argv), n, args.device)
+        if code:
+            raise SystemExit(code)
+        return None
+    mesh = M.make_serve_mesh(axes, device=args.device)
+    return mesh if mesh.get_coordinate() is not None else None
 
 
 if __name__ == "__main__":

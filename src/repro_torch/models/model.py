@@ -185,20 +185,25 @@ class Model:
         from repro_torch.core import plancache
         return plancache.precompile(params, q)
 
-    def attach_device_plans(self, params: Params) -> Params:
+    def attach_device_plans(self, params: Params, *, mesh=None,
+                            specs=None) -> Params:
         """Embed compiled device plans (stacked like the weights, on the
         weights' device) next to every PTQ weight: DevicePlans for
         ``engine_torch``, compact ForestPlans for ``engine_cuda``
         (SparseForestPlans from T = 16; DevicePlans where one column of a
         tile's table does not fit shared memory). No-op
-        unless the backend executes from device plans."""
+        unless the backend executes from device plans. With ``mesh=`` the
+        plan leaves are placed on it (DTensors; ``specs`` as
+        ``plancache.attach_device_plans``, default the backend's
+        ``plan_specs``)."""
         q = self.cfg.quant
         from repro_torch.core.backend import get_backend
         b = get_backend(q)
         if q.mode != "ptq" or not (b.needs_plan and b.device_resident):
             return params
         from repro_torch.core import plancache
-        return plancache.attach_device_plans(params, q)
+        return plancache.attach_device_plans(params, q, mesh=mesh,
+                                             specs=specs)
 
     # ---- shared ------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:

@@ -27,7 +27,7 @@ SECTIONS = {
 NOT_PORTED = {
     "kernel": "A4, the port's serve benchmark (bench_kernel's serve "
               "benches)",
-    "roofline": "A10, multi-device (launch/roofline.py and "
+    "roofline": "A10.3, the launch tools (launch/roofline.py and "
                 "bench_roofline.py: TPU peak tables and XLA HLO)",
 }
 

@@ -35,9 +35,30 @@ the new generation, and each live cell runs its own packed decode in a
 step. ``swap_params`` only stages, under a lock, so a replan worker
 thread may call it (``repro_torch.fleet``).
 
-Not in this slice: the reference's mesh placement. The port runs
-eagerly, so there is no jit trace to count; ``stats()`` keeps what a
-trace counter bounds: the distinct prefill shapes (what bucketing
+``mesh=`` (a DeviceMesh over the ``pod`` / ``data`` axes) serves the
+engine data-parallel in eager SPMD. Every rank of the mesh builds the
+same engine and is handed the same requests; the host scheduler runs the
+same way on every rank. The packed slot arrays (tokens, page table,
+steps) and a bucketed prefill's arrays go under the ``batch`` rule
+(``train.serve_step._place_batch``): where the extent divides the rows,
+each rank runs its own rows; where it does not (a bucket of 1 or 2 rows
+on 4 ranks, a single-request prefill), every rank runs all of them, with
+the ``ShardingDropWarning``. After a split call the ranks exchange, once,
+through the host, each row's sampled token and the K/V rows it wrote, so
+every rank sees every slot's token (to append it, check EOS and free
+pages) and holds every written page.
+
+The page pool is therefore **replicated**: every rank holds all
+``n_pages`` pages, and after every call they are bit-identical on every
+rank. (The other design, a pool sharded by page ranges with each rank's
+slots allocating from its own range, would need a page allocator and a
+prefix trie per rank and would forbid prefix sharing across ranks.) The
+null page (page 0), which the dead rows of a packed call write and no
+live row reads, is zeroed after every call on every rank, so it too is
+the same everywhere. A model axis above 1 is refused (ROADMAP A10.2).
+
+The port runs eagerly, so there is no jit trace to count; ``stats()``
+keeps what a trace counter bounds: the distinct prefill shapes (what bucketing
 bounds) and ``decode_signatures``, the distinct signatures the packed
 decode ran with (every params and pool leaf's shape and dtype and the
 batch shapes: a jit would retrace, a CUDA graph recapture, once per
@@ -58,9 +79,11 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import planlint
+from repro_torch.analysis.walker import named_tensors
 from repro_torch.core.engine import (DevicePlan, ForestPlan,
                                      SparseForestPlan)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models.attention import CHUNK_THRESHOLD
 from repro_torch.models.model import Model
 from repro_torch.serve.paging import PageAllocator, PrefixTrie
@@ -180,13 +203,20 @@ class ServeEngine:
 
     Weights swap at runtime through :meth:`swap_params`;
     ``params``/``pool``/``alloc``/``trie``/``slots`` read the current
-    generation's cell.
+    generation's cell. ``mesh=`` serves on a data mesh (module
+    docstring); params whose plans were placed on it are read as each
+    rank holds them.
     """
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
                  max_len: int = 256, page_size: int = 16,
-                 n_pages: int | None = None, paged_kernel: bool = False,
-                 bucket_prefill: bool = True, device=None):
+                 n_pages: int | None = None, mesh=None,
+                 paged_kernel: bool = False, bucket_prefill: bool = True,
+                 device=None):
+        if mesh is not None:
+            sharding.require_batch_mesh(mesh, "ServeEngine(mesh=)")
+        self.mesh = mesh
+        self.decode_placements: dict = {}
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} differs from "
@@ -212,7 +242,8 @@ class ServeEngine:
         self.exact_pool = model.cfg.kv_cache_bits != 8
         # generation cells: [-1] is current (it admits), earlier ones drain
         # their in-flight requests on their own weights
-        self._cells: list[_Cell] = [self._new_cell(0, params)]
+        self._cells: list[_Cell] = [
+            self._new_cell(0, sharding.local_tree(params))]
         self._staged: tuple | None = None
         self._swap_lock = threading.Lock()
         self.swap_steps: list[int] = []
@@ -305,6 +336,7 @@ class ServeEngine:
         staged; with the gates off, its kernel guards still run). Leaf-shape drift is allowed (a DevicePlan's
         direct width past its pad, a SparseForestPlan's table width) and
         counted in ``swap_shape_drift``."""
+        params = sharding.local_tree(params)
         cur = self.cell.params
         if _structure(params) != _structure(cur):
             raise SwapMismatchError(
@@ -453,6 +485,7 @@ class ServeEngine:
         wo = np.asarray([p % ps for p in range(shared_len, L)], np.int32)
         self.counters["prefill_calls"] += 1
         self._shape_keys.add(("one", L - start, start // ps, write_from))
+        # one row: under a mesh every rank runs it (nothing to split)
         logits, cell.pool = self.model.prefill_paged(
             cell.params, self._dev(suffix), cell.pool,
             prefix_page_ids=self._dev(prefix),
@@ -508,13 +541,15 @@ class ServeEngine:
         if key in self._shape_keys:
             c["bucket_hits"] += 1
         self._shape_keys.add(key)
+        args, split = self._rows({
+            "tokens": tokens, "prefix": prefix, "plens": plens,
+            "slens": slens, "wp": wp, "wo": wo, "wpos": wpos})
         logits, cell.pool = self.model.prefill_paged_batched(
-            cell.params, self._dev(tokens), cell.pool,
-            prefix_page_ids=self._dev(prefix),
-            prefix_lens=self._dev(plens), suffix_lens=self._dev(slens),
-            write_page_ids=self._dev(wp), write_offs=self._dev(wo),
-            write_pos=self._dev(wpos))
-        toks = torch.argmax(logits[:, -1], -1).cpu().numpy()
+            cell.params, args["tokens"], cell.pool,
+            prefix_page_ids=args["prefix"], prefix_lens=args["plens"],
+            suffix_lens=args["slens"], write_page_ids=args["wp"],
+            write_offs=args["wo"], write_pos=args["wpos"])
+        toks = self._sampled(cell, logits, (wp, wo) if split else None)
         for r, res in enumerate(group):
             self._seat(res, int(toks[r]))
 
@@ -567,6 +602,77 @@ class ServeEngine:
         self.counters["completed"] += 1
         self.finished.append(req)
 
+    # -- rows on the mesh ----------------------------------------------------
+    def _rows(self, arrays: dict, record: bool = False
+              ) -> tuple[dict, bool]:
+        """A packed call's host arrays on the device, and whether the call
+        is split: whole, or under a mesh this rank's rows of each (the
+        ``batch`` rule; every row where the extent does not divide them).
+        ``record`` keeps the placements (``decode_placements``; the pool
+        is replicated)."""
+        if self.mesh is None:
+            return {k: self._dev(v) for k, v in arrays.items()}, False
+        from repro_torch.train.serve_step import _place_batch
+        placed = _place_batch({k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in arrays.items()}, self.mesh)
+        if record:
+            from torch.distributed.tensor import Replicate
+            self.decode_placements = {
+                **{k: v.placements for k, v in placed.items()},
+                "pool": (Replicate(),) * self.mesh.ndim}
+        split = any(p.is_shard() for p in placed["tokens"].placements)
+        return {k: v.to_local() for k, v in placed.items()}, split
+
+    def _sampled(self, cell: _Cell, logits, written) -> np.ndarray:
+        """Every row's greedy token on the host. ``written`` is None, or,
+        for a split call, the (pages, offsets) arrays of the K/V positions
+        each row wrote (row ``r``: ``(pages[r, i], offs[r, i])``): the
+        ranks then exchange their rows' tokens and K/V rows in one host
+        all-gather, and each writes the others' rows into its pool. Under
+        a mesh the null page is then zeroed (module docstring)."""
+        toks = torch.argmax(logits[:, -1], -1)
+        if self.mesh is None:
+            return toks.cpu().numpy()
+        toks = toks.to(torch.int32)                # the exchange's buffer
+        if written is not None:
+            toks = self._exchange(cell, toks, *written)
+        for leaf in named_tensors(cell.pool).values():
+            leaf[:, 0].zero_()
+        return toks.cpu().numpy()
+
+    def _exchange(self, cell: _Cell, toks: torch.Tensor, pages: np.ndarray,
+                  offs: np.ndarray) -> torch.Tensor:
+        """Every rank's tokens, in row order, after one host all-gather of
+        each rank's tokens and the pool rows its rows wrote; the others'
+        rows are written into this rank's pool."""
+        mesh = self.mesh
+        k = toks.shape[0]                          # rows per rank
+        me = sharding.batch_index(mesh)
+        leaves = list(named_tensors(cell.pool).values())
+
+        def where(q):
+            p = torch.as_tensor(pages[q * k:(q + 1) * k].reshape(-1),
+                                dtype=torch.long, device=self.device)
+            o = torch.as_tensor(offs[q * k:(q + 1) * k].reshape(-1),
+                                dtype=torch.long, device=self.device)
+            return p, o
+        p, o = where(me)
+        parts = [toks.reshape(-1)] + [a[:, p, o] for a in leaves]
+        sizes = [t.numel() * t.element_size() for t in parts]
+        buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                         for t in parts])
+        got = sharding.host_all_gather(buf, mesh)
+        out = []
+        for q, raw in enumerate(got):
+            chunks = torch.split(raw.to(self.device), sizes)
+            out.append(chunks[0].clone().view(torch.int32))
+            if q == me:
+                continue
+            pq, oq = where(q)
+            for a, c, t in zip(leaves, chunks[1:], parts[1:]):
+                a[:, pq, oq] = c.clone().view(a.dtype).reshape(t.shape)
+        return torch.cat(out)
+
     def _decode(self, cell: _Cell, packed: list[tuple[int, Request]]
                 ) -> None:
         """One packed decode over ``cell``'s active slots."""
@@ -587,11 +693,18 @@ class ServeEngine:
                 cell.table[s, len(req.page_ids) - 1] = pid
             cell.tokens[s, 0] = req.out[-1]
             cell.steps[s] = req.length
+        args, split = self._rows({"tokens": cell.tokens,
+                                  "table": cell.table, "steps": cell.steps},
+                                 record=True)
         logits, cell.pool = self.model.decode_step_paged(
-            cell.params, cell.pool, self._dev(cell.tokens),
-            self._dev(cell.table), self._dev(cell.steps),
-            kernel=self.paged_kernel)
-        toks = torch.argmax(logits[:, -1], -1).cpu().numpy()
+            cell.params, cell.pool, args["tokens"], args["table"],
+            args["steps"], kernel=self.paged_kernel)
+        written = None
+        if split:                    # each slot wrote K/V position steps[s]
+            page = cell.table[np.arange(self.n_slots),
+                              cell.steps // self.page_size]
+            written = (page[:, None], (cell.steps % self.page_size)[:, None])
+        toks = self._sampled(cell, logits, written)
         done = []
         for s, req in packed:
             tok = int(toks[s])

@@ -58,22 +58,29 @@ def train(cfg: ModelConfig, *, seq_len: int, global_batch: int,
     history = []
     failed = {"done": False}
     t_total = time.time()
-    for step in range(start, steps):
-        if fail_at_step is not None and step == fail_at_step \
-                and not failed["done"]:
-            failed["done"] = True
-            raise RuntimeError(f"injected failure at step {step}")
-        batch = data.batch(step, cfg.grad_accum)
-        mon.start()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        mon.stop()
-        history.append({"step": step, "loss": loss,
-                        "grad_norm": float(metrics["grad_norm"])})
-        if step % log_every == 0:
-            log.info("step %d loss %.4f", step, loss)
-        if mgr and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, state)
+    try:
+        for step in range(start, steps):
+            if fail_at_step is not None and step == fail_at_step \
+                    and not failed["done"]:
+                failed["done"] = True
+                raise RuntimeError(f"injected failure at step {step}")
+            batch = data.batch(step, cfg.grad_accum)
+            mon.start()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            mon.stop()
+            history.append({"step": step, "loss": loss,
+                            "grad_norm": float(metrics["grad_norm"])})
+            if step % log_every == 0:
+                log.info("step %d loss %.4f", step, loss)
+            if mgr and (step + 1) % ckpt_every == 0:
+                mgr.save(step + 1, state)
+    except BaseException:
+        # the asynchronous save in flight commits before the failure
+        # propagates, so a restart in this process resumes from it
+        if mgr:
+            mgr.wait()
+        raise
     if mgr:
         mgr.save(steps, state)
         mgr.wait()

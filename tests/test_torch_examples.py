@@ -272,10 +272,34 @@ def test_no_precompile_builds_each_plan_in_attach(capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--mesh", "data=4"], "--mesh is not ported.*item A10"),
+    (["--mesh", "data=2,model=2"], "'model' axis above 1.*ROADMAP item "
+     "A10.2"),
+    (["--mesh", "data=2", "--watch-weights", "w"], "--watch-weights under "
+     "--mesh"),
+    (["--mesh", "data=0"], "axis=size"),
 ])
 def test_launcher_refuses_flags_not_ported(capsys, argv, message):
     with pytest.raises(SystemExit) as e:
         serve.main(SMALL + argv)
     assert e.value.code == 2
     assert re.search(message, capsys.readouterr().err)
+
+
+def test_launcher_mesh_data2_serves_the_one_rank_tokens(capfd):
+    """``--mesh data=2`` starts two ranks itself (rank 0 prints): the
+    packed slots split one a rank, and every request's tokens equal the
+    one-process run's; the mesh report line closes the output."""
+    argv = SMALL + ["--backend", "engine_torch", "--slots", "2"]
+    eng = serve.main(argv)
+    capfd.readouterr()
+    assert serve.main(argv + ["--mesh", "data=2"]) is None
+    out = capfd.readouterr().out
+    for r in eng.finished:
+        assert f"  req {r.rid}: {r.tokens}" in out
+    assert "packed decode placements: tokens=['S(0)'] table=['S(0)'] " \
+        "steps=['S(0)'] pool=['R']" in out
+    n_tok = sum(len(r.out) for r in eng.finished)
+    assert re.search(rf"\[mesh\] data=2 \(2 ranks\) \| 1 slot rows/rank \| "
+                     rf"{len(eng.finished)} requests, {n_tok} tokens in .* "
+                     rf"{eng.counters['decode_steps']} packed decode steps",
+                     out.strip().splitlines()[-1])

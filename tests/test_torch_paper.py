@@ -424,7 +424,7 @@ def test_run_prints_header_rows_and_total(capsys):
 
 
 @pytest.mark.parametrize("section, item", [("kernel", "A4"),
-                                           ("roofline", "A10")])
+                                           ("roofline", "A10.3")])
 def test_run_refuses_sections_not_ported(section, item, capsys):
     with pytest.raises(SystemExit, match=f"item {item}") as e:
         paper_run.main(["resnet", section])

@@ -644,7 +644,10 @@ def test_plan_rule_registry_is_loud():
 def test_lint_plans_clean_beside_the_reference(cache):
     """``engine_torch`` gives the reference's ``engine_jit`` artifact labels
     and no finding; ``engine_cuda`` adds its T = 16 SparseForestPlan;
-    ``int_dot`` is skipped; a mesh is refused, naming A10."""
+    ``int_dot`` is skipped. Under a mesh, the lowering is placed before
+    it is verified (two ranks: still clean, the ``device`` artifact's
+    leaves replicated DTensors); the lint CLI refuses a ``model`` axis,
+    naming A10.2."""
     ref_report, ref_findings = RL.lint_plans(["engine_jit"])
     report, findings = PL.lint_plans(["engine_torch", "engine_cuda",
                                       "int_dot"], device="cpu")
@@ -654,8 +657,16 @@ def test_lint_plans_clean_beside_the_reference(cache):
     assert report[1]["artifacts"] == ref_report[0]["artifacts"][:-1] + [
         "device-sparse", "bundle-roundtrip"]
     assert "skipped" in report[2]
-    with pytest.raises(NotImplementedError, match="A10"):
-        PL.lint_plans(["engine_torch"], device="cpu", mesh=object())
+    from _mesh_ranks import lint_plans_on_mesh
+    from repro_torch.launch.mesh import run_ranks
+    for rank in run_ranks(2, lint_plans_on_mesh, "data=2", threads=1):
+        assert rank["findings"] == []
+        assert rank["artifacts"] == [r["artifacts"] for r in report[:2]]
+        assert rank["placed"] == [("R",)]
+    from repro_torch.analysis.lint import main as lint_main
+    with pytest.raises(SystemExit) as e:
+        lint_main(["--plans", "--mesh", "data=2,model=2", "--device", "cpu"])
+    assert e.value.code == 2
 
 
 # -- the forest rules' corpus ------------------------------------------------

@@ -515,10 +515,23 @@ def test_lint_cli_list_rules(capsys):
 
 
 def test_lint_cli_mesh_exits_2_naming_a10(capsys):
+    """A ``model`` axis above 1 is not served yet: exit 2 naming A10.2."""
     with pytest.raises(SystemExit) as e:
-        main(["--mesh", "data=4", "--device", "cpu"])
+        main(["--mesh", "data=2,model=2", "--device", "cpu"])
     assert e.value.code == 2
-    assert "A10" in capsys.readouterr().err
+    assert "ROADMAP item A10.2" in capsys.readouterr().err
+
+
+def test_lint_cli_mesh_data2_starts_its_ranks(capfd):
+    """``--mesh data=2`` with no process group starts two ranks itself:
+    exit 0, clean, ``sharding-integrity`` evaluated on the decode
+    program."""
+    assert main(["--mesh", "data=2", "--device", "cpu",
+                 "--backend", "int_dot"]) == 0
+    out = capfd.readouterr().out
+    assert "sharding-integrity evaluated on 1 program(s) (decode) under " \
+        "mesh data=2 (2 ranks)" in out
+    assert "on mesh data=2: 0 finding(s), 0 baselined, 0 failing" in out
 
 
 def test_baseline_stale_keys_and_prune():

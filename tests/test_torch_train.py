@@ -347,6 +347,34 @@ def test_crash_and_resume_is_exact(tmp_path):
     assert h1[-1]["loss"] < h1[0]["loss"]
 
 
+def test_crash_resumes_from_the_save_in_flight(tmp_path, monkeypatch):
+    """An asynchronous checkpoint still being written when the step after
+    it fails is committed before the failure propagates: the restart in
+    the same process resumes from it (step 4), not from the one before
+    (step 2). Each save here takes a second, far longer than a step."""
+    import time as _time
+
+    from repro_torch.distributed import checkpoint
+    real_save = checkpoint.np.save
+
+    def slow_save(path, a, *args, **kw):
+        if str(path).endswith("leaf_00000.npy"):
+            _time.sleep(1.0)
+        return real_save(path, a, *args, **kw)
+    monkeypatch.setattr(checkpoint.np, "save", slow_save)
+    kw = dict(seq_len=16, global_batch=4, steps=6, lr=1e-3, device="cpu")
+    d = str(tmp_path / "ck")
+    starts = []
+
+    def loop(attempt):
+        _, hist = train(_tiny(), ckpt_dir=d, ckpt_every=2,
+                        fail_at_step=5 if attempt == 0 else None, **kw)
+        starts.append(hist[0]["step"])
+        return hist
+    _, restarts = run_with_restarts(loop, max_restarts=2)
+    assert restarts == 1 and starts == [4]
+
+
 def test_launch_train_and_train_lm_run_on_cpu(tmp_path, capsys):
     from repro_torch.examples import train_lm
     from repro_torch.launch import train as launch
